@@ -4,19 +4,22 @@ check it.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
-Configuration: the paper's Table I row (K=16, P=4, Q=16, N=1680) with
-``wide_histogram_job(d=2048)``, each subfile 16,384 int32 tokens drawn from
-``--seed`` in [0, 2^16).  Every per-key total stays below 2^24, so every
-partial sum of the integer-valued float32 payloads is exact in any order
-and all results compare bit for bit.
+Two paths of the port run here.  MapReduce: the paper's Table I row (K=16,
+P=4, Q=16, N=1680) with ``wide_histogram_job(d=2048)``, each subfile
+16,384 int32 tokens drawn from ``--seed`` in [0, 2^16); every per-key
+total stays below 2^24, so every partial sum of the integer-valued float32
+payloads is exact in any order and all results compare bit for bit.  LM
+serving: ``ServeEngine`` at full width for qwen2-1.5b and rwkv6-3b, bf16
+weights drawn on the card from ``--seed``, 8 slots, ``max_seq`` 2112.
 
 Phases, one printed line each (plus detail lines):
 
 1. device   — ``nvidia-smi`` name and power limit, the card, and the
-              kernels' build time (``nvcc`` from the checkout's sources).
-2. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card, at the main path's launch shapes and at odd shapes,
-              with CUDA-event times, the HBM bound and one library call.
+              kernels' build (one ``nvcc`` per source, all at once).
+2. kernels  — each coded-combine kernel against its plain PyTorch version
+              on the card, at the main path's launch shapes and at odd
+              shapes, with CUDA-event times, the HBM bound and one library
+              call.
 3. shuffle  — ``hybrid_shuffle`` for r in {2, 3} x {unicast, coded} x
               {torch, kernel} and ``coded_xor`` on int32 payloads, bit-exact
               against the port's NumPy ``simulate_plan_shuffle`` and
@@ -24,19 +27,38 @@ Phases, one printed line each (plus detail lines):
 4. engine   — ``run_job_distributed`` fused and legacy, binomial r in
               {1, 2, 3} and resolvable r = 2, every multicast x combine
               pairing: outputs bit-exact against the dense ``run_job``,
-              costs and rack bytes equal to the closed forms.
-5. kernels line — one JSON object with each kernel's launches on its
-              main path and its numbers at the main path's largest shape.
+              costs and rack bytes equal to the closed forms; one profiled
+              fused job.
+5. lm kernels — ``flash_attention`` and ``wkv_scan`` against their plain
+              versions at the serving path's prefill and decode shapes (bf16
+              and fp32) and the odd shapes of tests/test_kernels.py, with
+              times, bounds (bytes or tensor-core operations) and, for
+              attention, ``scaled_dot_product_attention`` as the library
+              yardstick.
+6. serve    — per arch: ``generate`` (8 prompts of 2,048 tokens; after a
+              warm-up call, 1 new token three times for the time to first
+              token, 32 new tokens twice: greedy output identical; medians
+              of the host-clock walls), ``serve`` (12 requests, prompts of
+              64-2,048 tokens, 8-32 new tokens), time to first token,
+              decode ms per step, tokens/s, peak memory, a profiled decode
+              step; then fp32 at full width: prefill and decode logits
+              within 2e-3 of ``forward``'s.
+7. card vs cpu — at each arch's ``reduced()`` config, the same weights on
+              the card (kernels) and on the CPU (plain versions): the same
+              greedy tokens, logits within 1e-4.
+8. kernels line — one JSON object with all six kernels: launches on the
+              main path and per path, and numbers at the main path's
+              largest shape.
 
-Launch counts are read per call: they are zeroed just before every
-``hybrid_shuffle`` and ``run_job_distributed`` call of phases 3 and 4 and
-read just after, and each call must launch exactly the kernels its wire
-format needs (one encode and one decode per coded shuffle with
-``combine_impl="kernel"`` and packet arity >= 2, none otherwise).  They are
-summed per path: ``shuffle`` (direct ``hybrid_shuffle``), ``fused`` and
-``legacy`` engine runs, and the ``profiled`` fused job.  The main path of
-the linear kernels is the fused engine; that of the XOR kernels is
-``hybrid_shuffle`` on int32 payloads (the jobs are float32).
+Launch counts are read per call: zeroed just before every
+``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
+``forward``, ``prefill`` and ``decode_step`` call and read just after.  A
+coded shuffle with ``combine_impl="kernel"`` and packet arity >= 2 must
+launch one encode and one decode, other shuffles none; every LM forward
+(a prefill or one decode step) must launch its kernel once per layer (28
+flash launches for qwen2-1.5b, 32 WKV launches for rwkv6-3b) and call no
+plain version.  Main paths: the fused engine for the linear pair, the int32
+``hybrid_shuffle`` for the XOR pair, full-width serving for the LM kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -51,21 +73,33 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 K, P, Q, N, D = 16, 4, 16, 1680, 2048
 TOKENS = 16384
 SOURCE = "src/repro_torch/kernels/coded_combine/csrc/coded_combine.cu"
+FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+                "flash_attention.cu")
+WKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/wkv_scan.cu"
 REPLACES = {"coded_encode": "src/repro/kernels/coded_combine/kernel.py:58",
             "coded_decode": "src/repro/kernels/coded_combine/kernel.py:74",
             "xor_encode": "src/repro/kernels/coded_combine/kernel.py:91",
-            "xor_decode": "src/repro/kernels/coded_combine/kernel.py:105"}
+            "xor_decode": "src/repro/kernels/coded_combine/kernel.py:105",
+            "flash_attention":
+                "src/repro/kernels/flash_attention/kernel.py:74",
+            "wkv_scan": "src/repro/kernels/rwkv_scan/kernel.py:77"}
 
 # published peaks by the name nvidia-smi gives the card, at its full power
-# limit (NVIDIA's data sheet): HBM bytes/s and float32 FLOP/s outside the
-# tensor cores.  "H100 80GB HBM3" is the SXM part.
-PEAKS = {"NVIDIA H100 80GB HBM3": (3.35e12, 67e12)}
+# limit (NVIDIA's data sheet, dense): HBM bytes/s, and the tensor cores'
+# FLOP/s for each input dtype of the LM kernels (float32 inputs: the TF32
+# rate, the fastest the card multiplies them).  "H100 80GB HBM3" is the SXM
+# part.  The combine kernels do no multiply worth bounding (r - 1 adds or
+# XORs per element read): their bound is bytes alone.
+PEAKS = {"NVIDIA H100 80GB HBM3": {"hbm": 3.35e12, "bfloat16": 989e12,
+                                   "float32": 495e12}}
 KERNELS = ("coded_encode", "coded_decode", "xor_encode", "xor_decode")
+LM_KERNELS = ("flash_attention", "wkv_scan")
 
 
 def say(*parts) -> None:
@@ -81,12 +115,23 @@ def _tol_text(rtol: float, atol: float) -> str:
     return "exact" if rtol == atol == 0 else f"rtol={rtol},atol={atol}"
 
 
-def counted(ops, fn):
-    """``fn()`` with the launch counts zeroed just before it and read just
-    after; returns (its result, {kernel: launches})."""
-    ops.reset_launch_counts()
-    out = fn()
-    return out, dict(ops.LAUNCHES)
+class Counts:
+    """Zero every kernel's launch count (and its plain-version count) just
+    before a call and read them just after: (fn(), launches, plain)."""
+
+    def __init__(self, torch, mods):
+        self.torch, self.mods = torch, mods
+
+    def __call__(self, fn):
+        for m in self.mods:
+            m.reset_launch_counts()
+        out = fn()
+        self.torch.cuda.synchronize()
+        launches, plain = {}, {}
+        for m in self.mods:
+            launches.update(m.LAUNCHES)
+            plain.update(getattr(m, "PLAIN_CALLS", {}))
+        return out, launches, plain
 
 
 def expected_launches(multicast: str, combine_impl: str, arity: int):
@@ -123,6 +168,15 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def bound(peaks, nbytes: float, flops: float = 0.0, dtype: str = ""):
+    """(least time in ms the card needs, "bytes" or "operations"): the
+    bytes over the HBM rate, or the FLOPs over the tensor cores' rate for
+    the input dtype, whichever is larger.  No FLOPs: bound by bytes."""
+    t_bytes = nbytes / peaks["hbm"] * 1e3
+    t_ops = flops / peaks[dtype] * 1e3 if flops else 0.0
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: the four kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -130,19 +184,13 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
 def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
     """Compare and time every kernel; returns {kernel: row at the main
     path's largest launch shape}."""
-    bw, flops = peaks
     dev = torch.device("cuda")
     odd = [(r, T, d) for r in (2, 3, 4) for T, d in
            ((1, 7), (257, 40), (300, 130))]
     rows, main = [], {}
 
-    def bound(nbytes, nops):
-        t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                     else "operations")
-
     def record(name, r, T, d, dtype, unit, err, tol, fn, plain, library,
-               nops, is_main):
+               is_main):
         n = T * d
         itemsize = torch.empty((), dtype=dtype).element_size()
         nbytes = (r + 1) * n * itemsize
@@ -157,7 +205,7 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
                "library_ms": (None if library is None
                               else cuda_ms(torch, library, reps, inner)),
                "bytes": nbytes}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, nops * n)
+        row["bound_ms"], row["bound_by"] = bound(peaks, nbytes)
         rows.append(row)
         lib_ms = row["library_ms"]
         lib_txt = "null" if lib_ms is None else f"{lib_ms:.6f}"
@@ -201,15 +249,14 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
                    _tol_text(enc_tol, enc_tol),
                    lambda: ops.coded_encode(xs, c),
                    lambda: ref.encode_ref(xs, c),
-                   (lambda: xs.sum(0)) if unit else None, 2 * r - 1,
+                   (lambda: xs.sum(0)) if unit else None,
                    is_main and dtype == torch.float32)
             record("coded_decode", r, T, d, dtype, unit,
                    err_of(dec, dec_ref), _tol_text(*dec_tol),
                    lambda: ops.coded_decode(f, known, c),
                    lambda: ref.decode_ref(f, known, c),
                    (lambda: torch.sub(f, known[0])) if unit and r == 2
-                   else None, 2 * r - 1,
-                   is_main and dtype == torch.float32)
+                   else None, is_main and dtype == torch.float32)
         for dtype in (torch.int32, torch.uint32):
             xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
                                device=dev, dtype=torch.int32).view(dtype)
@@ -227,13 +274,13 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
                    lambda: ops.xor_encode(xs),
                    lambda: ref.xor_encode_ref(xs),
                    (lambda: torch.bitwise_xor(words[0], words[1]))
-                   if r == 2 and is_int else None, r - 1,
+                   if r == 2 and is_int else None,
                    is_main and is_int and r == 2)
             record("xor_decode", r, T, d, dtype, True, 0.0, "exact",
                    lambda: ops.xor_decode(f, known),
                    lambda: ref.xor_decode_ref(f, known),
                    (lambda: torch.bitwise_xor(f, known[0]))
-                   if r == 2 and is_int else None, r - 1,
+                   if r == 2 and is_int else None,
                    is_main and is_int and r == 2)
         del xs
     torch.cuda.synchronize()
@@ -244,7 +291,7 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
 # Phase 3: the stacked shuffle against the NumPy oracles
 # ---------------------------------------------------------------------------
 
-def shuffle_phase(torch, np, cc, ops, make_mesh, SchemeParams, seed):
+def shuffle_phase(torch, np, cc, count, make_mesh, SchemeParams, seed):
     mesh = make_mesh((P, K // P), ("rack", "server"))
     rng = np.random.default_rng(seed + 1)
     runs, total = [], dict.fromkeys(KERNELS, 0)
@@ -271,7 +318,7 @@ def shuffle_phase(torch, np, cc, ops, make_mesh, SchemeParams, seed):
                         out = cc.hybrid_shuffle(local, plan, mesh, mc, impl)
                         torch.cuda.synchronize()
                         return out, (time.perf_counter() - t0) * 1e3
-                    (out, ms), counts = counted(ops, run)
+                    (out, ms), counts, _ = count(run)
                     tag = f"hybrid_shuffle r={r} {mc} {impl}"
                     check(torch.equal(out, ref_dev), tag)
                     check(counts == expected_launches(mc, impl,
@@ -293,8 +340,8 @@ def shuffle_phase(torch, np, cc, ops, make_mesh, SchemeParams, seed):
 # Phase 4: the engine, fused and legacy
 # ---------------------------------------------------------------------------
 
-def engine_phase(torch, np, eng, jobs, ops, make_mesh, SchemeParams, costs,
-                 reconcile, seed):
+def engine_phase(torch, np, eng, jobs, count, make_mesh, SchemeParams,
+                 costs, reconcile, seed):
     mesh = make_mesh((P, K // P), ("rack", "server"))
     rng = np.random.default_rng(seed)
     subfiles = rng.integers(0, 1 << 16, size=(N, TOKENS)).astype(np.int32)
@@ -331,7 +378,7 @@ def engine_phase(torch, np, eng, jobs, ops, make_mesh, SchemeParams, costs,
                                 multicast=mc, combine_impl=impl,
                                 scheme_family=family)
                             return res, (time.perf_counter() - t0) * 1e3
-                        (res, ms), counts = counted(ops, run)
+                        (res, ms), counts, _ = count(run)
                         walls.append(ms)
                         check(counts == want, f"engine {tag} launches "
                               f"{counts}, expected {want}")
@@ -353,7 +400,7 @@ def engine_phase(torch, np, eng, jobs, ops, make_mesh, SchemeParams, costs,
     return runs, totals, subfiles, job, mesh
 
 
-def profile_fused(torch, eng, ops, job, subfiles, mesh, SchemeParams,
+def profile_fused(torch, eng, count, job, subfiles, mesh, SchemeParams,
                   enable_tracing):
     """Device time by kernel, and the engine's host spans, for one warm
     fused r=2 coded/kernel job; also its launch counts."""
@@ -369,11 +416,21 @@ def profile_fused(torch, eng, ops, job, subfiles, mesh, SchemeParams,
                 t0 = time.perf_counter()
                 res = eng.run_job_distributed(job, subfiles, p, mesh, **kw)
                 return res, (time.perf_counter() - t0) * 1e3
-            (res, wall_ms), counts = counted(ops, run)
+            (res, wall_ms), counts, _ = count(run)
     finally:
         enable_tracing(False)
     check(counts == expected_launches("coded", "kernel", 2),
           f"profiled fused job launches {counts}")
+    busy, by_kernel = device_time(prof)
+    # the engine's engine_phase spans, host clock, in ms
+    spans = {k: v * 1e3 for k, v in (res.blame or {}).items()}
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "span_ms": spans,
+            "launches": counts, "by_kernel": by_kernel}
+
+
+def device_time(prof):
+    """(device busy ms, the 12 largest device-time entries) of a
+    torch.profiler run."""
     top = []
     for ev in prof.key_averages():
         # device-side events (the kernels and copies themselves) only, so
@@ -386,13 +443,394 @@ def profile_fused(torch, eng, ops, job, subfiles, mesh, SchemeParams,
         if dev_us > 0:
             top.append((dev_us / 1e3, ev.count, ev.key))
     top.sort(reverse=True)
-    busy = sum(t for t, _, _ in top)
-    # the engine's engine_phase spans, host clock, in ms
-    spans = {k: v * 1e3 for k, v in (res.blame or {}).items()}
-    return {"wall_ms": wall_ms, "device_busy_ms": busy, "span_ms": spans,
-            "launches": counts,
-            "by_kernel": [{"ms": t, "count": c, "name": k[:100]}
-                          for t, c, k in top[:12]]}
+    return (sum(t for t, _, _ in top),
+            [{"ms": t, "count": c, "name": k[:100]} for t, c, k in top[:12]])
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def visible_pairs(Sq, Sk, q_offset, kv_valid, causal, window):
+    """(query, key) pairs the masks keep for one (batch, head), and the
+    number of distinct keys any query sees: the work this run's data
+    needs."""
+    valid = Sk if kv_valid is None else min(kv_valid, Sk)
+    pairs, key_lo, key_hi = 0, Sk, 0
+    for i in range(Sq):
+        p = q_offset + i
+        hi = min(valid, p + 1) if causal else valid
+        lo = max(0, p - window + 1) if window is not None else 0
+        if hi > lo:
+            pairs += hi - lo
+            key_lo, key_hi = min(key_lo, lo), max(key_hi, hi)
+    return pairs, max(key_hi - key_lo, 0)
+
+
+# (tag, B, Sq, Sk, H, KV, hd, causal, q_offset, kv_valid, window): Qwen2-1.5B
+# prefill of 8 x 2048 and one decode step against a 2,112-long cache with
+# 1,500 valid keys, then the shapes of tests/test_kernels.py
+FLASH_CASES = [
+    ("prefill", 8, 2048, 2048, 12, 2, 128, True, 0, None, None),
+    ("decode", 8, 1, 2112, 12, 2, 128, True, 1499, 1500, None)] + [
+    ("odd", B, Sq, Sk, H, KV, hd, causal, Sk - Sq if causal else 0, None,
+     None)
+    for B, Sq, Sk, H, KV, hd in ((2, 128, 128, 4, 4, 64),
+                                 (1, 200, 200, 8, 2, 64),
+                                 (2, 64, 256, 4, 1, 128))
+    for causal in (True, False)] + [
+    ("window", 1, 160, 160, 4, 2, 64, True, 0, None, 32),
+    ("kv_valid", 2, 8, 128, 4, 4, 64, False, 0, 57, None)]
+# (tag, B, S, h, Nk, Nv): RWKV6-3B prefill of 8 x 2048 and one decode step,
+# then the ragged shapes of tests/test_kernels.py
+WKV_CASES = [("prefill", 8, 2048, 40, 64, 64), ("decode", 8, 1, 40, 64, 64),
+             ("ragged", 1, 64, 2, 16, 16), ("ragged", 2, 100, 3, 32, 32),
+             ("ragged", 1, 128, 1, 64, 64)]
+
+
+def flash_phase(torch, fa, fa_ref, peaks, seed):
+    """The flash kernel against ``attention_ref`` on the card: the serving
+    path's prefill and decode shapes (timed, with SDPA as the library
+    yardstick) and the odd shapes of tests/test_kernels.py."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 101)
+    rows, main = [], {}
+    for (tag, B, Sq, Sk, H, KV, hd, causal, q_off, valid,
+         window) in FLASH_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+            k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
+            v = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
+            kw = dict(causal=causal, q_offset=q_off, kv_valid=valid,
+                      window=window)
+            pos = torch.arange(q_off, q_off + Sq, device=dev)
+            out = fa.flash_attention(q, k, v, **kw)
+            want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
+                                        window=window)
+            tol = 2e-5 if dtype == torch.float32 else 2e-2
+            torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+            err = float((out.float() - want.float()).abs().max().item())
+            pairs, keys = visible_pairs(Sq, Sk, q_off, valid, causal, window)
+            size = q.element_size()
+            nbytes = size * (2 * q.numel() + 2 * B * keys * KV * hd)
+            flops = 4.0 * hd * pairs * B * H
+            dname = str(dtype).replace("torch.", "")
+            row = {"name": "flash_attention", "case": tag, "B": B, "Sq": Sq,
+                   "Sk": Sk, "H": H, "KV": KV, "hd": hd, "causal": causal,
+                   "q_offset": q_off, "kv_valid": valid, "window": window,
+                   "dtype": dname, "max_abs_err": err,
+                   "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
+                   "flops": flops}
+            row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
+                                                     dname)
+            is_main = tag in ("prefill", "decode")
+            reps, inner = (5, 5) if is_main else (3, 10)
+            row["ms"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                                  **kw),
+                                reps, inner)
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: fa_ref.attention_ref(
+                    q, k, v, pos, valid, causal=causal, window=window),
+                3, 2 if is_main else 10)
+            row["library_ms"] = None
+            if is_main:
+                # one SDPA call on the keys the queries see (prefill: causal
+                # over all keys; decode: the valid prefix of the cache)
+                kv_n = valid or Sk
+                qt = q.transpose(1, 2)
+                kt, vt = (x[:, :kv_n].transpose(1, 2) for x in (k, v))
+                sdpa = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=tag == "prefill", enable_gqa=True)
+                # a sanity check of the yardstick (its own bf16 rounding)
+                lib_err = float((sdpa().transpose(1, 2).float()
+                                 - want.float()).abs().max().item())
+                check(lib_err < (1e-2 if dtype == torch.float32 else 0.1),
+                      f"SDPA disagrees with the plain version: {lib_err}")
+                row["library_ms"] = cuda_ms(torch, sdpa, reps, inner)
+                main.setdefault(tag, row)
+            rows.append(row)
+            lib = row["library_ms"]
+            say(f"  kernel flash_attention {tag} B={B} Sq={Sq} Sk={Sk} H={H} "
+                f"KV={KV} hd={hd} causal={causal} kv_valid={valid} "
+                f"window={window} {row['dtype']}: kernel_ms={row['ms']:.6f} "
+                f"plain_ms={row['plain_ms']:.6f} library_ms="
+                f"{'null' if lib is None else f'{lib:.6f}'} bound_ms="
+                f"{row['bound_ms']:.6f} ({row['bound_by']}) "
+                f"max_abs_err={err!r} tolerance={row['tolerance']}")
+            del q, k, v, out, want
+    return rows, main
+
+
+def wkv_phase(torch, rw, peaks, seed):
+    """The WKV kernel against the plain chunked recurrence on the card: the
+    serving path's prefill and decode shapes (bf16 streams with the fp32
+    decay the model computes, and all-fp32) and the ragged shapes of
+    tests/test_kernels.py."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 202)
+    rows, main = [], {}
+    for tag, B, S, h, Nk, Nv in WKV_CASES:
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+        r32, k32, v32 = rnd(B, S, h, Nk), rnd(B, S, h, Nk), rnd(B, S, h, Nv)
+        log_w = -torch.exp(rnd(B, S, h, Nk))
+        u, s0 = 0.1 * rnd(h, Nk), 0.1 * rnd(B, h, Nk, Nv)
+        for dtype in (torch.bfloat16, torch.float32):
+            r, k, v = (x.to(dtype) for x in (r32, k32, v32))
+            out, sT = rw.wkv_scan(r, k, v, log_w, u, s0)
+            want, want_sT = rw.chunked_linear_recurrence(
+                r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
+                chunk=64, return_state=True)
+            tol = 3e-4 if dtype == torch.float32 else 3e-2
+            torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+            torch.testing.assert_close(sT, want_sT, rtol=tol, atol=tol)
+            err = max(float((out.float() - want.float()).abs().max()),
+                      float((sT - want_sT).abs().max()))
+            size = r.element_size()
+            n_in = B * S * h
+            nbytes = (size * n_in * (2 * Nk + 2 * Nv) + 4 * n_in * Nk
+                      + 4 * h * Nk + 8 * B * h * Nk * Nv)
+            # per (t, i, j): k v product, bonus FMA, read FMA, decay FMA
+            flops = 7.0 * n_in * Nk * Nv
+            dname = str(dtype).replace("torch.", "")
+            row = {"name": "wkv_scan", "case": tag, "B": B, "S": S, "h": h,
+                   "Nk": Nk, "Nv": Nv, "dtype": dname,
+                   "log_w_dtype": "float32", "max_abs_err": err,
+                   "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
+                   "flops": flops, "library_ms": None}
+            row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
+                                                     dname)
+            is_main = tag in ("prefill", "decode")
+            row["ms"] = cuda_ms(torch, lambda: rw.wkv_scan(r, k, v, log_w, u,
+                                                           s0),
+                                5 if is_main else 3, 5 if is_main else 10)
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: rw.chunked_linear_recurrence(
+                    r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
+                    chunk=64, return_state=True), 3, 1 if is_main else 5)
+            rows.append(row)
+            if is_main:
+                main.setdefault(tag, row)
+            say(f"  kernel wkv_scan {tag} B={B} S={S} h={h} Nk={Nk} Nv={Nv} "
+                f"{row['dtype']} (log_w float32): kernel_ms={row['ms']:.6f} "
+                f"plain_ms={row['plain_ms']:.6f} library_ms=null bound_ms="
+                f"{row['bound_ms']:.6f} ({row['bound_by']}) "
+                f"max_abs_err={err!r} tolerance={row['tolerance']}")
+    return rows, main
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: serving at full width
+# ---------------------------------------------------------------------------
+
+SLOTS, PROMPT, NEW, MAX_SEQ = 8, 2048, 32, 2112
+
+
+def wall(torch, fn):
+    """(fn(), host ms) with the card synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
+    """Drive ``ServeEngine.generate`` and ``.serve`` at full width in bf16
+    (weights drawn on the card from ``seed``), check launch counts per
+    call, greedy determinism, and fp32 decode == forward; time it."""
+    L, V = cfg.n_layers, cfg.vocab_size
+    rng = np.random.default_rng(seed + 303)
+    total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
+
+    def run(fn, want, what):
+        (out, ms), launches, plain = counts(lambda: wall(torch, fn))
+        check(launches[kernel] == want and not any(plain.values()),
+              f"{cfg.name} {what}: launches {launches} plain {plain}, "
+              f"expected {want} {kernel} launches and no plain call")
+        for k2, n in launches.items():
+            total[k2] += n
+        return out, ms
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_ms = wall(torch, lambda: lm.init_params(seed, cfg,
+                                                         torch.bfloat16))
+    n_params = sum(t.numel() for t in lm.leaves(params))
+    dev = params["embed"].device
+    eng = serve.ServeEngine(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ,
+                            dtype=torch.bfloat16, seed=seed)
+    prompts = rng.integers(0, V, (SLOTS, PROMPT)).astype(np.int32)
+    # the first call at these shapes pays one-time costs (allocator growth,
+    # GEMM heuristics), which would also bias decode_ms below: warm up
+    first, _ = run(lambda: eng.generate(prompts, 1), L,
+                   "generate 1 warm-up")
+    # time to first token: prefill of 8 x 2048 and the first greedy token
+    ttft = [run(lambda: eng.generate(prompts, 1), L, "generate 1")[1]
+            for _ in range(3)]
+    toks, gen_a = run(lambda: eng.generate(prompts, NEW), L * NEW,
+                      f"generate {NEW}")
+    again, gen_b = run(lambda: eng.generate(prompts, NEW), L * NEW,
+                       f"generate {NEW} again")
+    check(np.array_equal(toks, again) and np.array_equal(toks[:, :1], first),
+          f"{cfg.name}: greedy generate differs between runs")
+    check(toks.shape == (SLOTS, NEW) and ((toks >= 0) & (toks < V)).all(),
+          f"{cfg.name}: generated tokens out of range")
+    ttft_ms, gen_ms = statistics.median(ttft), statistics.median([gen_a,
+                                                                  gen_b])
+    decode_ms = (gen_ms - ttft_ms) / (NEW - 1)
+    # continuous batching: 12 requests, two waves of up to 8 slots
+    reqs = [serve.Request(rng.integers(0, V, int(rng.integers(64, PROMPT + 1))
+                                       ).astype(np.int32),
+                          int(rng.integers(8, NEW + 1))) for _ in range(12)]
+    want = sum(L * max(r.max_new_tokens for r in reqs[i:i + SLOTS])
+               for i in range(0, len(reqs), SLOTS))
+    done, serve_ms = run(lambda: eng.serve(reqs), want, "serve 12 requests")
+    check(all(r.done and len(r.out_tokens) == r.max_new_tokens
+              for r in done), f"{cfg.name}: serve left a request unfinished")
+    n_served = sum(r.max_new_tokens for r in done)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = profile_decode(torch, lm, cfg, params, prompts, counts, kernel)
+    del eng, params
+    torch.cuda.empty_cache()
+    # fp32 at full width: prefill and decode logits equal forward's
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False      # full fp32 products
+    try:
+        params = lm.init_params(seed, cfg, torch.float32)
+        toks32 = torch.as_tensor(rng.integers(0, V, (2, 300)), device=dev)
+        n_pre = 298
+        with torch.inference_mode():
+            (full, _, _), _ = run(lambda: lm.forward(params, cfg, toks32),
+                                  L, "forward fp32")
+            cache = lm.init_cache(cfg, 2, 304, torch.float32, device=dev)
+            (lg_pre, cache), _ = run(lambda: lm.prefill(
+                params, cfg, toks32[:, :n_pre], cache), L, "prefill fp32")
+            (lg_dec, cache), _ = run(lambda: lm.decode_step(
+                params, cfg, toks32[:, n_pre], cache, n_pre), L,
+                "decode_step fp32")
+        check(bool(torch.isfinite(full).all())
+              and tuple(full.shape) == (2, 300, V),
+              f"{cfg.name}: forward logits not finite or mis-shaped")
+        errs = [float((lg_pre - full[:, n_pre - 1]).abs().max()),
+                float((lg_dec - full[:, n_pre]).abs().max())]
+        check(max(errs) < 2e-3, f"{cfg.name}: decode vs forward {errs}")
+        del params, full, cache
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.cuda.empty_cache()
+    res = {"arch": cfg.name, "n_params": n_params, "dtype": "bfloat16",
+           "slots": SLOTS, "prompt": PROMPT, "new_tokens": NEW,
+           "max_seq": MAX_SEQ, "init_ms": init_ms, "ttft_ms": ttft_ms,
+           "ttft_runs_ms": ttft, "generate_runs_ms": [gen_a, gen_b],
+           "generate_ms": gen_ms, "decode_ms_per_step": decode_ms,
+           "generate_tokens_per_s": SLOTS * NEW / (gen_ms / 1e3),
+           "serve_ms": serve_ms, "serve_new_tokens": n_served,
+           "serve_tokens_per_s": n_served / (serve_ms / 1e3),
+           "serve_prompt_lens": [len(r.prompt) for r in reqs],
+           "serve_max_new": [r.max_new_tokens for r in reqs],
+           "peak_memory_gb": peak_gb, "decode_vs_forward_fp32": errs,
+           "profile": prof, "launches": total}
+    say(f"  serve {cfg.name}: {n_params} params bf16, init_ms={init_ms:.1f}; "
+        f"ttft_ms={ttft_ms:.3f} (8 x {PROMPT} prefill + first token) "
+        f"decode_ms_per_step={decode_ms:.3f} generate {SLOTS}x{NEW} tokens "
+        f"in {gen_ms:.3f} ms ({res['generate_tokens_per_s']:.1f} tok/s); "
+        f"serve 12 requests {n_served} tokens in {serve_ms:.3f} ms "
+        f"({res['serve_tokens_per_s']:.1f} tok/s); peak memory "
+        f"{peak_gb:.3f} GB; greedy identical on two runs")
+    say(f"  serve {cfg.name} fp32: |prefill - forward| = {errs[0]!r}, "
+        f"|decode - forward| = {errs[1]!r} (limit 2e-3); {L} {kernel} "
+        f"launches per forward, prefill and decode step")
+    say(f"  profile {cfg.name} decode step (x{prof['steps']}): wall_ms="
+        f"{prof['wall_ms']:.3f} device_busy_ms={prof['device_busy_ms']:.3f} "
+        f"device_idle_share={prof['idle_share']:.3f}")
+    for k2 in prof["by_kernel"][:6]:
+        say(f"    {k2['ms']:.3f} ms x{k2['count']} {k2['name']}")
+    return res
+
+
+def profile_decode(torch, lm, cfg, params, prompts, counts, kernel,
+                   steps: int = 4):
+    """Device busy time and idle share of ``steps`` warm decode steps after
+    an 8 x 2048 prefill, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = params["embed"].device
+    with torch.inference_mode():
+        cache = lm.init_cache(cfg, SLOTS, MAX_SEQ, torch.bfloat16, device=dev)
+        tokens = torch.as_tensor(prompts, device=dev).long()
+        logits, cache = lm.prefill(params, cfg, tokens, cache)
+        tok = logits.argmax(-1)
+        logits, cache = lm.decode_step(params, cfg, tok, cache, PROMPT)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            def run():
+                lg = logits
+                for i in range(steps):
+                    lg, _ = lm.decode_step(params, cfg, lg.argmax(-1), cache,
+                                           PROMPT + 1 + i)
+                return lg
+            (_, ms), launches, _ = counts(lambda: wall(torch, run))
+    check(launches[kernel] == steps * cfg.n_layers,
+          f"profiled decode launches {launches}")
+    busy, by_kernel = device_time(prof)
+    return {"steps": steps, "wall_ms": ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / ms, "by_kernel": by_kernel}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the card (kernels) against the CPU (plain versions)
+# ---------------------------------------------------------------------------
+
+def card_vs_cpu_phase(torch, np, lm, serve, counts, get_arch, seed):
+    """At each arch's reduced() config, the same fp32 weights on the card
+    and on the CPU give the same greedy tokens, and logits within 1e-4
+    (fp32 on both sides, TF32 off; the sums run in other orders)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
+    rows = []
+    try:
+        for name in ("qwen2-1.5b", "rwkv6-3b"):
+            cfg = get_arch(name).reduced()
+            p_cpu = lm.init_params(seed, cfg, device="cpu")
+            p_gpu = tree_to(p_cpu, "cuda")
+            prompts = np.random.default_rng(seed).integers(
+                0, cfg.vocab_size, (2, 24)).astype(np.int32)
+            cpu_eng = serve.ServeEngine(cfg, p_cpu, 2, 40, device="cpu")
+            gpu_eng = serve.ServeEngine(cfg, p_gpu, 2, 40)
+            want = cpu_eng.generate(prompts, 8)
+            got, launches, plain = counts(lambda: gpu_eng.generate(prompts,
+                                                                   8))
+            kernel = "wkv_scan" if cfg.attn_free else "flash_attention"
+            check(np.array_equal(got, want)
+                  and launches[kernel] == 8 * cfg.n_layers
+                  and not any(plain.values()),
+                  f"{name} reduced: card {got.tolist()} vs cpu "
+                  f"{want.tolist()}, launches {launches}, plain {plain}")
+            toks = torch.as_tensor(prompts).long()
+            with torch.inference_mode():
+                lc = lm.forward(p_cpu, cfg, toks)[0]
+                (lg, _, _), launches, _ = counts(
+                    lambda: lm.forward(p_gpu, cfg, toks.cuda()))
+            err = float((lg.cpu() - lc).abs().max())
+            check(err < 1e-4, f"{name} reduced: card vs cpu logits {err}")
+            for k2, n in launches.items():
+                total[k2] += n
+            rows.append({"arch": name, "greedy_equal": True,
+                         "max_abs_logit_err": err})
+            say(f"  card vs cpu {name} reduced: greedy tokens equal, "
+                f"max |logits| error {err!r} (limit 1e-4)")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return rows, total
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.to(device)
 
 
 def main(argv=None) -> int:
@@ -408,16 +846,22 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCHS, get_arch
     from repro_torch.core import coded_collectives as cc
     from repro_torch.core import costs
     from repro_torch.core.params import SchemeParams
     from repro_torch.distributed.meshes import make_mesh
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_combine import ops, ref
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv_scan import ops as rw
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
+    from repro_torch.models import lm
     from repro_torch.obs.bytes import reconcile
     from repro_torch.obs.tracing import enable_tracing
+    from repro_torch.serve import engine as serve
 
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -431,19 +875,25 @@ def main(argv=None) -> int:
           f"known: {sorted(PEAKS)}")
     peaks = PEAKS[smi_name]
     name = torch.cuda.get_device_name(0)
-    build_s = ops.build()
+    # one nvcc per kernel source, all started together
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m.build(), (ops, fa, rw)))
+    build_s = time.perf_counter() - t0
     # an entry exists only if this process ran nvcc (else the library was
     # built earlier from the same sources and only loaded)
-    nvcc_s, ptxas = _build.BUILD_LOG.get("coded_combine", (None, ""))
-    how = ("loaded a library built earlier from the same sources"
-           if nvcc_s is None else f"nvcc took {nvcc_s:.3f} s")
+    nvcc = dict(_build.BUILD_LOG)
+    how = ("; ".join(f"nvcc {k} {v[0]:.3f} s" for k, v in nvcc.items())
+           or "loaded libraries built earlier from the same sources")
     say(f"phase device: {name}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; kernels ready in {build_s:.3f} s ({how}); "
-        f"HBM {peaks[0]:.3e} B/s, fp32 {peaks[1]:.3e} FLOP/s "
+        f"HBM {peaks['hbm']:.3e} B/s, tensor cores bf16 "
+        f"{peaks['bfloat16']:.3e} / tf32 {peaks['float32']:.3e} FLOP/s "
         f"(data sheet of {smi_name})")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    for lib, (_, ptxas) in nvcc.items():
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                say(f"  ptxas {lib}: {line.strip()}")
 
     # ---- 2. kernels ------------------------------------------------------
     main_shapes = []
@@ -458,21 +908,22 @@ def main(argv=None) -> int:
         f"their plain versions")
 
     # ---- 3 + 4. the main paths, launch counts zeroed before each call ----
+    count = Counts(torch, (ops,))
     shuffle_runs, shuffle_launches = shuffle_phase(
-        torch, np, cc, ops, make_mesh, SchemeParams, args.seed)
+        torch, np, cc, count, make_mesh, SchemeParams, args.seed)
     say(f"phase shuffle: {len(shuffle_runs)} hybrid_shuffle runs bit-exact "
         f"vs simulate_plan_shuffle and plan_shuffle_reference; launches "
         f"{shuffle_launches}")
     torch.cuda.reset_peak_memory_stats()
     engine_runs, engine_launches, subfiles, job, mesh = engine_phase(
-        torch, np, eng, jobs, ops, make_mesh, SchemeParams, costs, reconcile,
-        args.seed)
+        torch, np, eng, jobs, count, make_mesh, SchemeParams, costs,
+        reconcile, args.seed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     say(f"phase engine: {len(engine_runs)} run_job_distributed runs "
         f"bit-exact vs run_job; peak device memory {peak_gb:.3f} GB; "
         f"launches fused {engine_launches['fused']} legacy "
         f"{engine_launches['legacy']}")
-    profile = profile_fused(torch, eng, ops, job, subfiles, mesh,
+    profile = profile_fused(torch, eng, count, job, subfiles, mesh,
                             SchemeParams, enable_tracing)
     idle = 1.0 - profile["device_busy_ms"] / profile["wall_ms"]
     spans = " ".join(f"{k}={v:.3f}" for k, v in profile["span_ms"].items())
@@ -483,23 +934,56 @@ def main(argv=None) -> int:
     for k in profile["by_kernel"][:8]:
         say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
 
-    # ---- 5. kernels line -------------------------------------------------
+    # ---- 5. the LM kernels ------------------------------------------------
+    flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
+    wkv_rows, wkv_main = wkv_phase(torch, rw, peaks, args.seed)
+    say(f"phase lm kernels: {len(flash_rows)} flash_attention and "
+        f"{len(wkv_rows)} wkv_scan shape/dtype cases match their plain "
+        f"versions")
+
+    # ---- 6. serving at full width, launch counts per call ----------------
+    counts = Counts(torch, (ops, fa, rw))
+    serving = {}
+    for arch, kernel in (("qwen2-1.5b", "flash_attention"),
+                         ("rwkv6-3b", "wkv_scan")):
+        serving[arch] = serve_phase(torch, np, lm, serve, counts,
+                                    ARCHS[arch], kernel, args.seed)
+        say(f"phase serve {arch}: ServeEngine generate and serve at full "
+            f"width on the card; launches {serving[arch]['launches']}")
+
+    # ---- 7. the card against the CPU at the reduced configs --------------
+    cmp_rows, cmp_launches = card_vs_cpu_phase(torch, np, lm, serve, counts,
+                                               get_arch, args.seed)
+    say("phase card vs cpu: reduced qwen2-1.5b and rwkv6-3b give the same "
+        "greedy tokens on the card (kernels) and the CPU (plain versions)")
+
+    # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
-               "profiled": profile["launches"]}
+               "profiled": profile["launches"],
+               **{f"serve {a}": r["launches"] for a, r in serving.items()},
+               "card_vs_cpu": cmp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
-    # int32 hybrid_shuffle for the XOR pair
+    # int32 hybrid_shuffle for the XOR pair, full-width serving for the LM
+    # kernels
     main_path = {"coded_encode": "fused", "coded_decode": "fused",
-                 "xor_encode": "shuffle", "xor_decode": "shuffle"}
+                 "xor_encode": "shuffle", "xor_decode": "shuffle",
+                 "flash_attention": "serve qwen2-1.5b",
+                 "wkv_scan": "serve rwkv6-3b"}
+    main_rows.update(flash_attention=flash_main["prefill"],
+                     wkv_scan=wkv_main["prefill"])
+    sources = {k: SOURCE for k in KERNELS}
+    sources.update(flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
     kernels = []
-    for kname in KERNELS:
-        launches = by_path[main_path[kname]][kname]
+    for kname in KERNELS + LM_KERNELS:
+        launches = by_path[main_path[kname]].get(kname, 0)
         check(launches > 0, f"{kname} launched on its main path "
               f"({main_path[kname]}): {by_path}")
         row = main_rows[kname]
-        kernels.append({"name": kname, "route": "cuda", "source": SOURCE,
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": sources[kname],
                         "replaces": REPLACES[kname],
                         "launches": launches,
-                        "launches_by_path": {k: v[kname]
+                        "launches_by_path": {k: v.get(kname, 0)
                                              for k, v in by_path.items()},
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"],
@@ -511,9 +995,11 @@ def main(argv=None) -> int:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({
         "device": smi, "torch": torch.__version__, "build_s": build_s,
-        "nvcc_s": nvcc_s, "engine_peak_memory_gb": peak_gb,
-        "ptxas": ptxas, "kernels": kernel_rows, "shuffle": shuffle_runs,
-        "engine": engine_runs, "profile": profile, "launches": by_path,
+        "nvcc": nvcc, "engine_peak_memory_gb": peak_gb,
+        "kernels": kernel_rows, "shuffle": shuffle_runs,
+        "engine": engine_runs, "profile": profile,
+        "lm_kernels": flash_rows + wkv_rows, "serving": serving,
+        "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -24,6 +24,8 @@ import tempfile
 import time
 from typing import Dict, Tuple
 
+import torch
+
 KERNELS_DIR = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR / "_build"
 
@@ -79,3 +81,15 @@ def load_library(name: str, source: str) -> ctypes.CDLL:
         os.replace(tmp, lib_path)
         BUILD_LOG[name] = (seconds, proc.stderr)
     return ctypes.CDLL(str(lib_path))
+
+
+def check_launch(rc: int, op: str) -> None:
+    """Raise unless a kernel's C entry point returned cudaSuccess (0)."""
+    if rc != 0:
+        raise RuntimeError(f"{op}: CUDA kernel launch failed with "
+                           f"cudaError {rc}")
+
+
+def stream_handle() -> int:
+    """PyTorch's current CUDA stream, as the C entry points take it."""
+    return torch.cuda.current_stream().cuda_stream

@@ -108,16 +108,6 @@ def _coeffs_on(coeffs, x: torch.Tensor, r: int, op: str) -> torch.Tensor:
     return c.contiguous()
 
 
-def _check(rc: int, op: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{op}: CUDA kernel launch failed with "
-                           f"cudaError {rc}")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
-
-
 def coded_encode(streams: Streams, coeffs, *,
                  block_t: int = 256) -> torch.Tensor:
     """f(v_1..v_r) = sum_i c_i v_i.  ``streams``: r tensors of equal shape
@@ -131,9 +121,10 @@ def coded_encode(streams: Streams, coeffs, *,
     out = torch.empty(xs.shape[1:], dtype=xs.dtype, device=xs.device)
     n = out.numel()
     if n:
-        _check(_library().cc_encode(_LINEAR_DTYPES[xs.dtype], xs.data_ptr(),
-                                    n, r, c.data_ptr(), out.data_ptr(), n,
-                                    _stream()), "coded_encode")
+        rc = _library().cc_encode(_LINEAR_DTYPES[xs.dtype], xs.data_ptr(),
+                                  n, r, c.data_ptr(), out.data_ptr(), n,
+                                  _build.stream_handle())
+        _build.check_launch(rc, "coded_encode")
         LAUNCHES["coded_encode"] += 1
     return out
 
@@ -151,10 +142,10 @@ def coded_decode(f: torch.Tensor, known: Streams, coeffs, *,
     out = torch.empty_like(f)
     n = out.numel()
     if n:
-        _check(_library().cc_decode(_LINEAR_DTYPES[f.dtype], f.data_ptr(),
-                                    ks.data_ptr(), n, rm1, c.data_ptr(),
-                                    out.data_ptr(), n, _stream()),
-               "coded_decode")
+        rc = _library().cc_decode(_LINEAR_DTYPES[f.dtype], f.data_ptr(),
+                                  ks.data_ptr(), n, rm1, c.data_ptr(),
+                                  out.data_ptr(), n, _build.stream_handle())
+        _build.check_launch(rc, "coded_decode")
         LAUNCHES["coded_decode"] += 1
     return out
 
@@ -166,9 +157,9 @@ def _xor(first: torch.Tensor, rest: torch.Tensor, op: str) -> torch.Tensor:
     n = out.numel()
     if n:
         rest_ptr = rest.data_ptr() if rest.shape[0] else first.data_ptr()
-        _check(_library().cc_xor(first.data_ptr(), rest_ptr, n,
-                                 rest.shape[0], out.data_ptr(), n,
-                                 _stream()), op)
+        rc = _library().cc_xor(first.data_ptr(), rest_ptr, n, rest.shape[0],
+                               out.data_ptr(), n, _build.stream_handle())
+        _build.check_launch(rc, op)
         LAUNCHES[op] += 1
     return out
 

@@ -1,0 +1,332 @@
+"""The LM of the port (``repro/models/lm.py``) for the families ported so
+far:
+
+  family   mixer                       ffn
+  ------   -----                       ---
+  dense    GQA attention (+rope)       swiglu       qwen2
+  ssm      RWKV6 time-mix              RWKV6 channel-mix (attn-free)
+
+Parameters are a dict: ``embed``, ``group<i>`` (a list of per-layer dicts,
+one per layer of the stack, applied in a Python loop: no scan, no remat),
+the final norm (plus ``in_norm`` for RWKV) and ``lm_head`` when the
+embedding is not tied.  Weights are ``[d_in, d_out]`` and used as
+``x @ W``, as the JAX package lays them out, so :mod:`.convert` carries JAX
+parameters over without a transpose.
+
+The JAX package's activation-sharding hints (``shard_acts``, ``sp_gather``,
+``sp_scatter``) are identities without a sharding policy and are dropped;
+sharding comes with the port's distributed layer.  The other families (MoE,
+MLA, hybrid, enc-dec, VLM prefixes) raise :class:`NotImplementedError`.
+
+Caches are updated in place (the dense KV cache is written with a slice
+assignment; RWKV states are replaced in the cache dict), so a cache passed
+to :func:`prefill` or :func:`decode_step` is the one returned.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..distributed.meshes import DeviceLike, resolve_device
+from .attention import blockwise_attention
+from .layers import apply_rope, dense_init, embed_init, layer_norm, rms_norm, \
+    swiglu
+from .rwkv import (cmix_forward, init_cmix_params, init_tmix_params,
+                   init_tmix_state, tmix_forward)
+
+Positions = Union[int, torch.Tensor]
+
+# ---------------------------------------------------------------------------
+# Layer grouping
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerGroup:
+    kind: str          # attn_mlp | rwkv
+    count: int
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family not in ("dense", "ssm") or cfg.mla or cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
+            f"runs dense GQA and RWKV6 models)")
+
+
+def layer_groups(cfg: ArchConfig) -> List[LayerGroup]:
+    """Homogeneous layer stacks of the decoder trunk."""
+    _check_ported(cfg)
+    if cfg.family == "dense":
+        return [LayerGroup("attn_mlp", cfg.n_layers)]
+    return [LayerGroup("rwkv", cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# Attention sub-module (GQA, optional bias/rope)
+# ---------------------------------------------------------------------------
+
+def init_attn_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": dense_init(gen, d, H * hd, dtype, device),
+        "wk": dense_init(gen, d, KV * hd, dtype, device),
+        "wv": dense_init(gen, d, KV * hd, dtype, device),
+        "wo": dense_init(gen, H * hd, d, dtype, device),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def _qkv(p: Dict, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor,
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = xq @ p["wq"]
+    k = xkv @ p["wk"]
+    v = xkv @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    B, Sq = xq.shape[:2]
+    Sk = xkv.shape[1]
+    return (q.reshape(B, Sq, H, hd), k.reshape(B, Sk, KV, hd),
+            v.reshape(B, Sk, KV, hd))
+
+
+def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor, *, window: Optional[int] = None,
+                 cache: Optional[Dict] = None,
+                 cache_index: Optional[int] = None,
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """Causal self-attention with RoPE and an optional dense KV cache
+    (prefill writes ``[cache_index, cache_index + S)``, decode reads the
+    valid prefix)."""
+    B, S, D = x.shape
+    q, k, v = _qkv(p, cfg, x, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    valid = None
+    if cache is not None:
+        if "kpos" in cache:
+            raise NotImplementedError("ring (sliding-window) caches belong "
+                                      "to the hybrid family, not ported yet")
+        i = int(cache_index)
+        cache["k"][:, i:i + S] = k.to(cache["k"].dtype)
+        cache["v"][:, i:i + S] = v.to(cache["v"].dtype)
+        k, v = cache["k"], cache["v"]
+        valid = i + S
+    out = blockwise_attention(q, k, v, positions, kv_valid_len=valid,
+                              window=window,
+                              kv_block=min(512, max(k.shape[1], 1)))
+    return out.reshape(B, S, -1) @ p["wo"], cache
+
+
+# ---------------------------------------------------------------------------
+# Per-kind layer parameters and application
+# ---------------------------------------------------------------------------
+
+def _init_mlp(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {"w1": dense_init(gen, d, ff, dtype, device),
+            "w3": dense_init(gen, d, ff, dtype, device),
+            "w2": dense_init(gen, ff, d, dtype, device)}
+
+
+def _ln(d: int, dtype, device) -> Dict:
+    return {"w": torch.ones((d,), dtype=dtype, device=device),
+            "b": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
+                      device) -> Dict:
+    d = cfg.d_model
+    if kind == "attn_mlp":
+        return {"ln1": torch.ones((d,), dtype=dtype, device=device),
+                "attn": init_attn_params(gen, cfg, dtype, device),
+                "ln2": torch.ones((d,), dtype=dtype, device=device),
+                "mlp": _init_mlp(gen, cfg, dtype, device)}
+    if kind == "rwkv":
+        return {"ln1": _ln(d, dtype, device),
+                "tmix": init_tmix_params(gen, cfg, dtype, device),
+                "ln2": _ln(d, dtype, device),
+                "cmix": init_cmix_params(gen, cfg, dtype, device)}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                positions: torch.Tensor, *, cache: Optional[Dict] = None,
+                cache_index: Optional[int] = None, mixer_chunk: int = 64,
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """One block. Returns (x, new_cache)."""
+    eps = cfg.norm_eps
+    if kind == "attn_mlp":
+        h = rms_norm(x, p["ln1"], eps)
+        a, cache = attn_forward(p["attn"], cfg, h, positions, cache=cache,
+                                cache_index=cache_index,
+                                window=cfg.sliding_window)
+        x = x + a
+        h = rms_norm(x, p["ln2"], eps)
+        return x + swiglu(h, **p["mlp"]), cache
+    if kind == "rwkv":
+        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)
+        t_state = cache["tmix"] if cache is not None else None
+        a, t_new = tmix_forward(p["tmix"], cfg, h, t_state,
+                                chunk=mixer_chunk)
+        x = x + a
+        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"], eps)
+        c_prev = cache["cmix_shift"] if cache is not None else None
+        c, c_shift = cmix_forward(p["cmix"], h, c_prev)
+        x = x + c
+        if cache is not None:
+            cache["tmix"], cache["cmix_shift"] = t_new, c_shift
+        return x, cache
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+# ---------------------------------------------------------------------------
+# Whole-model parameters
+# ---------------------------------------------------------------------------
+
+def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
+                device: DeviceLike = None) -> Dict:
+    """Model parameters drawn from ``seed`` with a :class:`torch.Generator`
+    on ``device`` (default: the CUDA card; raises without one).  The
+    distributions are the JAX package's; the numbers are not (use
+    :func:`.convert.params_from_jax` for the JAX package's weights).  On the
+    ``meta`` device: shapes only."""
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
+    d = cfg.d_model
+    p: Dict[str, Any] = {
+        "embed": embed_init(gen, cfg.vocab_size, d, dtype, dev)}
+    for gi, g in enumerate(layer_groups(cfg)):
+        p[f"group{gi}"] = [init_layer_params(gen, g.kind, cfg, dtype, dev)
+                           for _ in range(g.count)]
+    if cfg.family == "ssm":
+        p["in_norm"] = _ln(d, dtype, dev)                 # RWKV ln0
+        p["final_norm"] = _ln(d, dtype, dev)
+    else:
+        p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype, dev)
+    return p
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    items = tree.values() if isinstance(tree, dict) else tree
+    return [leaf for item in items for leaf in leaves(item)]
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Exact parameter count from a shape-only (``meta``) init.  Dense and
+    RWKV models have no inactive parameters, so ``active_only`` changes
+    nothing here."""
+    return sum(t.numel() for t in leaves(init_params(0, cfg,
+                                                      device="meta")))
+
+
+# ---------------------------------------------------------------------------
+# Forward pass
+# ---------------------------------------------------------------------------
+
+def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+           positions: Optional[torch.Tensor], cache: Optional[Dict],
+           cache_index: Optional[int], mixer_chunk: int) -> torch.Tensor:
+    """Embedding, every layer and the final norm: [B, S] -> [B, S, D]."""
+    x = params["embed"][tokens]
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device)
+    if cfg.family == "ssm":
+        x = layer_norm(x, params["in_norm"]["w"], params["in_norm"]["b"],
+                       cfg.norm_eps)
+    for gi, g in enumerate(layer_groups(cfg)):
+        layers = params[f"group{gi}"]
+        caches = cache[f"group{gi}"] if cache is not None else None
+        for li, layer_p in enumerate(layers):
+            x, _ = apply_layer(g.kind, layer_p, cfg, x, positions,
+                               cache=caches[li] if caches else None,
+                               cache_index=cache_index,
+                               mixer_chunk=mixer_chunk)
+    fn = params["final_norm"]
+    if isinstance(fn, dict):
+        return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps)
+    return rms_norm(x, fn, cfg.norm_eps)
+
+
+def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
+          logits_f32: bool = False) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if logits_f32:
+        return x.float() @ head.float()
+    return x @ head
+
+
+def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+            positions: Optional[torch.Tensor] = None,
+            cache: Optional[Dict] = None, cache_index: Optional[int] = None,
+            mixer_chunk: int = 64, logits_f32: bool = False,
+            ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Full forward. tokens: [B, S].  Returns (logits [B, S, V], cache,
+    aux loss 0 — no MoE here)."""
+    x = _trunk(params, cfg, tokens, positions, cache, cache_index,
+               mixer_chunk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, cfg, x, logits_f32), cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Caches: init / prefill / decode
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
+                      dtype, device) -> Dict:
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    if kind == "attn_mlp":
+        shape = (batch, max_seq, KV, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "rwkv":
+        return {"tmix": init_tmix_state(cfg, batch, dtype, device),
+                "cmix_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                          device=device)}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *,
+               device: DeviceLike = None) -> Dict:
+    """Per-layer decode caches, ``group<i>``: a list with one per layer."""
+    dev = resolve_device(device)
+    return {f"group{gi}": [_init_layer_cache(g.kind, cfg, batch, max_seq,
+                                             dtype, dev)
+                           for _ in range(g.count)]
+            for gi, g in enumerate(layer_groups(cfg))}
+
+
+def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
+            cache: Dict, *, mixer_chunk: int = 64,
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Run the prompt through the model, filling the cache.  Returns
+    (last-position logits [B, V], cache); the head runs on the last
+    position only."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    x = _trunk(params, cfg, tokens, positions, cache, 0, mixer_chunk)
+    return _head(params, cfg, x[:, -1]), cache
+
+
+def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
+                cache: Dict, pos: Positions) -> Tuple[torch.Tensor, Dict]:
+    """One decode step. token: [B]; pos: the current position (an int or a
+    0-d tensor).  Returns (logits [B, V], cache)."""
+    pos = int(pos)
+    positions = torch.arange(pos, pos + 1, device=token.device)
+    x = _trunk(params, cfg, token[:, None], positions, cache, pos,
+               mixer_chunk=1)
+    return _head(params, cfg, x[:, 0]), cache

@@ -1,0 +1,171 @@
+"""RWKV6 'Finch' blocks (the port's ``repro/models/rwkv.py``): time-mix
+(WKV with data-dependent decay) and channel-mix.
+
+  * DDLerp token-shift: every projection input is a data-dependent lerp
+    between x_t and x_{t-1} through a shared low-rank trunk.
+  * Data-dependent decay  w_t = exp(-exp(w0 + lora_w(.)))  per channel.
+  * WKV: on a CUDA tensor the hand-written scan kernel
+    (:mod:`repro_torch.kernels.rwkv_scan`); on a CPU tensor the plain
+    chunked recurrence of :mod:`.linrec`, as the JAX package computes it.
+  * Per-head GroupNorm (eps 64e-5) on the WKV output, SiLU(g) output gate.
+  * Channel-mix: shifted lerp, squared-ReLU key MLP, sigmoid receptance.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.rwkv_scan import ops as rw_ops
+from .layers import dense_init, normal
+from .linrec import recurrent_step
+
+DDLERP_RANK = 32          # low-rank trunk width of the time_maa loras
+DECAY_RANK = 64           # rank of the decay lora
+
+
+def init_tmix_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    d = cfg.d_model
+    h, hd = cfg.n_heads, cfg.head_dim
+    assert h * hd == d, "RWKV6 requires n_heads * head_dim == d_model"
+    full = lambda shape, x: torch.full(shape, x, dtype=dtype, device=device)
+    return {
+        # DDLerp base mixes (mu_x plus one per stream r,k,v,w,g)
+        "mu_x": full((d,), 0.0),
+        "mu": full((5, d), 0.0),
+        "maa_w1": dense_init(gen, d, 5 * DDLERP_RANK, dtype, device),
+        "maa_w2": normal(gen, (5, DDLERP_RANK, d), 0.01, dtype, device),
+        # data-dependent decay
+        "w0": full((d,), -6.0),                       # exp(-exp(-6)) ~ 1
+        "w_lora_a": dense_init(gen, d, DECAY_RANK, dtype, device),
+        "w_lora_b": normal(gen, (DECAY_RANK, d), 0.01, dtype, device),
+        # projections
+        "wr": dense_init(gen, d, d, dtype, device),
+        "wk": dense_init(gen, d, d, dtype, device),
+        "wv": dense_init(gen, d, d, dtype, device),
+        "wg": dense_init(gen, d, d, dtype, device),
+        "wo": dense_init(gen, d, d, dtype, device),
+        # per-head diagonal bonus u ('time_faaaa')
+        "u": normal(gen, (h, hd), 0.1, dtype, device),
+        # per-head GroupNorm
+        "gn_w": full((d,), 1.0),
+        "gn_b": full((d,), 0.0),
+    }
+
+
+def init_cmix_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": torch.zeros((d,), dtype=dtype, device=device),
+        "mu_r": torch.zeros((d,), dtype=dtype, device=device),
+        "wk": dense_init(gen, d, ff, dtype, device),
+        "wv": dense_init(gen, ff, d, dtype, device),
+        "wr": dense_init(gen, d, d, dtype, device),
+    }
+
+
+def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """x_{t-1} stream: [B,S,D] -> [B,S,D]; ``prev`` [B,D] seeds t=0."""
+    pad = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None, :]
+    return torch.cat([pad, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p: Dict, x: torch.Tensor,
+            xprev: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Data-dependent lerp for the 5 streams; returns (xr, xk, xv, xw, xg)."""
+    dx = xprev - x
+    xxx = x + dx * p["mu_x"]
+    trunk = torch.tanh(xxx.float() @ p["maa_w1"].float())
+    B, S = x.shape[:2]
+    trunk = trunk.reshape(B, S, 5, DDLERP_RANK)
+    off = torch.einsum("bsfr,frd->bsfd", trunk, p["maa_w2"].float())
+    mix = p["mu"].float()[None, None] + off                    # [B,S,5,D]
+    streams = x[:, :, None, :] + dx[:, :, None, :] * mix.to(x.dtype)
+    return tuple(streams[:, :, i] for i in range(5))
+
+
+def _decay_log_w(p: Dict, xw: torch.Tensor) -> torch.Tensor:
+    """log(w_t) = -exp(w0 + lora_w(xw)) in fp32 (always < 0)."""
+    lora = torch.tanh(xw.float() @ p["w_lora_a"].float()) \
+        @ p["w_lora_b"].float()
+    return -torch.exp(p["w0"].float() + lora)
+
+
+def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, h: int,
+                eps: float = 64e-5) -> torch.Tensor:
+    """Per-head GroupNorm over [..., D] with D = h * hd."""
+    shp = x.shape
+    xg = x.reshape(*shp[:-1], h, shp[-1] // h).float()
+    mu = xg.mean(-1, keepdim=True)
+    var = ((xg - mu) ** 2).mean(-1, keepdim=True)
+    xg = (xg - mu) * torch.rsqrt(var + eps)
+    return (xg.reshape(shp) * w + b).to(x.dtype)
+
+
+def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                 state: Optional[Dict] = None, *, chunk: int = 64,
+                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """RWKV6 time-mix. x: [B,S,D].
+
+    ``state`` (decode/streaming): {'shift': [B,D], 'wkv': [B,h,hd,hd]}.
+    Returns (out [B,S,D], new state or None when stateless).  ``chunk`` is
+    the plain version's chunk length; the kernel steps through time.
+    """
+    B, S, D = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    keep_state = state is not None
+    prev = state["shift"] if keep_state else None
+    s0 = state["wkv"] if keep_state else None
+
+    xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, prev))
+    r = (xr @ p["wr"]).reshape(B, S, h, hd)
+    k = (xk @ p["wk"]).reshape(B, S, h, hd)
+    v = (xv @ p["wv"]).reshape(B, S, h, hd)
+    g = xg @ p["wg"]
+    log_w = _decay_log_w(p, xw).reshape(B, S, h, hd)
+    out, s_new = rw_ops.wkv_scan(r, k, v, log_w, p["u"], s0, chunk=chunk)
+    out = _group_norm(out.reshape(B, S, D), p["gn_w"], p["gn_b"], h)
+    out = (out * F.silu(g)) @ p["wo"]
+    new_state = {"shift": x[:, -1], "wkv": s_new} if keep_state else None
+    return out, new_state
+
+
+def tmix_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
+              ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token step in plain PyTorch. x: [B,D];
+    state {'shift':[B,D],'wkv':[B,h,hd,hd]}."""
+    B, D = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    xr, xk, xv, xw, xg = _ddlerp(p, x[:, None, :],
+                                 state["shift"][:, None, :])
+    r = (xr @ p["wr"]).reshape(B, h, hd)
+    k = (xk @ p["wk"]).reshape(B, h, hd)
+    v = (xv @ p["wv"]).reshape(B, h, hd)
+    g = (xg @ p["wg"])[:, 0]
+    log_w = _decay_log_w(p, xw).reshape(B, h, hd)
+    out, wkv = recurrent_step(r, k, v, log_w, state["wkv"], u=p["u"],
+                              mode="rwkv")
+    out = _group_norm(out.reshape(B, D), p["gn_w"], p["gn_b"], h)
+    out = (out * F.silu(g)) @ p["wo"]
+    return out, {"shift": x, "wkv": wkv}
+
+
+def cmix_forward(p: Dict, x: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 channel-mix. x: [B,S,D] -> ([B,S,D], last-token shift state)."""
+    dx = _shift(x, prev) - x
+    xk = x + dx * p["mu_k"]
+    xr = x + dx * p["mu_r"]
+    k = torch.square(F.relu(xk @ p["wk"]))
+    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+
+
+def init_tmix_state(cfg: ArchConfig, batch: int, dtype, device) -> Dict:
+    h, hd = cfg.n_heads, cfg.head_dim
+    return {"shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                 device=device),
+            "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,
+                               device=device)}

@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels against their plain PyTorch versions on
-the card, on the grid of tests/test_kernels.py.  Needs a CUDA card (the
+the card, on the grids of tests/test_kernels.py (plus the LM serving
+path's decode shape).  Needs a CUDA card (the
 ``cuda`` marker; skipped without one) and imports no JAX, so it runs where
 the port runs:
 
@@ -9,6 +10,9 @@ import pytest
 import torch
 
 from repro_torch.kernels.coded_combine import ops, ref
+from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
+from repro_torch.kernels.rwkv_scan import ops as rw
 
 SHAPES = [(64, 128), (100, 96), (257, 40), (1, 7), (300, 130),
           (17920, 2048)]
@@ -46,3 +50,124 @@ def test_kernels_match_plain_versions_on_card(card, r, T, d):
         assert torch.equal(dec.view(torch.int32), xs[0].view(torch.int32))
     torch.cuda.synchronize()
     assert all(v > 0 for v in ops.LAUNCHES.values())
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the WKV scan (fp32 matmuls in full fp32 on both sides)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def no_tf32(card):
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield card
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+WKV_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,hd", [
+    (2, 128, 128, 4, 4, 64), (1, 200, 200, 8, 2, 64),
+    (2, 64, 256, 4, 1, 128), (2, 12, 40, 4, 1, 16),
+    (2, 1, 2112, 12, 2, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_version_on_card(no_tf32, B, Sq, Sk, H,
+                                                       KV, hd, causal):
+    fa.reset_launch_counts()
+    g = torch.Generator(device=no_tf32).manual_seed(Sq + Sk + H)
+    # a decode step reads the first kv_valid keys of a longer cache
+    valid = 1500 if Sk == 2112 else None
+    q_off = (valid - 1 if valid else Sk - Sq) if causal else 0
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=g, device=no_tf32).to(dt)
+                   for s in ((B, Sq, H, hd), (B, Sk, KV, hd),
+                             (B, Sk, KV, hd)))
+        out = fa.flash_attention(q, k, v, causal=causal, q_offset=q_off,
+                                 kv_valid=valid)
+        pos = torch.arange(q_off, q_off + Sq, device=no_tf32)
+        want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal)
+        torch.testing.assert_close(out, want, rtol=FLASH_TOL[dt],
+                                   atol=FLASH_TOL[dt])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2
+    assert fa.PLAIN_CALLS["flash_attention"] == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_masks_on_card(no_tf32):
+    """Window, tensor positions, per-batch valid lengths, and rows with no
+    visible key (uniform weights, as the reference gives them)."""
+    fa.reset_launch_counts()
+    g = torch.Generator(device=no_tf32).manual_seed(5)
+    q, k, v = (torch.randn(s, generator=g, device=no_tf32)
+               for s in ((3, 70, 6, 64), (3, 160, 2, 64), (3, 160, 2, 64)))
+    pos = torch.arange(50, 120, device=no_tf32)
+    cases = [dict(window=32, kv_valid=None),
+             dict(window=None, kv_valid=torch.tensor([64, 100, 160],
+                                                     device=no_tf32)),
+             dict(window=8, kv_valid=40)]           # rows 50.. see no key
+    for kw in cases:
+        out = fa.flash_attention(q, k, v, causal=True, q_positions=pos, **kw)
+        want = fa_ref.attention_ref(q, k, v, pos, kw["kv_valid"],
+                                    causal=True, window=kw["window"])
+        torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == len(cases)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,h,Nk,Nv", [
+    (1, 64, 2, 16, 16), (2, 100, 3, 32, 32), (1, 128, 1, 64, 64),
+    (8, 1, 40, 64, 64), (2, 77, 4, 16, 16)])
+def test_wkv_scan_matches_plain_version_on_card(no_tf32, B, S, h, Nk, Nv):
+    rw.reset_launch_counts()
+    g = torch.Generator(device=no_tf32).manual_seed(S + h)
+    rnd = lambda *s: torch.randn(s, generator=g, device=no_tf32)
+    log_w = -torch.exp(rnd(B, S, h, Nk))
+    u, s0 = 0.1 * rnd(h, Nk), 0.1 * rnd(B, h, Nk, Nv)
+    r, k, v = rnd(B, S, h, Nk), rnd(B, S, h, Nk), rnd(B, S, h, Nv)
+    for dt, w_dt in ((torch.float32, torch.float32),
+                     (torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, torch.float32)):
+        args = (r.to(dt), k.to(dt), v.to(dt), log_w.to(w_dt), u, s0)
+        out, sT = rw.wkv_scan(*args)
+        want, want_sT = rw.chunked_linear_recurrence(
+            *args[:4], u=u, initial_state=s0, mode="rwkv", chunk=16,
+            return_state=True)
+        tol = WKV_TOL[dt]
+        torch.testing.assert_close(out, want, rtol=tol, atol=tol)
+        torch.testing.assert_close(sT, want_sT, rtol=tol, atol=tol)
+    out0, _ = rw.wkv_scan(r, k, v, log_w, u)            # zero initial state
+    torch.testing.assert_close(
+        out0, rw.chunked_linear_recurrence(r, k, v, log_w, u=u,
+                                           chunk=16)[0],
+        rtol=3e-4, atol=3e-4)
+    torch.cuda.synchronize()
+    assert rw.LAUNCHES["wkv_scan"] == 4
+    assert rw.PLAIN_CALLS["wkv_scan"] == 0
+
+
+@pytest.mark.cuda
+def test_flash_attention_unaligned_rows_on_card(no_tf32):
+    """Rows that do not start 16-byte aligned take the kernel's
+    element-wise staging; the result is the same function."""
+    fa.reset_launch_counts()
+    g = torch.Generator(device=no_tf32).manual_seed(9)
+    for dt in (torch.float32, torch.bfloat16):
+        # head dim 20 inside rows of 21: neither 16-byte rows nor strides
+        q, k, v = (torch.randn(s + (21,), generator=g,
+                               device=no_tf32).to(dt)[..., :20]
+                   for s in ((2, 33, 4, ), (2, 70, 2), (2, 70, 2)))
+        out = fa.flash_attention(q, k, v, causal=True, q_offset=37)
+        pos = torch.arange(37, 70, device=no_tf32)
+        torch.testing.assert_close(
+            out, fa_ref.attention_ref(q, k, v, pos, None, causal=True),
+            rtol=FLASH_TOL[dt], atol=FLASH_TOL[dt])
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2
