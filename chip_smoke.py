@@ -33,8 +33,13 @@ Phases, one printed line each (plus detail lines):
               versions at the serving path's prefill and decode shapes (bf16
               and fp32) and the odd shapes of tests/test_kernels.py, with
               times, bounds (bytes or tensor-core operations) and, for
-              attention, ``scaled_dot_product_attention`` as the library
-              yardstick.
+              attention, the route each call took and
+              ``scaled_dot_product_attention`` as the library yardstick,
+              timed in turns with the kernel (kernel, SDPA, SDPA, kernel)
+              at the prefill and at decode over 1,500 and 2,111 keys,
+              and the card's own time per call of both and the kernel's
+              device kernels per call (profiler); split-kv decode calls
+              also against the plain split-kv algorithm.
 6. serve    — per arch: ``generate`` (8 prompts of 2,048 tokens; after a
               warm-up call, 1 new token three times for the time to first
               token, 32 new tokens twice: greedy output identical; medians
@@ -48,7 +53,8 @@ Phases, one printed line each (plus detail lines):
               greedy tokens, logits within 1e-4.
 8. kernels line — one JSON object with all six kernels: launches on the
               main path and per path, and numbers at the main path's
-              largest shape.
+              largest shape; for flash, launches by route and the device
+              kernels per call each route took in phase 5's profile.
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -117,20 +123,23 @@ def _tol_text(rtol: float, atol: float) -> str:
 
 class Counts:
     """Zero every kernel's launch count (and its plain-version count) just
-    before a call and read them just after: (fn(), launches, plain)."""
+    before a call and read them just after: (fn(), launches, plain).  The
+    flash routes of the last call are left in ``routes``."""
 
     def __init__(self, torch, mods):
         self.torch, self.mods = torch, mods
+        self.routes = {}
 
     def __call__(self, fn):
         for m in self.mods:
             m.reset_launch_counts()
         out = fn()
         self.torch.cuda.synchronize()
-        launches, plain = {}, {}
+        launches, plain, self.routes = {}, {}, {}
         for m in self.mods:
             launches.update(m.LAUNCHES)
             plain.update(getattr(m, "PLAIN_CALLS", {}))
+            self.routes.update(getattr(m, "ROUTE_CALLS", {}))
         return out, launches, plain
 
 
@@ -166,6 +175,25 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def device_per_call(torch, fn, calls: int = 20):
+    """(the card's own ms per call of ``fn``, device kernels per call): the
+    summed device time of what it launches over ``calls`` calls, and the
+    number of kernel events (copies and fills not counted), by
+    torch.profiler, per call.  Unlike back-to-back CUDA-event timing, the
+    host's enqueue cost does not enter the time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sum(ev.count for ev in prof.key_averages()
+                  if str(getattr(ev, "device_type", "")).endswith("CUDA")
+                  and not ev.key.startswith(("Memcpy", "Memset")))
+    return device_time(prof)[0] / calls, kernels / calls
 
 
 def bound(peaks, nbytes: float, flops: float = 0.0, dtype: str = ""):
@@ -469,10 +497,11 @@ def visible_pairs(Sq, Sk, q_offset, kv_valid, causal, window):
 
 # (tag, B, Sq, Sk, H, KV, hd, causal, q_offset, kv_valid, window): Qwen2-1.5B
 # prefill of 8 x 2048 and one decode step against a 2,112-long cache with
-# 1,500 valid keys, then the shapes of tests/test_kernels.py
+# 1,500 and with 2,111 valid keys, then the shapes of tests/test_kernels.py
 FLASH_CASES = [
     ("prefill", 8, 2048, 2048, 12, 2, 128, True, 0, None, None),
-    ("decode", 8, 1, 2112, 12, 2, 128, True, 1499, 1500, None)] + [
+    ("decode", 8, 1, 2112, 12, 2, 128, True, 1499, 1500, None),
+    ("decode_2111", 8, 1, 2112, 12, 2, 128, True, 2110, 2111, None)] + [
     ("odd", B, Sq, Sk, H, KV, hd, causal, Sk - Sq if causal else 0, None,
      None)
     for B, Sq, Sk, H, KV, hd in ((2, 128, 128, 4, 4, 64),
@@ -481,6 +510,10 @@ FLASH_CASES = [
     for causal in (True, False)] + [
     ("window", 1, 160, 160, 4, 2, 64, True, 0, None, 32),
     ("kv_valid", 2, 8, 128, 4, 4, 64, False, 0, 57, None)]
+FLASH_TIMED = ("prefill", "decode", "decode_2111")
+# split-kv against the plain split-kv algorithm, which also computes in fp32
+# and rounds once: about one bf16 ulp of the output
+FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
 # (tag, B, S, h, Nk, Nv): RWKV6-3B prefill of 8 x 2048 and one decode step,
 # then the ragged shapes of tests/test_kernels.py
 WKV_CASES = [("prefill", 8, 2048, 40, 64, 64), ("decode", 8, 1, 40, 64, 64),
@@ -489,9 +522,11 @@ WKV_CASES = [("prefill", 8, 2048, 40, 64, 64), ("decode", 8, 1, 40, 64, 64),
 
 
 def flash_phase(torch, fa, fa_ref, peaks, seed):
-    """The flash kernel against ``attention_ref`` on the card: the serving
-    path's prefill and decode shapes (timed, with SDPA as the library
-    yardstick) and the odd shapes of tests/test_kernels.py."""
+    """The flash kernels against ``attention_ref`` on the card, with the
+    route each call took: the serving path's prefill and decode shapes
+    (timed in turns with SDPA, the library yardstick: kernel, SDPA, SDPA,
+    kernel) and the odd shapes of tests/test_kernels.py.  Split-kv calls
+    are also held against the plain split-kv algorithm."""
     F = torch.nn.functional
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 101)
@@ -505,30 +540,43 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
             kw = dict(causal=causal, q_offset=q_off, kv_valid=valid,
                       window=window)
             pos = torch.arange(q_off, q_off + Sq, device=dev)
+            fa.reset_launch_counts()
             out = fa.flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            routes = [r for r, n in fa.ROUTE_CALLS.items() if n]
+            check(len(routes) == 1 and fa.LAUNCHES["flash_attention"] == 1,
+                  f"flash {tag}: one launch by one route, got "
+                  f"{fa.ROUTE_CALLS}")
+            route = routes[0]
             want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
                                         window=window)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             torch.testing.assert_close(out, want, rtol=tol, atol=tol)
             err = float((out.float() - want.float()).abs().max().item())
+            dname = str(dtype).replace("torch.", "")
+            if route == "split_kv":
+                split = fa_ref.attention_split_ref(
+                    q, k, v, pos, valid, causal=causal, window=window,
+                    chunk=fa.SPLIT_CHUNK)
+                s_rtol, s_atol = FLASH_SPLIT_TOL[dname]
+                torch.testing.assert_close(out, split, rtol=s_rtol,
+                                           atol=s_atol)
             pairs, keys = visible_pairs(Sq, Sk, q_off, valid, causal, window)
             size = q.element_size()
             nbytes = size * (2 * q.numel() + 2 * B * keys * KV * hd)
             flops = 4.0 * hd * pairs * B * H
-            dname = str(dtype).replace("torch.", "")
             row = {"name": "flash_attention", "case": tag, "B": B, "Sq": Sq,
                    "Sk": Sk, "H": H, "KV": KV, "hd": hd, "causal": causal,
                    "q_offset": q_off, "kv_valid": valid, "window": window,
-                   "dtype": dname, "max_abs_err": err,
+                   "dtype": dname, "route": route,
+                   "max_abs_err": err,
                    "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
                    "flops": flops}
             row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
                                                      dname)
-            is_main = tag in ("prefill", "decode")
+            is_main = tag in FLASH_TIMED
             reps, inner = (5, 5) if is_main else (3, 10)
-            row["ms"] = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
-                                                                  **kw),
-                                reps, inner)
+            kernel = lambda: fa.flash_attention(q, k, v, **kw)
             row["plain_ms"] = cuda_ms(
                 torch, lambda: fa_ref.attention_ref(
                     q, k, v, pos, valid, causal=causal, window=window),
@@ -547,17 +595,39 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                                  - want.float()).abs().max().item())
                 check(lib_err < (1e-2 if dtype == torch.float32 else 0.1),
                       f"SDPA disagrees with the plain version: {lib_err}")
-                row["library_ms"] = cuda_ms(torch, sdpa, reps, inner)
+                # in turns: kernel, SDPA, SDPA, kernel
+                turns = [cuda_ms(torch, fn, reps, inner)
+                         for fn in (kernel, sdpa, sdpa, kernel)]
+                row["ms_turns"] = [turns[0], turns[3]]
+                row["library_ms_turns"] = [turns[1], turns[2]]
+                row["ms"] = statistics.mean(row["ms_turns"])
+                row["library_ms"] = statistics.mean(row["library_ms_turns"])
+                row["device_ms"], row["device_kernels"] = device_per_call(
+                    torch, kernel)
+                row["library_device_ms"], _ = device_per_call(torch, sdpa)
+                check(row["device_kernels"] >= 1,
+                      f"flash {tag}: no kernel on the card in the profile")
                 main.setdefault(tag, row)
+            else:
+                row["ms"] = cuda_ms(torch, kernel, reps, inner)
             rows.append(row)
             lib = row["library_ms"]
             say(f"  kernel flash_attention {tag} B={B} Sq={Sq} Sk={Sk} H={H} "
                 f"KV={KV} hd={hd} causal={causal} kv_valid={valid} "
-                f"window={window} {row['dtype']}: kernel_ms={row['ms']:.6f} "
-                f"plain_ms={row['plain_ms']:.6f} library_ms="
+                f"window={window} {row['dtype']} route={route}: kernel_ms="
+                f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
                 f"{'null' if lib is None else f'{lib:.6f}'} bound_ms="
                 f"{row['bound_ms']:.6f} ({row['bound_by']}) "
                 f"max_abs_err={err!r} tolerance={row['tolerance']}")
+            if is_main:
+                say(f"    in turns (kernel, SDPA, SDPA, kernel): "
+                    f"{turns[0]:.6f} {turns[1]:.6f} {turns[2]:.6f} "
+                    f"{turns[3]:.6f} ms; kernel / SDPA "
+                    f"{row['ms'] / lib:.3f}, bound / kernel "
+                    f"{row['bound_ms'] / row['ms']:.3f}; device time per "
+                    f"call (profiler) kernel {row['device_ms']:.6f} ms "
+                    f"in {row['device_kernels']:g} device kernels, "
+                    f"SDPA {row['library_device_ms']:.6f} ms")
             del q, k, v, out, want
     return rows, main
 
@@ -642,6 +712,7 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
     L, V = cfg.n_layers, cfg.vocab_size
     rng = np.random.default_rng(seed + 303)
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
+    routes = {}
 
     def run(fn, want, what):
         (out, ms), launches, plain = counts(lambda: wall(torch, fn))
@@ -650,6 +721,8 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
               f"expected {want} {kernel} launches and no plain call")
         for k2, n in launches.items():
             total[k2] += n
+        for r, n in counts.routes.items():
+            routes[r] = routes.get(r, 0) + n
         return out, ms
 
     torch.cuda.empty_cache()
@@ -730,7 +803,7 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
            "serve_prompt_lens": [len(r.prompt) for r in reqs],
            "serve_max_new": [r.max_new_tokens for r in reqs],
            "peak_memory_gb": peak_gb, "decode_vs_forward_fp32": errs,
-           "profile": prof, "launches": total}
+           "profile": prof, "launches": total, "flash_routes": routes}
     say(f"  serve {cfg.name}: {n_params} params bf16, init_ms={init_ms:.1f}; "
         f"ttft_ms={ttft_ms:.3f} (8 x {PROMPT} prefill + first token) "
         f"decode_ms_per_step={decode_ms:.3f} generate {SLOTS}x{NEW} tokens "
@@ -740,7 +813,8 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
         f"{peak_gb:.3f} GB; greedy identical on two runs")
     say(f"  serve {cfg.name} fp32: |prefill - forward| = {errs[0]!r}, "
         f"|decode - forward| = {errs[1]!r} (limit 2e-3); {L} {kernel} "
-        f"launches per forward, prefill and decode step")
+        f"launches per forward, prefill and decode step; flash routes "
+        f"{routes}")
     say(f"  profile {cfg.name} decode step (x{prof['steps']}): wall_ms="
         f"{prof['wall_ms']:.3f} device_busy_ms={prof['device_busy_ms']:.3f} "
         f"device_idle_share={prof['idle_share']:.3f}")
@@ -973,6 +1047,11 @@ def main(argv=None) -> int:
                      wkv_scan=wkv_main["prefill"])
     sources = {k: SOURCE for k in KERNELS}
     sources.update(flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
+    flash_routes = serving["qwen2-1.5b"]["flash_routes"]
+    check(flash_routes.get("tensor_core", 0) > 0
+          and flash_routes.get("split_kv", 0) > 0,
+          f"serving qwen2-1.5b took the tensor-core prefill and the "
+          f"split-kv decode: {flash_routes}")
     kernels = []
     for kname in KERNELS + LM_KERNELS:
         launches = by_path[main_path[kname]].get(kname, 0)
@@ -990,6 +1069,15 @@ def main(argv=None) -> int:
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"]})
+        if kname == "flash_attention":
+            # device kernels per call, by route, as profiled in phase 5
+            per_call = {r["route"]: r["device_kernels"] for r in flash_rows
+                        if "device_kernels" in r}
+            check(set(per_call) >= {r for r, n in flash_routes.items() if n},
+                  f"every flash route of the main path profiled: "
+                  f"{per_call}")
+            kernels[-1].update(launches_by_route=flash_routes,
+                               device_kernels_per_call=per_call)
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -5,8 +5,9 @@ Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with :mod:`ctypes` — no PyTorch headers, so a build takes seconds.
 The build happens at first use, from the repository's sources only, into
 ``kernels/_build/`` (listed in ``.gitignore``); the library's file name
-carries a hash of its source and flags, so an edited source rebuilds and an
-unchanged one is loaded as it is.
+carries a hash of every file in the source's ``csrc/`` directory (the
+source and the headers it includes) and of the flags, so an edited source
+or header rebuilds and an unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU tests import every module, and this
 host may have no ``nvcc``.  A failed build raises; there is no fallback.
@@ -54,6 +55,16 @@ def nvcc_path() -> str:
                        "are built from source at first use")
 
 
+def source_digest(src: pathlib.Path) -> str:
+    """Hash of the flags and of every file in ``src``'s directory (names and
+    bytes, in name order): what a build of ``src`` can read."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(src.parent.iterdir()):
+        if path.is_file():
+            digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str, source: str) -> ctypes.CDLL:
     """Compile ``source`` (a path relative to ``kernels/``) into
@@ -63,8 +74,7 @@ def load_library(name: str, source: str) -> ctypes.CDLL:
     renames it into place, so concurrent first calls never load a
     half-written library."""
     src = KERNELS_DIR / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = source_digest(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}-{digest}.so"
     if not lib_path.exists():
@@ -91,5 +101,7 @@ def check_launch(rc: int, op: str) -> None:
 
 
 def stream_handle() -> int:
-    """PyTorch's current CUDA stream, as the C entry points take it."""
-    return torch.cuda.current_stream().cuda_stream
+    """PyTorch's current CUDA stream, as the C entry points take it: the
+    raw handle, without building the ``torch.cuda.Stream`` object that
+    ``torch.cuda.current_stream()`` returns on every launch."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())

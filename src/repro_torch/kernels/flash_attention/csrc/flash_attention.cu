@@ -7,8 +7,9 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes.  The
-// entry point launches on the caller's stream, allocates nothing, does not
-// synchronise, and returns cudaGetLastError().
+// entry points launch on the caller's stream, allocate nothing (scratch
+// comes from the caller), do not synchronise, and return
+// cudaGetLastError().
 //
 // What it computes (flash_attention_ref's function, model layout):
 //   q [B, Sq, H, hd], k / v [B, Sk, KV, hd], H = KV * G, read in place
@@ -20,8 +21,24 @@
 //   the reference; scores, the running max m, the denominator l and the
 //   accumulator are fp32; the result is acc / max(l, 1e-30).
 //
-// Design (simple and right first; no tensor cores yet):
-//   * One block of 4 warps serves RB = 4 * RW (query, head) rows of one
+// Three routes; the caller (ops.py) picks one by dtype and shape:
+//   fa_forward_tc    bf16 prefill on the tensor cores (flash_tc.cuh).
+//   fa_forward_split decode (at most 16 (query, head) rows per (batch, kv
+//                    head)), fp32 or bf16 (flash_split below): the key range
+//                    is cut into chunks, one block per (batch, kv head,
+//                    chunk) copies the chunk's K and V once for all its rows
+//                    and writes a partial (m, l, acc) to the caller's fp32
+//                    scratch, and flash_merge combines the partials in chunk
+//                    order (two calls give the same bits).  Decode reads
+//                    each cached key once and is bound by those bytes; the
+//                    chunks give B * KV * chunks blocks where one block per
+//                    (batch, kv head) gave 16 on 132 SMs.
+//   fa_forward       the CUDA-core kernel below: fp32 prefill (full fp32
+//                    products), and hd not a multiple of 16 or rows not
+//                    16-byte aligned.
+//
+// CUDA-core kernel design (flash_fwd):
+//   * One block of 4 warps serves RB = 4 * RW = 64 (query, head) rows of one
 //     (batch, kv head): the G query heads of a kv head share every K/V tile
 //     read, so K/V are read once per group, not once per query head.
 //   * The kv loop runs inside the block over tiles of BK = 32 keys staged
@@ -39,14 +56,15 @@
 //     memory).  Softmax: warp max / sum per row.  P.V: each lane owns hd/32
 //     output columns of each row; P goes through shared memory.
 //   * fp32 on CUDA cores bounds it by operations: 4 * hd FLOPs per (row,
-//     visible key) against the card's fp32 rate, far from the bf16 tensor
-//     core bound; wgmma tiles and TMA loads are later work.
-//   * Decode (Sq = 1) gives only B * KV blocks; split-kv is later work.
+//     visible key) against the card's fp32 rate.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
+#include <stddef.h>
 #include <stdint.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -87,6 +105,9 @@ struct Args {
   int causal, has_window, window;
   float scale;
   int vec;            // every row of q, k, v starts 16-byte aligned
+  // split-kv route only: the partials' scratch (m, l) [chunks, B * Sq * H,
+  // 2] and acc [chunks, B * Sq * H, hd]
+  float* part_ml; float* part_acc;
 };
 
 // 16 bytes of T widened to fp32
@@ -322,6 +343,232 @@ flash_fwd(const Args a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Split-kv route (decode): at most kSplitRows (query, head) rows per (batch,
+// kv head).  One block per (batch, kv head, chunk of kChunk keys): the
+// chunk's K and V rows are copied to shared memory at once (cp.async, one
+// memory latency per block), thread t < kChunk scores key t for every row,
+// each warp takes the softmax of some rows, and thread d sums column d of
+// P V.  The block writes its unnormalised partial (m, l, acc) per row;
+// flash_merge below combines the chunks.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitRows = 16;
+constexpr int kChunk = 64;              // keys per chunk, one per thread
+static_assert(kChunk <= kThreads && kChunk % 4 == 0, "one key per thread");
+
+template <typename T, int HD>
+constexpr int split_smem_bytes() {
+  // Q rows and scores as fp32, K rows padded by 16 bytes (conflict-free
+  // 16-byte reads by one thread per row), V rows
+  return 4 * kSplitRows * (HD + kChunk)
+         + kChunk * (HD * int(sizeof(T)) + 16) + kChunk * HD * int(sizeof(T));
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_split(const Args a) {
+  constexpr int KROW = HD * int(sizeof(T)) + 16;    // bytes per K row
+  constexpr int VROW = HD * int(sizeof(T));
+  constexpr int PER16 = 16 / int(sizeof(T));        // elements per 16 bytes
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                                  // [kSplitRows][HD]
+  float* ss = qs + kSplitRows * HD;                  // [kSplitRows][kChunk]
+  char* kbuf = reinterpret_cast<char*>(ss + kSplitRows * kChunk);
+  char* vbuf = kbuf + kChunk * KROW;
+  __shared__ int s_lo, s_hi, s_empty;
+  __shared__ int s_qlo[kSplitRows], s_qhi[kSplitRows];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int G = a.H / a.KV;
+  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
+  const int R = a.Sq * G;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+
+  int valid = a.kv_valid ? a.kv_valid[b] : a.kv_valid_n;
+  valid = min(max(valid, 0), a.Sk);
+
+  // ---- each query's visible keys; the block's range is their union,
+  // widened to [0, Sk) when a query sees none, cut to this chunk
+  if (tid == 0) { s_lo = a.Sk; s_hi = 0; s_empty = 0; }
+  __syncthreads();
+  if (tid < a.Sq) {
+    const int pos = a.q_pos ? a.q_pos[tid] : a.q_offset + tid;
+    const int hi = a.causal ? min(valid, pos + 1) : valid;
+    const int lo = a.has_window ? max(0, pos - a.window + 1) : 0;
+    s_qlo[tid] = lo;
+    s_qhi[tid] = hi;
+    if (hi <= lo) {
+      s_empty = 1;
+    } else {
+      atomicMin(&s_lo, lo);
+      atomicMax(&s_hi, hi);
+    }
+  }
+  stage<T, HD, kSplitRows>(qs, HD, a.hd, a.vec, [&](int r) -> const T* {
+    if (r >= R) return nullptr;
+    return q + b * a.q_sb + (r / G) * a.q_ss + (kvh * G + r % G) * a.q_sh;
+  });
+  __syncthreads();
+  const int c0 = static_cast<int>(blockIdx.z) * kChunk;
+  const int lo = max(s_empty ? 0 : s_lo, c0);
+  const int n = max(min(s_empty ? a.Sk : s_hi, c0 + kChunk) - lo, 0);
+  const int n4 = (n + 3) & ~3;          // P V reads keys four at a time
+
+  // ---- K and V rows [lo, lo + n) to shared memory, zero past hd and for
+  // the rows up to n4
+  if (a.vec) {
+    constexpr int PIECES = HD / PER16;
+    for (int e = tid; e < n4 * PIECES; e += kThreads) {
+      const int j = e / PIECES, d = (e % PIECES) * PER16;
+      const bool ok = j < n && d < a.hd;
+      const int64_t key = lo + j;
+      tc::cp_async16(tc::smem_u32(kbuf + j * KROW + d * int(sizeof(T))),
+                     ok ? k + b * a.k_sb + key * a.k_ss + kvh * a.k_sh + d
+                        : k, ok);
+      tc::cp_async16(tc::smem_u32(vbuf + j * VROW + d * int(sizeof(T))),
+                     ok ? v + b * a.v_sb + key * a.v_ss + kvh * a.v_sh + d
+                        : v, ok);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<0>();
+  } else {
+    for (int e = tid; e < n4 * HD; e += kThreads) {
+      const int j = e / HD, d = e % HD;
+      const bool ok = j < n && d < a.hd;
+      const int64_t key = lo + j;
+      reinterpret_cast<T*>(kbuf + j * KROW)[d] =
+          ok ? k[b * a.k_sb + key * a.k_ss + kvh * a.k_sh + d] : T(0.f);
+      reinterpret_cast<T*>(vbuf + j * VROW)[d] =
+          ok ? v[b * a.v_sb + key * a.v_ss + kvh * a.v_sh + d] : T(0.f);
+    }
+  }
+  __syncthreads();
+
+  // ---- scores: thread t < kChunk takes key lo + t for every row (0 past
+  // n)
+  if (tid < kChunk) {
+    const int t = tid;
+    float s[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) s[r] = 0.f;
+    if (t < n) {
+      const char* krow = kbuf + t * KROW;
+#pragma unroll 4
+      for (int d0 = 0; d0 < HD; d0 += 8) {
+        float kx[8];
+        Vec16<T>::widen(*reinterpret_cast<const uint4*>(
+                            krow + d0 * int(sizeof(T))), kx);
+        if (PER16 == 4)
+          Vec16<T>::widen(*reinterpret_cast<const uint4*>(
+                              krow + (d0 + 4) * int(sizeof(T))), kx + 4);
+#pragma unroll
+        for (int r = 0; r < kSplitRows; ++r) {
+          if (r >= R) break;
+          const float4 q0 = *reinterpret_cast<const float4*>(qs + r * HD
+                                                             + d0);
+          const float4 q1 = *reinterpret_cast<const float4*>(qs + r * HD
+                                                             + d0 + 4);
+          s[r] = fmaf(q0.x, kx[0], s[r]); s[r] = fmaf(q0.y, kx[1], s[r]);
+          s[r] = fmaf(q0.z, kx[2], s[r]); s[r] = fmaf(q0.w, kx[3], s[r]);
+          s[r] = fmaf(q1.x, kx[4], s[r]); s[r] = fmaf(q1.y, kx[5], s[r]);
+          s[r] = fmaf(q1.z, kx[6], s[r]); s[r] = fmaf(q1.w, kx[7], s[r]);
+        }
+      }
+    }
+    const int key = lo + t;
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      if (r >= R) break;
+      const int qi = r / G;
+      const bool ok = key >= s_qlo[qi] && key < s_qhi[qi];
+      ss[r * kChunk + t] = t >= n ? 0.f : ok ? s[r] * a.scale : kNegInf;
+    }
+  }
+  __syncthreads();
+
+  // ---- softmax of each row over the chunk: m (NEG_INF with no key), l,
+  // and p in place of the scores
+  const int64_t rows = int64_t(a.B) * a.Sq * a.H;
+  auto prow = [&](int r) -> int64_t {
+    return int64_t(blockIdx.z) * rows
+           + (int64_t(b) * a.Sq + r / G) * a.H + kvh * G + r % G;
+  };
+  for (int r = warp; r < R; r += kWarps) {
+    float* srow = ss + r * kChunk;
+    float mx = kNegInf;
+    for (int t = lane; t < n; t += 32) mx = fmaxf(mx, srow[t]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int t = lane; t < n; t += 32) {
+      const float p = expf(srow[t] - mx);
+      srow[t] = p;
+      sum += p;
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) {
+      a.part_ml[2 * prow(r)] = mx;
+      a.part_ml[2 * prow(r) + 1] = sum;
+    }
+  }
+  __syncthreads();
+
+  // ---- acc = P V: thread d sums column d over the chunk's keys
+  const int d = tid;
+  if (d < a.hd) {
+    float acc[kSplitRows];
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) acc[r] = 0.f;
+    for (int t = 0; t < n4; t += 4) {
+      float vv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        vv[u] = to_f32(reinterpret_cast<const T*>(vbuf + (t + u) * VROW)[d]);
+#pragma unroll
+      for (int r = 0; r < kSplitRows; ++r) {
+        if (r >= R) break;
+        const float4 p = *reinterpret_cast<const float4*>(
+            ss + r * kChunk + t);
+        acc[r] = fmaf(p.x, vv[0], acc[r]); acc[r] = fmaf(p.y, vv[1], acc[r]);
+        acc[r] = fmaf(p.z, vv[2], acc[r]); acc[r] = fmaf(p.w, vv[3], acc[r]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kSplitRows; ++r) {
+      if (r >= R) break;
+      a.part_acc[prow(r) * a.hd + d] = acc[r];
+    }
+  }
+}
+
+// Merge the chunks' partials of one output row, in chunk order:
+// out = sum_s e_s acc_s / max(sum_s e_s l_s, 1e-30), e_s = exp(m_s - M),
+// M = max_s m_s.  One block per row, one thread per column.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_merge(const Args a, int n_chunks) {
+  const int64_t row = blockIdx.x;
+  const int64_t rows = int64_t(a.B) * a.Sq * a.H;
+  float M = kNegInf;
+  for (int s = 0; s < n_chunks; ++s)
+    M = fmaxf(M, a.part_ml[2 * (s * rows + row)]);
+  float L = 0.f;
+  for (int s = 0; s < n_chunks; ++s)
+    L += a.part_ml[2 * (s * rows + row) + 1]
+         * expf(a.part_ml[2 * (s * rows + row)] - M);
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+  T* o = static_cast<T*>(a.out) + row * a.hd;
+  for (int d = threadIdx.x; d < a.hd; d += kThreads) {
+    float acc = 0.f;
+    for (int s = 0; s < n_chunks; ++s)
+      acc += a.part_acc[(s * rows + row) * a.hd + d]
+             * expf(a.part_ml[2 * (s * rows + row)] - M);
+    store(o + d, acc * inv);
+  }
+}
+
 template <typename T, int HD, int RW>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int RB = kWarps * RW;
@@ -340,48 +587,128 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// 16 rows per warp: the caller sends calls of at most 16 rows per (batch,
+// kv head) to the split-kv route
+template <typename T>
+int dispatch(const Args& a, cudaStream_t stream) {
+  if (a.hd <= 32) return launch<T, 32, 16>(a, stream);
+  if (a.hd <= 64) return launch<T, 64, 16>(a, stream);
+  return launch<T, 128, 16>(a, stream);
+}
+
+// the chunks' partials, then their merge on the same stream
 template <typename T, int HD>
-int dispatch_rows(const Args& a, cudaStream_t stream) {
-  // few rows per (batch, kv head), as in decode: small blocks
-  if (a.Sq * (a.H / a.KV) <= 4 * kWarps) return launch<T, HD, 4>(a, stream);
-  return launch<T, HD, 16>(a, stream);
+int launch_split(const Args& a, int n_chunks, cudaStream_t stream) {
+  constexpr int smem = split_smem_bytes<T, HD>();
+  static bool configured = false;       // one attribute call per variant
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid(1, a.B * a.KV, n_chunks);
+  flash_split<T, HD><<<grid, kThreads, smem, stream>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_merge<T><<<a.B * a.Sq * a.H, kThreads, 0, stream>>>(a, n_chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const Args& a, cudaStream_t stream) {
-  if (a.hd <= 32) return dispatch_rows<T, 32>(a, stream);
-  if (a.hd <= 64) return dispatch_rows<T, 64>(a, stream);
-  return dispatch_rows<T, 128>(a, stream);
+int dispatch_split(const Args& a, int n_chunks, cudaStream_t stream) {
+  if (a.hd <= 32) return launch_split<T, 32>(a, n_chunks, stream);
+  if (a.hd <= 64) return launch_split<T, 64>(a, n_chunks, stream);
+  return launch_split<T, 128>(a, n_chunks, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Returns a cudaError_t (0 = launched).  hd <= 128; strides in elements.
-// q_pos may be null (positions q_offset + i), kv_valid may be null (one
-// valid length kv_valid_n for every batch row).  vec != 0 promises that
-// hd is a multiple of 16 bytes' worth of elements and that every row of
-// q, k and v starts 16-byte aligned (16-byte loads).
+// Each entry point returns a cudaError_t (0 = launched).  hd <= 128;
+// strides in elements.  q_pos may be null (positions q_offset + i),
+// kv_valid may be null (one valid length kv_valid_n for every batch row).
+// vec != 0 promises that hd is a multiple of 16 bytes' worth of elements
+// and that every row of q, k and v starts 16-byte aligned (16-byte loads).
+
+static bool bad_shape(int hd, int H, int KV) {
+  return hd < 1 || hd > 128 || KV < 1 || H % KV != 0;
+}
+
+// The CUDA-core route: any dtype code, alignment and hd <= 128.
 int fa_forward(int dtype, const void* q, const void* k, const void* v,
                void* out, int B, int Sq, int Sk, int H, int KV, int hd,
-               int64_t q_sb, int64_t q_ss, int64_t q_sh,
-               int64_t k_sb, int64_t k_ss, int64_t k_sh,
-               int64_t v_sb, int64_t v_ss, int64_t v_sh,
-               const int* q_pos, int q_offset, const int* kv_valid,
-               int kv_valid_n, int causal, int has_window, int window,
-               float scale, int vec, void* stream) {
-  if (hd < 1 || hd > 128 || KV < 1 || H % KV != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
+               int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
+               int64_t v_sh, const int* q_pos, int q_offset,
+               const int* kv_valid, int kv_valid_n, int causal,
+               int has_window, int window, float scale, int vec,
+               void* stream) {
+  if (bad_shape(hd, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0) return 0;
-  Args a{q, k, v, out, B, Sq, Sk, H, KV, hd,
-         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-         q_pos, q_offset, kv_valid, kv_valid_n,
-         causal, has_window, window, scale, vec};
+  const Args a{q, k, v, out, B, Sq, Sk, H, KV, hd,
+               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+               q_pos, q_offset, kv_valid, kv_valid_n,
+               causal, has_window, window, scale, vec, nullptr, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) return dispatch<float>(a, s);
   if (dtype == kBF16) return dispatch<__nv_bfloat16>(a, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The two routes below run once per layer per step, where the host's cost
+// of passing some 30 scalars through ctypes would set a decode call's time,
+// so they take the Args block packed by the caller (layout checked against
+// fa_args_offsets at load), as a void pointer: a parameter of the unnamed
+// namespace's Args type would give them internal linkage.
+
+// The tensor-core route: bf16, hd a multiple of 16, vec.
+int fa_forward_tc(int dtype, const void* args, void* stream) {
+  const Args* a = static_cast<const Args*>(args);
+  if (bad_shape(a->hd, a->H, a->KV) || dtype != kBF16 || a->hd % 16 != 0
+      || !a->vec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->B == 0 || a->Sq == 0) return 0;
+  return tc::dispatch(*a, static_cast<cudaStream_t>(stream));
+}
+
+// The split-kv route: Sq * H / KV <= 16 rows per (batch, kv head); the key
+// range [0, Sk) is cut into n_chunks chunks of 64 keys (n_chunks * 64 >=
+// Sk); a->part_ml and a->part_acc hold n_chunks * B * Sq * H * 2 and
+// n_chunks * B * Sq * H * hd floats.  Launches two kernels.
+int fa_forward_split(int dtype, const void* args, int n_chunks,
+                     void* stream) {
+  const Args* a = static_cast<const Args*>(args);
+  if (bad_shape(a->hd, a->H, a->KV) || a->Sq * (a->H / a->KV) > kSplitRows
+      || n_chunks < 1 || int64_t(kChunk) * n_chunks < a->Sk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->B == 0 || a->Sq == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return dispatch_split<float>(*a, n_chunks, s);
+  if (dtype == kBF16) return dispatch_split<__nv_bfloat16>(*a, n_chunks, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The byte offset of each field of Args, in declaration order, into out
+// (at most n entries); returns the number of fields.
+int fa_args_offsets(int64_t* out, int n) {
+  const int64_t offs[] = {
+      offsetof(Args, q), offsetof(Args, k), offsetof(Args, v),
+      offsetof(Args, out), offsetof(Args, B), offsetof(Args, Sq),
+      offsetof(Args, Sk), offsetof(Args, H), offsetof(Args, KV),
+      offsetof(Args, hd), offsetof(Args, q_sb), offsetof(Args, q_ss),
+      offsetof(Args, q_sh), offsetof(Args, k_sb), offsetof(Args, k_ss),
+      offsetof(Args, k_sh), offsetof(Args, v_sb), offsetof(Args, v_ss),
+      offsetof(Args, v_sh), offsetof(Args, q_pos), offsetof(Args, q_offset),
+      offsetof(Args, kv_valid), offsetof(Args, kv_valid_n),
+      offsetof(Args, causal), offsetof(Args, has_window),
+      offsetof(Args, window), offsetof(Args, scale), offsetof(Args, vec),
+      offsetof(Args, part_ml), offsetof(Args, part_acc)};
+  const int count = static_cast<int>(sizeof(offs) / sizeof(offs[0]));
+  for (int i = 0; i < count && i < n; ++i) out[i] = offs[i];
+  return count;
 }
 
 }  // extern "C"

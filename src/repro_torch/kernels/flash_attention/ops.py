@@ -2,10 +2,22 @@
 ops.py``, in model layout.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
-kernel (``csrc/flash_attention.cu``, built at first use by
-:mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the
-plain version :func:`.ref.attention_ref`.  There is no fallback from the
-card to the CPU and no library attention.
+kernels (``csrc/flash_attention.cu`` and ``csrc/flash_tc.cuh``, built at
+first use by :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor
+it runs the plain version :func:`.ref.attention_ref`.  There is no fallback
+from the card to the CPU and no library attention.
+
+On the card :func:`route` picks one of three kernels by dtype and shape
+alone (never by a failure):
+
+* ``split_kv`` — at most 16 (query, head) rows per (batch, kv head), which
+  is decode, fp32 or bf16: one block per (batch, kv head, chunk of
+  ``SPLIT_CHUNK`` keys) writes a partial softmax to fp32 scratch, and a
+  second kernel merges the partials in chunk order (bitwise repeatable).
+* ``tensor_core`` — bf16 prefill with hd a multiple of 16 and 16-byte
+  aligned rows: ``wgmma`` bf16 products with fp32 accumulators.
+* ``cuda_core`` — everything else: fp32 prefill (full fp32 products), hd
+  not a multiple of 16, unaligned rows.
 
 The JAX wrapper transposes to ``[B*KV, G, S, hd]`` and pads hd to 128
 lanes and S to its block sizes for the TPU's tiling.  The kernel reads
@@ -14,13 +26,16 @@ strides and needs no padding or block sizes.  Query positions and the
 valid key count are runtime arguments (ints or tensors on the card), so a
 decode step reuses the same launch for every position.
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls that took the
-plain version (CPU tensors); :func:`reset_launch_counts` zeroes both.
+``LAUNCHES`` counts wrapper calls that launched (one per call, whichever
+route; ``split_kv`` runs two device kernels), ``ROUTE_CALLS`` the same calls
+by route, and ``PLAIN_CALLS`` calls that took the plain version (CPU
+tensors); :func:`reset_launch_counts` zeroes all three.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 import time
 from typing import Dict, Optional, Union
 
@@ -31,14 +46,44 @@ from .. import _build
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
+ROUTES = ("tensor_core", "split_kv", "cuda_core")
+ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 MAX_HEAD_DIM = 128
+SPLIT_MAX_ROWS = 16         # (query, head) rows per (batch, kv head)
+SPLIT_CHUNK = 64            # keys per split-kv chunk (kChunk of the source)
+
+
+# ``Args`` of csrc/flash_attention.cu, field by field in declaration order
+# (struct codes, native alignment): the tensor-core and split-kv entry
+# points take it packed, and _library checks these offsets against the
+# compiler's
+ARGS_CODES = "PPPP" + "i" * 6 + "q" * 9 + "PiPiiiifiPP"
+_ARGS = struct.Struct("@" + ARGS_CODES)
+
+
+def args_offsets() -> list:
+    """Byte offset of each field of the packed ``Args``."""
+    return [struct.calcsize("@" + ARGS_CODES[:i] + "0" + c)
+            for i, c in enumerate(ARGS_CODES)]
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["flash_attention"] = 0
     PLAIN_CALLS["flash_attention"] = 0
+    for r in ROUTES:
+        ROUTE_CALLS[r] = 0
+
+
+def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
+          vec: bool) -> str:
+    """The kernel a card call takes, by dtype and shape alone."""
+    if Sq * (H // KV) <= SPLIT_MAX_ROWS:
+        return "split_kv"
+    if dtype == torch.bfloat16 and hd % 16 == 0 and vec:
+        return "tensor_core"
+    return "cuda_core"
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,10 +91,21 @@ def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention",
                               "flash_attention/csrc/flash_attention.cu")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.fa_forward.argtypes = ([i32, p, p, p, p] + [i32] * 6 + [i64] * 9
-                               + [p, i32, p, i32, i32, i32, i32,
-                                  ctypes.c_float, i32, p])
-    lib.fa_forward.restype = ctypes.c_int
+    args = ([i32, p, p, p, p] + [i32] * 6 + [i64] * 9
+            + [p, i32, p, i32, i32, i32, i32, ctypes.c_float, i32, p])
+    for fn, argtypes in ((lib.fa_forward, args),
+                         (lib.fa_forward_tc, [i32, p, p]),
+                         (lib.fa_forward_split, [i32, p, i32, p]),
+                         (lib.fa_args_offsets, [p, i32])):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    want = args_offsets()
+    got = (ctypes.c_int64 * len(want))()
+    n = lib.fa_args_offsets(ctypes.addressof(got), len(want))
+    if n != len(want) or list(got) != want:
+        raise RuntimeError(f"flash_attention: Args layout of the library "
+                           f"({n} fields, offsets {list(got)}) differs from "
+                           f"the packed one ({want})")
     return lib
 
 
@@ -82,16 +138,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
                          f"[B, Sq, KV*G, hd] / [B, Sk, KV, hd]")
-    if q.device.type == "cpu":
+    dev = q.device
+    if dev.type == "cpu":
         PLAIN_CALLS["flash_attention"] += 1
         pos = (q_positions if q_positions is not None
                else torch.arange(q_offset, q_offset + Sq))
         return ref.attention_ref(q, k, v, pos, kv_valid, causal=causal,
                                  window=window)
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention: q, k, v must share one CUDA "
-                         f"device (or the CPU), got {q.device}, {k.device}, "
+                         f"device (or the CPU), got {dev}, {k.device}, "
                          f"{v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: q, k, v must all be float32 or "
@@ -101,32 +157,59 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: head dim {hd} > {MAX_HEAD_DIM} "
                          f"is not supported by the kernel")
     # the kernel takes any strides but a unit stride along hd
-    q, k, v = (x if x.stride(3) == 1 else x.contiguous() for x in (q, k, v))
+    if q.stride(3) != 1:
+        q = q.contiguous()
+    if k.stride(3) != 1:
+        k = k.contiguous()
+    if v.stride(3) != 1:
+        v = v.contiguous()
     pos_ptr, valid_ptr, valid_n = None, None, Sk
     if q_positions is not None:
-        q_positions = _int32_on(q_positions, q.device, (Sq,))
+        q_positions = _int32_on(q_positions, dev, (Sq,))
         pos_ptr = q_positions.data_ptr()
     if isinstance(kv_valid, torch.Tensor):
-        kv_valid = _int32_on(kv_valid, q.device, (B,))
+        kv_valid = _int32_on(kv_valid, dev, (B,))
         valid_ptr = kv_valid.data_ptr()
     elif kv_valid is not None:
         valid_n = int(kv_valid)
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
     # 16-byte loads when every row of q, k, v starts 16-byte aligned
     per16 = 16 // q.element_size()
-    vec = hd % per16 == 0 and all(
-        x.data_ptr() % 16 == 0 and all(st % per16 == 0
-                                       for st in x.stride()[:3])
-        for x in (q, k, v))
-    rc = _library().fa_forward(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, Sq, Sk, H, KV, hd,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        pos_ptr, int(q_offset), valid_ptr, valid_n, int(bool(causal)),
-        int(window is not None), int(window or 0), hd ** -0.5, int(vec),
-        _build.stream_handle())
-    _build.check_launch(rc, "flash_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    strides = q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
+    vec = (hd % per16 == 0 and all(p % 16 == 0 for p in ptrs[:3])
+           and all(st % per16 == 0 for st in strides))
+    way = route(q.dtype, Sq, H, KV, hd, vec)
+    lib = _library()
+    stream = _build.stream_handle()
+    scalars = (B, Sq, Sk, H, KV, hd, *strides, pos_ptr or 0, int(q_offset),
+               valid_ptr or 0, valid_n, int(bool(causal)),
+               int(window is not None), int(window or 0), hd ** -0.5,
+               int(vec))
+    if way == "cuda_core":
+        rc = lib.fa_forward(_DTYPES[q.dtype], *ptrs, *scalars, stream)
+    else:
+        ml_ptr = acc_ptr = 0
+        if way == "split_kv":
+            n_chunks = max(-(-Sk // SPLIT_CHUNK), 1)
+            rows = n_chunks * B * Sq * H
+            # each chunk's partial per output row: acc [rows, hd], (m, l)
+            part = torch.empty(rows * (hd + 2), dtype=torch.float32,
+                               device=dev)
+            acc_ptr = part.data_ptr()
+            ml_ptr = acc_ptr + 4 * rows * hd
+        block = ctypes.create_string_buffer(_ARGS.size)
+        _ARGS.pack_into(block, 0, *ptrs, *scalars, ml_ptr, acc_ptr)
+        if way == "split_kv":
+            rc = lib.fa_forward_split(_DTYPES[q.dtype],
+                                      ctypes.addressof(block), n_chunks,
+                                      stream)
+        else:
+            rc = lib.fa_forward_tc(_DTYPES[q.dtype],
+                                   ctypes.addressof(block), stream)
+    _build.check_launch(rc, f"flash_attention ({way})")
     LAUNCHES["flash_attention"] += 1
+    ROUTE_CALLS[way] += 1
     return out

@@ -4,7 +4,10 @@
 ref.py`` (kernel layout, same signature).  ``attention_ref`` computes the
 same function in model layout with runtime query positions and per-batch
 valid lengths: it is what :func:`..ops.flash_attention` runs for a CPU
-tensor, and what the CUDA kernel is held against on the card.
+tensor, and what the CUDA kernels are held against on the card.
+``attention_split_ref`` computes it the way the split-kv decode kernel
+does (per-chunk partials, then a merge in chunk order); the card holds the
+decode kernel against it too.
 """
 from __future__ import annotations
 
@@ -62,4 +65,69 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bqkgs,bskh->bqkgh", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        q_positions: torch.Tensor,
+                        kv_valid: Union[None, int, torch.Tensor] = None, *,
+                        chunk: int, causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """:func:`attention_ref`'s function, computed as the split-kv kernel
+    computes it.  The keys of batch row b that any query can see form the
+    range [lo_b, hi_b) (widened to [0, Sk) when some query sees none: its
+    weights are then uniform over all Sk keys).  Chunk c, keys
+    [c * chunk, (c + 1) * chunk) of that range, gives each row a partial
+    m_c (max score, NEG_INF with no key), l_c = sum exp(s - m_c) and
+    acc_c = sum exp(s - m_c) v; masked keys in range score NEG_INF, keys
+    outside it do not count.  The merge, in chunk order:
+    out = sum_c e_c acc_c / max(sum_c e_c l_c, 1e-30), e_c = exp(m_c - M),
+    M = max_c m_c."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bskh->bqkgs", qg, k.float()) * (hd ** -0.5)
+    valid = torch.as_tensor(Sk if kv_valid is None else kv_valid,
+                            device=q.device).to(torch.int64)
+    valid = torch.broadcast_to(valid.clamp(0, Sk), (B,))
+    # each (batch, query)'s visible keys [lo, hi)
+    pos = q_positions.to(q.device, torch.int64)[None, :]         # [1, Sq]
+    hi = torch.broadcast_to(valid[:, None], (B, Sq))
+    if causal:
+        hi = torch.minimum(hi, pos + 1)
+    lo = torch.broadcast_to(torch.clamp(pos - window + 1, min=0)
+                            if window is not None else torch.zeros_like(pos),
+                            (B, Sq))
+    kpos = torch.arange(Sk, device=q.device)
+    visible = (kpos >= lo[..., None]) & (kpos < hi[..., None])  # [B, Sq, Sk]
+    seen = hi > lo
+    empty = (~seen).any(dim=1)                                   # [B]
+    big = torch.iinfo(torch.int64).max
+    b_lo = torch.where(seen, lo, big).amin(dim=1)
+    b_hi = torch.where(seen, hi, -1).amax(dim=1)
+    b_lo = torch.where(empty, 0, b_lo)
+    b_hi = torch.where(empty, Sk, b_hi)
+    in_range = (kpos >= b_lo[:, None]) & (kpos < b_hi[:, None])  # [B, Sk]
+    s = torch.where(visible[:, :, None, None, :], s, NEG_INF)
+    vf = v.float()
+    ms, ls, accs = [], [], []
+    for c0 in range(0, max(Sk, 1), chunk):
+        take = in_range.clone()
+        take[:, :c0] = False
+        take[:, c0 + chunk:] = False
+        sc = torch.where(take[:, None, None, None, :], s, -torch.inf)
+        m = torch.clamp(sc.amax(dim=-1), min=NEG_INF)
+        p = torch.exp(sc - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bqkgs,bskh->bqkgh", p, vf))
+    M = torch.stack(ms).amax(dim=0)
+    num = torch.zeros_like(accs[0])
+    den = torch.zeros_like(ls[0])
+    for m, l, acc in zip(ms, ls, accs):
+        e = torch.exp(m - M)
+        den = den + e * l
+        num = num + e[..., None] * acc
+    out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)

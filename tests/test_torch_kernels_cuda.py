@@ -68,6 +68,10 @@ def no_tf32(card):
 
 
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# split-kv against the plain split-kv algorithm, which also computes in fp32
+# and rounds once: about one bf16 ulp of the output
+SPLIT_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-3)}
 WKV_TOL = {torch.float32: 3e-4, torch.bfloat16: 3e-2}
 
 
@@ -170,4 +174,102 @@ def test_flash_attention_unaligned_rows_on_card(no_tf32):
             out, fa_ref.attention_ref(q, k, v, pos, None, causal=True),
             rtol=FLASH_TOL[dt], atol=FLASH_TOL[dt])
     torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == 2
+
+
+# ---------------------------------------------------------------------------
+# flash attention: each route (tensor_core, split_kv, cuda_core) and its
+# edges, against attention_ref at FLASH_TOL; split_kv also against the plain
+# split-kv algorithm at SPLIT_TOL
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, hd, causal, q positions start, kv_valid, window,
+#  route for float32, route for bfloat16); kv_valid "per_batch" is a [B]
+#  tensor on the card, and tensors for q positions are used throughout
+ROUTE_CASES = {
+    # Sq and Sk not multiples of the 64- / 128-row tiles, hd 64
+    "ragged_prefill_hd64": (2, 200, 333, 8, 2, 64, True, 133, None, None,
+                            "cuda_core", "tensor_core"),
+    # hd 128, no causal mask, Sq just over one 128-row tile
+    "ragged_prefill_hd128": (1, 130, 195, 4, 2, 128, False, 0, None, None,
+                             "cuda_core", "tensor_core"),
+    # runtime positions, per-batch valid lengths and a window; batch row 0
+    # (valid 120) has rows that see no key (positions >= 183)
+    "masks_hd128": (3, 100, 300, 6, 2, 128, True, 150, "per_batch", 64,
+                    "cuda_core", "tensor_core"),
+    # every row fully masked: uniform weights over all Sk keys
+    "all_masked": (2, 40, 90, 4, 2, 64, True, 60, 10, 8,
+                   "cuda_core", "tensor_core"),
+    # 17 (query, head) rows per (batch, kv head): just above split_kv
+    "boundary_17_rows": (2, 17, 80, 2, 2, 64, True, 63, None, None,
+                         "cuda_core", "tensor_core"),
+    # 16 rows per (batch, kv head): the last shape split_kv takes
+    "boundary_16_rows": (2, 8, 80, 4, 2, 64, True, 72, None, None,
+                         "split_kv", "split_kv"),
+    # decode with kv_valid smaller than one chunk of a 2,112-long cache
+    "decode_short_valid": (8, 1, 2112, 12, 2, 128, True, 99, 100, None,
+                           "split_kv", "split_kv"),
+    # decode over the whole 2,112-long cache
+    "decode_full_cache": (8, 1, 2112, 12, 2, 128, True, 2111, 2112, None,
+                          "split_kv", "split_kv"),
+    # decode with per-batch valid lengths (one row sees one key), a window
+    # and chunks wholly past some rows' valid keys
+    "decode_window": (4, 1, 700, 12, 2, 64, True, 349, "per_batch", 200,
+                      "split_kv", "split_kv"),
+    # decode, hd not a multiple of 16
+    "decode_hd40": (3, 2, 300, 6, 3, 40, True, 250, 252, None,
+                    "split_kv", "split_kv"),
+}
+
+
+def _route_inputs(card, dt, B, Sq, Sk, H, KV, hd, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=card).to(dt)
+            for s in ((B, Sq, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_flash_attention_routes_on_card(no_tf32, case):
+    (B, Sq, Sk, H, KV, hd, causal, p0, valid, window, r32,
+     r16) = ROUTE_CASES[case]
+    pos = torch.arange(p0, p0 + Sq, device=no_tf32)
+    if valid == "per_batch":
+        valid = torch.linspace(1, Sk, B, device=no_tf32).round().int()
+        valid[0] = 120 if Sq > 1 else 1
+    for dt, want_route in ((torch.float32, r32), (torch.bfloat16, r16)):
+        fa.reset_launch_counts()
+        q, k, v = _route_inputs(no_tf32, dt, B, Sq, Sk, H, KV, hd,
+                                len(case) + Sq)
+        out = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                 kv_valid=valid, q_positions=pos)
+        torch.cuda.synchronize()
+        assert fa.ROUTE_CALLS[want_route] == 1, (dt, fa.ROUTE_CALLS)
+        assert fa.LAUNCHES["flash_attention"] == 1
+        assert fa.PLAIN_CALLS["flash_attention"] == 0
+        assert out.shape == q.shape and out.dtype == dt
+        want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
+                                    window=window)
+        torch.testing.assert_close(out, want, rtol=FLASH_TOL[dt],
+                                   atol=FLASH_TOL[dt])
+        if want_route == "split_kv":
+            split = fa_ref.attention_split_ref(q, k, v, pos, valid,
+                                               causal=causal, window=window,
+                                               chunk=fa.SPLIT_CHUNK)
+            torch.testing.assert_close(out, split, **SPLIT_TOL[dt])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_flash_attention_decode_is_bitwise_repeatable_on_card(no_tf32, dt):
+    """The split-kv partials merge in a fixed chunk order: the same decode
+    call twice gives the same bits."""
+    fa.reset_launch_counts()
+    q, k, v = _route_inputs(no_tf32, dt, 8, 1, 2112, 12, 2, 128, 77)
+    kw = dict(causal=True, q_offset=1499, kv_valid=1500)
+    first = fa.flash_attention(q, k, v, **kw)
+    second = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert fa.ROUTE_CALLS["split_kv"] == 2
     assert fa.LAUNCHES["flash_attention"] == 2
