@@ -18,8 +18,12 @@ Phases, one printed line each (plus detail lines):
               kernels' build (one ``nvcc`` per source, all at once).
 2. kernels  — each coded-combine kernel against its plain PyTorch version
               on the card, at the main path's launch shapes and at odd
-              shapes, with CUDA-event times, the HBM bound and one library
-              call.
+              shapes, with CUDA-event times and the HBM bound; where one
+              library call computes the same function (``xs.sum(0)``,
+              ``torch.sub``, ``torch.bitwise_xor``) kernel and library are
+              timed in turns (kernel, library, library, kernel); at the
+              main shapes both's device time per call (profiler), taken
+              after phase 7 so that its profiler sessions come last.
 3. shuffle  — ``hybrid_shuffle`` for r in {2, 3} x {unicast, coded} x
               {torch, kernel} and ``coded_xor`` on int32 payloads, bit-exact
               against the port's NumPy ``simulate_plan_shuffle`` and
@@ -53,8 +57,9 @@ Phases, one printed line each (plus detail lines):
               greedy tokens, logits within 1e-4.
 8. kernels line — one JSON object with all six kernels: launches on the
               main path and per path, and numbers at the main path's
-              largest shape; for flash, launches by route and the device
-              kernels per call each route took in phase 5's profile.
+              largest shape (library times in turns, device times per
+              call); for flash, launches by route and the device kernels
+              per call each route took in phase 5's profile.
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -85,6 +90,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 K, P, Q, N, D = 16, 4, 16, 1680, 2048
 TOKENS = 16384
 SOURCE = "src/repro_torch/kernels/coded_combine/csrc/coded_combine.cu"
+XOR_SOURCE = "src/repro_torch/kernels/coded_combine/csrc/xor_stream.cuh"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/wkv_scan.cu"
@@ -177,23 +183,45 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_per_call(torch, fn, calls: int = 20):
-    """(the card's own ms per call of ``fn``, device kernels per call): the
-    summed device time of what it launches over ``calls`` calls, and the
-    number of kernel events (copies and fills not counted), by
-    torch.profiler, per call.  Unlike back-to-back CUDA-event timing, the
-    host's enqueue cost does not enter the time."""
+def device_per_call(torch, fn, calls: int = 20, tries: int = 3):
+    """(the card's own ms per call of ``fn``, device kernels per call), by
+    torch.profiler over ``calls`` calls: for each kernel name (copies and
+    fills not counted), its mean device time times its launches per call.
+    Unlike back-to-back CUDA-event timing, the host's enqueue cost does
+    not enter the time.
+
+    Launches per call are each name's event count over ``calls``, rounded:
+    the profiler often drops a few of a session's kernel records or hands
+    them to the next session (on the H100 with torch 2.11: 17 or 18 of 20
+    records in most profiles of a run, now and then none), and a few
+    records lost or gained must not move the time.  Every count that is not a whole multiple of ``calls``
+    is printed.  A profile with no kernel record is taken again, ``tries``
+    times at most, and each such retake is printed."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for attempt in range(tries):
+        fn()
         torch.cuda.synchronize()
-    kernels = sum(ev.count for ev in prof.key_averages()
-                  if str(getattr(ev, "device_type", "")).endswith("CUDA")
-                  and not ev.key.startswith(("Memcpy", "Memset")))
-    return device_time(prof)[0] / calls, kernels / calls
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ms, kernels = 0.0, 0
+        for ev in prof.key_averages():
+            if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                    or ev.key.startswith(("Memcpy", "Memset"))):
+                continue
+            per_call = round(ev.count / calls)
+            if ev.count % calls:
+                say(f"  profiler: {ev.count} records of {ev.key[:60]} over "
+                    f"{calls} calls, counted as {per_call} a call")
+            ms += device_us(ev) / 1e3 / ev.count * per_call
+            kernels += per_call
+        if kernels:
+            return ms, kernels
+        say(f"  profiler: no kernel record in profile {attempt + 1} of "
+            f"{tries}, taken again")
+    raise RuntimeError(f"profiler: no kernel record in {tries} profiles "
+                       f"of {calls} calls")
 
 
 def bound(peaks, nbytes: float, flops: float = 0.0, dtype: str = ""):
@@ -209,13 +237,43 @@ def bound(peaks, nbytes: float, flops: float = 0.0, dtype: str = ""):
 # Phase 2: the four kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def combine_calls(torch, ops, ref, name, xs, c, f, unit):
+    """(kernel, plain version, library call or None) of one combine kernel
+    on [r, ...] streams ``xs`` (coefficients ``c``, packet ``f``; the
+    decodes recover stream 0).  The library call is the one PyTorch call
+    that computes the same function: ``xs.sum(0)`` and ``torch.sub`` for
+    unit coefficients (the decode at r = 2), ``torch.bitwise_xor`` for
+    int32 at r = 2."""
+    known, r = xs[1:], xs.shape[0]
+    if name == "coded_encode":
+        return (lambda: ops.coded_encode(xs, c), lambda: ref.encode_ref(xs, c),
+                (lambda: xs.sum(0)) if unit else None)
+    if name == "coded_decode":
+        return (lambda: ops.coded_decode(f, known, c),
+                lambda: ref.decode_ref(f, known, c),
+                (lambda: torch.sub(f, known[0])) if unit and r == 2 else None)
+    words = xs.view(torch.int32)
+    on_int = r == 2 and xs.dtype == torch.int32
+    if name == "xor_encode":
+        return (lambda: ops.xor_encode(xs), lambda: ref.xor_encode_ref(xs),
+                (lambda: torch.bitwise_xor(words[0], words[1]))
+                if on_int else None)
+    return (lambda: ops.xor_decode(f, known),
+            lambda: ref.xor_decode_ref(f, known),
+            (lambda: torch.bitwise_xor(f, known[0])) if on_int else None)
+
+
 def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
-    """Compare and time every kernel; returns {kernel: row at the main
-    path's largest launch shape}."""
+    """Compare and time every kernel; returns (rows, {kernel: row at the
+    main path's largest launch shape}, main rows to profile).  A row with
+    a library call times the kernel and the library in turns (kernel,
+    library, library, kernel).  The main rows' device times per call come
+    later (``profile_main_rows``): every profiler session here would cost
+    the later phases' profiles records."""
     dev = torch.device("cuda")
     odd = [(r, T, d) for r in (2, 3, 4) for T, d in
            ((1, 7), (257, 40), (300, 130))]
-    rows, main = [], {}
+    rows, main, to_profile = [], {}, []
 
     def record(name, r, T, d, dtype, unit, err, tol, fn, plain, library,
                is_main):
@@ -223,26 +281,40 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
         itemsize = torch.empty((), dtype=dtype).element_size()
         nbytes = (r + 1) * n * itemsize
         big = n >= 1 << 20
-        reps, inner = (7, 20) if big else (5, 50)
+        reps, inner = (11, 40) if big else (5, 50)
         row = {"name": name, "r": r, "T": T, "d": d,
                "dtype": str(dtype).replace("torch.", ""),
                "coeffs": "unit" if unit else "1..r",
                "max_abs_err": err, "tolerance": tol,
-               "ms": cuda_ms(torch, fn, reps, inner),
                "plain_ms": cuda_ms(torch, plain, reps, inner),
-               "library_ms": (None if library is None
-                              else cuda_ms(torch, library, reps, inner)),
-               "bytes": nbytes}
+               "library_ms": None, "bytes": nbytes}
         row["bound_ms"], row["bound_by"] = bound(peaks, nbytes)
+        if library is None:
+            row["ms"] = cuda_ms(torch, fn, reps, inner)
+        else:
+            # in turns: kernel, library, library, kernel
+            turns = [cuda_ms(torch, f, reps, inner)
+                     for f in (fn, library, library, fn)]
+            row["ms_turns"] = [turns[0], turns[3]]
+            row["library_ms_turns"] = [turns[1], turns[2]]
+            row["ms"] = statistics.mean(row["ms_turns"])
+            row["library_ms"] = statistics.mean(row["library_ms_turns"])
         rows.append(row)
         lib_ms = row["library_ms"]
         lib_txt = "null" if lib_ms is None else f"{lib_ms:.6f}"
         say(f"  kernel {name} r={r} T={T} d={d} {row['dtype']} "
             f"coeffs={row['coeffs']}: kernel_ms={row['ms']:.6f} "
             f"plain_ms={row['plain_ms']:.6f} library_ms={lib_txt} "
-            f"bytes={nbytes} bound_ms={row['bound_ms']:.6f} "
-            f"max_abs_err={err!r} tolerance={tol}")
+            f"bytes={nbytes} bound_ms={row['bound_ms']:.6f} bound / kernel "
+            f"{row['bound_ms'] / row['ms']:.4f} max_abs_err={err!r} "
+            f"tolerance={tol}")
+        if library is not None:
+            say(f"    in turns (kernel, library, library, kernel): "
+                f"{turns[0]:.6f} {turns[1]:.6f} {turns[2]:.6f} "
+                f"{turns[3]:.6f} ms; kernel / library "
+                f"{row['ms'] / lib_ms:.4f}")
         if is_main:
+            to_profile.append(row)
             main.setdefault(name, row)
 
     def err_of(a, b):
@@ -272,19 +344,15 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
             # the round trip of tests/test_kernels.py (decode of stream 0)
             rt = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 0.15)
             torch.testing.assert_close(dec, xs[0], rtol=rt[0], atol=rt[1])
-            known = xs[1:]
+            is_f32 = dtype == torch.float32
             record("coded_encode", r, T, d, dtype, unit, err_of(f, f_ref),
                    _tol_text(enc_tol, enc_tol),
-                   lambda: ops.coded_encode(xs, c),
-                   lambda: ref.encode_ref(xs, c),
-                   (lambda: xs.sum(0)) if unit else None,
-                   is_main and dtype == torch.float32)
+                   *combine_calls(torch, ops, ref, "coded_encode", xs, c, f,
+                                  unit), is_main and is_f32)
             record("coded_decode", r, T, d, dtype, unit,
                    err_of(dec, dec_ref), _tol_text(*dec_tol),
-                   lambda: ops.coded_decode(f, known, c),
-                   lambda: ref.decode_ref(f, known, c),
-                   (lambda: torch.sub(f, known[0])) if unit and r == 2
-                   else None, is_main and dtype == torch.float32)
+                   *combine_calls(torch, ops, ref, "coded_decode", xs, c, f,
+                                  unit), is_main and is_f32)
         for dtype in (torch.int32, torch.uint32):
             xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
                                device=dev, dtype=torch.int32).view(dtype)
@@ -297,22 +365,41 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
             check(torch.equal(dec.view(torch.int32), words[0]),
                   f"xor_decode r={r} T={T} d={d} {dtype}")
             is_int = dtype == torch.int32
-            known = xs[1:]
-            record("xor_encode", r, T, d, dtype, True, 0.0, "exact",
-                   lambda: ops.xor_encode(xs),
-                   lambda: ref.xor_encode_ref(xs),
-                   (lambda: torch.bitwise_xor(words[0], words[1]))
-                   if r == 2 and is_int else None,
-                   is_main and is_int and r == 2)
-            record("xor_decode", r, T, d, dtype, True, 0.0, "exact",
-                   lambda: ops.xor_decode(f, known),
-                   lambda: ref.xor_decode_ref(f, known),
-                   (lambda: torch.bitwise_xor(f, known[0]))
-                   if r == 2 and is_int else None,
-                   is_main and is_int and r == 2)
+            for name in ("xor_encode", "xor_decode"):
+                record(name, r, T, d, dtype, True, 0.0, "exact",
+                       *combine_calls(torch, ops, ref, name, xs, None, f,
+                                      True), is_main and is_int and r == 2)
         del xs
     torch.cuda.synchronize()
-    return rows, main
+    return rows, main, to_profile
+
+
+def profile_main_rows(torch, ops, ref, to_profile, seed):
+    """Phase 2's main rows: the kernel's and the library call's device time
+    per call (profiler), into each row, on inputs drawn anew at the row's
+    shape (a device time does not depend on the values; holding phase 2's
+    inputs to the end would add some 1.2 GB to the serving phases' peak
+    memory)."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 404)
+    for row in to_profile:
+        r, T, d, name = row["r"], row["T"], row["d"], row["name"]
+        if name.startswith("coded"):
+            xs = torch.randn(r, T, d, generator=g, device="cuda")
+            c = torch.ones(r, device="cuda")
+            f = ops.coded_encode(xs, c)
+        else:
+            xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
+                               device="cuda", dtype=torch.int32)
+            c, f = None, ops.xor_encode(xs)
+        fn, _, library = combine_calls(torch, ops, ref, name, xs, c, f, True)
+        row["device_ms"], _ = device_per_call(torch, fn)
+        row["library_device_ms"] = (None if library is None else
+                                    device_per_call(torch, library)[0])
+        lib_dev = row["library_device_ms"]
+        say(f"  kernel {row['name']} r={row['r']} T={row['T']} d={row['d']} "
+            f"{row['dtype']}: device time per call (profiler) kernel "
+            f"{row['device_ms']:.6f} ms, library "
+            f"{'null' if lib_dev is None else f'{lib_dev:.6f} ms'}")
 
 
 # ---------------------------------------------------------------------------
@@ -456,6 +543,13 @@ def profile_fused(torch, eng, count, job, subfiles, mesh, SchemeParams,
             "launches": counts, "by_kernel": by_kernel}
 
 
+def device_us(ev) -> float:
+    """A profiler event's summed device time in microseconds (its field
+    is ``device_time_total`` in newer torch, ``cuda_time_total`` before)."""
+    dev_us = getattr(ev, "device_time_total", None)
+    return getattr(ev, "cuda_time_total", 0.0) if dev_us is None else dev_us
+
+
 def device_time(prof):
     """(device busy ms, the 12 largest device-time entries) of a
     torch.profiler run."""
@@ -465,9 +559,7 @@ def device_time(prof):
         # an operator and the kernels it launched are not counted twice
         if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
             continue
-        dev_us = getattr(ev, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        dev_us = device_us(ev)
         if dev_us > 0:
             top.append((dev_us / 1e3, ev.count, ev.key))
     top.sort(reverse=True)
@@ -678,6 +770,9 @@ def wkv_phase(torch, rw, peaks, seed):
                 torch, lambda: rw.chunked_linear_recurrence(
                     r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
                     chunk=64, return_state=True), 3, 1 if is_main else 5)
+            if is_main:
+                row["device_ms"], _ = device_per_call(
+                    torch, lambda: rw.wkv_scan(r, k, v, log_w, u, s0))
             rows.append(row)
             if is_main:
                 main.setdefault(tag, row)
@@ -966,7 +1061,8 @@ def main(argv=None) -> int:
         f"(data sheet of {smi_name})")
     for lib, (_, ptxas) in nvcc.items():
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("Compiling entry function" in line or "registers" in line
+                    or "spill" in line):
                 say(f"  ptxas {lib}: {line.strip()}")
 
     # ---- 2. kernels ------------------------------------------------------
@@ -976,8 +1072,8 @@ def main(argv=None) -> int:
         main_shapes.append((r, K * P * plan.n_send * (Q // P), D))
     check(main_shapes == [(2, 17920, D), (3, 8960, D)],
           f"main-path launch shapes {main_shapes}")
-    kernel_rows, main_rows = kernel_phase(torch, ops, ref, main_shapes,
-                                          peaks, args.seed)
+    kernel_rows, main_rows, to_profile = kernel_phase(
+        torch, ops, ref, main_shapes, peaks, args.seed)
     say(f"phase kernels: {len(kernel_rows)} kernel/shape/dtype cases match "
         f"their plain versions")
 
@@ -1031,6 +1127,10 @@ def main(argv=None) -> int:
     say("phase card vs cpu: reduced qwen2-1.5b and rwkv6-3b give the same "
         "greedy tokens on the card (kernels) and the CPU (plain versions)")
 
+    # ---- 2, continued: device time per call of the main combine rows ----
+    profile_main_rows(torch, ops, ref, to_profile, args.seed)
+    say("phase kernels (device time): the main combine rows profiled")
+
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
                "profiled": profile["launches"],
@@ -1046,7 +1146,8 @@ def main(argv=None) -> int:
     main_rows.update(flash_attention=flash_main["prefill"],
                      wkv_scan=wkv_main["prefill"])
     sources = {k: SOURCE for k in KERNELS}
-    sources.update(flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
+    sources.update(xor_encode=XOR_SOURCE, xor_decode=XOR_SOURCE,
+                   flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
     flash_routes = serving["qwen2-1.5b"]["flash_routes"]
     check(flash_routes.get("tensor_core", 0) > 0
           and flash_routes.get("split_kv", 0) > 0,
@@ -1068,7 +1169,9 @@ def main(argv=None) -> int:
                         "plain_ms": row["plain_ms"],
                         "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"]})
+                        "library_ms": row["library_ms"],
+                        "device_ms": row["device_ms"],
+                        "library_device_ms": row.get("library_device_ms")})
         if kname == "flash_attention":
             # device kernels per call, by route, as profiled in phase 5
             per_call = {r["route"]: r["device_kernels"] for r in flash_rows

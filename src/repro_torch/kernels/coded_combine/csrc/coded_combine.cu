@@ -13,10 +13,11 @@
 // each input element is read once from HBM and each output element written
 // once, so each kernel is bound by HBM bytes, not by arithmetic (r
 // multiply-adds per output element against (r + 1) * itemsize bytes).  The
-// design is a single pass: a grid-stride loop that moves 16 bytes per
+// linear pair is a single pass: a grid-stride loop that moves 16 bytes per
 // thread per stream when every pointer and stream stride is 16-byte aligned
-// (float4 / 8 x bf16 / int4), and a scalar tail for whatever is left.  No
-// shared memory, no tensor cores: neither helps a pass that does no reuse.
+// (float4 / 8 x bf16), and a scalar tail for whatever is left.  No shared
+// memory, no tensor cores: neither helps a pass that does no reuse.  The
+// XOR pair has a design of its own, in xor_stream.cuh.
 //
 // Arithmetic matches the Pallas kernels it replaces, in their order:
 // fp32 accumulation over i = 0..r-1 with an explicit multiply then add
@@ -158,38 +159,6 @@ decode_kernel(const T* __restrict__ f, const T* __restrict__ known,
 }
 
 // ---------------------------------------------------------------------------
-// XOR encode:  out = x[0] ^ ... ^ x[r-1]
-// Replaces _xor_encode_kernel / xor_encode_pallas (kernel.py:44, :91).
-// XOR decode:  out = f ^ known[0] ^ ... ^ known[r-2]
-// Replaces _xor_decode_kernel / xor_decode_pallas (kernel.py:51, :105).
-// Both work on 32-bit words (int32 and uint32 share them).  Bound: HBM
-// bytes, (r + 1) * T * d * 4.  Single pass.  One kernel serves both: the
-// decode is an encode whose first stream is f.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-xor_kernel(const int32_t* __restrict__ first, const int32_t* __restrict__ rest,
-           int64_t stride, int n_rest, int32_t* __restrict__ out, int64_t n,
-           int64_t n_vec) {
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  for (int64_t v = tid; v < n_vec; v += step) {
-    const int64_t e = v * 4;
-    int4 acc = *reinterpret_cast<const int4*>(first + e);
-    for (int i = 0; i < n_rest; ++i) {
-      const int4 xi = *reinterpret_cast<const int4*>(rest + i * stride + e);
-      acc.x ^= xi.x; acc.y ^= xi.y; acc.z ^= xi.z; acc.w ^= xi.w;
-    }
-    *reinterpret_cast<int4*>(out + e) = acc;
-  }
-  for (int64_t e = n_vec * 4 + tid; e < n; e += step) {
-    int32_t acc = first[e];
-    for (int i = 0; i < n_rest; ++i) acc ^= rest[i * stride + e];
-    out[e] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launch helpers
 // ---------------------------------------------------------------------------
 
@@ -248,6 +217,9 @@ int launch_decode(const void* f, const void* known, int64_t stride,
 
 }  // namespace
 
+// the XOR kernel (its own design; reopens the unnamed namespace)
+#include "xor_stream.cuh"
+
 // ---------------------------------------------------------------------------
 // C interface (ctypes).  x / known: [r, n] (resp. [r - 1, n]) streams laid
 // out stream-major with `stride` elements between streams; c: [r] fp32 on
@@ -279,11 +251,6 @@ extern "C" int cc_decode(int dtype, const void* f, const void* known,
 
 extern "C" int cc_xor(const void* first, const void* rest, int64_t stride,
                       int n_rest, void* out, int64_t n, void* stream) {
-  const int64_t n_vec = vector_count(n, stride, 4, 4, first,
-                                     n_rest > 0 ? rest : nullptr, out);
-  const int64_t items = n_vec > 0 ? n_vec : n;
-  xor_kernel<<<grid_for(items), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(first), static_cast<const int32_t*>(rest),
-      stride, n_rest, static_cast<int32_t*>(out), n, n_vec);
-  return (int)cudaGetLastError();
+  return launch_xor_r(first, rest, stride, n_rest, out, n,
+                      static_cast<cudaStream_t>(stream));
 }

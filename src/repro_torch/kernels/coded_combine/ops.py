@@ -2,7 +2,8 @@
 ``repro/kernels/coded_combine/ops.py``, name for name.
 
 On a CUDA tensor each op launches its hand-written Hopper kernel
-(``csrc/coded_combine.cu``, built at first use by
+(``csrc/coded_combine.cu``, which includes the XOR kernel of
+``csrc/xor_stream.cuh``; built at first use by
 :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it uses the
 plain version in :mod:`.ref`.  Nothing else selects the path: there is no
 fallback from the card to the CPU, and no PyTorch op computes the result

@@ -273,3 +273,57 @@ def test_flash_attention_decode_is_bitwise_repeatable_on_card(no_tf32, dt):
     assert torch.equal(first, second)
     assert fa.ROUTE_CALLS["split_kv"] == 2
     assert fa.LAUNCHES["flash_attention"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the XOR kernel at every boundary of its design: the scalar tail, one
+# vector (4 words), one warp's vectors, one block's tile, several tiles
+# ---------------------------------------------------------------------------
+
+_TILE = 256 * 4     # one block's tile in words: kXorThreads 16-byte vectors
+XOR_LENGTHS = [1, 3, 4, 5, 127, 128, 129, _TILE - 1, _TILE, _TILE + 1,
+               3 * _TILE + 7, 7 * _TILE + 4, 50 * _TILE + 9]
+# word offsets of (the encode's stacked streams and the decode's f, the
+# decode's known streams): shared, then mixed
+XOR_OFFSETS = [(0, 0), (1, 1), (2, 2), (3, 3), (0, 1), (1, 3), (3, 0),
+               (2, 1)]
+
+
+def _words_at(g, card, off, count, dt):
+    """``count`` random words starting ``off`` words into a fresh buffer
+    (whose base is 16-byte aligned), viewed as ``dt``."""
+    buf = torch.randint(-2 ** 31, 2 ** 31 - 1, (off + count + 4,),
+                        generator=g, device=card, dtype=torch.int32)
+    return buf[off:off + count].view(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("dt", [torch.int32, torch.uint32])
+def test_xor_kernel_bit_exact_at_every_boundary(card, r, dt):
+    """r 1-4 run the compiled stream counts, 5 the runtime one; both ops
+    are bit-equal to the plain versions, launch once a call, and give the
+    same bits on a second call."""
+    g = torch.Generator(device=card).manual_seed(31 * r)
+    eq = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for n in XOR_LENGTHS:
+        for off_a, off_b in XOR_OFFSETS:
+            xs = _words_at(g, card, off_a, r * n, dt).view(r, n)
+            f = _words_at(g, card, off_a, n, dt)
+            known = _words_at(g, card, off_b, (r - 1) * n, dt).view(r - 1, n)
+            ops.reset_launch_counts()
+            enc = ops.xor_encode(xs)
+            dec = ops.xor_decode(f, known)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES == {"coded_encode": 0, "coded_decode": 0,
+                                    "xor_encode": 1, "xor_decode": 1}
+            where = f"r={r} n={n} offsets=({off_a}, {off_b}) {dt}"
+            assert enc.dtype == dec.dtype == dt, where
+            assert eq(enc, ref.xor_encode_ref(xs)), where
+            assert eq(dec, ref.xor_decode_ref(f, known)), where
+            assert eq(ops.xor_encode(xs), enc), where
+            assert eq(ops.xor_decode(f, known), dec), where
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["xor_encode"] == 2, where
+            assert ops.LAUNCHES["xor_decode"] == 2, where
+
