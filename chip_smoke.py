@@ -22,8 +22,10 @@ Phases, one printed line each (plus detail lines):
               library call computes the same function (``xs.sum(0)``,
               ``torch.sub``, ``torch.bitwise_xor``) kernel and library are
               timed in turns (kernel, library, library, kernel); at the
-              main shapes both's device time per call (profiler), taken
-              after phase 7 so that its profiler sessions come last.
+              main shapes both's device time per call (profiler; every
+              ``coded_decode`` row in float32 and bfloat16), taken after
+              phase 7 so that its profiler sessions come last.  The
+              decode's ``ptxas`` lines are printed here again.
 3. shuffle  — ``hybrid_shuffle`` for r in {2, 3} x {unicast, coded} x
               {torch, kernel} and ``coded_xor`` on int32 payloads, bit-exact
               against the port's NumPy ``simulate_plan_shuffle`` and
@@ -43,7 +45,11 @@ Phases, one printed line each (plus detail lines):
               at the prefill and at decode over 1,500 and 2,111 keys,
               and the card's own time per call of both and the kernel's
               device kernels per call (profiler); split-kv decode calls
-              also against the plain split-kv algorithm.
+              also against the plain split-kv algorithm.  Head dims over
+              128: MLA's absorbed attention at hd 576 (16 query heads on
+              one latent kv head; a 1 x 2048 causal prefill on the CUDA
+              cores, decode over 1,500 and over per-batch valid keys of a
+              2,112-long cache on split-kv) and one odd shape at hd 192.
 6. serve    — per arch: ``generate`` (8 prompts of 2,048 tokens; after a
               warm-up call, 1 new token three times for the time to first
               token, 32 new tokens twice: greedy output identical; medians
@@ -90,6 +96,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 K, P, Q, N, D = 16, 4, 16, 1680, 2048
 TOKENS = 16384
 SOURCE = "src/repro_torch/kernels/coded_combine/csrc/coded_combine.cu"
+DECODE_SOURCE = ("src/repro_torch/kernels/coded_combine/csrc/"
+                 "linear_decode.cuh")
 XOR_SOURCE = "src/repro_torch/kernels/coded_combine/csrc/xor_stream.cuh"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
@@ -183,45 +191,72 @@ def cuda_ms(torch, fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def device_per_call(torch, fn, calls: int = 20, tries: int = 3):
+def device_per_call(torch, fn, calls: int = 20, sessions: int = 3,
+                    tries: int = 9):
     """(the card's own ms per call of ``fn``, device kernels per call), by
-    torch.profiler over ``calls`` calls: for each kernel name (copies and
-    fills not counted), its mean device time times its launches per call.
-    Unlike back-to-back CUDA-event timing, the host's enqueue cost does
-    not enter the time.
+    torch.profiler: the median over ``sessions`` profiles of ``calls``
+    calls each (``profile_once``).  Unlike back-to-back CUDA-event timing,
+    the host's enqueue cost does not enter the time.
+
+    The median, because a session now and then reads a time that belongs
+    to no call of its own (on the H100 with torch 2.11, one session of
+    roughly twenty read the bf16 decode's time under the fp32 decode's
+    name): sessions more than 1 % apart are printed.  A profile with no
+    kernel record at all (several in a row, now and then) is printed and
+    taken again a second later, ``tries`` profiles at most; the median is
+    then over the sessions that held records."""
+    takes = []
+    for attempt in range(tries):
+        got = profile_once(torch, fn, calls)
+        if got is None:
+            say(f"  profiler: no kernel record in profile {attempt + 1} of "
+                f"at most {tries}, taken again")
+            time.sleep(1.0)
+            continue
+        takes.append(got)
+        if len(takes) == sessions:
+            break
+    if not takes:
+        raise RuntimeError(f"profiler: no kernel record in {tries} profiles "
+                           f"of {calls} calls")
+    takes.sort()
+    if takes[-1][0] > 1.01 * takes[0][0]:
+        say(f"  profiler: sessions read {[round(t[0], 6) for t in takes]} "
+            f"ms a call; the median is kept")
+    return takes[len(takes) // 2]
+
+
+def profile_once(torch, fn, calls: int):
+    """(device ms per call, device kernels per call) of one profile of
+    ``calls`` calls, or None when it holds no kernel record: for each
+    kernel name (copies and fills not counted), its mean device time times
+    its launches per call.
 
     Launches per call are each name's event count over ``calls``, rounded:
     the profiler often drops a few of a session's kernel records or hands
     them to the next session (on the H100 with torch 2.11: 17 or 18 of 20
-    records in most profiles of a run, now and then none), and a few
-    records lost or gained must not move the time.  Every count that is not a whole multiple of ``calls``
-    is printed.  A profile with no kernel record is taken again, ``tries``
-    times at most, and each such retake is printed."""
+    records in most profiles of a run), and a few records lost or gained
+    must not move the time.  Every count that is not a whole multiple of
+    ``calls`` is printed."""
     from torch.profiler import ProfilerActivity, profile
-    for attempt in range(tries):
-        fn()
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
-        ms, kernels = 0.0, 0
-        for ev in prof.key_averages():
-            if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
-                    or ev.key.startswith(("Memcpy", "Memset"))):
-                continue
-            per_call = round(ev.count / calls)
-            if ev.count % calls:
-                say(f"  profiler: {ev.count} records of {ev.key[:60]} over "
-                    f"{calls} calls, counted as {per_call} a call")
-            ms += device_us(ev) / 1e3 / ev.count * per_call
-            kernels += per_call
-        if kernels:
-            return ms, kernels
-        say(f"  profiler: no kernel record in profile {attempt + 1} of "
-            f"{tries}, taken again")
-    raise RuntimeError(f"profiler: no kernel record in {tries} profiles "
-                       f"of {calls} calls")
+    ms, kernels = 0.0, 0
+    for ev in prof.key_averages():
+        if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                or ev.key.startswith(("Memcpy", "Memset"))):
+            continue
+        per_call = round(ev.count / calls)
+        if ev.count % calls:
+            say(f"  profiler: {ev.count} records of {ev.key[:60]} over "
+                f"{calls} calls, counted as {per_call} a call")
+        ms += device_us(ev) / 1e3 / ev.count * per_call
+        kernels += per_call
+    return (ms, kernels) if kernels else None
 
 
 def bound(peaks, nbytes: float, flops: float = 0.0, dtype: str = ""):
@@ -352,7 +387,7 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
             record("coded_decode", r, T, d, dtype, unit,
                    err_of(dec, dec_ref), _tol_text(*dec_tol),
                    *combine_calls(torch, ops, ref, "coded_decode", xs, c, f,
-                                  unit), is_main and is_f32)
+                                  unit), is_main)
         for dtype in (torch.int32, torch.uint32):
             xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
                                device=dev, dtype=torch.int32).view(dtype)
@@ -384,7 +419,8 @@ def profile_main_rows(torch, ops, ref, to_profile, seed):
     for row in to_profile:
         r, T, d, name = row["r"], row["T"], row["d"], row["name"]
         if name.startswith("coded"):
-            xs = torch.randn(r, T, d, generator=g, device="cuda")
+            xs = torch.randn(r, T, d, generator=g, device="cuda").to(
+                getattr(torch, row["dtype"]))
             c = torch.ones(r, device="cuda")
             f = ops.coded_encode(xs, c)
         else:
@@ -399,7 +435,23 @@ def profile_main_rows(torch, ops, ref, to_profile, seed):
         say(f"  kernel {row['name']} r={row['r']} T={row['T']} d={row['d']} "
             f"{row['dtype']}: device time per call (profiler) kernel "
             f"{row['device_ms']:.6f} ms, library "
-            f"{'null' if lib_dev is None else f'{lib_dev:.6f} ms'}")
+            f"{'null' if lib_dev is None else f'{lib_dev:.6f} ms'}"
+            + ("" if lib_dev is None else
+               f"; kernel / library {row['device_ms'] / lib_dev:.4f}")
+            + f"; bound / kernel {row['bound_ms'] / row['device_ms']:.4f}")
+
+
+def ptxas_entries(log: str, needle: str):
+    """``ptxas -v`` lines (entry, stack and spills, registers) of every
+    entry function whose mangled name holds ``needle``."""
+    out, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            keep = needle in line
+        if keep and ("Compiling entry function" in line
+                     or "registers" in line or "spill" in line):
+            out.append(line.strip())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -601,8 +653,23 @@ FLASH_CASES = [
                                  (2, 64, 256, 4, 1, 128))
     for causal in (True, False)] + [
     ("window", 1, 160, 160, 4, 2, 64, True, 0, None, 32),
-    ("kv_valid", 2, 8, 128, 4, 4, 64, False, 0, 57, None)]
-FLASH_TIMED = ("prefill", "decode", "decode_2111")
+    ("kv_valid", 2, 8, 128, 4, 4, 64, False, 0, 57, None),
+    # head dims over 128: MLA's absorbed attention (deepseek-v2-lite:
+    # kv_lora_rank 512 + rope_head_dim 64 = 576, 16 query heads on one
+    # latent kv head), a 1 x 2048 causal prefill and a decode step of 8
+    # slots over 1,500 and over per-batch valid keys of a 2,112-long cache;
+    # then one odd shape at hd 192
+    ("mla_prefill", 1, 2048, 2048, 16, 1, 576, True, 0, None, None),
+    ("mla_decode", 8, 1, 2112, 16, 1, 576, True, 1499, 1500, None),
+    ("mla_decode_per_batch", 8, 1, 2112, 16, 1, 576, True, 2110,
+     (2111, 1500, 1, 64, 2000, 777, 1024, 2048), None),
+    ("odd_hd192", 2, 100, 230, 8, 2, 192, True, 130, 200, None)]
+FLASH_TIMED = ("prefill", "decode", "decode_2111", "mla_prefill",
+               "mla_decode")
+# the route a head dim over 128 takes: never the tensor cores
+LARGE_HD_ROUTE = {"mla_prefill": "cuda_core", "mla_decode": "split_kv",
+                  "mla_decode_per_batch": "split_kv",
+                  "odd_hd192": "cuda_core"}
 # split-kv against the plain split-kv algorithm, which also computes in fp32
 # and rounds once: about one bf16 ulp of the output
 FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
@@ -623,8 +690,12 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 101)
     rows, main = [], {}
-    for (tag, B, Sq, Sk, H, KV, hd, causal, q_off, valid,
+    for (tag, B, Sq, Sk, H, KV, hd, causal, q_off, valid_case,
          window) in FLASH_CASES:
+        # a tuple of valid lengths is one per batch row, a [B] tensor
+        per_batch = isinstance(valid_case, tuple)
+        valid = (torch.tensor(valid_case, device=dev) if per_batch
+                 else valid_case)
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
             k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
@@ -640,6 +711,9 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                   f"flash {tag}: one launch by one route, got "
                   f"{fa.ROUTE_CALLS}")
             route = routes[0]
+            check(hd <= 128 or route == LARGE_HD_ROUTE[tag],
+                  f"flash {tag} hd={hd}: route {route}, expected "
+                  f"{LARGE_HD_ROUTE.get(tag)}")
             want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
                                         window=window)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -649,17 +723,23 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
             if route == "split_kv":
                 split = fa_ref.attention_split_ref(
                     q, k, v, pos, valid, causal=causal, window=window,
-                    chunk=fa.SPLIT_CHUNK)
+                    chunk=fa.split_chunk(dtype, hd))
                 s_rtol, s_atol = FLASH_SPLIT_TOL[dname]
                 torch.testing.assert_close(out, split, rtol=s_rtol,
                                            atol=s_atol)
-            pairs, keys = visible_pairs(Sq, Sk, q_off, valid, causal, window)
+            # the pairs and keys each batch row's data needs
+            pairs = keys = 0
+            for b in range(B):
+                vb = valid_case[b] if per_batch else valid_case
+                p_b, k_b = visible_pairs(Sq, Sk, q_off, vb, causal, window)
+                pairs, keys = pairs + p_b, keys + k_b
             size = q.element_size()
-            nbytes = size * (2 * q.numel() + 2 * B * keys * KV * hd)
-            flops = 4.0 * hd * pairs * B * H
+            nbytes = size * (2 * q.numel() + 2 * keys * KV * hd)
+            flops = 4.0 * hd * pairs * H
             row = {"name": "flash_attention", "case": tag, "B": B, "Sq": Sq,
                    "Sk": Sk, "H": H, "KV": KV, "hd": hd, "causal": causal,
-                   "q_offset": q_off, "kv_valid": valid, "window": window,
+                   "q_offset": q_off, "kv_valid": valid_case,
+                   "window": window,
                    "dtype": dname, "route": route,
                    "max_abs_err": err,
                    "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
@@ -668,6 +748,8 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                                                      dname)
             is_main = tag in FLASH_TIMED
             reps, inner = (5, 5) if is_main else (3, 10)
+            if hd > 128 and Sq > 16:            # a CUDA-core prefill
+                reps, inner = 3, 2
             kernel = lambda: fa.flash_attention(q, k, v, **kw)
             row["plain_ms"] = cuda_ms(
                 torch, lambda: fa_ref.attention_ref(
@@ -681,7 +763,8 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 qt = q.transpose(1, 2)
                 kt, vt = (x[:, :kv_n].transpose(1, 2) for x in (k, v))
                 sdpa = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=tag == "prefill", enable_gqa=True)
+                    qt, kt, vt, is_causal=tag.endswith("prefill"),
+                    enable_gqa=True)
                 # a sanity check of the yardstick (its own bf16 rounding)
                 lib_err = float((sdpa().transpose(1, 2).float()
                                  - want.float()).abs().max().item())
@@ -705,7 +788,7 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
             rows.append(row)
             lib = row["library_ms"]
             say(f"  kernel flash_attention {tag} B={B} Sq={Sq} Sk={Sk} H={H} "
-                f"KV={KV} hd={hd} causal={causal} kv_valid={valid} "
+                f"KV={KV} hd={hd} causal={causal} kv_valid={valid_case} "
                 f"window={window} {row['dtype']} route={route}: kernel_ms="
                 f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
                 f"{'null' if lib is None else f'{lib:.6f}'} bound_ms="
@@ -1076,6 +1159,11 @@ def main(argv=None) -> int:
         torch, ops, ref, main_shapes, peaks, args.seed)
     say(f"phase kernels: {len(kernel_rows)} kernel/shape/dtype cases match "
         f"their plain versions")
+    # the decode instances (r = 1..4 compiled, 0 the runtime stream count)
+    if "coded_combine" in nvcc:
+        for line in ptxas_entries(nvcc["coded_combine"][1],
+                                  "linear_decode_kernel"):
+            say(f"  ptxas coded_decode: {line}")
 
     # ---- 3 + 4. the main paths, launch counts zeroed before each call ----
     count = Counts(torch, (ops,))
@@ -1146,7 +1234,8 @@ def main(argv=None) -> int:
     main_rows.update(flash_attention=flash_main["prefill"],
                      wkv_scan=wkv_main["prefill"])
     sources = {k: SOURCE for k in KERNELS}
-    sources.update(xor_encode=XOR_SOURCE, xor_decode=XOR_SOURCE,
+    sources.update(coded_decode=DECODE_SOURCE,
+                   xor_encode=XOR_SOURCE, xor_decode=XOR_SOURCE,
                    flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
     flash_routes = serving["qwen2-1.5b"]["flash_routes"]
     check(flash_routes.get("tensor_core", 0) > 0
@@ -1179,8 +1268,16 @@ def main(argv=None) -> int:
             check(set(per_call) >= {r for r, n in flash_routes.items() if n},
                   f"every flash route of the main path profiled: "
                   f"{per_call}")
+            # phase 5's checked calls at head dims over 128, by route
+            large_hd = {}
+            for r in flash_rows:
+                if r["hd"] > 128:
+                    large_hd[r["route"]] = large_hd.get(r["route"], 0) + 1
+            check(set(large_hd) == {"cuda_core", "split_kv"},
+                  f"head dims over 128 ran on both routes: {large_hd}")
             kernels[-1].update(launches_by_route=flash_routes,
-                               device_kernels_per_call=per_call)
+                               device_kernels_per_call=per_call,
+                               hd_over_128_calls_by_route=large_hd)
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

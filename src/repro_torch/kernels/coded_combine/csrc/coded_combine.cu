@@ -13,11 +13,12 @@
 // each input element is read once from HBM and each output element written
 // once, so each kernel is bound by HBM bytes, not by arithmetic (r
 // multiply-adds per output element against (r + 1) * itemsize bytes).  The
-// linear pair is a single pass: a grid-stride loop that moves 16 bytes per
+// encode is a single pass: a grid-stride loop that moves 16 bytes per
 // thread per stream when every pointer and stream stride is 16-byte aligned
 // (float4 / 8 x bf16), and a scalar tail for whatever is left.  No shared
 // memory, no tensor cores: neither helps a pass that does no reuse.  The
-// XOR pair has a design of its own, in xor_stream.cuh.
+// decode (linear_decode.cuh) and the XOR pair (xor_stream.cuh) take one
+// vector a thread and one tile a block, with the stream count a template.
 //
 // Arithmetic matches the Pallas kernels it replaces, in their order:
 // fp32 accumulation over i = 0..r-1 with an explicit multiply then add
@@ -118,47 +119,6 @@ encode_kernel(const T* __restrict__ x, int64_t stride, int r,
 }
 
 // ---------------------------------------------------------------------------
-// Linear decode:  out = (f - sum_{i>=1} c[i] * known[i-1]) / c[0]
-// Replaces _decode_kernel / decode_pallas (kernel.py:34, :74).  Bound: HBM
-// bytes, (r + 1) * T * d * itemsize (f and the r - 1 known streams read,
-// one written).  Single pass; subtracts the known streams one by one, then
-// one true division.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ f, const T* __restrict__ known,
-              int64_t stride, int n_known, const float* __restrict__ c,
-              T* __restrict__ out, int64_t n, int64_t n_vec) {
-  constexpr int V = Vec16<T>::V;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const float c0 = __ldg(c);
-  for (int64_t v = tid; v < n_vec; v += step) {
-    const int64_t e = v * V;
-    float acc[V], xi[V];
-    Vec16<T>::load(f + e, acc);
-    for (int i = 0; i < n_known; ++i) {
-      Vec16<T>::load(known + i * stride + e, xi);
-      const float ci = __ldg(c + i + 1);
-#pragma unroll
-      for (int k = 0; k < V; ++k)
-        acc[k] = __fsub_rn(acc[k], __fmul_rn(ci, xi[k]));
-    }
-#pragma unroll
-    for (int k = 0; k < V; ++k) acc[k] = __fdiv_rn(acc[k], c0);
-    Vec16<T>::store(out + e, acc);
-  }
-  for (int64_t e = n_vec * V + tid; e < n; e += step) {
-    float acc = to_f32(f[e]);
-    for (int i = 0; i < n_known; ++i)
-      acc = __fsub_rn(acc,
-                      __fmul_rn(__ldg(c + i + 1), to_f32(known[i * stride + e])));
-    from_f32(out + e, __fdiv_rn(acc, c0));
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Launch helpers
 // ---------------------------------------------------------------------------
 
@@ -166,9 +126,9 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// Vectors the grid-stride loop may take 16 bytes at a time: all of them
-// when every base pointer and the stream stride are 16-byte aligned,
-// otherwise none (the scalar tail then covers every element).
+// Vectors of V elements a kernel may take at a time: all of them when
+// every base pointer and the stream stride are 16-byte aligned, otherwise
+// none (the scalar tail then covers every element).
 int64_t vector_count(int64_t n, int64_t stride, int elem_bytes, int V,
                      const void* a, const void* b, const void* o) {
   const bool ok = aligned16(a) && (b == nullptr || aligned16(b)) &&
@@ -201,23 +161,11 @@ int launch_encode(const void* x, int64_t stride, int r, const float* c,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_decode(const void* f, const void* known, int64_t stride,
-                  int n_known, const float* c, void* out, int64_t n,
-                  cudaStream_t s) {
-  const int V = Vec16<T>::V;
-  const int64_t n_vec = vector_count(n, stride, sizeof(T), V, f,
-                                     n_known > 0 ? known : nullptr, out);
-  const int64_t items = n_vec > 0 ? n_vec : n;
-  decode_kernel<T><<<grid_for(items), kThreads, 0, s>>>(
-      static_cast<const T*>(f), static_cast<const T*>(known), stride, n_known,
-      c, static_cast<T*>(out), n, n_vec);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// the XOR kernel (its own design; reopens the unnamed namespace)
+// the decode and the XOR kernel (their own design; each reopens the unnamed
+// namespace)
+#include "linear_decode.cuh"
 #include "xor_stream.cuh"
 
 // ---------------------------------------------------------------------------

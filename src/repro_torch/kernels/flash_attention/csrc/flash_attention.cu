@@ -34,11 +34,20 @@
 //                    chunks give B * KV * chunks blocks where one block per
 //                    (batch, kv head) gave 16 on 132 SMs.
 //   fa_forward       the CUDA-core kernel below: fp32 prefill (full fp32
-//                    products), and hd not a multiple of 16 or rows not
-//                    16-byte aligned.
+//                    products), and hd not a multiple of 16, hd > 128 or
+//                    rows not 16-byte aligned.
+//
+// Head dims: 1..576 (MLA's absorbed attention works at kv_lora_rank +
+// rope_head_dim = 576).  Each route has instances padded to HD = 32, 64,
+// 128 (the tensor-core route stops there: wgmma m64n{HD}k16 and tiles of HD
+// swizzled columns), then 256 and 576.  Above 128 the instances take
+// another shape so that a block fits the 227 KB of shared memory and its
+// accumulators stay in registers: the CUDA-core kernel holds RW = 8 (HD 256)
+// or 4 (HD 576) rows a warp instead of 16, and the fp32 split-kv kernel at
+// HD 576 takes chunks of 32 keys instead of 64 (split_chunk).
 //
 // CUDA-core kernel design (flash_fwd):
-//   * One block of 4 warps serves RB = 4 * RW = 64 (query, head) rows of one
+//   * One block of 4 warps serves RB = 4 * RW (64 up to hd 128) rows of one
 //     (batch, kv head): the G query heads of a kv head share every K/V tile
 //     read, so K/V are read once per group, not once per query head.
 //   * The kv loop runs inside the block over tiles of BK = 32 keys staged
@@ -130,37 +139,48 @@ template <> struct Vec16<__nv_bfloat16> {
   }
 };
 
+// 16-byte loads a thread keeps in flight while staging: all of a tile's
+// when they are at most kStageLoads (every tile at hd <= 128), else
+// batches of kStageBatch (the wider instances hold more accumulators)
+constexpr int kStageLoads = 16;
+constexpr int kStageBatch = 8;
+
 // Stage ROWS rows of hd elements into dst (row r at dst + r * stride) as
 // fp32, zero past hd and for rows whose source row(r) is null.  With vec,
-// each thread issues all its 16-byte loads before its first store, so the
-// loads of a tile are in flight together; else one element at a time.
+// each thread issues its 16-byte loads (all, or a batch) before its first
+// store, so the loads of a tile are in flight together; else one element
+// at a time.
 template <typename T, int HD, int ROWS, typename RowFn>
 __device__ inline void stage(float* dst, int stride, int hd, bool vec,
                              RowFn row) {
   if (vec) {
     constexpr int V = Vec16<T>::V, CPR = HD / V, N = ROWS * CPR;
     constexpr int IT = (N + kThreads - 1) / kThreads;
-    uint4 raw[IT];
+    constexpr int BATCH = IT <= kStageLoads ? IT : kStageBatch;
 #pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int c = threadIdx.x + it * kThreads;
-      const int r = c / CPR, d = (c % CPR) * V;
-      const T* p = (c < N && d < hd) ? row(r) : nullptr;
-      raw[it] = p ? *reinterpret_cast<const uint4*>(p + d)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
+    for (int it0 = 0; it0 < IT; it0 += BATCH) {
+      uint4 raw[BATCH];
 #pragma unroll
-    for (int it = 0; it < IT; ++it) {
-      const int c = threadIdx.x + it * kThreads;
-      if (c >= N) continue;
-      float x[V];
-      Vec16<T>::widen(raw[it], x);
-      float4* o = reinterpret_cast<float4*>(dst + (c / CPR) * stride
-                                            + (c % CPR) * V);
+      for (int u = 0; u < BATCH; ++u) {
+        const int c = threadIdx.x + (it0 + u) * kThreads;
+        const int r = c / CPR, d = (c % CPR) * V;
+        const T* p = (c < N && d < hd) ? row(r) : nullptr;
+        raw[u] = p ? *reinterpret_cast<const uint4*>(p + d)
+                   : make_uint4(0u, 0u, 0u, 0u);
+      }
 #pragma unroll
-      for (int e = 0; e < V / 4; ++e)
-        o[e] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2],
-                           x[4 * e + 3]);
+      for (int u = 0; u < BATCH; ++u) {
+        const int c = threadIdx.x + (it0 + u) * kThreads;
+        if (c >= N) continue;
+        float x[V];
+        Vec16<T>::widen(raw[u], x);
+        float4* o = reinterpret_cast<float4*>(dst + (c / CPR) * stride
+                                              + (c % CPR) * V);
+#pragma unroll
+        for (int e = 0; e < V / 4; ++e)
+          o[e] = make_float4(x[4 * e], x[4 * e + 1], x[4 * e + 2],
+                             x[4 * e + 3]);
+      }
     }
   } else {
     for (int e = threadIdx.x; e < ROWS * HD; e += kThreads) {
@@ -356,16 +376,24 @@ flash_fwd(const Args a) {
 constexpr int kSplitRows = 16;
 constexpr int kChunk = 64;              // keys per chunk, one per thread
 static_assert(kChunk <= kThreads && kChunk % 4 == 0, "one key per thread");
+constexpr int kMaxSmem = 232448;        // opt-in shared memory of a block
 
-template <typename T, int HD>
+// Keys per chunk of the instance for hd (ops.split_chunk mirrors it): fp32
+// at HD 576 takes half a chunk, since 64 keys of K and V would need
+// 336,896 bytes of shared memory
+constexpr int split_chunk(bool f32, int hd) {
+  return f32 && hd > 256 ? kChunk / 2 : kChunk;
+}
+
+template <typename T, int HD, int CH>
 constexpr int split_smem_bytes() {
   // Q rows and scores as fp32, K rows padded by 16 bytes (conflict-free
   // 16-byte reads by one thread per row), V rows
-  return 4 * kSplitRows * (HD + kChunk)
-         + kChunk * (HD * int(sizeof(T)) + 16) + kChunk * HD * int(sizeof(T));
+  return 4 * kSplitRows * (HD + CH)
+         + CH * (HD * int(sizeof(T)) + 16) + CH * HD * int(sizeof(T));
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int CH>
 __global__ void __launch_bounds__(kThreads)
 flash_split(const Args a) {
   constexpr int KROW = HD * int(sizeof(T)) + 16;    // bytes per K row
@@ -373,9 +401,9 @@ flash_split(const Args a) {
   constexpr int PER16 = 16 / int(sizeof(T));        // elements per 16 bytes
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;                                  // [kSplitRows][HD]
-  float* ss = qs + kSplitRows * HD;                  // [kSplitRows][kChunk]
-  char* kbuf = reinterpret_cast<char*>(ss + kSplitRows * kChunk);
-  char* vbuf = kbuf + kChunk * KROW;
+  float* ss = qs + kSplitRows * HD;                  // [kSplitRows][CH]
+  char* kbuf = reinterpret_cast<char*>(ss + kSplitRows * CH);
+  char* vbuf = kbuf + CH * KROW;
   __shared__ int s_lo, s_hi, s_empty;
   __shared__ int s_qlo[kSplitRows], s_qhi[kSplitRows];
 
@@ -412,9 +440,9 @@ flash_split(const Args a) {
     return q + b * a.q_sb + (r / G) * a.q_ss + (kvh * G + r % G) * a.q_sh;
   });
   __syncthreads();
-  const int c0 = static_cast<int>(blockIdx.z) * kChunk;
+  const int c0 = static_cast<int>(blockIdx.z) * CH;
   const int lo = max(s_empty ? 0 : s_lo, c0);
-  const int n = max(min(s_empty ? a.Sk : s_hi, c0 + kChunk) - lo, 0);
+  const int n = max(min(s_empty ? a.Sk : s_hi, c0 + CH) - lo, 0);
   const int n4 = (n + 3) & ~3;          // P V reads keys four at a time
 
   // ---- K and V rows [lo, lo + n) to shared memory, zero past hd and for
@@ -447,9 +475,9 @@ flash_split(const Args a) {
   }
   __syncthreads();
 
-  // ---- scores: thread t < kChunk takes key lo + t for every row (0 past
+  // ---- scores: thread t < CH takes key lo + t for every row (0 past
   // n)
-  if (tid < kChunk) {
+  if (tid < CH) {
     const int t = tid;
     float s[kSplitRows];
 #pragma unroll
@@ -484,7 +512,7 @@ flash_split(const Args a) {
       if (r >= R) break;
       const int qi = r / G;
       const bool ok = key >= s_qlo[qi] && key < s_qhi[qi];
-      ss[r * kChunk + t] = t >= n ? 0.f : ok ? s[r] * a.scale : kNegInf;
+      ss[r * CH + t] = t >= n ? 0.f : ok ? s[r] * a.scale : kNegInf;
     }
   }
   __syncthreads();
@@ -497,7 +525,7 @@ flash_split(const Args a) {
            + (int64_t(b) * a.Sq + r / G) * a.H + kvh * G + r % G;
   };
   for (int r = warp; r < R; r += kWarps) {
-    float* srow = ss + r * kChunk;
+    float* srow = ss + r * CH;
     float mx = kNegInf;
     for (int t = lane; t < n; t += 32) mx = fmaxf(mx, srow[t]);
     mx = warp_max(mx);
@@ -515,9 +543,13 @@ flash_split(const Args a) {
   }
   __syncthreads();
 
-  // ---- acc = P V: thread d sums column d over the chunk's keys
-  const int d = tid;
-  if (d < a.hd) {
+  // ---- acc = P V: thread d sums column d (and d + kThreads, ... when HD >
+  // kThreads) over the chunk's keys
+  constexpr int DT = (HD + kThreads - 1) / kThreads;
+#pragma unroll
+  for (int dd = 0; dd < DT; ++dd) {
+    const int d = tid + dd * kThreads;
+    if (d >= a.hd) break;
     float acc[kSplitRows];
 #pragma unroll
     for (int r = 0; r < kSplitRows; ++r) acc[r] = 0.f;
@@ -530,7 +562,7 @@ flash_split(const Args a) {
       for (int r = 0; r < kSplitRows; ++r) {
         if (r >= R) break;
         const float4 p = *reinterpret_cast<const float4*>(
-            ss + r * kChunk + t);
+            ss + r * CH + t);
         acc[r] = fmaf(p.x, vv[0], acc[r]); acc[r] = fmaf(p.y, vv[1], acc[r]);
         acc[r] = fmaf(p.z, vv[2], acc[r]); acc[r] = fmaf(p.w, vv[3], acc[r]);
       }
@@ -572,6 +604,8 @@ flash_merge(const Args a, int n_chunks) {
 template <typename T, int HD, int RW>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int RB = kWarps * RW;
+  static_assert(sizeof(float) * smem_floats<HD, RW>() <= kMaxSmem,
+                "flash_fwd block over the shared memory");
   const size_t smem = sizeof(float) * smem_floats<HD, RW>();
   static bool configured = false;       // one attribute call per variant
   if (!configured) {
@@ -587,29 +621,35 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// 16 rows per warp: the caller sends calls of at most 16 rows per (batch,
-// kv head) to the split-kv route
+// 16 rows per warp up to hd 128 (the caller sends calls of at most 16 rows
+// per (batch, kv head) to the split-kv route); above, fewer rows a warp
+// (RW 8 at HD 256, 4 at HD 576: 102,912 and 186,880 bytes of shared memory,
+// 64 and 72 fp32 accumulators a thread)
 template <typename T>
 int dispatch(const Args& a, cudaStream_t stream) {
   if (a.hd <= 32) return launch<T, 32, 16>(a, stream);
   if (a.hd <= 64) return launch<T, 64, 16>(a, stream);
-  return launch<T, 128, 16>(a, stream);
+  if (a.hd <= 128) return launch<T, 128, 16>(a, stream);
+  if (a.hd <= 256) return launch<T, 256, 8>(a, stream);
+  return launch<T, 576, 4>(a, stream);
 }
 
 // the chunks' partials, then their merge on the same stream
 template <typename T, int HD>
 int launch_split(const Args& a, int n_chunks, cudaStream_t stream) {
-  constexpr int smem = split_smem_bytes<T, HD>();
+  constexpr int CH = split_chunk(sizeof(T) == 4, HD);
+  constexpr int smem = split_smem_bytes<T, HD, CH>();
+  static_assert(smem <= kMaxSmem, "split-kv block over the shared memory");
   static bool configured = false;       // one attribute call per variant
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
-        flash_split<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_split<T, HD, CH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid(1, a.B * a.KV, n_chunks);
-  flash_split<T, HD><<<grid, kThreads, smem, stream>>>(a);
+  flash_split<T, HD, CH><<<grid, kThreads, smem, stream>>>(a);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_merge<T><<<a.B * a.Sq * a.H, kThreads, 0, stream>>>(a, n_chunks);
@@ -620,24 +660,26 @@ template <typename T>
 int dispatch_split(const Args& a, int n_chunks, cudaStream_t stream) {
   if (a.hd <= 32) return launch_split<T, 32>(a, n_chunks, stream);
   if (a.hd <= 64) return launch_split<T, 64>(a, n_chunks, stream);
-  return launch_split<T, 128>(a, n_chunks, stream);
+  if (a.hd <= 128) return launch_split<T, 128>(a, n_chunks, stream);
+  if (a.hd <= 256) return launch_split<T, 256>(a, n_chunks, stream);
+  return launch_split<T, 576>(a, n_chunks, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Each entry point returns a cudaError_t (0 = launched).  hd <= 128;
+// Each entry point returns a cudaError_t (0 = launched).  hd <= 576;
 // strides in elements.  q_pos may be null (positions q_offset + i),
 // kv_valid may be null (one valid length kv_valid_n for every batch row).
 // vec != 0 promises that hd is a multiple of 16 bytes' worth of elements
 // and that every row of q, k and v starts 16-byte aligned (16-byte loads).
 
 static bool bad_shape(int hd, int H, int KV) {
-  return hd < 1 || hd > 128 || KV < 1 || H % KV != 0;
+  return hd < 1 || hd > 576 || KV < 1 || H % KV != 0;
 }
 
-// The CUDA-core route: any dtype code, alignment and hd <= 128.
+// The CUDA-core route: any dtype code, alignment and hd <= 576.
 int fa_forward(int dtype, const void* q, const void* k, const void* v,
                void* out, int B, int Sq, int Sk, int H, int KV, int hd,
                int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
@@ -664,25 +706,27 @@ int fa_forward(int dtype, const void* q, const void* k, const void* v,
 // fa_args_offsets at load), as a void pointer: a parameter of the unnamed
 // namespace's Args type would give them internal linkage.
 
-// The tensor-core route: bf16, hd a multiple of 16, vec.
+// The tensor-core route: bf16, hd <= 128 and a multiple of 16, vec.
 int fa_forward_tc(int dtype, const void* args, void* stream) {
   const Args* a = static_cast<const Args*>(args);
   if (bad_shape(a->hd, a->H, a->KV) || dtype != kBF16 || a->hd % 16 != 0
-      || !a->vec)
+      || a->hd > 128 || !a->vec)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->B == 0 || a->Sq == 0) return 0;
   return tc::dispatch(*a, static_cast<cudaStream_t>(stream));
 }
 
 // The split-kv route: Sq * H / KV <= 16 rows per (batch, kv head); the key
-// range [0, Sk) is cut into n_chunks chunks of 64 keys (n_chunks * 64 >=
-// Sk); a->part_ml and a->part_acc hold n_chunks * B * Sq * H * 2 and
-// n_chunks * B * Sq * H * hd floats.  Launches two kernels.
+// range [0, Sk) is cut into n_chunks = max(ceil(Sk / chunk), 1) chunks of
+// split_chunk(dtype, hd) keys; a->part_ml and a->part_acc hold
+// n_chunks * B * Sq * H * 2 and n_chunks * B * Sq * H * hd floats.
+// Launches two kernels.
 int fa_forward_split(int dtype, const void* args, int n_chunks,
                      void* stream) {
   const Args* a = static_cast<const Args*>(args);
+  const int64_t chunk = split_chunk(dtype == kF32, a->hd);
   if (bad_shape(a->hd, a->H, a->KV) || a->Sq * (a->H / a->KV) > kSplitRows
-      || n_chunks < 1 || int64_t(kChunk) * n_chunks < a->Sk)
+      || n_chunks != (a->Sk > chunk ? (a->Sk + chunk - 1) / chunk : 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->B == 0 || a->Sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

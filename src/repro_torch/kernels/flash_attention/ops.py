@@ -12,12 +12,16 @@ alone (never by a failure):
 
 * ``split_kv`` — at most 16 (query, head) rows per (batch, kv head), which
   is decode, fp32 or bf16: one block per (batch, kv head, chunk of
-  ``SPLIT_CHUNK`` keys) writes a partial softmax to fp32 scratch, and a
+  :func:`split_chunk` keys) writes a partial softmax to fp32 scratch, and a
   second kernel merges the partials in chunk order (bitwise repeatable).
-* ``tensor_core`` — bf16 prefill with hd a multiple of 16 and 16-byte
-  aligned rows: ``wgmma`` bf16 products with fp32 accumulators.
+* ``tensor_core`` — bf16 prefill with hd <= 128 and a multiple of 16 and
+  16-byte aligned rows: ``wgmma`` bf16 products with fp32 accumulators.
 * ``cuda_core`` — everything else: fp32 prefill (full fp32 products), hd
-  not a multiple of 16, unaligned rows.
+  not a multiple of 16 or over 128, unaligned rows.
+
+Head dims up to ``MAX_HEAD_DIM`` = 576 run on the card (MLA's absorbed
+attention works at kv_lora_rank + rope_head_dim = 576); a larger one
+raises.
 
 The JAX wrapper transposes to ``[B*KV, G, S, hd]`` and pads hd to 128
 lanes and S to its block sizes for the TPU's tiling.  The kernel reads
@@ -50,9 +54,18 @@ ROUTES = ("tensor_core", "split_kv", "cuda_core")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 576
+TC_MAX_HEAD_DIM = 128       # the tensor-core route's widest instance
 SPLIT_MAX_ROWS = 16         # (query, head) rows per (batch, kv head)
 SPLIT_CHUNK = 64            # keys per split-kv chunk (kChunk of the source)
+
+
+def split_chunk(dtype: torch.dtype, hd: int) -> int:
+    """Keys per split-kv chunk of the kernel instance for ``hd`` (the
+    source's ``split_chunk``): half of ``SPLIT_CHUNK`` for float32 above
+    hd 256, whose 64-key chunk would not fit a block's shared memory."""
+    return SPLIT_CHUNK // 2 if dtype == torch.float32 and hd > 256 \
+        else SPLIT_CHUNK
 
 
 # ``Args`` of csrc/flash_attention.cu, field by field in declaration order
@@ -81,7 +94,8 @@ def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
     """The kernel a card call takes, by dtype and shape alone."""
     if Sq * (H // KV) <= SPLIT_MAX_ROWS:
         return "split_kv"
-    if dtype == torch.bfloat16 and hd % 16 == 0 and vec:
+    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HEAD_DIM
+            and vec):
         return "tensor_core"
     return "cuda_core"
 
@@ -193,7 +207,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         ml_ptr = acc_ptr = 0
         if way == "split_kv":
-            n_chunks = max(-(-Sk // SPLIT_CHUNK), 1)
+            n_chunks = max(-(-Sk // split_chunk(q.dtype, hd)), 1)
             rows = n_chunks * B * Sq * H
             # each chunk's partial per output row: acc [rows, hd], (m, l)
             part = torch.empty(rows * (hd + 2), dtype=torch.float32,

@@ -219,6 +219,18 @@ ROUTE_CASES = {
     # decode, hd not a multiple of 16
     "decode_hd40": (3, 2, 300, 6, 3, 40, True, 250, 252, None,
                     "split_kv", "split_kv"),
+    # MLA's absorbed width 576 (16 query heads on one latent kv head):
+    # prefill on the CUDA cores in both dtypes, and decode split-kv (fp32
+    # in 32-key chunks)
+    "mla_prefill_hd576": (2, 160, 300, 16, 1, 576, True, 140, "per_batch",
+                          None, "cuda_core", "cuda_core"),
+    "mla_decode_hd576": (8, 1, 2112, 16, 1, 576, True, 2111, "per_batch",
+                         None, "split_kv", "split_kv"),
+    # hd 192 (MLA's nope + rope query width) with grouped heads
+    "prefill_hd192": (2, 100, 230, 8, 2, 192, True, 130, "per_batch", None,
+                      "cuda_core", "cuda_core"),
+    "decode_hd192": (3, 2, 400, 8, 2, 192, True, 398, "per_batch", None,
+                     "split_kv", "split_kv"),
 }
 
 
@@ -255,7 +267,7 @@ def test_flash_attention_routes_on_card(no_tf32, case):
         if want_route == "split_kv":
             split = fa_ref.attention_split_ref(q, k, v, pos, valid,
                                                causal=causal, window=window,
-                                               chunk=fa.SPLIT_CHUNK)
+                                               chunk=fa.split_chunk(dt, hd))
             torch.testing.assert_close(out, split, **SPLIT_TOL[dt])
 
 
