@@ -45,7 +45,12 @@ Phases, one printed line each (plus detail lines):
               at the prefill and at decode over 1,500 and 2,111 keys,
               and the card's own time per call of both and the kernel's
               device kernels per call (profiler); split-kv decode calls
-              also against the plain split-kv algorithm.  Head dims over
+              also against the plain split-kv algorithm.  WKV: the route
+              each call took (``tensor_core`` for bf16 at Nk = Nv = 64,
+              ``step`` otherwise), tensor-core calls also against their
+              plain mirror ``wkv_subchunk_ref``, and both kernels'
+              ``ptxas`` lines with the tensor-core kernel's shared memory
+              and blocks an SM.  Head dims over
               128: MLA's absorbed attention at hd 576 (16 query heads on
               one latent kv head; a 1 x 2048 causal prefill on the CUDA
               cores, decode over 1,500 and over per-batch valid keys of a
@@ -64,8 +69,9 @@ Phases, one printed line each (plus detail lines):
 8. kernels line — one JSON object with all six kernels: launches on the
               main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
-              call); for flash, launches by route and the device kernels
-              per call each route took in phase 5's profile.
+              call); for flash and WKV, launches by route (for flash also
+              the device kernels per call each route took in phase 5's
+              profile).
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -74,8 +80,10 @@ coded shuffle with ``combine_impl="kernel"`` and packet arity >= 2 must
 launch one encode and one decode, other shuffles none; every LM forward
 (a prefill or one decode step) must launch its kernel once per layer (28
 flash launches for qwen2-1.5b, 32 WKV launches for rwkv6-3b) and call no
-plain version.  Main paths: the fused engine for the linear pair, the int32
-``hybrid_shuffle`` for the XOR pair, full-width serving for the LM kernels.
+plain version; every time-to-first-token call runs all of them on the
+``tensor_core`` route of its kernel.  Main paths: the fused engine for the
+linear pair, the int32 ``hybrid_shuffle`` for the XOR pair, full-width
+serving for the LM kernels.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -138,7 +146,8 @@ def _tol_text(rtol: float, atol: float) -> str:
 class Counts:
     """Zero every kernel's launch count (and its plain-version count) just
     before a call and read them just after: (fn(), launches, plain).  The
-    flash routes of the last call are left in ``routes``."""
+    routes of the last call are left in ``routes``, by kernel (flash and
+    WKV both have a route named ``tensor_core``)."""
 
     def __init__(self, torch, mods):
         self.torch, self.mods = torch, mods
@@ -153,7 +162,9 @@ class Counts:
         for m in self.mods:
             launches.update(m.LAUNCHES)
             plain.update(getattr(m, "PLAIN_CALLS", {}))
-            self.routes.update(getattr(m, "ROUTE_CALLS", {}))
+            if hasattr(m, "ROUTE_CALLS"):
+                (kname,) = m.LAUNCHES
+                self.routes[kname] = dict(m.ROUTE_CALLS)
         return out, launches, plain
 
 
@@ -674,10 +685,16 @@ LARGE_HD_ROUTE = {"mla_prefill": "cuda_core", "mla_decode": "split_kv",
 # and rounds once: about one bf16 ulp of the output
 FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
 # (tag, B, S, h, Nk, Nv): RWKV6-3B prefill of 8 x 2048 and one decode step,
-# then the ragged shapes of tests/test_kernels.py
+# then the ragged shapes of tests/test_kernels.py and a ragged one at
+# RWKV6-3B's head width (bf16: the tensor-core route, last chunk masked)
 WKV_CASES = [("prefill", 8, 2048, 40, 64, 64), ("decode", 8, 1, 40, 64, 64),
              ("ragged", 1, 64, 2, 16, 16), ("ragged", 2, 100, 3, 32, 32),
-             ("ragged", 1, 128, 1, 64, 64)]
+             ("ragged", 1, 128, 1, 64, 64), ("ragged", 2, 100, 3, 64, 64)]
+# the tensor-core route against its plain mirror (the same TF32 operand
+# rounding and chunks; tests/test_torch_wkv_cuda.py's MIRROR_TOL): a TF32
+# operand that rounds the other way moves a product of order 20 by 2e-2,
+# and the bf16 output may sit one ulp (2^-7 relative) apart
+WKV_MIRROR_TOL = {"out": (2e-2, 2e-2), "state": (2e-2, 2e-2)}
 
 
 def flash_phase(torch, fa, fa_ref, peaks, seed):
@@ -807,11 +824,12 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
     return rows, main
 
 
-def wkv_phase(torch, rw, peaks, seed):
-    """The WKV kernel against the plain chunked recurrence on the card: the
-    serving path's prefill and decode shapes (bf16 streams with the fp32
-    decay the model computes, and all-fp32) and the ragged shapes of
-    tests/test_kernels.py."""
+def wkv_phase(torch, rw, rw_ref, peaks, seed):
+    """The WKV kernels against the plain chunked recurrence on the card, with
+    the route each call took: the serving path's prefill and decode shapes
+    (bf16 streams with the fp32 decay the model computes, and all-fp32)
+    and the ragged shapes of tests/test_kernels.py.  Tensor-core calls are
+    also held against their plain mirror, ``wkv_subchunk_ref``."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 202)
     rows, main = [], {}
@@ -822,7 +840,15 @@ def wkv_phase(torch, rw, peaks, seed):
         u, s0 = 0.1 * rnd(h, Nk), 0.1 * rnd(B, h, Nk, Nv)
         for dtype in (torch.bfloat16, torch.float32):
             r, k, v = (x.to(dtype) for x in (r32, k32, v32))
+            rw.reset_launch_counts()
             out, sT = rw.wkv_scan(r, k, v, log_w, u, s0)
+            torch.cuda.synchronize()
+            routes = [w for w, n in rw.ROUTE_CALLS.items() if n]
+            check(routes == [rw.route(dtype, S, Nk, Nv)]
+                  and rw.LAUNCHES["wkv_scan"] == 1,
+                  f"wkv {tag}: one launch on route "
+                  f"{rw.route(dtype, S, Nk, Nv)}, got {rw.ROUTE_CALLS}")
+            route = routes[0]
             want, want_sT = rw.chunked_linear_recurrence(
                 r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
                 chunk=64, return_state=True)
@@ -831,6 +857,19 @@ def wkv_phase(torch, rw, peaks, seed):
             torch.testing.assert_close(sT, want_sT, rtol=tol, atol=tol)
             err = max(float((out.float() - want.float()).abs().max()),
                       float((sT - want_sT).abs().max()))
+            mirror_err = None
+            if route == "tensor_core":
+                mo, ms = rw_ref.wkv_subchunk_ref(
+                    r, k, v, log_w, u, s0, chunk=rw.TC_CHUNK,
+                    sub=rw.TC_SUB, leaf=rw.TC_LEAF, tf32=True)
+                for got, ref_, key in ((out, mo, "out"), (sT, ms, "state")):
+                    m_rtol, m_atol = WKV_MIRROR_TOL[key]
+                    torch.testing.assert_close(got, ref_, rtol=m_rtol,
+                                               atol=m_atol)
+                mirror_err = max(float((out.float() - mo.float()).abs()
+                                       .max()),
+                                 float((sT - ms).abs().max()))
+                del mo, ms
             size = r.element_size()
             n_in = B * S * h
             nbytes = (size * n_in * (2 * Nk + 2 * Nv) + 4 * n_in * Nk
@@ -840,7 +879,8 @@ def wkv_phase(torch, rw, peaks, seed):
             dname = str(dtype).replace("torch.", "")
             row = {"name": "wkv_scan", "case": tag, "B": B, "S": S, "h": h,
                    "Nk": Nk, "Nv": Nv, "dtype": dname,
-                   "log_w_dtype": "float32", "max_abs_err": err,
+                   "log_w_dtype": "float32", "route": route,
+                   "max_abs_err": err, "mirror_max_abs_err": mirror_err,
                    "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
                    "flops": flops, "library_ms": None}
             row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
@@ -859,11 +899,15 @@ def wkv_phase(torch, rw, peaks, seed):
             rows.append(row)
             if is_main:
                 main.setdefault(tag, row)
+            mirror = ("" if mirror_err is None else
+                      f" mirror_max_abs_err={mirror_err!r}")
             say(f"  kernel wkv_scan {tag} B={B} S={S} h={h} Nk={Nk} Nv={Nv} "
-                f"{row['dtype']} (log_w float32): kernel_ms={row['ms']:.6f} "
-                f"plain_ms={row['plain_ms']:.6f} library_ms=null bound_ms="
-                f"{row['bound_ms']:.6f} ({row['bound_by']}) "
-                f"max_abs_err={err!r} tolerance={row['tolerance']}")
+                f"{row['dtype']} (log_w float32) route={route}: kernel_ms="
+                f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} "
+                f"library_ms=null bound_ms={row['bound_ms']:.6f} "
+                f"({row['bound_by']}) max_abs_err={err!r} "
+                f"tolerance={row['tolerance']}{mirror}"
+                + (f" device_ms={row['device_ms']:.6f}" if is_main else ""))
     return rows, main
 
 
@@ -892,14 +936,18 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
     routes = {}
 
-    def run(fn, want, what):
+    def run(fn, want, what, want_route=None):
         (out, ms), launches, plain = counts(lambda: wall(torch, fn))
         check(launches[kernel] == want and not any(plain.values()),
               f"{cfg.name} {what}: launches {launches} plain {plain}, "
               f"expected {want} {kernel} launches and no plain call")
         for k2, n in launches.items():
             total[k2] += n
-        for r, n in counts.routes.items():
+        got = counts.routes.get(kernel, {})
+        check(want_route is None or got.get(want_route) == want,
+              f"{cfg.name} {what}: routes {got}, expected all {want} "
+              f"{kernel} calls on {want_route}")
+        for r, n in got.items():
             routes[r] = routes.get(r, 0) + n
         return out, ms
 
@@ -917,8 +965,10 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
     first, _ = run(lambda: eng.generate(prompts, 1), L,
                    "generate 1 warm-up")
     # time to first token: prefill of 8 x 2048 and the first greedy token
-    ttft = [run(lambda: eng.generate(prompts, 1), L, "generate 1")[1]
-            for _ in range(3)]
+    # every prefill layer on the tensor cores: 28 flash calls on
+    # tensor_core, or 32 WKV calls on tensor_core
+    ttft = [run(lambda: eng.generate(prompts, 1), L, "generate 1",
+                "tensor_core")[1] for _ in range(3)]
     toks, gen_a = run(lambda: eng.generate(prompts, NEW), L * NEW,
                       f"generate {NEW}")
     again, gen_b = run(lambda: eng.generate(prompts, NEW), L * NEW,
@@ -981,7 +1031,7 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
            "serve_prompt_lens": [len(r.prompt) for r in reqs],
            "serve_max_new": [r.max_new_tokens for r in reqs],
            "peak_memory_gb": peak_gb, "decode_vs_forward_fp32": errs,
-           "profile": prof, "launches": total, "flash_routes": routes}
+           "profile": prof, "launches": total, "routes": routes}
     say(f"  serve {cfg.name}: {n_params} params bf16, init_ms={init_ms:.1f}; "
         f"ttft_ms={ttft_ms:.3f} (8 x {PROMPT} prefill + first token) "
         f"decode_ms_per_step={decode_ms:.3f} generate {SLOTS}x{NEW} tokens "
@@ -991,7 +1041,7 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
         f"{peak_gb:.3f} GB; greedy identical on two runs")
     say(f"  serve {cfg.name} fp32: |prefill - forward| = {errs[0]!r}, "
         f"|decode - forward| = {errs[1]!r} (limit 2e-3); {L} {kernel} "
-        f"launches per forward, prefill and decode step; flash routes "
+        f"launches per forward, prefill and decode step; {kernel} routes "
         f"{routes}")
     say(f"  profile {cfg.name} decode step (x{prof['steps']}): wall_ms="
         f"{prof['wall_ms']:.3f} device_busy_ms={prof['device_busy_ms']:.3f} "
@@ -1108,6 +1158,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv_scan import ops as rw
+    from repro_torch.kernels.rwkv_scan import ref as rw_ref
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
     from repro_torch.models import lm
@@ -1194,10 +1245,25 @@ def main(argv=None) -> int:
 
     # ---- 5. the LM kernels ------------------------------------------------
     flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
-    wkv_rows, wkv_main = wkv_phase(torch, rw, peaks, args.seed)
+    wkv_rows, wkv_main = wkv_phase(torch, rw, rw_ref, peaks, args.seed)
+    wkv_case_routes = {}
+    for row in wkv_rows:
+        wkv_case_routes[row["route"]] = wkv_case_routes.get(row["route"],
+                                                            0) + 1
+    check(set(wkv_case_routes) == set(rw.ROUTES),
+          f"phase 5's WKV cases ran on both routes: {wkv_case_routes}")
     say(f"phase lm kernels: {len(flash_rows)} flash_attention and "
         f"{len(wkv_rows)} wkv_scan shape/dtype cases match their plain "
-        f"versions")
+        f"versions; wkv_scan cases by route {wkv_case_routes}")
+    # both WKV kernels as compiled, and the tensor-core kernel's shared
+    # memory and blocks an SM as the runtime reports them
+    if "wkv_scan" in nvcc:
+        for needle in ("wkv_fwd", "wkv_chunk_tc"):
+            for line in ptxas_entries(nvcc["wkv_scan"][1], needle):
+                say(f"  ptxas wkv_scan: {line}")
+    tc_smem, tc_blocks = rw.tc_occupancy()
+    say(f"  wkv_scan tensor_core: {tc_smem} bytes of dynamic shared memory "
+        f"a block, {tc_blocks} blocks an SM")
 
     # ---- 6. serving at full width, launch counts per call ----------------
     counts = Counts(torch, (ops, fa, rw))
@@ -1237,11 +1303,16 @@ def main(argv=None) -> int:
     sources.update(coded_decode=DECODE_SOURCE,
                    xor_encode=XOR_SOURCE, xor_decode=XOR_SOURCE,
                    flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
-    flash_routes = serving["qwen2-1.5b"]["flash_routes"]
+    flash_routes = serving["qwen2-1.5b"]["routes"]
     check(flash_routes.get("tensor_core", 0) > 0
           and flash_routes.get("split_kv", 0) > 0,
           f"serving qwen2-1.5b took the tensor-core prefill and the "
           f"split-kv decode: {flash_routes}")
+    wkv_routes = serving["rwkv6-3b"]["routes"]
+    check(wkv_routes.get("tensor_core", 0) > 0
+          and wkv_routes.get("step", 0) > 0,
+          f"serving rwkv6-3b took the tensor-core prefill and the step "
+          f"decode: {wkv_routes}")
     kernels = []
     for kname in KERNELS + LM_KERNELS:
         launches = by_path[main_path[kname]].get(kname, 0)
@@ -1278,6 +1349,13 @@ def main(argv=None) -> int:
             kernels[-1].update(launches_by_route=flash_routes,
                                device_kernels_per_call=per_call,
                                hd_over_128_calls_by_route=large_hd)
+        if kname == "wkv_scan":
+            # by route on the main path (prefill on tensor_core, decode's
+            # one-step calls on step), and phase 5's checked cases
+            kernels[-1].update(launches_by_route=wkv_routes,
+                               checked_cases_by_route=wkv_case_routes,
+                               tc_smem_bytes=tc_smem,
+                               tc_blocks_per_sm=tc_blocks)
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

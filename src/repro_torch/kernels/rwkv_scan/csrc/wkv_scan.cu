@@ -17,24 +17,27 @@
 // u [h, Nk], s0 and sT [B, h, Nk, Nv] are fp32; out [B, T, h, Nv] has r's
 // dtype.
 //
-// Design: the step form of linrec.recurrent_step, not the Pallas chunked
-// form (its [C, C, Nk] gate tensor is 1 MiB at C = Nk = 64, beyond an SM's
-// 227 KB of shared memory).  One block per (b, h); thread j owns state
-// column S[:, j] in registers (NK fp32 values).  Time runs in a loop inside
-// the block: r_t, k_t, exp(log_w_t) and v_t of kTS steps at a time are
-// staged in shared memory, each thread issuing all its loads of a pass
-// before its first store (rows past Nk padded with r = k = 0 and w = 1, so
-// the padded state rows stay 0); then each thread walks the kTS steps with
-// float4 broadcast reads.  The same code serves prefill (T = prompt) and
-// decode (T = 1).  Each input element is read once, so at the model's
-// sizes the kernel is bound by the card's latency and its B * h blocks of
-// Nv threads, far from the HBM bound of the bytes it moves; splitting Nk
-// over more threads is later work.  fp32 throughout; results differ from
-// the chunked form only in rounding.
+// Two routes (ops.route picks one by dtype and shape).  "tensor_core",
+// for bf16 r, k, v at Nk = Nv = 64 and T >= 16, is the chunked form on
+// the tensor cores in wkv_chunk.cuh (wkv_forward_tc below).  "step", for
+// everything else (fp32 streams, decode's T = 1, other head widths), is
+// wkv_fwd here: the step form of linrec.recurrent_step.  One block per
+// (b, h); thread j owns state column S[:, j] in registers (NK fp32
+// values).  Time runs in a loop inside the block: r_t, k_t, exp(log_w_t)
+// and v_t of kTS steps at a time are staged in shared memory, each thread
+// issuing all its loads of a pass before its first store (rows past Nk
+// padded with r = k = 0 and w = 1, so the padded state rows stay 0); then
+// each thread walks the kTS steps with float4 broadcast reads.  Each
+// input element is read once, so at the model's sizes the step kernel is
+// bound by the card's latency and its B * h blocks of Nv threads, far from
+// the HBM bound of the bytes it moves.  fp32 throughout; results differ
+// from the chunked form only in rounding.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "wkv_chunk.cuh"
 
 namespace {
 
@@ -193,6 +196,38 @@ int wkv_forward(int dtype, int w_dtype, const void* r, const void* k,
     return dispatch<__nv_bfloat16, __nv_bfloat16>(r, k, v, log_w, u, s0, out,
                                                   sT, B, T_len, H, nk, nv, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The "tensor_core" route: bf16 r, k, v and out; w_dtype 0 (fp32 log_w) or
+// 1 (bf16).  Takes nk = nv = 64 and T_len >= 16 only, and 16-byte aligned
+// r, k, v, log_w; anything else returns cudaErrorInvalidValue unlaunched.
+int wkv_forward_tc(int w_dtype, const void* r, const void* k, const void* v,
+                   const void* log_w, const float* u, const float* s0,
+                   void* out, float* sT, int B, int T_len, int H, int nk,
+                   int nv, void* stream) {
+  const auto misaligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+  };
+  if (nk != wkvtc::kN || nv != wkvtc::kN || T_len < wkvtc::kMinT
+      || misaligned(r) || misaligned(k) || misaligned(v)
+      || misaligned(log_w) || (w_dtype != kF32 && w_dtype != kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || H == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_dtype == kF32)
+    return wkvtc::launch<float>(r, k, v, log_w, u, s0, out, sT, B, T_len, H,
+                                s);
+  return wkvtc::launch<__nv_bfloat16>(r, k, v, log_w, u, s0, out, sT, B,
+                                      T_len, H, s);
+}
+
+// Shared memory a block of the tensor-core route takes (bytes), and how
+// many of its blocks fit on one SM (-1 on a CUDA error).
+int wkv_tc_smem_bytes() { return static_cast<int>(sizeof(wkvtc::Smem)); }
+
+int wkv_tc_blocks_per_sm(int w_dtype) {
+  return w_dtype == kF32 ? wkvtc::blocks_per_sm<float>()
+                         : wkvtc::blocks_per_sm<__nv_bfloat16>();
 }
 
 }  // extern "C"

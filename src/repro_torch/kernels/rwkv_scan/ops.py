@@ -1,19 +1,33 @@
 """Public WKV scan op: the port's ``repro/kernels/rwkv_scan/ops.py``, in
 model layout.
 
-On a CUDA tensor :func:`wkv_scan` launches the hand-written Hopper kernel
-(``csrc/wkv_scan.cu``, built at first use by
-:mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the
-plain chunked recurrence (:func:`repro_torch.models.linrec.
-chunked_linear_recurrence`).  There is no fallback from the card to the CPU.
+On a CUDA tensor :func:`wkv_scan` launches one of the hand-written Hopper
+kernels (``csrc/wkv_scan.cu`` with ``csrc/wkv_chunk.cuh``, built at first
+use by :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it
+runs the plain chunked recurrence (:func:`repro_torch.models.linrec.
+chunked_linear_recurrence`).  There is no fallback from the card to the
+CPU, and none from one route to the other.
 
-The JAX wrapper transposes to ``[B*h, S, N]`` and pads S to a whole number
-of chunks for the Pallas grid.  The kernel walks time step by step, reads
-``[B, S, h, N]`` in place and needs no padding; ``chunk`` only sets the
-plain version's chunk length.
+On the card :func:`route` picks the kernel by dtype and shape alone:
 
-``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls that took the
-plain version (CPU tensors); :func:`reset_launch_counts` zeroes both.
+* ``tensor_core`` — bf16 r, k, v (log_w fp32 or bf16) with Nk = Nv = 64
+  and S >= ``TC_MIN_SEQ``: chunks of ``TC_CHUNK`` steps, factored into
+  sub-chunks of ``TC_SUB`` and then ``TC_LEAF`` steps so that the products
+  between them are TF32 tensor-core products (fp32 accumulators); plain
+  version :func:`.ref.wkv_subchunk_ref`.
+* ``step`` — everything else (fp32 streams, whose tolerance no TF32
+  product meets; decode's S = 1; other head widths): the state in
+  registers, time walked step by step.
+
+Both read ``[B, S, h, N]`` in place and need no padding (the ragged last
+chunk is masked in the kernel); the JAX wrapper transposes to ``[B*h, S,
+N]`` and pads S for the Pallas grid.  ``chunk`` only sets the CPU plain
+version's chunk length.
+
+``LAUNCHES`` counts kernel launches (one per call, whichever route),
+``ROUTE_CALLS`` the same calls by route, and ``PLAIN_CALLS`` calls that
+took the plain version (CPU tensors); :func:`reset_launch_counts` zeroes
+all three.
 """
 from __future__ import annotations
 
@@ -29,14 +43,32 @@ from ...models.linrec import chunked_linear_recurrence
 
 LAUNCHES: Dict[str, int] = {"wkv_scan": 0}
 PLAIN_CALLS: Dict[str, int] = {"wkv_scan": 0}
+ROUTES = ("tensor_core", "step")
+ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 MAX_NK, MAX_NV = 128, 256
+TC_WIDTH = 64               # Nk = Nv of the tensor-core instance
+TC_MIN_SEQ = 16             # one sub-chunk (kMinT of csrc/wkv_chunk.cuh)
+TC_CHUNK = 32               # steps a chunk (kC)
+TC_SUB = 16                 # steps a sub-chunk (kL)
+TC_LEAF = 8                 # rows of the directly computed diagonal blocks
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["wkv_scan"] = 0
     PLAIN_CALLS["wkv_scan"] = 0
+    for r in ROUTES:
+        ROUTE_CALLS[r] = 0
+
+
+def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
+    """The kernel a card call takes, by the dtype of r, k, v and the shape
+    alone."""
+    if (dtype == torch.bfloat16 and Nk == Nv == TC_WIDTH
+            and S >= TC_MIN_SEQ):
+        return "tensor_core"
+    return "step"
 
 
 @functools.lru_cache(maxsize=None)
@@ -45,6 +77,11 @@ def _library() -> ctypes.CDLL:
     p, i32 = ctypes.c_void_p, ctypes.c_int
     lib.wkv_forward.argtypes = [i32, i32] + [p] * 8 + [i32] * 5 + [p]
     lib.wkv_forward.restype = ctypes.c_int
+    lib.wkv_forward_tc.argtypes = [i32] + [p] * 8 + [i32] * 5 + [p]
+    lib.wkv_forward_tc.restype = ctypes.c_int
+    lib.wkv_tc_blocks_per_sm.argtypes = [i32]
+    for fn in (lib.wkv_tc_smem_bytes, lib.wkv_tc_blocks_per_sm):
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -53,6 +90,21 @@ def build() -> float:
     t0 = time.perf_counter()
     _library()
     return time.perf_counter() - t0
+
+
+def tc_occupancy() -> Tuple[int, int]:
+    """(shared memory bytes a block, blocks an SM) of the tensor-core
+    kernel with fp32 log_w, as the card's runtime reports them."""
+    lib = _library()
+    return lib.wkv_tc_smem_bytes(), lib.wkv_tc_blocks_per_sm(
+        _DTYPES[torch.float32])
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """x contiguous with a 16-byte aligned start (the tensor-core kernel's
+    cp.async copies): a view that starts off 16 bytes is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -89,7 +141,11 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Nk > MAX_NK or Nv > MAX_NV:
         raise ValueError(f"wkv_scan: Nk {Nk} > {MAX_NK} or Nv {Nv} > "
                          f"{MAX_NV} is not supported by the kernel")
-    r, k, v, log_w = (x.contiguous() for x in (r, k, v, log_w))
+    way = route(r.dtype, S, Nk, Nv)
+    if way == "tensor_core":
+        r, k, v, log_w = (_aligned(x) for x in (r, k, v, log_w))
+    else:
+        r, k, v, log_w = (x.contiguous() for x in (r, k, v, log_w))
     u32 = u.to(torch.float32).contiguous()
     s0 = (None if initial_state is None
           else initial_state.to(torch.float32).contiguous())
@@ -97,11 +153,16 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sT = torch.empty((B, h, Nk, Nv), dtype=torch.float32, device=r.device)
     if B * h == 0:
         return out, sT
-    rc = _library().wkv_forward(
-        _DTYPES[r.dtype], _DTYPES[log_w.dtype], r.data_ptr(), k.data_ptr(),
-        v.data_ptr(), log_w.data_ptr(), u32.data_ptr(),
-        None if s0 is None else s0.data_ptr(), out.data_ptr(),
-        sT.data_ptr(), B, S, h, Nk, Nv, _build.stream_handle())
-    _build.check_launch(rc, "wkv_scan")
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
+            u32.data_ptr(), None if s0 is None else s0.data_ptr(),
+            out.data_ptr(), sT.data_ptr(), B, S, h, Nk, Nv,
+            _build.stream_handle())
+    if way == "tensor_core":
+        rc = _library().wkv_forward_tc(_DTYPES[log_w.dtype], *ptrs)
+    else:
+        rc = _library().wkv_forward(_DTYPES[r.dtype], _DTYPES[log_w.dtype],
+                                    *ptrs)
+    _build.check_launch(rc, f"wkv_scan ({way})")
     LAUNCHES["wkv_scan"] += 1
+    ROUTE_CALLS[way] += 1
     return out, sT

@@ -111,7 +111,10 @@ def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
     ``state`` (decode/streaming): {'shift': [B,D], 'wkv': [B,h,hd,hd]}.
     Returns (out [B,S,D], new state or None when stateless).  ``chunk`` is
-    the plain version's chunk length; the kernel steps through time.
+    the plain version's chunk length; on the card the WKV kernel's route
+    (``rwkv_scan.ops.route``) sets its own: a bf16 prefill at head width 64
+    runs the chunked tensor-core kernel, anything else (fp32, a decode
+    step's S = 1) the step kernel.
     """
     B, S, D = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
