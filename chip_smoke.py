@@ -77,7 +77,10 @@ Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
 ``forward``, ``prefill`` and ``decode_step`` call and read just after.  A
 coded shuffle with ``combine_impl="kernel"`` and packet arity >= 2 must
-launch one encode and one decode, other shuffles none; every LM forward
+launch one encode and one decode, other shuffles none; under faults that
+holds on the ``none`` and ``restart`` rungs, and the degraded rungs
+(``decode_around``, ``partial_remap``: unicast stage 1) launch none; every
+LM forward
 (a prefill or one decode step) must launch its kernel once per layer (28
 flash launches for qwen2-1.5b, 32 WKV launches for rwkv6-3b) and call no
 plain version; every time-to-first-token call runs all of them on the
@@ -93,6 +96,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -168,10 +172,16 @@ class Counts:
         return out, launches, plain
 
 
-def expected_launches(multicast: str, combine_impl: str, arity: int):
+def expected_launches(multicast: str, combine_impl: str, arity: int,
+                      rung: str = "none"):
     """The launches one stacked shuffle makes: one encode and one decode
-    for all K servers when a coded format runs on the kernels."""
+    for all K servers when a coded format runs on the kernels.  Under
+    faults, the ``none`` and ``restart`` rungs run that failure-free
+    shuffle; the degraded rungs (``decode_around``, ``partial_remap``) run
+    stage 1 as unicast and launch nothing."""
     want = dict.fromkeys(KERNELS, 0)
+    if rung not in ("none", "restart"):
+        return want
     if combine_impl == "kernel" and multicast != "unicast" and arity >= 2:
         pair = (("xor_encode", "xor_decode") if multicast == "coded_xor"
                 else ("coded_encode", "coded_decode"))
@@ -628,6 +638,130 @@ def device_time(prof):
     top.sort(reverse=True)
     return (sum(t for t, _, _ in top),
             [{"ms": t, "count": c, "name": k[:100]} for t, c, k in top[:12]])
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the engine under faults (the recovery ladder)
+# ---------------------------------------------------------------------------
+
+def faults_phase(torch, np, eng, count, job, subfiles, mesh, SchemeParams,
+                 dg, faults, degraded_rack_bytes, smi):
+    """The recovery ladder at the Table I row on phase 4's subfiles: each
+    configuration under three crash schedules (degraded rungs, asked for
+    the coded format on the kernels, which they must not launch), then
+    every server dead on attempt 0 (the restart rung: one coded kernel
+    job).  Outputs bit-identical to the failure-free fused job; walls by
+    the host clock around a call ending in ``torch.cuda.synchronize()``,
+    the median of three calls after a warm one."""
+    runs, total = [], dict.fromkeys(KERNELS, 0)
+
+    def timed(fn, what, faulted=True, reps=3):
+        """(output of the last call, median wall ms, launches of one call):
+        every counted call must launch the same kernels; the faulted
+        calls' launches make the path's total."""
+        fn()                                              # warm
+        walls, seen = [], []
+        for _ in range(reps):
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                return out, (time.perf_counter() - t0) * 1e3
+            (out, ms), counts, _ = count(run)
+            walls.append(ms)
+            seen.append(counts)
+            if faulted:
+                add_counts(total, counts)
+        check(all(c == seen[0] for c in seen),
+              f"faults {what}: launches differ between calls {seen}")
+        return out, statistics.median(walls), seen[0]
+
+    kw = dict(multicast="coded", combine_impl="kernel")
+    for family, r in (("binomial", 1), ("binomial", 2), ("binomial", 3),
+                      ("resolvable", 2)):
+        p = SchemeParams(K=K, P=P, Q=Q, N=N, r=r)
+        clean, clean_ms, _ = timed(lambda: eng.run_job_distributed(
+            job, subfiles, p, mesh, scheme_family=family, **kw),
+            f"{family} r={r} failure-free", faulted=False)
+        base_send = eng.compile_hybrid_plan(p, family=family).n_send
+        say(f"  faults {family} r={r} failure-free fused job: "
+            f"wall_ms={clean_ms:.3f} n_send={base_send} [{smi}]")
+        for name, inj in (("crash(3)", faults.FaultInjector.crash((3,))),
+                          ("crash(0,5)",
+                           faults.FaultInjector.crash((0, 5))),
+                          ("rack_crash(1)",
+                           faults.FaultInjector.rack_crash(p, 1))):
+            tag = f"{family} r={r} {name}"
+            res, ms, counts = timed(lambda: eng.run_job_distributed(
+                job, subfiles, p, mesh, scheme_family=family,
+                faults=faults.FaultSpec(inj), **kw), tag)
+            rep = res.recovery
+            dplan = dg.compile_degraded_plan(p, rep.failed, family=family)
+            n_orph = int(dplan.orphan_subfiles.size)
+            check(torch.equal(res.outputs, clean.outputs),
+                  f"faults {tag}: outputs == failure-free fused job")
+            want_rung = "partial_remap" if n_orph else "decode_around"
+            check(rep.rung == want_rung and rep.n_remapped == n_orph
+                  and (n_orph > 0) == (rep.rung == "partial_remap"),
+                  f"faults {tag}: rung {rep.rung} n_remapped "
+                  f"{rep.n_remapped}, expected {want_rung} {n_orph}")
+            check(counts == expected_launches(kw["multicast"],
+                                              kw["combine_impl"], r,
+                                              rep.rung),
+                  f"faults {tag}: a degraded rung launched {counts}")
+            rb = degraded_rack_bytes(dplan, D)
+            check((res.intra_rack_bytes, res.cross_rack_bytes)
+                  == (rb.intra_total, rb.cross_total),
+                  f"faults {tag}: rack bytes == degraded_rack_bytes")
+            patch_bytes = (K * p.subfiles_per_layer * (Q // P) * D * 4
+                           if n_orph else 0)
+            runs.append({"family": family, "r": r, "schedule": name,
+                         "failed": list(rep.failed), "rung": rep.rung,
+                         "n_remapped": rep.n_remapped, "wall_ms": ms,
+                         "clean_wall_ms": clean_ms,
+                         "n_send": dplan.plan.n_send,
+                         "base_n_send": base_send,
+                         "patch_bytes": patch_bytes,
+                         "cross_rack_bytes": res.cross_rack_bytes,
+                         "launches": counts})
+            say(f"  faults {tag}: {rep.rung} n_remapped={rep.n_remapped} "
+                f"bit-exact, wall_ms={ms:.3f} (failure-free "
+                f"{clean_ms:.3f}) n_send={dplan.plan.n_send} "
+                f"patch_bytes={patch_bytes} launches={counts} [{smi}]")
+        del clean
+    # every server dead on attempt 0: the restart rung reruns the
+    # failure-free coded kernel job
+    p = SchemeParams(K=K, P=P, Q=Q, N=N, r=2)
+    clean = eng.run_job_distributed(job, subfiles, p, mesh, **kw)
+    spec = faults.FaultSpec(faults.FaultInjector.crash(tuple(range(K))),
+                            max_restarts=2)
+    res, ms, counts = timed(lambda: eng.run_job_distributed(
+        job, subfiles, p, mesh, faults=spec, **kw), "all dead")
+    rep = res.recovery
+    check(rep.rung == "restart" and rep.restarts == 1
+          and len(rep.backoff_delays) == 1,
+          f"faults all dead: {rep}")
+    check(torch.equal(res.outputs, clean.outputs),
+          "faults all dead: outputs == failure-free fused job")
+    check(counts == expected_launches("coded", "kernel", 2, rep.rung),
+          f"faults all dead: restart launches {counts}")
+    runs.append({"family": "binomial", "r": 2, "schedule": "all dead",
+                 "rung": rep.rung, "restarts": rep.restarts,
+                 "backoff_delays": list(rep.backoff_delays),
+                 "wall_ms": ms, "launches": counts})
+    say(f"  faults binomial r=2 all {K} dead: restart restarts=1 "
+        f"backoff_s={rep.backoff_delays[0]:.6f} (recorded, not slept) "
+        f"bit-exact, wall_ms={ms:.3f} launches={counts} [{smi}]")
+    # one phase-timing row at the same configuration
+    row = eng.measure_phase_timings(job, subfiles, p, mesh, iters=3)
+    secs = dict(row["seconds"], shuffle=row["meta"]["shuffle_s"])
+    check(row["meta"]["backend"] == "cuda"
+          and all(math.isfinite(v) and v > 0 for v in secs.values()),
+          f"measure_phase_timings: every phase finite and > 0: {secs}")
+    say("  measure_phase_timings binomial r=2 (ms): " + " ".join(
+        f"{k}={v * 1e3:.3f}" for k, v in secs.items()) + f" [{smi}]")
+    return runs, total, row
 
 
 # ---------------------------------------------------------------------------
@@ -1151,6 +1285,7 @@ def main(argv=None) -> int:
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.core import coded_collectives as cc
     from repro_torch.core import costs
+    from repro_torch.core import degraded as dg
     from repro_torch.core.params import SchemeParams
     from repro_torch.distributed.meshes import make_mesh
     from repro_torch.kernels import _build
@@ -1162,8 +1297,9 @@ def main(argv=None) -> int:
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
     from repro_torch.models import lm
-    from repro_torch.obs.bytes import reconcile
+    from repro_torch.obs.bytes import degraded_rack_bytes, reconcile
     from repro_torch.obs.tracing import enable_tracing
+    from repro_torch.resilience import faults
     from repro_torch.serve import engine as serve
 
     t_start = time.perf_counter()
@@ -1243,6 +1379,16 @@ def main(argv=None) -> int:
     for k in profile["by_kernel"][:8]:
         say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
 
+    # ---- 4b. the engine under faults -------------------------------------
+    t_faults = time.perf_counter()
+    fault_runs, fault_launches, phase_row = faults_phase(
+        torch, np, eng, count, job, subfiles, mesh, SchemeParams, dg,
+        faults, degraded_rack_bytes, smi)
+    say(f"phase faults: {len(fault_runs)} faulted run_job_distributed runs "
+        f"bit-exact vs the failure-free fused job, each on its expected "
+        f"rung; launches {fault_launches}; "
+        f"{time.perf_counter() - t_faults:.1f} s [{smi}]")
+
     # ---- 5. the LM kernels ------------------------------------------------
     flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
     wkv_rows, wkv_main = wkv_phase(torch, rw, rw_ref, peaks, args.seed)
@@ -1287,7 +1433,7 @@ def main(argv=None) -> int:
 
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
-               "profiled": profile["launches"],
+               "profiled": profile["launches"], "faults": fault_launches,
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
                "card_vs_cpu": cmp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
@@ -1364,6 +1510,7 @@ def main(argv=None) -> int:
         "nvcc": nvcc, "engine_peak_memory_gb": peak_gb,
         "kernels": kernel_rows, "shuffle": shuffle_runs,
         "engine": engine_runs, "profile": profile,
+        "faults": fault_runs, "phase_timings": phase_row,
         "lm_kernels": flash_rows + wkv_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))

@@ -27,7 +27,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from math import comb
-from typing import Dict, Mapping, NamedTuple, Sequence, Tuple
+from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -315,14 +315,19 @@ def _stacked_tables(plan: HybridShufflePlan) -> Dict[str, np.ndarray]:
     comp_src = coded(plan.mcast_comp_pos, plan.mcast_comp_rack)
     known_src = coded(plan.mcast_known_pos, plan.mcast_known_rack)
     shape = (P, Kr, P, plan.n_send)
-    if plan.cross_valid is None:
+    cv = plan.cross_valid
+    if cv is None:
         # binomial: every slot from a distinct source rack is real
         valid = np.broadcast_to(rack[:, None, None, None]
                                 != rack[None, None, :, None], shape)
+    elif cv.ndim == 4:
+        # degraded plans: per-LAYER validity [P, Kr, P, n_send], already
+        # the receiver's (i, j, z, m) view (repair streams differ by which
+        # servers of the layer died)
+        valid = np.asarray(cv)
     else:
         # families with padded streams (resolvable): per-slot mask
-        valid = np.broadcast_to(np.asarray(plan.cross_valid)[:, None],
-                                shape)
+        valid = np.broadcast_to(np.asarray(cv)[:, None], shape)
     n_slots = p.K * P * plan.n_send
     return {"local_src": local_src.reshape(-1),
             "local_dst": local_dst.reshape(-1),
@@ -333,6 +338,17 @@ def _stacked_tables(plan: HybridShufflePlan) -> Dict[str, np.ndarray]:
             "recv_valid": valid.reshape(-1)}
 
 
+def upload_plan_tables(plan: HybridShufflePlan,
+                       device: torch.device) -> DevicePlanTables:
+    """:class:`DevicePlanTables` of ``plan`` uploaded to ``device``,
+    uncached: the caller owns them (a degraded plan holds its own, so they
+    die with its entry in the degraded-plan side cache)."""
+    t = _stacked_tables(plan)
+    return DevicePlanTables(**{
+        k: torch.as_tensor(np.array(v), device=device)
+        for k, v in t.items()})
+
+
 @functools.lru_cache(maxsize=128)
 def device_plan_tables(plan: HybridShufflePlan,
                        device: torch.device) -> DevicePlanTables:
@@ -340,10 +356,7 @@ def device_plan_tables(plan: HybridShufflePlan,
     cached per (plan, device) (plans hash by identity, and
     :func:`compile_hybrid_plan` returns the same object per config, so a
     repeated shuffle never re-uploads its tables)."""
-    t = _stacked_tables(plan)
-    return DevicePlanTables(**{
-        k: torch.as_tensor(np.array(v), device=device)
-        for k, v in t.items()})
+    return upload_plan_tables(plan, device)
 
 
 def _combine(streams: torch.Tensor, multicast: str,
@@ -386,7 +399,9 @@ def _uncombine(f: torch.Tensor, known: torch.Tensor, multicast: str,
 def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
                         tables: DevicePlanTables,
                         multicast: str = "unicast",
-                        combine_impl: str = "torch") -> torch.Tensor:
+                        combine_impl: str = "torch",
+                        patch: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """The two-stage hybrid shuffle for all K servers at once, general r.
 
     ``vals`` is [K, n_loc, Q, d] (or [P, Kr, n_loc, Q, d]): server (i, j)'s
@@ -406,6 +421,12 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
     ops, the counterpart of the JAX ``'xla'``) or ``'kernel'`` (the CUDA
     kernels of :mod:`repro_torch.kernels.coded_combine`, the counterpart of
     ``'pallas'``; on a CPU tensor they run their plain versions).
+
+    ``patch`` is a [K, n_layer, q_rack, d] additive stage-1 table
+    correction of ``vals``'s dtype — the degraded-recovery path of
+    :mod:`repro_torch.mapreduce.recovery` injects re-mapped orphan rows
+    through it (those rows receive nothing and their local fill is zero,
+    so add == set).  ``None`` costs nothing.
     """
     if multicast not in MULTICAST_MODES:
         raise ValueError(f"multicast must be one of {MULTICAST_MODES}")
@@ -449,6 +470,8 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
         # racing to overwrite row 0
         recvd = torch.where(tables.recv_valid[:, None, None], recvd, 0)
         table.index_add_(0, tables.recv_dst, recvd)
+    if patch is not None:
+        table += patch.reshape(p.K * n_layer, q_rack, d)
 
     # ---- Stage 2: intra-rack exchange (a transpose over the Kr axes) ------
     # table[i, j_src, l, j_dst, :] -> out[i, j_dst, j_src, l, :]
@@ -522,12 +545,23 @@ def plan_transfer_matrices(plan: HybridShufflePlan,
         cross cost.  Families with padded streams report the actual
         per-pair loads (padding carries no pairs).
       * ``intra_per_rack`` [P]: stage-2 pairs through each ToR switch.
+
+    Degraded plans (4-dim ``cross_valid`` — see
+    :mod:`repro_torch.core.degraded`) are counted straight off the valid
+    slots: their stage 1 is per-layer repair unicast, so the multicast gain
+    is forfeited during recovery regardless of ``multicast``.
     """
     if multicast not in MULTICAST_MODES:
         raise ValueError(f"multicast must be one of {MULTICAST_MODES}")
     p = plan.params
     q_rack, q_srv = p.Q // p.P, p.Q // p.K
     intra_rack = float(p.Kr * (p.Kr - 1) * p.subfiles_per_layer * q_srv)
+    cv = plan.cross_valid
+    if cv is not None and cv.ndim == 4:
+        # valid slots summed over layers and slot axis: [recv i, src z]
+        counts = cv.sum(axis=(1, 3)) if cv.size else np.zeros((p.P, p.P))
+        return {"cross_rack_matrix": counts.T.astype(float) * q_rack,
+                "intra_per_rack": np.full((p.P,), intra_rack)}
     arity = plan.mcast_arity
     gain = arity if (multicast != "unicast" and arity >= 2) else 1
     if plan.family == "resolvable":
@@ -560,7 +594,9 @@ def plan_shuffle_reference(values: np.ndarray, p: SchemeParams,
 
 
 def simulate_plan_shuffle(values: np.ndarray, plan: HybridShufflePlan,
-                          multicast: str = "unicast") -> np.ndarray:
+                          multicast: str = "unicast", *,
+                          failed: Sequence[int] = (),
+                          patch: Optional[np.ndarray] = None) -> np.ndarray:
     """Re-execute the exact data movement of :func:`hybrid_shuffle` with
     NumPy indexing, server by server: stage-1 table fill (local rows + per
     source rack received blocks), then the stage-2 intra-rack key split.
@@ -572,6 +608,14 @@ def simulate_plan_shuffle(values: np.ndarray, plan: HybridShufflePlan,
     sender's ``mcast_comp_*`` tables) and the receiver decodes by
     subtracting its arity-1 locally known components (``mcast_known_*``).
     Plans with padded streams contribute only their ``cross_valid`` slots.
+
+    ``failed`` (flat server ids) zeroes those servers' in-memory map
+    outputs before the shuffle — the crash model of
+    :mod:`repro_torch.core.degraded` — and ``patch`` adds a [K, n_layer,
+    q_rack, d] per-server stage-1 correction (re-mapped orphan rows) after
+    the table fill, mirroring the ``patch`` argument of
+    :func:`shuffle_device_body`.  Together they re-execute a DEGRADED plan
+    exactly as the degraded device program does.
     """
     p = plan.params
     q_rack, q_srv = p.Q // p.P, p.Q // p.K
@@ -579,6 +623,10 @@ def simulate_plan_shuffle(values: np.ndarray, plan: HybridShufflePlan,
     d = values.shape[-1]
     local = pack_local_values(values, plan).reshape(
         p.P, p.Kr, -1, p.Q, d)                      # [P, Kr, n_loc, Q, d]
+    if failed:
+        local = local.copy()
+        for s in failed:
+            local[int(s) // p.Kr, int(s) % p.Kr] = 0
     arity = plan.mcast_arity
     coded = multicast == "coded" and arity >= 2
 
@@ -593,7 +641,9 @@ def simulate_plan_shuffle(values: np.ndarray, plan: HybridShufflePlan,
                     if z == i:
                         continue
                     cv = plan.cross_valid
-                    valid = slice(None) if cv is None else cv[i, z]
+                    valid = (slice(None) if cv is None
+                             else cv[i, j, z] if cv.ndim == 4
+                             else cv[i, z])
                     dst = plan.cross_recv_pos[i, j, z][valid]
                     if not coded:
                         # what z sends to i: its share rows, i's rack keys
@@ -613,6 +663,9 @@ def simulate_plan_shuffle(values: np.ndarray, plan: HybridShufflePlan,
                             + np.arange(q_rack))
                     side = local[i, j][kpos[..., None], kkey].sum(axis=1)
                     table[i, j, dst] = (f - side)[valid]
+    if patch is not None:
+        table = table + np.asarray(patch).reshape(
+            p.P, p.Kr, n_layer, q_rack, d)
 
     # ---- Stage 2: intra-rack all_to_all == per-server key split -----------
     out = np.zeros((p.K, p.Kr * n_layer, q_srv, d), values.dtype)
@@ -635,7 +688,8 @@ __all__ = [
     "plan_cache_info", "plan_cache_clear",
     "PlanCacheInfo", "FamilyCacheInfo",
     "MULTICAST_MODES", "COMBINE_IMPLS", "DevicePlanTables",
-    "device_plan_tables", "shuffle_device_body", "hybrid_shuffle",
+    "upload_plan_tables", "device_plan_tables", "shuffle_device_body",
+    "hybrid_shuffle",
     "reduce_ready_order", "reduce_output_keys", "pack_local_values",
     "plan_transfer_matrices", "plan_shuffle_reference",
     "simulate_plan_shuffle",

@@ -17,7 +17,13 @@ Two execution paths:
     and uploaded once), the shuffle gathers from the plan's cached device
     index tables, and each server reduces its own keys.  ``fused=False``
     keeps the legacy path (map all N, copy to the host, pack there,
-    upload again) for comparison.
+    upload again) for comparison.  ``faults=`` runs the job under injected
+    server crashes through the recovery ladder of
+    :mod:`repro_torch.mapreduce.recovery`.
+
+:func:`measure_phase_timings` / :func:`measure_calibration_grid` time the
+legacy path's phases one by one, in the JAX package's row format (the
+calibration feed of its simulator).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` for :func:`run_job`, a mesh made with ``device="cpu"``
@@ -27,7 +33,8 @@ raise.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+import time
+from typing import Callable, Dict, List
 
 import numpy as np
 import torch
@@ -49,7 +56,7 @@ from ..core.shuffle_plan import count_plan, make_plan
 from ..distributed.meshes import DeviceLike, StackedMesh, resolve_device
 from ..obs.bytes import plan_rack_bytes, reconcile, record_rack_bytes
 from ..obs.metrics import refresh_cache_metrics
-from ..obs.tracing import get_tracer
+from ..obs.tracing import get_tracer, spans_from_phase_timings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +75,10 @@ class JobResult:
     intra_cost: float                         # paper metric (kv pairs)
     cross_cost: float
     scheme: str
+    # filled by the recovery ladder when the job ran under injected faults
+    # (repro_torch.mapreduce.recovery.RecoveryReport); None on failure-free
+    # runs
+    recovery: object | None = None
     # rack-level byte accounting in value-units (pairs x payload width d),
     # paper-metric counting, derived from the ACTUAL compiled plan and
     # reconciled against the closed forms (repro_torch.obs.bytes)
@@ -206,7 +217,8 @@ def run_job_distributed(job: MapReduceJob, subfiles,
                         multicast: str = "unicast",
                         combine_impl: str = "torch",
                         placement: object | None = None,
-                        scheme_family: str = "binomial") -> JobResult:
+                        scheme_family: str = "binomial",
+                        faults: object | None = None) -> JobResult:
     """The hybrid-scheme job on ``mesh.device`` with the real two-stage
     shuffle (general map-replication r in [1, P]).
 
@@ -222,10 +234,25 @@ def run_job_distributed(job: MapReduceJob, subfiles,
     permutation, bare or as any object with ``.perm``; it decides which
     subfile each server maps and leaves the outputs unchanged.  Returns
     outputs identical to :func:`run_job`.
+
+    ``faults`` (a :class:`repro_torch.resilience.faults.FaultSpec`) runs
+    the job under injected server crashes through the recovery ladder of
+    :mod:`repro_torch.mapreduce.recovery` — decode-around, partial re-map,
+    then bounded-retry restart — and fills ``JobResult.recovery``; outputs
+    stay bit-identical to the failure-free run.
     """
     p = params if r is None or r == params.r else \
         dataclasses.replace(params, r=r)
     _validate_mesh(mesh, p)
+    if faults is not None:
+        from .recovery import run_with_recovery
+        res = run_with_recovery(job, subfiles, p, mesh, faults,
+                                multicast=multicast,
+                                combine_impl=combine_impl,
+                                placement=placement,
+                                scheme_family=scheme_family)
+        refresh_cache_metrics()
+        return res
     dev = mesh.device
     perm = getattr(placement, "perm", placement)
     tracer = get_tracer()
@@ -271,3 +298,117 @@ def run_job_distributed(job: MapReduceJob, subfiles,
                      intra_rack_bytes=rb.intra_total,
                      cross_rack_bytes=rb.cross_total,
                      blame=_blame_from_spans(tracer.events[span_lo:], c))
+
+
+# ---------------------------------------------------------------------------
+# Per-phase timing instrumentation (calibration feed)
+# ---------------------------------------------------------------------------
+
+def _best_of(fn: Callable[[], object], iters: int) -> float:
+    """Best host-clock seconds of ``iters`` calls (host phases: each
+    ``fn`` ends in a copy or a synchronize, so the device work is in)."""
+    best = float("inf")
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def _best_of_device(fn: Callable[[], object], iters: int,
+                    device: torch.device) -> float:
+    """Best seconds of ``iters`` calls of a device phase: CUDA events
+    around each call on the card, the host clock on the CPU."""
+    if device.type != "cuda":
+        return _best_of(fn, iters)
+    best = float("inf")
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3)
+    return best
+
+
+def measure_phase_timings(job: MapReduceJob, subfiles,
+                          params: SchemeParams, mesh: StackedMesh,
+                          iters: int = 3) -> Dict[str, object]:
+    """Measure the per-phase time of the hybrid pipeline on
+    ``mesh.device``, in the row format of the JAX package's
+    ``measure_phase_timings`` (the calibration feed of its simulator).
+
+    Phases are timed separately after a warm-up call, best of ``iters``:
+    plan compile (cold: the plan cache and the per-plan device tables are
+    cleared first), map of all N subfiles including its copy to the host,
+    host pack including its upload, the stacked shuffle and the reduce.
+    Shuffle and reduce are device phases, timed with CUDA events on the
+    card and the host clock on the CPU; the others by the host clock.
+    ``work`` holds the value-unit conventions of the JAX row;
+    ``meta["backend"]`` names the device type the phases ran on.
+    """
+    from ..core.coded_collectives import plan_cache_clear
+
+    p = params
+    dev = mesh.device
+    plan_cache_clear()
+    t0 = time.perf_counter()
+    plan = compile_hybrid_plan(p)
+    compile_s = time.perf_counter() - t0
+
+    subs_dev = torch.as_tensor(subfiles, device=dev)
+    V_host = map_phase(job, subs_dev, p.Q).cpu().numpy()          # warm-up
+    map_s = _best_of(lambda: map_phase(job, subs_dev, p.Q).cpu(), iters)
+
+    def pack():
+        local = torch.as_tensor(pack_local_values(V_host, plan), device=dev)
+        _sync(dev)
+        return local
+    local_dev = pack()                                            # warm-up
+    pack_s = _best_of(pack, iters)
+
+    shuffled = hybrid_shuffle(local_dev, plan, mesh)              # warm-up
+    shuffle_s = _best_of_device(lambda: hybrid_shuffle(local_dev, plan, mesh),
+                                iters, dev)
+
+    def reduce():
+        return job.reduce_fn(shuffled.transpose(1, 2))
+    reduce()                                                      # warm-up
+    reduce_s = _best_of_device(reduce, iters, dev)
+
+    d = job.d
+    row = {
+        "work": {
+            "map": float(p.N) * p.Q * d,
+            "pack": float(p.K) * plan.local_subfiles.shape[-1] * p.Q * d,
+            "reduce": float(p.N) * p.Q * d,
+            "plan_compile": float(p.N),
+        },
+        "seconds": {"map": map_s, "pack": pack_s, "reduce": reduce_s,
+                    "plan_compile": compile_s},
+        "meta": {"K": p.K, "P": p.P, "Q": p.Q, "N": p.N, "r": p.r, "d": d,
+                 "job": job.name, "shuffle_s": shuffle_s,
+                 "backend": dev.type},
+    }
+    if get_tracer().enabled:        # per-phase spans for trace export
+        spans_from_phase_timings(row)
+    return row
+
+
+def measure_calibration_grid(job_factory: Callable[[int], MapReduceJob],
+                             mesh: StackedMesh, points: List[tuple],
+                             iters: int = 3) -> List[Dict[str, object]]:
+    """Run :func:`measure_phase_timings` over (params, d) points, each on
+    subfiles of 256 int32 tokens drawn from ``default_rng(params.N)`` as in
+    the JAX package — enough rows for an affine per-phase fit to be
+    overdetermined."""
+    rows = []
+    for params, d in points:
+        job = job_factory(d)
+        rng = np.random.default_rng(params.N)
+        subs = rng.integers(0, 1 << 16,
+                            size=(params.N, 256)).astype(np.int32)
+        rows.append(measure_phase_timings(job, subs, params, mesh, iters))
+    return rows

@@ -1,8 +1,7 @@
-"""Rack-level byte accounting: counterpart of ``repro/obs/bytes.py`` for
-failure-free plans.
+"""Rack-level byte accounting: counterpart of ``repro/obs/bytes.py``.
 
 Derives the per-(src_rack, dst_rack) transfer matrix of the ACTUAL
-compiled plan (the port's
+compiled plan, failure-free or degraded (the port's
 :func:`repro_torch.core.coded_collectives.plan_transfer_matrices`), scales
 it to value-units (pairs x payload width ``d``), records it into the
 metrics registry, and checks it against the ``CommCost`` closed forms.
@@ -43,11 +42,37 @@ class RackBytes:
 
 
 def plan_rack_bytes(plan, multicast: str = "coded", d: int = 1) -> RackBytes:
-    """Rack-level value-units of a compiled plan."""
+    """Rack-level value-units of a compiled plan, failure-free or degraded
+    (``plan_transfer_matrices`` dispatches on the ``cross_valid`` schema).
+    Accepts a ``HybridShufflePlan`` or a
+    :class:`repro_torch.core.degraded.DegradedPlan` (its re-routed plan is
+    used)."""
     from ..core.coded_collectives import plan_transfer_matrices
-    tm = plan_transfer_matrices(plan, multicast=multicast)
+    inner = getattr(plan, "plan", plan)       # DegradedPlan -> its tables
+    tm = plan_transfer_matrices(inner, multicast=multicast)
     return RackBytes(np.asarray(tm["cross_rack_matrix"], dtype=float) * d,
                      np.asarray(tm["intra_per_rack"], dtype=float) * d, d)
+
+
+def degraded_rack_bytes(dplan, d: int = 1) -> RackBytes:
+    """Value-units of a degraded recovery schedule: the unicast degraded
+    routing plus the orphan-redistribution term (each re-mapped subfile's
+    [Q, d] values reach every rack once).  The redistribution has no single
+    (src, dst) pair, so it is spread uniformly over off-diagonal entries to
+    keep the matrix total exact."""
+    rb = plan_rack_bytes(dplan, multicast="unicast", d=d)
+    n_remap = int(dplan.orphan_subfiles.size)
+    if n_remap == 0:
+        return rb
+    p = dplan.params
+    extra = float(n_remap * p.Q * d)
+    cross = rb.cross_matrix.copy()
+    off = p.P * (p.P - 1)
+    if off > 0:
+        add = np.full((p.P, p.P), extra / off)
+        np.fill_diagonal(add, 0.0)
+        cross = cross + add
+    return RackBytes(cross, rb.intra_per_rack, d)
 
 
 def closed_form_bytes(p, scheme: str, d: int = 1,
@@ -110,4 +135,5 @@ def record_rack_bytes(rb: RackBytes, scheme: str, family: str = "",
 
 
 __all__ = ["RackBytes", "ByteReconciliationError", "plan_rack_bytes",
-           "closed_form_bytes", "reconcile", "record_rack_bytes"]
+           "degraded_rack_bytes", "closed_form_bytes", "reconcile",
+           "record_rack_bytes"]

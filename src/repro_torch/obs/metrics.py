@@ -1,17 +1,23 @@
 """Process-local metrics registry: the part of ``repro/obs/metrics.py``
-the port's engine uses — labelled counters and gauges with deterministic
-snapshots, and :func:`refresh_cache_metrics` bound to the port's plan
-cache.  Histograms, the Prometheus exposition and the degraded-plan cache
-gauges wait for later slices.
+the port's engine and recovery ladder use — labelled counters, gauges and
+cumulative-bucket histograms with deterministic snapshots, the
+module-level ``counter``/``gauge``/``histogram`` helpers, and
+:func:`refresh_cache_metrics` bound to the port's plan cache and
+degraded-plan side cache.  The Prometheus exposition, ``snapshot`` and
+``reset`` helpers wait for a later slice.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 LabelKey = Tuple[Tuple[str, str], ...]
 
 DEFAULT_MAX_LABEL_SETS = 4096
+
+DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 10.0,
+                   float("inf"))
 
 
 class LabelCardinalityError(RuntimeError):
@@ -23,7 +29,7 @@ def _label_key(labels: Dict[str, object]) -> LabelKey:
 
 
 class _Metric:
-    """Shared label bookkeeping of counters and gauges."""
+    """Shared label bookkeeping of all three metric kinds."""
 
     kind = "abstract"
 
@@ -32,9 +38,9 @@ class _Metric:
         self.name = name
         self.help = help
         self.max_label_sets = int(max_label_sets)
-        self._series: Dict[LabelKey, float] = {}
+        self._series: Dict[LabelKey, object] = {}
 
-    def _slot(self, labels: Dict[str, object]) -> LabelKey:
+    def _slot(self, labels: Dict[str, object], default) -> LabelKey:
         key = _label_key(labels)
         if key not in self._series:
             if len(self._series) >= self.max_label_sets:
@@ -42,16 +48,19 @@ class _Metric:
                     f"metric {self.name!r} exceeded max_label_sets="
                     f"{self.max_label_sets}; offending labels: "
                     f"{dict(key)!r}")
-            self._series[key] = 0.0
+            self._series[key] = default
         return key
 
     def value(self, **labels: object) -> float:
         return float(self._series.get(_label_key(labels), 0.0))
 
     def snapshot(self) -> Dict[str, object]:
-        samples = {json.dumps(dict(k), sort_keys=True): v
+        samples = {json.dumps(dict(k), sort_keys=True): self._export(v)
                    for k, v in sorted(self._series.items())}
         return {"type": self.kind, "help": self.help, "samples": samples}
+
+    def _export(self, value: object) -> object:
+        return value
 
 
 class Counter(_Metric):
@@ -62,7 +71,7 @@ class Counter(_Metric):
     def inc(self, value: float = 1.0, **labels: object) -> None:
         if value < 0:
             raise ValueError(f"counter {self.name!r} cannot decrease")
-        key = self._slot(labels)
+        key = self._slot(labels, 0.0)
         self._series[key] += float(value)
 
 
@@ -72,7 +81,47 @@ class Gauge(_Metric):
     kind = "gauge"
 
     def set(self, value: float, **labels: object) -> None:
-        self._series[self._slot(labels)] = float(value)
+        self._series[self._slot(labels, 0.0)] = float(value)
+
+
+@dataclasses.dataclass
+class _HistState:
+    counts: List[int]
+    total: float = 0.0
+    n: int = 0
+
+
+class Histogram(_Metric):
+    """Cumulative-bucket histogram (Prometheus convention: ``counts[i]``
+    observations <= ``buckets[i]``; the last bucket is +inf)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = "",
+                 buckets: Iterable[float] = DEFAULT_BUCKETS,
+                 max_label_sets: int = DEFAULT_MAX_LABEL_SETS) -> None:
+        super().__init__(name, help, max_label_sets)
+        bs = tuple(sorted(float(b) for b in buckets))
+        if not bs or bs[-1] != float("inf"):
+            bs = bs + (float("inf"),)
+        self.buckets = bs
+
+    def observe(self, value: float, **labels: object) -> None:
+        key = self._slot(labels, None)
+        st = self._series[key]
+        if st is None:
+            st = _HistState(counts=[0] * len(self.buckets))
+            self._series[key] = st
+        for i, b in enumerate(self.buckets):
+            if value <= b:
+                st.counts[i] += 1
+        st.total += float(value)
+        st.n += 1
+
+    def _export(self, st: _HistState) -> Dict[str, object]:
+        return {"buckets": [b if b != float("inf") else "inf"
+                            for b in self.buckets],
+                "counts": list(st.counts), "sum": st.total, "count": st.n}
 
 
 class MetricsRegistry:
@@ -104,6 +153,12 @@ class MetricsRegistry:
         return self._declare(Gauge, name, help,
                              max_label_sets=max_label_sets)
 
+    def histogram(self, name: str, help: str = "",
+                  buckets: Iterable[float] = DEFAULT_BUCKETS,
+                  max_label_sets: int = DEFAULT_MAX_LABEL_SETS) -> Histogram:
+        return self._declare(Histogram, name, help, buckets=buckets,
+                             max_label_sets=max_label_sets)
+
     def snapshot(self) -> Dict[str, Dict[str, object]]:
         """Plain nested dict (sorted, JSON-ready, deterministic)."""
         return {name: self._metrics[name].snapshot()
@@ -118,13 +173,29 @@ def registry() -> MetricsRegistry:
     return _REGISTRY
 
 
+def counter(name: str, help: str = "", **kwargs) -> Counter:
+    return _REGISTRY.counter(name, help, **kwargs)
+
+
+def gauge(name: str, help: str = "", **kwargs) -> Gauge:
+    return _REGISTRY.gauge(name, help, **kwargs)
+
+
+def histogram(name: str, help: str = "", **kwargs) -> Histogram:
+    return _REGISTRY.histogram(name, help, **kwargs)
+
+
 def refresh_cache_metrics(reg: Optional[MetricsRegistry] = None) -> None:
-    """Mirror the port's plan-cache counters into ``reg`` (default
-    registry): ``plan_cache{event=hit|miss, family=<all|family>}`` and
+    """Mirror the port's cache counters into ``reg`` (default registry):
+    ``plan_cache{event=hit|miss, family=<all|family>}`` and
     ``plan_cache_size{kind=current|max}`` gauges of
-    :func:`repro_torch.core.coded_collectives.plan_cache_info`.  Called at
-    every engine ``JobResult``."""
+    :func:`repro_torch.core.coded_collectives.plan_cache_info`, and
+    ``degraded_cache{event=hit|miss|eviction}`` and
+    ``degraded_cache_size{kind=current|max}`` of the bounded side LRU of
+    :func:`repro_torch.core.degraded.degraded_cache_info`.  Called at every
+    engine ``JobResult``."""
     from ..core.coded_collectives import plan_cache_info
+    from ..core.degraded import degraded_cache_info
 
     reg = reg if reg is not None else _REGISTRY
     info = plan_cache_info()
@@ -138,6 +209,19 @@ def refresh_cache_metrics(reg: Optional[MetricsRegistry] = None) -> None:
     size.set(info.currsize, kind="current")
     size.set(-1 if info.maxsize is None else info.maxsize, kind="max")
 
+    dinfo = degraded_cache_info()
+    dc = reg.gauge("degraded_cache",
+                   "degraded-plan side-cache events (mirrored)")
+    dc.set(dinfo.hits, event="hit")
+    dc.set(dinfo.misses, event="miss")
+    dc.set(dinfo.evictions, event="eviction")
+    dsize = reg.gauge("degraded_cache_size",
+                      "degraded-plan side-cache occupancy")
+    dsize.set(dinfo.currsize, kind="current")
+    dsize.set(-1 if dinfo.maxsize is None else dinfo.maxsize, kind="max")
 
-__all__ = ["Counter", "Gauge", "MetricsRegistry", "LabelCardinalityError",
-           "DEFAULT_MAX_LABEL_SETS", "registry", "refresh_cache_metrics"]
+
+__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry",
+           "LabelCardinalityError", "DEFAULT_BUCKETS",
+           "DEFAULT_MAX_LABEL_SETS", "registry", "counter", "gauge",
+           "histogram", "refresh_cache_metrics"]

@@ -1,7 +1,8 @@
 """Structured span tracing for the engine: the part of
 ``repro/obs/tracing.py`` the port's engine uses (``TraceEvent``,
-``Tracer.span``, the process-global tracer).  Exporters wait for a later
-slice.
+``Tracer.span``, the process-global tracer, and
+:func:`spans_from_phase_timings` for ``measure_phase_timings`` rows).
+Exporters wait for a later slice.
 """
 from __future__ import annotations
 
@@ -87,4 +88,38 @@ def enable_tracing(enabled: bool = True) -> Tracer:
     return _TRACER
 
 
-__all__ = ["TraceEvent", "Tracer", "get_tracer", "enable_tracing"]
+def spans_from_phase_timings(row: Dict[str, Any],
+                             tracer: Optional[Tracer] = None,
+                             job_id: Optional[int] = None) -> List[TraceEvent]:
+    """Convert one ``measure_phase_timings`` row (see
+    :func:`repro_torch.mapreduce.engine.measure_phase_timings`) into
+    consecutive per-phase ``device_phase`` spans, recorded on ``tracer``
+    (default: the global one) when it is enabled, and returned.
+
+    The row's phases are laid end to end from t=0 — these are best-of
+    per-phase timings, not one wall-clock run, so the produced timeline is
+    the *idealized* pipeline a calibration fit consumes."""
+    tracer = tracer if tracer is not None else _TRACER
+    meta = {str(k): v for k, v in row.get("meta", {}).items()}
+    t = 0.0
+    out: List[TraceEvent] = []
+    phases = dict(row["seconds"])
+    if "shuffle_s" in meta:                  # measured but reported in meta
+        phases["shuffle"] = float(meta["shuffle_s"])
+    for phase in ("plan_compile", "map", "pack", "shuffle", "reduce"):
+        if phase not in phases:
+            continue
+        dur = float(phases[phase])
+        out.append(TraceEvent(t, "device_phase", job_id, phase,
+                              _labels_of({"job": meta.get("job", ""),
+                                          "backend": meta.get("backend",
+                                                              "")}),
+                              dur))
+        t += dur
+    if tracer.enabled:
+        tracer.events.extend(out)
+    return out
+
+
+__all__ = ["TraceEvent", "Tracer", "get_tracer", "enable_tracing",
+           "spans_from_phase_timings"]
