@@ -17,8 +17,11 @@ Phases, one printed line each (plus detail lines):
 1. device   — ``nvidia-smi`` name and power limit, the card, and the
               kernels' build (one ``nvcc`` per source, all at once).
 2. kernels  — each coded-combine kernel against its plain PyTorch version
-              on the card, at the main path's launch shapes and at odd
-              shapes, with CUDA-event times and the HBM bound; where one
+              on the card, at the main path's launch shapes, at phase
+              4c's (one server's share of them; the gradient
+              reduce-scatter's [3, 1680 x 2048] with 0/1 coefficients)
+              and at odd shapes, with CUDA-event times and the HBM
+              bound; where one
               library call computes the same function (``xs.sum(0)``,
               ``torch.sub``, ``torch.bitwise_xor``) kernel and library are
               timed in turns (kernel, library, library, kernel); at the
@@ -35,6 +38,23 @@ Phases, one printed line each (plus detail lines):
               pairing: outputs bit-exact against the dense ``run_job``,
               costs and rack bytes equal to the closed forms; one profiled
               fused job.
+4b. faults  — the recovery ladder at the same row under crash schedules.
+4c. ranks   — the process form: 16 ranks on the card over gloo (NCCL
+              refuses two ranks on one device), spawned once, each
+              drawing the subfiles from ``--seed``.  Each runs fused
+              ``run_job_distributed`` for binomial r in {1, 2, 3} x
+              {(unicast, torch), (coded, kernel)}, resolvable r = 2 and
+              one legacy r = 2 job, a ``coded_xor`` ``hybrid_shuffle`` on
+              int32 at r = 2, and ``coded_reduce_scatter_r2(combine_impl=
+              "kernel")`` on integer-valued chunk gradients of G = 1536 x
+              8960 (one Qwen2-1.5B MLP projection) with no failure and
+              rack 3 failed.  Gates: every rank's outputs bit-identical to
+              the stacked job's and ``run_job``'s, its shuffle rows to the
+              stacked shuffle's, every survivor's shard to the NumPy
+              total; every rank's launches one server's; every rank on
+              the card.  Walls: the slowest rank's, median of three after
+              a warm call, beside the stacked job's timed the same way;
+              the exchanges alone; spawn and rendezvous.
 5. lm kernels — ``flash_attention`` and ``wkv_scan`` against their plain
               versions at the serving path's prefill and decode shapes (bf16
               and fp32) and the odd shapes of tests/test_kernels.py, with
@@ -75,18 +95,20 @@ Phases, one printed line each (plus detail lines):
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
-``forward``, ``prefill`` and ``decode_step`` call and read just after.  A
-coded shuffle with ``combine_impl="kernel"`` and packet arity >= 2 must
-launch one encode and one decode, other shuffles none; under faults that
-holds on the ``none`` and ``restart`` rungs, and the degraded rungs
-(``decode_around``, ``partial_remap``: unicast stage 1) launch none; every
-LM forward
-(a prefill or one decode step) must launch its kernel once per layer (28
-flash launches for qwen2-1.5b, 32 WKV launches for rwkv6-3b) and call no
-plain version; every time-to-first-token call runs all of them on the
-``tensor_core`` route of its kernel.  Main paths: the fused engine for the
-linear pair, the int32 ``hybrid_shuffle`` for the XOR pair, full-width
-serving for the LM kernels.
+``forward``, ``prefill`` and ``decode_step`` call and read just after (in
+phase 4c, in every rank around each timed call).  A coded shuffle with
+``combine_impl="kernel"`` and packet arity >= 2 must launch one encode
+and one decode (on the process form, in every rank), other shuffles
+none; ``coded_reduce_scatter_r2`` one encode per destination rack; under
+faults that holds on the ``none`` and ``restart`` rungs, and the degraded
+rungs (``decode_around``, ``partial_remap``: unicast stage 1) launch
+none; every LM forward (a prefill or one decode step) must launch its
+kernel once per layer (28 flash launches for qwen2-1.5b, 32 WKV launches
+for rwkv6-3b) and call no plain version; every time-to-first-token call
+runs all of them on the ``tensor_core`` route of its kernel.  Main paths:
+the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
+the XOR pair, full-width serving for the LM kernels; the combine
+kernels' ``ranks`` path (phase 4c) must launch too.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -319,19 +341,23 @@ def combine_calls(torch, ops, ref, name, xs, c, f, unit):
             (lambda: torch.bitwise_xor(f, known[0])) if on_int else None)
 
 
-def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
+def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
+                 peaks, seed):
     """Compare and time every kernel; returns (rows, {kernel: row at the
-    main path's largest launch shape}, main rows to profile).  A row with
-    a library call times the kernel and the library in turns (kernel,
-    library, library, kernel).  The main rows' device times per call come
-    later (``profile_main_rows``): every profiler session here would cost
-    the later phases' profiles records."""
+    main path's largest launch shape}, main rows to profile).  Shapes: the
+    main path's, the ranks path's (one server's coded shuffle; one
+    destination of the coded gradient reduce-scatter, 0/1 coefficients),
+    and odd ones.  A row with a library call times the kernel and the
+    library in turns (kernel, library, library, kernel).  The main rows'
+    device times per call come later (``profile_main_rows``): every
+    profiler session here would cost the later phases' profiles
+    records."""
     dev = torch.device("cuda")
     odd = [(r, T, d) for r in (2, 3, 4) for T, d in
            ((1, 7), (257, 40), (300, 130))]
     rows, main, to_profile = [], {}, []
 
-    def record(name, r, T, d, dtype, unit, err, tol, fn, plain, library,
+    def record(name, r, T, d, dtype, coeffs, err, tol, fn, plain, library,
                is_main):
         n = T * d
         itemsize = torch.empty((), dtype=dtype).element_size()
@@ -340,7 +366,7 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
         reps, inner = (11, 40) if big else (5, 50)
         row = {"name": name, "r": r, "T": T, "d": d,
                "dtype": str(dtype).replace("torch.", ""),
-               "coeffs": "unit" if unit else "1..r",
+               "coeffs": coeffs,
                "max_abs_err": err, "tolerance": tol,
                "plain_ms": cuda_ms(torch, plain, reps, inner),
                "library_ms": None, "bytes": nbytes}
@@ -377,13 +403,18 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
         return float((a.float() - b.float()).abs().max().item())
 
     g = torch.Generator(device=dev).manual_seed(seed)
-    for (r, T, d), is_main in ([(s, True) for s in main_shapes]
-                               + [(s, False) for s in odd]):
-        unit = is_main                    # the shuffle's coefficients
+    coeff_of = {"unit": lambda r: torch.ones(r, device=dev),
+                "1..r": lambda r: torch.arange(1.0, r + 1.0, device=dev),
+                "0/1": lambda r: torch.arange(r, device=dev) % 2 == 0}
+    cases = ([(s, "unit", True) for s in main_shapes]
+             + [(s, "unit", False) for s in rank_shapes]
+             + [(grad_shape, "0/1", False)]
+             + [(s, "1..r", False) for s in odd])
+    for (r, T, d), coeffs, is_main in cases:
+        unit = coeffs == "unit"           # the shuffle's coefficients
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(r, T, d, generator=g, device=dev).to(dtype)
-            c = (torch.ones(r, device=dev) if unit
-                 else torch.arange(1.0, r + 1.0, device=dev))
+            c = coeff_of[coeffs](r).float()
             exact = unit and dtype == torch.float32
             enc_tol = (0.0 if exact else
                        1e-6 if dtype == torch.float32 else 3e-2)
@@ -401,15 +432,16 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
             rt = (1e-4, 1e-4) if dtype == torch.float32 else (1e-2, 0.15)
             torch.testing.assert_close(dec, xs[0], rtol=rt[0], atol=rt[1])
             is_f32 = dtype == torch.float32
-            record("coded_encode", r, T, d, dtype, unit, err_of(f, f_ref),
+            record("coded_encode", r, T, d, dtype, coeffs, err_of(f, f_ref),
                    _tol_text(enc_tol, enc_tol),
                    *combine_calls(torch, ops, ref, "coded_encode", xs, c, f,
                                   unit), is_main and is_f32)
-            record("coded_decode", r, T, d, dtype, unit,
+            record("coded_decode", r, T, d, dtype, coeffs,
                    err_of(dec, dec_ref), _tol_text(*dec_tol),
                    *combine_calls(torch, ops, ref, "coded_decode", xs, c, f,
                                   unit), is_main)
-        for dtype in (torch.int32, torch.uint32):
+        # XOR takes no coefficients: the 0/1 gradient row is linear only
+        for dtype in (torch.int32, torch.uint32) if coeffs != "0/1" else ():
             xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
                                device=dev, dtype=torch.int32).view(dtype)
             words = xs.view(torch.int32)
@@ -422,7 +454,7 @@ def kernel_phase(torch, ops, ref, main_shapes, peaks, seed):
                   f"xor_decode r={r} T={T} d={d} {dtype}")
             is_int = dtype == torch.int32
             for name in ("xor_encode", "xor_decode"):
-                record(name, r, T, d, dtype, True, 0.0, "exact",
+                record(name, r, T, d, dtype, coeffs, 0.0, "exact",
                        *combine_calls(torch, ops, ref, name, xs, None, f,
                                       True), is_main and is_int and r == 2)
         del xs
@@ -762,6 +794,316 @@ def faults_phase(torch, np, eng, count, job, subfiles, mesh, SchemeParams,
     say("  measure_phase_timings binomial r=2 (ms): " + " ".join(
         f"{k}={v * 1e3:.3f}" for k, v in secs.items()) + f" [{smi}]")
     return runs, total, row
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the process form, one server a rank (16 ranks on the card)
+# ---------------------------------------------------------------------------
+
+# (fused, family, r, multicast, combine_impl) of every ranks job
+RANK_JOBS = ([(True, "binomial", r, mc, impl) for r in (1, 2, 3)
+              for mc, impl in (("unicast", "torch"), ("coded", "kernel"))]
+             + [(True, "resolvable", 2, "coded", "kernel"),
+                (False, "binomial", 2, "coded", "kernel")])
+# one Qwen2-1.5B MLP projection: 1536 x 8960 gradient entries a chunk
+GRAD_G = 1536 * 8960
+
+
+def _device_sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _grad_chunk(np, coefs, c: int, lo: int, hi: int):
+    """Entries [lo, hi) of gradient chunk ``c``: integer-valued float32 in
+    [-1019, 1019] (six chunks sum exactly in any order), from the seeded
+    ``coefs``; any slice is made without the rest of the chunk."""
+    a, b = (int(v) for v in coefs[c])
+    idx = np.arange(lo, hi, dtype=np.int64)
+    return ((idx * a + b) % 2039 - 1019).astype(np.float32)
+
+
+def _xor_payload(np, seed: int, size):
+    """The int32 shuffle payload V[n, q, :] = base[n, q] ^ col, from
+    ``seed``: any rows are made without the rest."""
+    K_, P_, Q_, N_, D_ = size
+    rng = np.random.default_rng(seed + 2)
+    return (rng.integers(0, 2 ** 30, size=(N_, Q_), dtype=np.int64),
+            rng.integers(0, 2 ** 30, size=D_, dtype=np.int64))
+
+
+def ranks_rank(dev, seed: int, size, tokens: int, grad_G: int):
+    """What each rank of phase 4c runs (module level: the ranks import it
+    by name).  Every timed call starts after a barrier, with the launch
+    counts zeroed just before it and read just after."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import coded_collectives as cc
+    from repro_torch.core import gradient_sync as gs
+    from repro_torch.core.params import SchemeParams
+    from repro_torch.distributed.collectives import all_to_all
+    from repro_torch.distributed.meshes import make_process_mesh
+    from repro_torch.kernels.coded_combine import ops
+    from repro_torch.mapreduce import engine as eng
+    from repro_torch.mapreduce import jobs
+    from repro_torch.obs.tracing import enable_tracing
+
+    t_ready = time.time()
+    enable_tracing(True)               # this rank's engine spans (blame)
+    K_, P_, Q_, N_, D_ = size
+    mesh = make_process_mesh((P_, K_ // P_), ("rack", "server"), device=dev)
+    dist.barrier()
+    t_mesh = time.time()
+    i, j = mesh.coords
+
+    def timed(fn, reps=3):
+        """(last output, host ms of each call, launches of each call)."""
+        fn()                                                  # warm
+        walls, launches = [], []
+        for _ in range(reps):
+            dist.barrier()
+            ops.reset_launch_counts()
+            _device_sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn()
+            _device_sync(torch, dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            launches.append(dict(ops.LAUNCHES))
+        return out, walls, launches
+
+    # the engine, on phase 4's subfiles (each rank draws them from --seed)
+    subfiles = np.random.default_rng(seed).integers(
+        0, 1 << 16, size=(N_, tokens)).astype(np.int32)
+    job = jobs.wide_histogram_job(D_)
+    res_jobs = {}
+    for cfg in RANK_JOBS:
+        fused, family, r, mc, impl = cfg
+        p = SchemeParams(K=K_, P=P_, Q=Q_, N=N_, r=r)
+        res, walls, launches = timed(lambda: eng.run_job_distributed(
+            job, subfiles, p, mesh, fused=fused, multicast=mc,
+            combine_impl=impl, scheme_family=family))
+        res_jobs[cfg] = {"outputs": res.outputs.cpu(),
+                         "device": res.outputs.device.type,
+                         "spans_s": res.blame,
+                         "costs": (res.intra_cost, res.cross_cost,
+                                   res.intra_rack_bytes,
+                                   res.cross_rack_bytes),
+                         "walls_ms": walls, "launches": launches}
+    del subfiles
+
+    # the exchanges alone at the r = 2 shuffle's shapes: stage 1 over
+    # 'rack' ([P * n_send, q_rack, d]), stage 2 over 'server' ([Kr,
+    # n_layer, q_srv, d]), float32
+    p = SchemeParams(K=K_, P=P_, Q=Q_, N=N_, r=2)
+    plan = cc.compile_hybrid_plan(p)
+    stage1 = torch.zeros((P_ * plan.n_send, Q_ // P_, D_), device=dev)
+    stage2 = torch.zeros((p.Kr, p.subfiles_per_layer, Q_ // K_, D_),
+                         device=dev)
+    _, s1_ms, _ = timed(lambda: all_to_all(stage1, mesh, "rack"))
+    _, s2_ms, _ = timed(lambda: all_to_all(stage2, mesh, "server"))
+    del stage1, stage2
+
+    # the coded_xor shuffle at r = 2 on int32 payloads, held in the rank
+    # against its rows of the NumPy reference
+    base, col = _xor_payload(np, seed, size)
+    local = (base[plan.local_subfiles[i, j]][..., None] ^ col).astype(
+        np.int32)                                             # [n_loc, Q, d]
+    order = cc.reduce_ready_order(plan)[i, j]                 # [N]
+    keys = list(p.keys_of_server(mesh.rank))
+    want = (base[order][:, keys][..., None] ^ col).astype(np.int32)
+    out, xor_ms, xor_launches = timed(lambda: cc.hybrid_shuffle(
+        local, plan, mesh, "coded_xor", "kernel"))
+    out = out.cpu().numpy()
+    xor = {"exact": bool(np.array_equal(out, want)),
+           "sha256": hashlib.sha256(out.tobytes()).hexdigest(),
+           "walls_ms": xor_ms, "launches": xor_launches}
+    del local, want, out
+
+    # the coded gradient reduce-scatter: this rack's P - 1 chunks on the
+    # card, its shard of the total from NumPy
+    coefs = np.random.default_rng(seed + 3).integers(1, 2 ** 20, size=(6, 2))
+    rack = mesh.axis_index("rack")
+    shard = grad_G // P_
+    total = sum(_grad_chunk(np, coefs, c, rack * shard, (rack + 1) * shard)
+                for c in range(6))
+    idx = torch.arange(grad_G, dtype=torch.int64, device=dev)
+    cg = torch.stack([((idx * int(coefs[c][0]) + int(coefs[c][1])) % 2039
+                       - 1019).to(torch.float32)
+                      for c in gs.chunk_index_table(P_)[rack]])   # [P-1, G]
+    del idx
+    grad = {}
+    for failed in (None, 3):
+        got, ms, launches = timed(lambda: gs.coded_reduce_scatter_r2(
+            cg, mesh, "rack", P_, failed=failed, combine_impl="kernel"))
+        grad[failed] = {"exact": bool(np.array_equal(got.cpu().numpy(),
+                                                     total)),
+                        "survivor": rack != failed, "device": got.device.type,
+                        "walls_ms": ms, "launches": launches}
+    return {"rank": mesh.rank, "t_ready": t_ready, "t_mesh": t_mesh,
+            "device": str(dev), "jobs": res_jobs, "xor": xor, "grad": grad,
+            "stage1_ms": s1_ms, "stage2_ms": s2_ms}
+
+
+def _max_median(walls_by_rank):
+    """Median over calls of the slowest rank's wall in each call."""
+    return statistics.median(max(call) for call in zip(*walls_by_rank))
+
+
+def ranks_phase(torch, np, eng, cc, run_ranks, make_mesh, SchemeParams,
+                costs, dev, size, tokens, grad_G, seed, subfiles, smi):
+    """Phase 4c: 16 ranks on one card (gloo: NCCL refuses two ranks on one
+    device), spawned once; see :func:`ranks_rank` for what each runs.
+    Holds every rank's job outputs bit for bit against the stacked job's
+    (timed here the same way: median of three after a warm call) and
+    ``dense``, its shuffle against the stacked shuffle's rows, its launches
+    against one server's, and its device.  ``subfiles`` are phase 4's,
+    which every rank draws from ``seed`` itself."""
+    import hashlib
+    from repro_torch.kernels.coded_combine import ops
+    from repro_torch.mapreduce import jobs
+
+    K_, P_, Q_, N_, D_ = size
+    mesh = make_mesh((P_, K_ // P_), ("rack", "server"), device=dev)
+    job = jobs.wide_histogram_job(D_)
+    dense = eng.run_job(job, subfiles, SchemeParams(K=K_, P=P_, Q=Q_, N=N_,
+                                                    r=2), "hybrid",
+                        device=dev).outputs
+
+    def stacked_timed(fn):
+        fn()
+        walls = []
+        for _ in range(3):
+            _device_sync(torch, dev)
+            t0 = time.perf_counter()
+            out = fn()
+            _device_sync(torch, dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return out, statistics.median(walls)
+
+    stacked = {}
+    for cfg in RANK_JOBS:
+        fused, family, r, mc, impl = cfg
+        p = SchemeParams(K=K_, P=P_, Q=Q_, N=N_, r=r)
+        stacked[cfg] = stacked_timed(lambda: eng.run_job_distributed(
+            job, subfiles, p, mesh, fused=fused, multicast=mc,
+            combine_impl=impl, scheme_family=family))
+    p2 = SchemeParams(K=K_, P=P_, Q=Q_, N=N_, r=2)
+    plan = cc.compile_hybrid_plan(p2)
+    base, col = _xor_payload(np, seed, size)
+    V = torch.as_tensor(cc.pack_local_values(
+        (base[..., None] ^ col).astype(np.int32), plan), device=dev)
+    xor_out, xor_stacked_ms = stacked_timed(lambda: cc.hybrid_shuffle(
+        V, plan, mesh, "coded_xor", "kernel"))
+    xor_digests = [hashlib.sha256(o.cpu().numpy().tobytes()).hexdigest()
+                   for o in xor_out]
+    del V, xor_out
+
+    t0 = time.time()
+    per_rank = run_ranks(ranks_rank, K_, backend="gloo", device=dev.type,
+                         args=(seed, size, tokens, grad_G), timeout_s=600)
+    wall_s = time.time() - t0
+    ready_s = max(r["t_ready"] for r in per_rank) - t0
+    mesh_s = max(r["t_mesh"] for r in per_rank) - t0
+    total = dict.fromkeys(KERNELS, 0)
+    rows = []
+    for rank, res in enumerate(per_rank):
+        check(res["rank"] == rank and res["device"].startswith(dev.type),
+              f"ranks: rank {rank} ran as {res['rank']} on {res['device']}")
+    for cfg in RANK_JOBS:
+        fused, family, r, mc, impl = cfg
+        p = SchemeParams(K=K_, P=P_, Q=Q_, N=N_, r=r)
+        closed = (costs.hybrid_cost(p) if family == "binomial"
+                  else costs.hybrid_resolvable_cost(p))
+        arity = r if family == "binomial" else r - 1
+        want = expected_launches(mc, impl, arity)
+        tag = (f"{'fused' if fused else 'legacy'} {family} r={r} {mc} "
+               f"{impl}")
+        s_out, s_ms = stacked[cfg]
+        check(torch.equal(s_out.outputs, dense),
+              f"ranks {tag}: stacked outputs == run_job")
+        ref = s_out.outputs.cpu()
+        for rank, res in enumerate(per_rank):
+            got = res["jobs"][cfg]
+            check(got["device"] == dev.type and torch.equal(got["outputs"],
+                                                            ref),
+                  f"ranks {tag}: rank {rank}'s outputs == the stacked job's "
+                  f"and run_job's, on {got['device']}")
+            check(got["costs"][:2] == (closed.intra, closed.cross)
+                  and got["costs"][2:] == (s_out.intra_rack_bytes,
+                                           s_out.cross_rack_bytes),
+                  f"ranks {tag}: rank {rank}'s costs {got['costs']}")
+            for counts in got["launches"]:
+                check(counts == want, f"ranks {tag}: rank {rank} launched "
+                      f"{counts}, one server's are {want}")
+                add_counts(total, counts)
+        ms = _max_median([res["jobs"][cfg]["walls_ms"] for res in per_rank])
+        # the engine's spans of the last timed call, slowest rank each
+        spans = {k: max(res["jobs"][cfg]["spans_s"][k] for res in per_rank)
+                 * 1e3 for k in per_rank[0]["jobs"][cfg]["spans_s"]}
+        rows.append({"config": tag, "ranks_wall_ms": ms,
+                     "stacked_wall_ms": s_ms, "span_ms": spans,
+                     "launches_per_rank": want})
+        say(f"  ranks {tag}: {K_} ranks bit-exact vs the stacked job and "
+            f"run_job, wall_ms={ms:.3f} (stacked {s_ms:.3f}) spans (host "
+            f"ms, slowest rank) " + " ".join(f"{k}={v:.3f}" for k, v in
+                                             spans.items())
+            + f" launches_per_rank={want} [{smi}]")
+    # the coded_xor shuffle
+    want = expected_launches("coded_xor", "kernel", 2)
+    for rank, res in enumerate(per_rank):
+        x = res["xor"]
+        check(x["exact"] and x["sha256"] == xor_digests[rank],
+              f"ranks coded_xor shuffle: rank {rank} == the reference and "
+              f"the stacked shuffle's rows")
+        for counts in x["launches"]:
+            check(counts == want, f"ranks coded_xor: rank {rank} launched "
+                  f"{counts}")
+            add_counts(total, counts)
+    xor_ms = _max_median([res["xor"]["walls_ms"] for res in per_rank])
+    say(f"  ranks hybrid_shuffle r=2 coded_xor kernel int32 d={D_}: "
+        f"bit-exact vs the reference and the stacked shuffle, "
+        f"wall_ms={xor_ms:.3f} (stacked {xor_stacked_ms:.3f}) "
+        f"launches_per_rank={want} [{smi}]")
+    # the gradient reduce-scatter
+    grad_rows = {}
+    for failed in (None, 3):
+        want = dict(dict.fromkeys(KERNELS, 0), coded_encode=P_)
+        for rank, res in enumerate(per_rank):
+            g = res["grad"][failed]
+            check(g["device"] == dev.type and
+                  (g["exact"] or not g["survivor"]),
+                  f"ranks coded_reduce_scatter_r2 failed={failed}: rank "
+                  f"{rank}'s shard == the NumPy total")
+            for counts in g["launches"]:
+                check(counts == want, f"ranks coded_reduce_scatter_r2: rank "
+                      f"{rank} launched {counts}")
+                add_counts(total, counts)
+        ms = _max_median([res["grad"][failed]["walls_ms"]
+                          for res in per_rank])
+        grad_rows[str(failed)] = ms
+        say(f"  ranks coded_reduce_scatter_r2 kernel G={grad_G} "
+            f"failed={failed}: every survivor's shard == the NumPy total, "
+            f"wall_ms={ms:.3f} launches_per_rank={want} [{smi}]")
+    s1 = _max_median([res["stage1_ms"] for res in per_rank])
+    s2 = _max_median([res["stage2_ms"] for res in per_rank])
+    say(f"  ranks exchanges alone at the r=2 shapes: stage 1 over 'rack' "
+        f"{s1:.3f} ms, stage 2 over 'server' {s2:.3f} ms [{smi}]")
+    say(f"  ranks spawn and rendezvous: every rank in its world "
+        f"{ready_s:.3f} s and its mesh {mesh_s:.3f} s after the spawn; "
+        f"the phase's ranks ran {wall_s:.3f} s")
+    say("  ranks collectives: dist.all_to_all_single and dist.all_gather on "
+        "CUDA tensors (gloo); staged through the host: none")
+    say(f"  ranks nccl: not run: {torch.cuda.device_count()} card(s) here "
+        f"and NCCL refuses two ranks on one device; run_ranks(backend="
+        f"'nccl') puts rank k on cuda:k and needs a card a rank")
+    return {"jobs": rows, "xor_wall_ms": xor_ms,
+            "xor_stacked_wall_ms": xor_stacked_ms,
+            "grad_wall_ms": grad_rows, "grad_G": grad_G,
+            "stage1_ms": s1, "stage2_ms": s2, "ready_s": ready_s,
+            "mesh_s": mesh_s, "ranks_s": wall_s, "staged": [],
+            "nccl": "not run: one card"}, total
 
 
 # ---------------------------------------------------------------------------
@@ -1287,6 +1629,7 @@ def main(argv=None) -> int:
     from repro_torch.core import costs
     from repro_torch.core import degraded as dg
     from repro_torch.core.params import SchemeParams
+    from repro_torch.distributed.launch import run_ranks
     from repro_torch.distributed.meshes import make_mesh
     from repro_torch.kernels import _build
     from repro_torch.kernels.coded_combine import ops, ref
@@ -1342,8 +1685,12 @@ def main(argv=None) -> int:
         main_shapes.append((r, K * P * plan.n_send * (Q // P), D))
     check(main_shapes == [(2, 17920, D), (3, 8960, D)],
           f"main-path launch shapes {main_shapes}")
+    # phase 4c's: one server's share, and the gradient's [P-1, G/P]
+    rank_shapes = [(r, T // K, d) for r, T, d in main_shapes]
+    grad_shape = (P - 1, GRAD_G // P // D, D)
     kernel_rows, main_rows, to_profile = kernel_phase(
-        torch, ops, ref, main_shapes, peaks, args.seed)
+        torch, ops, ref, main_shapes, rank_shapes, grad_shape, peaks,
+        args.seed)
     say(f"phase kernels: {len(kernel_rows)} kernel/shape/dtype cases match "
         f"their plain versions")
     # the decode instances (r = 1..4 compiled, 0 the runtime stream count)
@@ -1388,6 +1735,17 @@ def main(argv=None) -> int:
         f"bit-exact vs the failure-free fused job, each on its expected "
         f"rung; launches {fault_launches}; "
         f"{time.perf_counter() - t_faults:.1f} s [{smi}]")
+
+    # ---- 4c. the process form: 16 ranks on the card ---------------------
+    t_ranks = time.perf_counter()
+    ranks_info, ranks_launches = ranks_phase(
+        torch, np, eng, cc, run_ranks, make_mesh, SchemeParams, costs,
+        mesh.device, (K, P, Q, N, D), TOKENS, GRAD_G, args.seed, subfiles,
+        smi)
+    say(f"phase ranks: {K} ranks on one card (gloo), every job, the "
+        f"coded_xor shuffle and the coded gradient reduce-scatter "
+        f"bit-exact, every rank on its server's launches; launches "
+        f"{ranks_launches}; {time.perf_counter() - t_ranks:.1f} s [{smi}]")
 
     # ---- 5. the LM kernels ------------------------------------------------
     flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
@@ -1434,6 +1792,7 @@ def main(argv=None) -> int:
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
                "profiled": profile["launches"], "faults": fault_launches,
+               "ranks": ranks_launches,
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
                "card_vs_cpu": cmp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
@@ -1464,6 +1823,8 @@ def main(argv=None) -> int:
         launches = by_path[main_path[kname]].get(kname, 0)
         check(launches > 0, f"{kname} launched on its main path "
               f"({main_path[kname]}): {by_path}")
+        check(kname not in KERNELS or by_path["ranks"][kname] > 0,
+              f"{kname} launched on the ranks path: {by_path['ranks']}")
         row = main_rows[kname]
         kernels.append({"name": kname, "route": "cuda",
                         "source": sources[kname],
@@ -1511,6 +1872,7 @@ def main(argv=None) -> int:
         "kernels": kernel_rows, "shuffle": shuffle_runs,
         "engine": engine_runs, "profile": profile,
         "faults": fault_runs, "phase_timings": phase_row,
+        "ranks": ranks_info,
         "lm_kernels": flash_rows + wkv_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))

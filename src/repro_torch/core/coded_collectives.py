@@ -1,6 +1,7 @@
 """The Hybrid Coded MapReduce shuffle in PyTorch: plan compilation, its
-NumPy oracles, and the two-stage shuffle for all K servers at once on one
-device.  Counterpart of ``repro/core/coded_collectives.py``.
+NumPy oracles, and the two-stage shuffle, for all K servers at once on one
+device or for one server per process.  Counterpart of
+``repro/core/coded_collectives.py``.
 
 Plan half (NumPy only, identical tables to the JAX package's compiler —
 pinned by the sha256 goldens in ``tests/golden_plans.json``): the binomial
@@ -19,6 +20,14 @@ JAX device body folds the server index into the row index, so one
 ``index_select`` or ``index_add_`` serves all K servers; the row indices
 are precomputed per (plan, device) in :class:`DevicePlanTables`.
 
+Shuffle half (process form, the JAX per-device program): on a
+:class:`~repro_torch.distributed.meshes.ProcessMesh` each server is one
+rank and holds only its own [n_loc, Q, d] values; :func:`shuffle_rank_body`
+runs stage 1 as one ``all_to_all_single`` over the 'rack' group and stage 2
+as one over the 'server' group, on :func:`rank_plan_tables` — the server's
+own slice of the stacked tables.  Both forms share one body and agree bit
+for bit.
+
 Data model: intermediate values form V[N, Q, d] (subfile, key, payload);
 the reducer of key q needs q's value on ALL N subfiles.
 """
@@ -32,6 +41,8 @@ from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..distributed.collectives import all_to_all
+from ..distributed.meshes import ProcessMesh
 from .assignment import hybrid_assignment, rack_subsets
 from .params import SchemeParams
 from .plan_registry import (HybridShufflePlan, get_plan_compiler,
@@ -254,10 +265,20 @@ def plan_cache_clear() -> None:
     _cached_plan.cache_clear()
     _FAMILY_STATS.clear()
     device_plan_tables.cache_clear()
+    rank_plan_tables.cache_clear()
+
+
+def compile_hybrid_plan_r2(p: SchemeParams) -> HybridShufflePlan:
+    """Back-compat alias: the r = 2 instance of :func:`compile_hybrid_plan`
+    (rejects other r, as the pre-general-r API did)."""
+    if p.r != 2:
+        raise ValueError("compile_hybrid_plan_r2 is the r = 2 special case; "
+                         "use compile_hybrid_plan for general r")
+    return compile_hybrid_plan(p)
 
 
 # ---------------------------------------------------------------------------
-# Stacked execution: all K servers as the leading [P, Kr] axes
+# Execution: all K servers stacked on one device, or one server a process
 # ---------------------------------------------------------------------------
 
 MULTICAST_MODES = ("unicast", "coded", "coded_xor")
@@ -278,7 +299,8 @@ class DevicePlanTables:
     ``[K * n_layer, q_rack, d]`` (row ``s * n_layer + l``).  Stage-1 slots
     are ordered (rack, layer j, other rack, slot m): the sender's view for
     ``send_src``/``comp_src``, the receiver's for ``known_src``,
-    ``recv_dst`` and ``recv_valid``."""
+    ``recv_dst`` and ``recv_valid``.  :func:`rank_plan_tables` gives one
+    server's fields in the same layout with K = 1."""
     local_src: torch.Tensor     # [K * n_loc]
     local_dst: torch.Tensor     # [K * n_loc]
     send_src: torch.Tensor      # [K * P * n_send]
@@ -359,6 +381,31 @@ def device_plan_tables(plan: HybridShufflePlan,
     return upload_plan_tables(plan, device)
 
 
+@functools.lru_cache(maxsize=128)
+def rank_plan_tables(plan: HybridShufflePlan, rank: int,
+                     device: torch.device) -> DevicePlanTables:
+    """Server ``rank``'s slice of :class:`DevicePlanTables` on ``device``,
+    cached per (plan, rank, device): the stacked tables are ordered with
+    the server leading, so a server's slots are one contiguous run; its
+    source rows are rebased by ``rank * n_loc * P`` and its destination
+    rows by ``rank * n_layer``, to index its own values and layer table."""
+    p = plan.params
+    src0 = rank * plan.local_subfiles.shape[-1] * p.P
+    dst0 = rank * p.subfiles_per_layer
+    t = _stacked_tables(plan)
+
+    def mine(name: str, offset: int) -> torch.Tensor:
+        a = t[name]
+        a = a.reshape(*a.shape[:-1], p.K, a.shape[-1] // p.K)[..., rank, :]
+        return torch.as_tensor(np.array(a - offset if offset else a),
+                               device=device)
+    return DevicePlanTables(
+        **{k: mine(k, src0) for k in ("local_src", "send_src", "comp_src",
+                                      "known_src")},
+        local_dst=mine("local_dst", dst0), recv_dst=mine("recv_dst", dst0),
+        recv_valid=mine("recv_valid", 0))
+
+
 def _combine(streams: torch.Tensor, multicast: str,
              combine_impl: str) -> torch.Tensor:
     """Encode the [arity, ...] component streams into one packet stream —
@@ -428,6 +475,38 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
     through it (those rows receive nothing and their local fill is zero,
     so add == set).  ``None`` costs nothing.
     """
+    return _shuffle_body(vals, plan, tables, None, multicast, combine_impl,
+                         patch)
+
+
+def shuffle_rank_body(vals: torch.Tensor, plan: HybridShufflePlan,
+                      tables: DevicePlanTables, mesh: ProcessMesh,
+                      multicast: str = "unicast",
+                      combine_impl: str = "torch",
+                      patch: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One server's part of the two-stage hybrid shuffle on a
+    :class:`ProcessMesh` (the JAX package's ``shuffle_device_body``).
+
+    ``vals`` is THIS rank's [n_loc, Q, d] mapped values, ordered as
+    ``plan.local_subfiles[i, j]``; ``tables`` are its
+    :func:`rank_plan_tables`.  Stage 1 is one all_to_all over the mesh's
+    'rack' group, stage 2 one over its 'server' group.  Returns the rank's
+    [N, q_srv, d] reduce rows (order = :func:`reduce_ready_order`).
+    ``multicast``, ``combine_impl`` and ``patch`` (this rank's [n_layer,
+    q_rack, d]) as in :func:`shuffle_device_body`; on a CUDA tensor with
+    ``combine_impl='kernel'`` every rank launches the combine kernels.
+    """
+    return _shuffle_body(vals, plan, tables, mesh, multicast, combine_impl,
+                         patch)
+
+
+def _shuffle_body(vals: torch.Tensor, plan: HybridShufflePlan,
+                  tables: DevicePlanTables, mesh: Optional[ProcessMesh],
+                  multicast: str, combine_impl: str,
+                  patch: Optional[torch.Tensor]) -> torch.Tensor:
+    """The body of both forms: all K servers stacked (``mesh`` None, each
+    exchange a transpose) or this rank's server (each exchange an
+    all_to_all over the mesh's group)."""
     if multicast not in MULTICAST_MODES:
         raise ValueError(f"multicast must be one of {MULTICAST_MODES}")
     if combine_impl not in COMBINE_IMPLS:
@@ -436,15 +515,16 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
     P, Kr = p.P, p.Kr
     q_rack, q_srv = p.Q // p.P, p.Q // p.K
     n_layer = p.subfiles_per_layer
+    n_srv = p.K if mesh is None else 1
     d = vals.shape[-1]
     n_send = plan.n_send
     arity = plan.mcast_arity
     coded = multicast != "unicast" and arity >= 2
 
-    rows = vals.reshape(-1, q_rack, d)          # [K * n_loc * P, q_rack, d]
+    rows = vals.reshape(-1, q_rack, d)       # [n_srv * n_loc * P, q_rack, d]
 
-    # ---- Stage 1: cross-rack exchange (a transpose over the rack axes) ----
-    table = vals.new_zeros((p.K * n_layer, q_rack, d))
+    # ---- Stage 1: cross-rack exchange --------------------------------------
+    table = vals.new_zeros((n_srv * n_layer, q_rack, d))
     table.index_copy_(0, tables.local_dst,
                       rows.index_select(0, tables.local_src))   # local rows
     if n_send > 0:
@@ -456,9 +536,14 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
                               combine_impl)
         else:
             blocks = rows.index_select(0, tables.send_src)
-        # all_to_all over 'rack': blocks[src, j, dst] -> recvd[dst, j, src]
-        recvd = blocks.view(P, Kr, P, n_send, q_rack, d).transpose(0, 2)
-        recvd = recvd.reshape(-1, q_rack, d)
+        if mesh is None:
+            # all_to_all over 'rack': blocks[src, j, dst] -> recvd[dst, j,
+            # src]
+            recvd = blocks.view(P, Kr, P, n_send, q_rack, d).transpose(0, 2)
+            recvd = recvd.reshape(-1, q_rack, d)
+        else:
+            # blocks by destination rack -> received blocks by source rack
+            recvd = all_to_all(blocks, mesh, "rack")
         if coded:
             # decode: subtract the arity-1 known components (rows this
             # server mapped itself — the replicated-map side information)
@@ -471,12 +556,18 @@ def shuffle_device_body(vals: torch.Tensor, plan: HybridShufflePlan,
         recvd = torch.where(tables.recv_valid[:, None, None], recvd, 0)
         table.index_add_(0, tables.recv_dst, recvd)
     if patch is not None:
-        table += patch.reshape(p.K * n_layer, q_rack, d)
+        table += patch.reshape(n_srv * n_layer, q_rack, d)
 
-    # ---- Stage 2: intra-rack exchange (a transpose over the Kr axes) ------
-    # table[i, j_src, l, j_dst, :] -> out[i, j_dst, j_src, l, :]
-    out = table.view(P, Kr, n_layer, Kr, q_srv, d).permute(0, 3, 1, 2, 4, 5)
-    return out.reshape(p.K, Kr * n_layer, q_srv, d)
+    # ---- Stage 2: intra-rack exchange --------------------------------------
+    if mesh is None:
+        # table[i, j_src, l, j_dst, :] -> out[i, j_dst, j_src, l, :]
+        out = table.view(P, Kr, n_layer, Kr, q_srv, d).permute(
+            0, 3, 1, 2, 4, 5)
+        return out.reshape(p.K, Kr * n_layer, q_srv, d)
+    # table[l, j_dst, :] goes to server j_dst; received by source server
+    per_srv = table.view(n_layer, Kr, q_srv, d).transpose(0, 1)
+    out = all_to_all(per_srv, mesh, "server")   # [Kr, n_layer, q_srv, d]
+    return out.reshape(Kr * n_layer, q_srv, d)
 
 
 def hybrid_shuffle(values_local, plan: HybridShufflePlan, mesh,
@@ -484,21 +575,38 @@ def hybrid_shuffle(values_local, plan: HybridShufflePlan, mesh,
                    combine_impl: str = "torch") -> torch.Tensor:
     """Two-stage hybrid shuffle, general r, on ``mesh.device``.
 
-    values_local: [K, n_loc, Q, d] (tensor or array); row (i*Kr + j) =
-      server (i, j)'s mapped subfile values, ordered as
-      ``plan.local_subfiles[i, j]``.
-    Returns [K, N, q_srv, d]: per server, values of ALL N subfiles for its
-      own q_srv reduce keys, rows ordered as :func:`reduce_ready_order`.
+    On a stacked mesh — values_local: [K, n_loc, Q, d] (tensor or array);
+      row (i*Kr + j) = server (i, j)'s mapped subfile values, ordered as
+      ``plan.local_subfiles[i, j]``.  Returns [K, N, q_srv, d]: per server,
+      values of ALL N subfiles for its own q_srv reduce keys, rows ordered
+      as :func:`reduce_ready_order`.
+    On a :class:`ProcessMesh` — values_local: THIS rank's [n_loc, Q, d];
+      returns THIS rank's [N, q_srv, d] (every rank must call it).
 
     ``multicast`` / ``combine_impl`` select the stage-1 wire format and the
     f(.) implementation — see :func:`shuffle_device_body`.
     """
     vals = torch.as_tensor(values_local, device=mesh.device)
+    if isinstance(mesh, ProcessMesh):
+        n_loc = plan.local_subfiles.shape[-1]
+        if vals.shape[0] != n_loc:
+            raise ValueError(f"values_local has {vals.shape[0]} rows; this "
+                             f"server maps n_loc={n_loc}")
+        tables = rank_plan_tables(plan, mesh.rank, mesh.device)
+        return shuffle_rank_body(vals, plan, tables, mesh, multicast,
+                                 combine_impl)
     if vals.shape[0] != plan.params.K:
         raise ValueError(f"values_local has {vals.shape[0]} server rows; "
                          f"the plan has K={plan.params.K}")
     tables = device_plan_tables(plan, mesh.device)
     return shuffle_device_body(vals, plan, tables, multicast, combine_impl)
+
+
+def hybrid_shuffle_r2(values_local, plan: HybridShufflePlan,
+                      mesh) -> torch.Tensor:
+    """Back-compat alias for :func:`hybrid_shuffle` (r = 2 plans and any
+    other compiled plan run through the identical program)."""
+    return hybrid_shuffle(values_local, plan, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -685,11 +793,13 @@ from . import resolvable as _resolvable_family  # noqa: E402,F401
 __all__ = [
     "HybridShufflePlan", "register_plan_compiler", "get_plan_compiler",
     "plan_families", "plan_from_numpy", "compile_hybrid_plan",
+    "compile_hybrid_plan_r2",
     "plan_cache_info", "plan_cache_clear",
     "PlanCacheInfo", "FamilyCacheInfo",
     "MULTICAST_MODES", "COMBINE_IMPLS", "DevicePlanTables",
-    "upload_plan_tables", "device_plan_tables", "shuffle_device_body",
-    "hybrid_shuffle",
+    "upload_plan_tables", "device_plan_tables", "rank_plan_tables",
+    "shuffle_device_body", "shuffle_rank_body", "hybrid_shuffle",
+    "hybrid_shuffle_r2",
     "reduce_ready_order", "reduce_output_keys", "pack_local_values",
     "plan_transfer_matrices", "plan_shuffle_reference",
     "simulate_plan_shuffle",

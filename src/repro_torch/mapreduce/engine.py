@@ -10,20 +10,22 @@ Two execution paths:
   * run_job             — dense map of all N subfiles and reduce, with the
     analytic (or message-counted) costs: the oracle.
   * run_job_distributed — the real two-stage hybrid shuffle of
-    :mod:`repro_torch.core.coded_collectives` in its stacked single-card
-    form.  Default ``fused=True`` keeps map -> shuffle -> reduce on the
-    device with no host round trip between phases: each server maps only
-    its own n_loc assigned subfiles (packed on the host from the raw input
-    and uploaded once), the shuffle gathers from the plan's cached device
-    index tables, and each server reduces its own keys.  ``fused=False``
-    keeps the legacy path (map all N, copy to the host, pack there,
-    upload again) for comparison.  ``faults=`` runs the job under injected
-    server crashes through the recovery ladder of
-    :mod:`repro_torch.mapreduce.recovery`.
+    :mod:`repro_torch.core.coded_collectives`, in its stacked single-card
+    form (a :class:`StackedMesh`) or one server per process (a
+    :class:`ProcessMesh`: every rank calls it, and every rank returns the
+    same global outputs).  Default ``fused=True`` keeps map -> shuffle ->
+    reduce on the device with no host round trip between phases: each
+    server maps only its own n_loc assigned subfiles (packed on the host
+    from the raw input and uploaded once), the shuffle gathers from the
+    plan's cached device index tables, and each server reduces its own
+    keys.  ``fused=False`` keeps the legacy path (map all N, copy to the
+    host, pack there, upload again) for comparison.  ``faults=`` runs the
+    job under injected server crashes through the recovery ladder of
+    :mod:`repro_torch.mapreduce.recovery` (stacked mesh only).
 
 :func:`measure_phase_timings` / :func:`measure_calibration_grid` time the
-legacy path's phases one by one, in the JAX package's row format (the
-calibration feed of its simulator).
+legacy path's phases one by one on a stacked mesh, in the JAX package's
+row format (the calibration feed of its simulator).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"`` for :func:`run_job`, a mesh made with ``device="cpu"``
@@ -45,15 +47,18 @@ from ..core.coded_collectives import (HybridShufflePlan,
                                       compile_hybrid_plan,
                                       device_plan_tables,
                                       hybrid_shuffle, pack_local_values,
-                                      reduce_output_keys,
-                                      shuffle_device_body)
+                                      rank_plan_tables, reduce_output_keys,
+                                      shuffle_device_body,
+                                      shuffle_rank_body)
 from ..core.costs import (coded_cost, hybrid_cost, hybrid_resolvable_cost,
                           uncoded_cost)
 from ..core.params import SchemeParams
 from ..core.plan_registry import scheme_of_family
 from ..core.resolvable import resolvable_assignment
 from ..core.shuffle_plan import count_plan, make_plan
-from ..distributed.meshes import DeviceLike, StackedMesh, resolve_device
+from ..distributed.collectives import all_gather
+from ..distributed.meshes import (DeviceLike, ProcessMesh, StackedMesh,
+                                  resolve_device)
 from ..obs.bytes import plan_rack_bytes, reconcile, record_rack_bytes
 from ..obs.metrics import refresh_cache_metrics
 from ..obs.tracing import get_tracer, spans_from_phase_timings
@@ -90,7 +95,8 @@ class JobResult:
     blame: Dict[str, float] | None = None
 
 
-def _validate_mesh(mesh: StackedMesh, p: SchemeParams) -> None:
+def _validate_mesh(mesh: StackedMesh | ProcessMesh,
+                   p: SchemeParams) -> None:
     """Fail fast (and legibly) on a mesh that does not realize the scheme's
     (P racks) x (Kr servers) grid."""
     names = tuple(mesh.axis_names)
@@ -159,6 +165,25 @@ def pack_local_subfiles(subfiles, plan: HybridShufflePlan) -> np.ndarray:
     return np.asarray(subfiles)[plan.local_subfiles.reshape(p.K, -1)]
 
 
+def _pack(rows, plan: HybridShufflePlan, mesh) -> np.ndarray:
+    """Per-subfile ``rows`` (raw subfiles or mapped values) in the
+    per-server layout: [K, n_loc, ...] on a stacked mesh, and on a
+    :class:`ProcessMesh` this rank's own [n_loc, ...] alone."""
+    if isinstance(mesh, ProcessMesh):
+        i, j = mesh.coords
+        return np.asarray(rows)[plan.local_subfiles[i, j]]
+    return pack_local_subfiles(rows, plan)
+
+
+def _gather(out: torch.Tensor, mesh) -> torch.Tensor:
+    """The reduced rows of every server, [K, q_srv, d_out]: on a
+    :class:`ProcessMesh` every rank's [q_srv, d_out], all-gathered in rank
+    (= server) order; on a stacked mesh ``out`` itself."""
+    if isinstance(mesh, ProcessMesh):
+        return all_gather(out[None], mesh, mesh.axis_names)
+    return out
+
+
 def assemble_outputs(out: torch.Tensor,
                      plan: HybridShufflePlan) -> torch.Tensor:
     """[K, Q/K, d_out] per-server reduce rows -> [Q, d_out] in global key
@@ -183,6 +208,18 @@ def _fused_map_shuffle_reduce(job: MapReduceJob, plan: HybridShufflePlan,
                                plan, tables, multicast,
                                combine_impl)                  # [K,N,q_srv,d]
     return job.reduce_fn(rows.transpose(1, 2))
+
+
+def _fused_rank(job: MapReduceJob, plan: HybridShufflePlan,
+                local_subs: torch.Tensor, mesh: ProcessMesh, multicast: str,
+                combine_impl: str) -> torch.Tensor:
+    """:func:`_fused_map_shuffle_reduce` for this rank's server: [n_loc,
+    ...] -> [q_srv, d_out]."""
+    tables = rank_plan_tables(plan, mesh.rank, mesh.device)
+    vals = job.map_fn(local_subs, plan.params.Q)              # [n_loc, Q, d]
+    rows = shuffle_rank_body(vals, plan, tables, mesh, multicast,
+                             combine_impl)                    # [N, q_srv, d]
+    return job.reduce_fn(rows.transpose(0, 1))
 
 
 def _blame_from_spans(events, cost) -> Dict[str, float] | None:
@@ -212,7 +249,8 @@ def _blame_from_spans(events, cost) -> Dict[str, float] | None:
 
 
 def run_job_distributed(job: MapReduceJob, subfiles,
-                        params: SchemeParams, mesh: StackedMesh,
+                        params: SchemeParams,
+                        mesh: StackedMesh | ProcessMesh,
                         r: int | None = None, *, fused: bool = True,
                         multicast: str = "unicast",
                         combine_impl: str = "torch",
@@ -223,7 +261,11 @@ def run_job_distributed(job: MapReduceJob, subfiles,
     shuffle (general map-replication r in [1, P]).
 
     ``mesh`` must have axes ('rack', 'server') with sizes (P, Kr) (see
-    :func:`repro_torch.distributed.meshes.make_mesh`).  ``r`` overrides
+    :func:`repro_torch.distributed.meshes.make_mesh`, or
+    :func:`~repro_torch.distributed.meshes.make_process_mesh` in each rank:
+    a rank packs, maps and shuffles only its own server's subfiles, reduces
+    its q_srv keys, and all_gathers the reduced rows, so every rank
+    returns the whole [Q, d_out] in global key order).  ``r`` overrides
     ``params.r``.  ``scheme_family`` selects the registered plan compiler:
     ``'binomial'`` (the paper's construction) or ``'resolvable'``.
     ``fused`` selects the device-resident path or the legacy host round
@@ -239,12 +281,18 @@ def run_job_distributed(job: MapReduceJob, subfiles,
     the job under injected server crashes through the recovery ladder of
     :mod:`repro_torch.mapreduce.recovery` — decode-around, partial re-map,
     then bounded-retry restart — and fills ``JobResult.recovery``; outputs
-    stay bit-identical to the failure-free run.
+    stay bit-identical to the failure-free run.  On a :class:`ProcessMesh`
+    it raises ``NotImplementedError``: the ladder runs on a stacked mesh.
     """
     p = params if r is None or r == params.r else \
         dataclasses.replace(params, r=r)
     _validate_mesh(mesh, p)
+    ranked = isinstance(mesh, ProcessMesh)
     if faults is not None:
+        if ranked:
+            raise NotImplementedError(
+                "faults= runs the recovery ladder on a StackedMesh "
+                "(make_mesh); the process form has no ladder yet")
         from .recovery import run_with_recovery
         res = run_with_recovery(job, subfiles, p, mesh, faults,
                                 multicast=multicast,
@@ -262,26 +310,31 @@ def run_job_distributed(job: MapReduceJob, subfiles,
         plan = compile_hybrid_plan(p, perm=perm, family=scheme_family)
     if fused:
         with tracer.span("pack", kind="engine_phase", job=job.name):
-            local_subs = torch.as_tensor(pack_local_subfiles(subfiles, plan),
+            local_subs = torch.as_tensor(_pack(subfiles, plan, mesh),
                                          device=dev)
         with tracer.span("map_shuffle_reduce", kind="engine_phase",
                          job=job.name, fused="true"):
-            out = _fused_map_shuffle_reduce(job, plan, local_subs,
-                                            multicast, combine_impl)
-            _sync(dev)                                  # [K, q_srv, d_out]
+            if ranked:
+                out = _fused_rank(job, plan, local_subs, mesh, multicast,
+                                  combine_impl)         # [q_srv, d_out]
+            else:
+                out = _fused_map_shuffle_reduce(job, plan, local_subs,
+                                                multicast, combine_impl)
+            out = _gather(out, mesh)                    # [K, q_srv, d_out]
+            _sync(dev)
     else:
         with tracer.span("map", kind="engine_phase", job=job.name):
             V = map_phase(job, torch.as_tensor(subfiles, device=dev),
                           p.Q).cpu().numpy()
         with tracer.span("pack", kind="engine_phase", job=job.name):
-            local = pack_local_values(V, plan)          # [K, n_loc, Q, d]
+            local = _pack(V, plan, mesh)                # [K, n_loc, Q, d]
         with tracer.span("shuffle", kind="engine_phase", job=job.name):
             shuffled = hybrid_shuffle(local, plan, mesh, multicast,
                                       combine_impl)
             _sync(dev)
         with tracer.span("reduce", kind="engine_phase", job=job.name):
             # [K, N, q_srv, d]; rows ordered by reduce_ready_order
-            out = job.reduce_fn(shuffled.transpose(1, 2))
+            out = _gather(job.reduce_fn(shuffled.transpose(-3, -2)), mesh)
             _sync(dev)
     final = assemble_outputs(out, plan)                 # [Q, d_out]
     scheme = scheme_of_family(scheme_family)
@@ -347,10 +400,15 @@ def measure_phase_timings(job: MapReduceJob, subfiles,
     Shuffle and reduce are device phases, timed with CUDA events on the
     card and the host clock on the CPU; the others by the host clock.
     ``work`` holds the value-unit conventions of the JAX row;
-    ``meta["backend"]`` names the device type the phases ran on.
+    ``meta["backend"]`` names the device type the phases ran on.  On a
+    :class:`ProcessMesh` it raises ``NotImplementedError``.
     """
     from ..core.coded_collectives import plan_cache_clear
 
+    if isinstance(mesh, ProcessMesh):
+        raise NotImplementedError(
+            "measure_phase_timings times the phases on a StackedMesh "
+            "(make_mesh); the process form is not timed by phase yet")
     p = params
     dev = mesh.device
     plan_cache_clear()
