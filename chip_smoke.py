@@ -55,6 +55,24 @@ Phases, one printed line each (plus detail lines):
               the card.  Walls: the slowest rank's, median of three after
               a warm call, beside the stacked job's timed the same way;
               the exchanges alone; spawn and rendezvous.
+4d. locality — Section IV, run last (after phase 7 and phase 2's device
+              times: profiles taken after its million-odd eager launches
+              held about half of their kernel records).  First the Table
+              I row with HDFS replicas (r_f = 3), r in {2, 3}: greedy,
+              then the annealer on the card (64 chains, 1,500 steps; its
+              step loop run again under ``set_sync_debug_mode("error")``,
+              and 200 steps profiled), the fused coded kernel job under
+              that placement bit-identical to the identity placement and
+              ``run_job`` with one encode and one decode, every server
+              mapping the placement's subfiles, and its simulated JCT
+              below a random placement's.  Then the ten Table II rows of
+              ``BENCH_locality.json`` through the port's ``table2_trials``
+              (random, greedy, flow, local_search, and the annealer on
+              the card warm-started from flow and greedy, 64 chains,
+              1,000 steps): the four deterministic solvers' statistics
+              and the flow-vs-random ``jct_gap`` equal the file's (the
+              JAX package's numbers), the annealer >= flow, every solver
+              above random.
 5. lm kernels — ``flash_attention`` and ``wkv_scan`` against their plain
               versions at the serving path's prefill and decode shapes (bf16
               and fp32) and the odd shapes of tests/test_kernels.py, with
@@ -108,7 +126,8 @@ for rwkv6-3b) and call no plain version; every time-to-first-token call
 runs all of them on the ``tensor_core`` route of its kernel.  Main paths:
 the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
 the XOR pair, full-width serving for the LM kernels; the combine
-kernels' ``ranks`` path (phase 4c) must launch too.
+kernels' ``ranks`` path (phase 4c) and the linear pair's ``placed`` path
+(phase 4d) must launch too.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -1107,6 +1126,263 @@ def ranks_phase(torch, np, eng, cc, run_ranks, make_mesh, SchemeParams,
 
 
 # ---------------------------------------------------------------------------
+# Phase 4d: Section IV — placement, the simulator it feeds, a placed job
+# ---------------------------------------------------------------------------
+
+TABLE2_SOLVERS = ("random", "greedy", "flow", "local_search", "anneal")
+DETERMINISTIC = ("random", "greedy", "flow", "local_search")
+STAT_FIELDS = ("node_mean", "node_std", "rack_mean", "rack_std",
+               "objective_mean")
+# BENCH_locality.json was written by the JAX package's
+# benchmarks/table2_locality.py from the same NumPy draws and arithmetic,
+# so its statistics and simulated JCTs are expected bit-equal.  The 1e-12
+# relative tolerance only leaves room for a NumPy on this machine that
+# rounds the last place of a mean or std of five float64 values
+# differently; any solver difference moves them by 1e-3 or more.
+BENCH_RTOL = 1e-12
+
+
+def _close(a: float, b: float) -> bool:
+    return abs(a - b) <= BENCH_RTOL * max(abs(a), abs(b))
+
+
+def table2_phase(np, pl, sim, SchemeParams, smi):
+    """Phase 4d (a): the ten Table II rows of ``BENCH_locality.json`` with
+    the benchmark's solver settings, the annealer on the card."""
+    bench = json.loads((ROOT / "BENCH_locality.json").read_text())
+    cl = bench["time_units_cluster"]
+    kw = {"anneal": {"init_solvers": ("flow", "greedy"), "n_chains": 64,
+                     "n_steps": 1000, "device": "cuda"},
+          "local_search": {"max_sweeps": 20}}
+    rows, exact = [], True
+    for row, trow in zip(bench["table2"], bench["table2_time_units"]):
+        K_, P_, r_f, N_ = row["params"]
+        check(trow["params"] == row["params"],
+              f"BENCH_locality.json rows align: {trow['params']}")
+        p = SchemeParams(K=K_, P=P_, Q=K_, N=N_, r=2, r_f=r_f)
+        t0 = time.perf_counter()
+        res = pl.table2_trials(p, lam=bench["lam"], seed=bench["seed"],
+                               n_trials=bench["n_trials"],
+                               solvers=TABLE2_SOLVERS, per_solver_kwargs=kw)
+        solve_s = time.perf_counter() - t0
+        s = res.stats
+        tag = f"table2 {tuple(row['params'])}"
+        for name in DETERMINISTIC:
+            for f in STAT_FIELDS:
+                got, want = getattr(s[name], f), row["solvers"][name][f]
+                check(_close(got, want), f"{tag} {name} {f} {got!r} == "
+                      f"BENCH_locality.json's {want!r}")
+                exact = exact and got == want
+        a, fl = s["anneal"], s["flow"]
+        check(a.objective_mean >= fl.objective_mean - 1e-6
+              and a.node_mean >= fl.node_mean,
+              f"{tag} anneal {a.objective_mean} / {a.node_mean} >= flow "
+              f"{fl.objective_mean} / {fl.node_mean}")
+        for name in TABLE2_SOLVERS[1:]:
+            check(s[name].node_mean > s["random"].node_mean,
+                  f"{tag} {name} node locality beats random's")
+        topo = sim.RackTopology(P_, cross_bw=cl["cross_bw"],
+                                intra_bw=cl["intra_bw"])
+        cost = sim.CostModel(map=sim.PhaseCoeffs(0.0, cl["map_beta"]))
+        t1 = time.perf_counter()
+        gaps = [pl.jct_gap(t["flow"], t["random"], topo, cost_model=cost)
+                for t in res.trials]
+        sim_s = time.perf_counter() - t1
+        j_ran = float(np.mean([g[0] for g in gaps]))
+        j_opt = float(np.mean([g[1] for g in gaps]))
+        check(_close(j_ran, trow["mean_jct_random"])
+              and _close(j_opt, trow["mean_jct_flow"]),
+              f"{tag} jct_gap means {j_ran!r}, {j_opt!r} == "
+              f"BENCH_locality.json's {trow['mean_jct_random']!r}, "
+              f"{trow['mean_jct_flow']!r}")
+        exact = exact and (j_ran, j_opt) == (trow["mean_jct_random"],
+                                             trow["mean_jct_flow"])
+        check(j_opt < j_ran, f"{tag} optimized JCT {j_opt} < random {j_ran}")
+        walls = {n: s[n].wall_s_mean * 1e3 for n in TABLE2_SOLVERS}
+        rows.append({"params": row["params"],
+                     "node_mean": {n: s[n].node_mean for n in TABLE2_SOLVERS},
+                     "objective_mean": {n: s[n].objective_mean
+                                        for n in TABLE2_SOLVERS},
+                     "solver_wall_ms": walls, "mean_jct_random": j_ran,
+                     "mean_jct_flow": j_opt, "solve_s": solve_s,
+                     "sim_s": sim_s})
+        say(f"  {tag}: deterministic solvers and jct_gap == "
+            f"BENCH_locality.json; node % random/greedy/flow/local_search/"
+            f"anneal " + "/".join(f"{100 * s[n].node_mean:.2f}"
+                                  for n in TABLE2_SOLVERS)
+            + f"; anneal obj {a.objective_mean:.4f} >= flow "
+            f"{fl.objective_mean:.4f}; wall ms per call " + " ".join(
+                f"{n}={w:.3f}" for n, w in walls.items())
+            + f"; jct {j_ran:.6f} -> {j_opt:.6f} s; {solve_s:.3f} s solve, "
+            f"{sim_s:.3f} s sim [{smi}]")
+    return rows, exact
+
+
+def placed_phase(torch, np, pl, sim, eng, cc, count, job, subfiles, mesh,
+                 SchemeParams, hybrid_assignment, reconcile, seed, smi):
+    """Phase 4d (b): the Table I row under an annealed placement.  HDFS
+    replicas (r_f = 3) from ``seed``, greedy then the annealer on the card
+    (warm start greedy, 64 chains, 1500 steps), then the fused coded
+    kernel job under the placement on phase 4's subfiles against the
+    identity placement and ``run_job``, and the simulated JCT of the
+    placement against a random one of the same instance."""
+    from repro_torch.placement.solvers import anneal_chains
+    from repro_torch.core.assignment import hybrid_group_of_slot
+
+    dense = eng.run_job(job, subfiles, SchemeParams(K=K, P=P, Q=Q, N=N, r=2),
+                        "hybrid").outputs
+    topo = sim.RackTopology(P, cross_bw=1e4, intra_bw=1e5)
+    cost = sim.CostModel(map=sim.PhaseCoeffs(0.0, 1e-8))
+    rows, total = [], dict.fromkeys(KERNELS, 0)
+    for r in (2, 3):
+        p = SchemeParams(K=K, P=P, Q=Q, N=N, r=r, r_f=3)
+        replicas = pl.place_replicas(p, np.random.default_rng(seed), "hdfs")
+        C = pl.locality_matrix(p, replicas)
+        greedy = pl.solve(p, replicas, "greedy", C=C)
+        tag = f"placed binomial r={r} N={N} C={C.shape[0]}x{C.shape[1]}"
+        # the chains alone at the same size, from greedy and random starts
+        gos = torch.as_tensor(hybrid_group_of_slot(p), dtype=torch.int64,
+                              device="cuda")
+        base = torch.as_tensor(np.stack([greedy.perm] + [
+            np.random.default_rng(seed + k).permutation(N)
+            for k in range(1, 64)]), device="cuda")
+        Ct = torch.as_tensor(C, dtype=torch.float32, device="cuda")
+        temps = torch.as_tensor(np.geomspace(1.0, 1e-3, 1500),
+                                dtype=torch.float32, device="cuda")
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        if r == 2:
+            chains_profile = profile_chains(
+                torch, anneal_chains, (base.clone(), Ct, gos, temps[:200],
+                                       gen), smi)
+        ann = pl.solve(p, replicas, "anneal", C=C,
+                       rng=pl.solver_rng(seed, "anneal"),
+                       init=[greedy.perm], n_chains=64, n_steps=1500,
+                       device="cuda")
+        check(ann.objective >= greedy.objective,
+              f"{tag}: anneal objective {ann.objective} >= greedy "
+              f"{greedy.objective}")
+        # one host read at the end, none in the step loop (a synchronising
+        # call would raise here)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            best = anneal_chains(base, Ct, gos, temps, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        chains_ms = (time.perf_counter() - t0) * 1e3
+        check(bool((best.sort(dim=1).values
+                    == torch.arange(N, device="cuda")).all()),
+              f"{tag}: the chains' best are permutations")
+        # the job under the placement, against the identity placement
+        check(not np.array_equal(ann.perm, np.arange(N)),
+              f"{tag}: the placement moves subfiles")
+        plan = cc.compile_hybrid_plan(p, perm=ann.perm)
+        a = hybrid_assignment(p, ann.perm.tolist())
+        for i in range(P):
+            for j in range(K // P):
+                check(sorted(plan.local_subfiles[i, j].tolist())
+                      == sorted(a.subfiles_of_server[p.server_id(i, j)]),
+                      f"{tag}: server ({i}, {j}) maps the placement's "
+                      f"subfiles")
+        want = expected_launches("coded", "kernel", r)
+        kw = dict(fused=True, multicast="coded", combine_impl="kernel")
+        walls = {}
+        for name, placement in (("identity", None), ("placed", ann)):
+            ms_list = []
+            for _ in range(4):              # a warm call, then three timed
+                def run():
+                    t1 = time.perf_counter()
+                    res = eng.run_job_distributed(job, subfiles, p, mesh,
+                                                  placement=placement, **kw)
+                    torch.cuda.synchronize()
+                    return res, (time.perf_counter() - t1) * 1e3
+                (res, ms), counts, _ = count(run)
+                check(counts == want, f"{tag} {name}: launches {counts}, "
+                      f"phase 4's fused r={r} coded kernel job {want}")
+                if name == "placed":
+                    add_counts(total, counts)
+                ms_list.append(ms)
+            walls[name] = statistics.median(ms_list[1:])
+            check(torch.equal(res.outputs, dense),
+                  f"{tag} {name}: outputs == run_job")
+            reconcile(res.intra_rack_bytes, res.cross_rack_bytes, p,
+                      "hybrid", d=D, check=True)
+            if name == "identity":
+                ident = res.outputs
+        check(torch.equal(res.outputs, ident),
+              f"{tag}: placed outputs == the identity placement's")
+        ran = pl.solve(p, replicas, "random", C=C,
+                       rng=pl.solver_rng(seed, "random"))
+        t1 = time.perf_counter()
+        j_opt = pl.simulate_placement(ann, topo, cost_model=cost).jct
+        j_ran = pl.simulate_placement(ran, topo, cost_model=cost).jct
+        sim_ms = (time.perf_counter() - t1) * 1e3
+        check(j_opt < j_ran, f"{tag}: simulated JCT {j_opt} < random's "
+              f"{j_ran}")
+        rows.append({"r": r, "greedy": {"objective": greedy.objective,
+                                        "node": greedy.node_locality,
+                                        "rack": greedy.rack_locality,
+                                        "wall_ms": greedy.wall_s * 1e3},
+                     "anneal": {"objective": ann.objective,
+                                "node": ann.node_locality,
+                                "rack": ann.rack_locality,
+                                "wall_ms": ann.wall_s * 1e3},
+                     "random": {"node": ran.node_locality,
+                                "rack": ran.rack_locality},
+                     "chains_ms": chains_ms, "chains_queued_ms": queued_ms,
+                     "identity_wall_ms": walls["identity"],
+                     "placed_wall_ms": walls["placed"],
+                     "launches_per_job": want, "jct_random": j_ran,
+                     "jct_anneal": j_opt, "sim_ms": sim_ms})
+        say(f"  {tag}: greedy obj {greedy.objective:.4f} node "
+            f"{100 * greedy.node_locality:.2f}% rack "
+            f"{100 * greedy.rack_locality:.2f}% ({greedy.wall_s * 1e3:.3f} "
+            f"ms); anneal on cuda obj {ann.objective:.4f} node "
+            f"{100 * ann.node_locality:.2f}% rack "
+            f"{100 * ann.rack_locality:.2f}% ({ann.wall_s * 1e3:.3f} ms a "
+            f"call; the chains alone {chains_ms:.3f} ms, "
+            f"{chains_ms / 1500 * 1e3:.1f} us a step, queued in "
+            f"{queued_ms:.3f} ms with no synchronisation) [{smi}]")
+        say(f"  {tag}: fused coded kernel job under the placement bit-exact "
+            f"vs the identity placement and run_job, every server maps the "
+            f"placement's subfiles, rack bytes = closed form, "
+            f"launches_per_job={want}; wall_ms placed {walls['placed']:.3f} "
+            f"identity {walls['identity']:.3f} (median of three after a "
+            f"warm call) [{smi}]")
+        say(f"  {tag}: simulated JCT anneal {j_opt:.6f} s < random "
+            f"{j_ran:.6f} s (node {100 * ran.node_locality:.2f}%), "
+            f"RackTopology(P={P}, cross_bw=1e4, intra_bw=1e5), map beta "
+            f"1e-8; {sim_ms:.3f} ms [{smi}]")
+    return rows, total, chains_profile
+
+
+def profile_chains(torch, anneal_chains, to_profile, smi):
+    """The card's busy time under 200 profiled steps of phase 4d's r = 2
+    chains."""
+    from torch.profiler import ProfilerActivity, profile
+    best, Ct, gos, temps, gen = to_profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        anneal_chains(best.clone(), Ct, gos, temps, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, top = device_time(prof)
+    check(busy_ms > 0, "the annealer's chains ran on the card")
+    say(f"  anneal chains, {temps.shape[0]} profiled steps at the Table I "
+        f"row (r=2): device busy {busy_ms:.3f} of {wall_ms:.3f} ms, idle "
+        f"share {1 - busy_ms / wall_ms:.3f}; the largest: " + ", ".join(
+            f"{k['name'][:40]} {k['ms']:.3f} ms x{k['count']}"
+            for k in top[:4]) + f" [{smi}]")
+    return {"steps": int(temps.shape[0]), "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms, "top": top}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1624,8 +1900,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import placement as pl
+    from repro_torch import sim
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.core import coded_collectives as cc
+    from repro_torch.core.assignment import hybrid_assignment
     from repro_torch.core import costs
     from repro_torch.core import degraded as dg
     from repro_torch.core.params import SchemeParams
@@ -1789,10 +2068,30 @@ def main(argv=None) -> int:
     profile_main_rows(torch, ops, ref, to_profile, args.seed)
     say("phase kernels (device time): the main combine rows profiled")
 
+    # ---- 4d. Section IV: placement, the simulator, a placed job ---------
+    # (after every other profile, and the Table I row before Table II: on
+    # the card, profiles taken after this phase's million-odd eager
+    # launches held about half of their kernel records)
+    t_loc = time.perf_counter()
+    placed_rows, placed_launches, chains_profile = placed_phase(
+        torch, np, pl, sim, eng, cc, count, job, subfiles, mesh,
+        SchemeParams, hybrid_assignment, reconcile, args.seed, smi)
+    t_table2 = time.perf_counter()
+    table2_rows, table2_exact = table2_phase(np, pl, sim, SchemeParams, smi)
+    table2_s = time.perf_counter() - t_table2
+    locality_s = time.perf_counter() - t_loc
+    say(f"phase locality: the ten Table II rows == BENCH_locality.json "
+        f"({'bit for bit' if table2_exact else f'within {BENCH_RTOL} rel'}) "
+        f"for random/greedy/flow/local_search and jct_gap, anneal on cuda "
+        f">= flow, optimized JCT < random; the Table I row (r=2, 3) placed "
+        f"by the annealer, bit-exact and on the combine kernels; launches "
+        f"{placed_launches}; {table2_s:.1f} s Table II, {locality_s:.1f} s "
+        f"the phase [{smi}]")
+
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
                "profiled": profile["launches"], "faults": fault_launches,
-               "ranks": ranks_launches,
+               "ranks": ranks_launches, "placed": placed_launches,
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
                "card_vs_cpu": cmp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
@@ -1825,6 +2124,9 @@ def main(argv=None) -> int:
               f"({main_path[kname]}): {by_path}")
         check(kname not in KERNELS or by_path["ranks"][kname] > 0,
               f"{kname} launched on the ranks path: {by_path['ranks']}")
+        check(kname not in ("coded_encode", "coded_decode")
+              or by_path["placed"][kname] > 0,
+              f"{kname} launched on the placed path: {by_path['placed']}")
         row = main_rows[kname]
         kernels.append({"name": kname, "route": "cuda",
                         "source": sources[kname],
@@ -1873,6 +2175,10 @@ def main(argv=None) -> int:
         "engine": engine_runs, "profile": profile,
         "faults": fault_runs, "phase_timings": phase_row,
         "ranks": ranks_info,
+        "locality": {"table2": table2_rows, "table2_exact": table2_exact,
+                     "table2_s": table2_s, "placed": placed_rows,
+                     "chains_profile": chains_profile,
+                     "phase_s": locality_s},
         "lm_kernels": flash_rows + wkv_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))

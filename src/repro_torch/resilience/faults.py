@@ -9,7 +9,8 @@ attempt.  The executable path
 ``faults=FaultSpec(...)``) applies the events of attempt k to attempt k of
 the recovery ladder, masking the crashed servers' in-memory map outputs.
 :meth:`FaultInjector.inject_into` registers the events with any simulator
-that has ``inject_crash(time, servers)`` (the port has none yet).
+that has ``inject_crash(time, servers)``, such as
+:class:`repro_torch.sim.ClusterSim`.
 
 Schedules are plain data built from a seed (the same draws in the same
 order as the JAX package's), so a fault experiment is reproducible
