@@ -73,6 +73,35 @@ Phases, one printed line each (plus detail lines):
               and the flow-vs-random ``jct_gap`` equal the file's (the
               JAX package's numbers), the annealer >= flow, every solver
               above random.
+4e. scheduler — after 4d, with no profiler session: the online scheduler,
+              drift, calibration and the resilience policies.  (a)
+              ``BENCH_sim.json`` rerun whole (K=8, P=4, 100 jobs, every
+              sweep, each stream on a cleared plan cache): decisions
+              exact, every float within 1e-12.  (b)
+              ``BENCH_calibration.json``'s drift section (the stale model
+              against the online refit after a 3x regime shift) within
+              1e-12, and its determinism digest as the JAX package's
+              bench gives it today (the file's predates the blame
+              metrics).  (c) ``BENCH_resilience.json``'s frontier cells of
+              the first three Table I rows at 10 seeds within 1e-12,
+              ``hedged_vs_static`` (80 jobs, 30 probes) with exact
+              decisions, and the trace determinism check.  (d) the
+              calibration bench's phase-fit grid measured on the card
+              (``measure_calibration_grid``, 5 iterations), fitted and
+              written beside ``--out`` as ``h100_cost_model.json``; then
+              the fused job's warm wall (best of 5) over the conformance
+              grid under unicast/torch and coded/kernel (one encode and
+              one decode a job at r >= 2), outputs equal to ``run_job``,
+              a conformance fit per pairing with the simulator equal to
+              its linear predictor within 1e-9 (errors against the
+              bench's 0.35 band reported, not gated).  (e) one seeded
+              ``run_scheduled`` stream on ``default_catalog(8, 4)`` with
+              the H100 fit, every hybrid candidate placed by the annealer
+              on the card, then again with the annealer on the CPU:
+              decisions, ``JobStats``, trace and every placement
+              identical; the ``choose`` wall per admission.  (f)
+              ``obs_report.md`` / ``.html`` of the phase's registry and
+              the stream, beside ``--out``.
 5. lm kernels — ``flash_attention`` and ``wkv_scan`` against their plain
               versions at the serving path's prefill and decode shapes (bf16
               and fp32) and the odd shapes of tests/test_kernels.py, with
@@ -126,8 +155,9 @@ for rwkv6-3b) and call no plain version; every time-to-first-token call
 runs all of them on the ``tensor_core`` route of its kernel.  Main paths:
 the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
 the XOR pair, full-width serving for the LM kernels; the combine
-kernels' ``ranks`` path (phase 4c) and the linear pair's ``placed`` path
-(phase 4d) must launch too.
+kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
+(phase 4d) and ``scheduler`` path (phase 4e's coded/kernel conformance
+cells) must launch too.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -1383,6 +1413,662 @@ def profile_chains(torch, anneal_chains, to_profile, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the scheduler, drift, calibration and the resilience policies
+# ---------------------------------------------------------------------------
+
+# The settings of the JAX package's benchmarks/sim_bench.py,
+# calibration_bench.py and resilience_bench.py, which wrote
+# BENCH_sim.json, BENCH_calibration.json and BENCH_resilience.json: kept
+# here because the card machine has no JAX.  The CPU tests
+# (tests/test_torch_scheduler.py, test_torch_calibration.py,
+# test_torch_resilience.py) pin this copy to the benches at their --smoke
+# sizes.  The functions take the simulator's modules as arguments, so the
+# same code runs over the port's and, in those tests, the JAX package's.
+SCHED_K, SCHED_P = 8, 4
+SIM_INTRA_BW, SIM_CROSS_BW = 1e7, 1e6
+SIM_FIXED_BASELINES = (("coded", 2), ("hybrid", 2), ("uncoded", 1))
+SIM_SIZES = {False: {"n_jobs": 100, "scales": (0.0, 0.5, 1.5),
+                     "ratios": (0.02, 0.1, 0.5, 1.0),
+                     "rates": (0.5, 2.0, 8.0), "n_seeds": 20},
+             True: {"n_jobs": 40, "scales": (0.0, 1.0),
+                    "ratios": (0.05, 1.0), "rates": (1.0, 8.0),
+                    "n_seeds": 5}}
+CAL_SHIFT_FACTOR = 3.0
+# (n_jobs, t_shift) of the drift and of the determinism sections
+CAL_DRIFT = {False: (60, 15.0), True: (30, 8.0)}
+CAL_DETERMINISM = {False: (40, 10.0), True: (20, 6.0)}
+RES_INTRA_BW, RES_CROSS_BW = 1e7, 1e6
+# phase 4e gates the frontier cells of these leading Table I rows (the
+# whole grid takes minutes on a host)
+RES_ROWS = 3
+# hedged_vs_static: (n_jobs, n_probe)
+RES_HEDGED = {False: (80, 30), True: (30, 15)}
+# the calibration bench's phase-fit grid (N, r, d) at K=8, P=4, Q=16, and
+# its conformance grid (N, Q, d) x r with its tolerance band (set on CPU
+# walls of the JAX package's fused pipeline)
+CAL_GRID_POINTS = [(48, 2, 256), (48, 2, 1024), (96, 2, 512), (96, 2, 2048),
+                   (96, 3, 1024), (192, 2, 1024)]
+CONFORMANCE_SIZES = [(96, 16, 2048), (96, 16, 512), (192, 16, 1024)]
+CONFORMANCE_RS = (1, 2, 3)
+CONFORMANCE_TOL = 0.35
+CONFORMANCE_TOKENS = 256
+# the annealer stream of phase 4e (e): jobs of default_catalog(8, 4),
+# chosen so the stream's replay with the annealer on the CPU stays well
+# under 30 s
+ANNEAL_STREAM_JOBS = 8
+# its root switch 100x slower than the racks' aggregate: the server-rack
+# regime, where hybrid admissions (each one placed) win
+ANNEAL_STREAM_CROSS_BW = 1e5
+
+
+def sim_default_cost(sim):
+    """``benchmarks/sim_bench.py``'s ``DEFAULT_COST``."""
+    return sim.CostModel(map=sim.PhaseCoeffs(alpha=2e-3, beta=5e-9),
+                         pack=sim.PhaseCoeffs(alpha=5e-4, beta=2e-9),
+                         reduce=sim.PhaseCoeffs(alpha=1e-3, beta=5e-9),
+                         plan_compile=sim.PhaseCoeffs(alpha=5e-3,
+                                                      beta=1e-6))
+
+
+def res_bench_cost(sim):
+    """``benchmarks/resilience_bench.py``'s ``BENCH_COST``."""
+    return sim.CostModel(map=sim.PhaseCoeffs(alpha=1e-4, beta=2e-8),
+                         pack=sim.PhaseCoeffs(alpha=5e-5, beta=1e-8),
+                         reduce=sim.PhaseCoeffs(alpha=1e-4, beta=2e-8),
+                         plan_compile=sim.PhaseCoeffs(alpha=5e-3,
+                                                      beta=1e-6))
+
+
+def cal_stale_cost(sim):
+    """``benchmarks/calibration_bench.py``'s ``STALE_COST``."""
+    return sim.CostModel(map=sim.PhaseCoeffs(1e-3, 5e-7),
+                         pack=sim.PhaseCoeffs(5e-4, 2e-7),
+                         reduce=sim.PhaseCoeffs(1e-3, 5e-7))
+
+
+def bench_diff(got, want, path="", rtol=BENCH_RTOL):
+    """Where ``got`` differs from a committed bench document: floats beyond
+    ``rtol`` relative, anything else (keys, lengths, ints, bools, strings)
+    at all."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            keys = sorted(got) if isinstance(got, dict) else got
+            return [f"{path}: keys {keys!r} != {sorted(want)}"]
+        return [d for k in sorted(want)
+                for d in bench_diff(got[k], want[k], f"{path}.{k}", rtol)]
+    if isinstance(want, list):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            return [f"{path}: {got!r} != {want!r}"]
+        return [d for i, (g, w) in enumerate(zip(got, want))
+                for d in bench_diff(g, w, f"{path}[{i}]", rtol)]
+    if isinstance(want, float) and not isinstance(got, bool) \
+            and isinstance(got, (int, float)):
+        ok = abs(got - want) <= rtol * max(abs(got), abs(want))
+        return [] if ok else [f"{path}: {got!r} != {want!r}"]
+    ok = type(got) is type(want) and got == want
+    return [] if ok else [f"{path}: {got!r} != {want!r}"]
+
+
+def sim_bench(np, sim, cc, costs, SchemeParams, table1_grid, smoke=False,
+              seed=0):
+    """``benchmarks/sim_bench.py``'s report (without its envelope): Table I
+    as the zero-contention simulation, the straggler/r trade-off, and the
+    adaptive scheduler against the fixed baselines over straggler, bandwidth
+    skew and offered-load sweeps, each stream on a cleared plan cache."""
+    cfg = SIM_SIZES[smoke]
+    cost = sim_default_cost(sim)
+    K_, P_ = SCHED_K, SCHED_P
+    fns = {"uncoded": costs.uncoded_cost, "coded": costs.coded_cost,
+           "hybrid": costs.hybrid_cost}
+    table1 = []
+    for (k, p_, q, n, r) in table1_grid:
+        topo = sim.RackTopology(P=p_, cross_bw=1.0, intra_bw=10.0)
+        params = SchemeParams(k, p_, q, n, r)
+        for scheme, fn in fns.items():
+            want = fn(params, check=False).weighted_time(10.0, 1.0)
+            got = sim.simulate_single_job(sim.JobSpec("histogram", n, q, 1),
+                                          topo, k, scheme, r,
+                                          check=False).jct
+            rel = abs(got - want) / max(abs(want), 1e-12)
+            check(rel < 1e-9, f"sim JCT {got} == weighted_time {want}: "
+                  f"{scheme} {(k, p_, q, n, r)}")
+            table1.append({"params": [k, p_, q, n, r], "scheme": scheme,
+                           "sim_jct": got, "weighted_time": want,
+                           "rel_err": rel, "match": True})
+    topo = sim.RackTopology(P=P_, cross_bw=SIM_CROSS_BW,
+                            intra_bw=SIM_INTRA_BW)
+    spec = sim.JobSpec("wide_histogram_d16", 336, 16, 16)
+    tradeoff = []
+    for scale in cfg["scales"]:
+        for r in (1, 2, 3):
+            jcts = []
+            for s in range(cfg["n_seeds"]):
+                model = (sim.ExponentialTail(scale) if scale
+                         else sim.NoStragglers())
+                jcts.append(sim.simulate_single_job(
+                    spec, topo, K_, "hybrid", r, cost_model=cost,
+                    stragglers=model, seed=s).jct)
+            tradeoff.append({"tail_scale": scale, "r": r,
+                             "mean_jct": float(np.mean(jcts)),
+                             "p99_jct": float(np.percentile(jcts, 99))})
+
+    def stream(jobs, topo, stragglers, adaptive, fixed=("coded", 2),
+               expected_straggler=1.0):
+        cc.plan_cache_clear()
+        cluster = sim.ClusterSim(topo, K_, cost, stragglers, seed)
+        chooser = sim.SchemeChooser(K_, cost_model=cost, adaptive=adaptive,
+                                    fixed=fixed,
+                                    expected_straggler=expected_straggler)
+        stats, sched = sim.run_scheduled(jobs, cluster, chooser,
+                                         policy="fifo", max_concurrent=4)
+        jcts = np.asarray([s.jct for s in stats])
+        picks = {}
+        for s in stats:
+            d = sched.decisions[s.job_id]
+            picks[f"{d.scheme}:r{d.r}"] = picks.get(f"{d.scheme}:r{d.r}",
+                                                    0) + 1
+        return {"mean_jct": float(jcts.mean()),
+                "p99_jct": float(np.percentile(jcts, 99)),
+                "n_jobs": len(jcts), "decisions": picks}
+
+    def point(jobs, topo, stragglers, expected_straggler=1.0):
+        out = {"adaptive": stream(jobs, topo, stragglers, True,
+                                  expected_straggler=expected_straggler)}
+        for scheme, r in SIM_FIXED_BASELINES:
+            out[f"fixed_{scheme}_r{r}"] = stream(jobs, topo, stragglers,
+                                                 False, (scheme, r))
+        return out
+
+    catalog = sim.default_catalog(K_, P_)
+    n_jobs = cfg["n_jobs"]
+    stragglers_rows, skew_rows, load_rows = [], [], []
+    for scale in cfg["scales"]:
+        jobs = sim.PoissonWorkload(catalog, n_jobs, rate=4.0).generate(seed)
+        model = sim.ExponentialTail(scale) if scale else sim.NoStragglers()
+        row = point(jobs, topo, model, expected_straggler=1.0 + scale)
+        row["tail_scale"] = scale
+        stragglers_rows.append(row)
+    for rho in cfg["ratios"]:
+        skewed = sim.RackTopology(P=P_, cross_bw=SIM_INTRA_BW * rho,
+                                  intra_bw=SIM_INTRA_BW)
+        jobs = sim.PoissonWorkload(catalog, n_jobs, rate=4.0).generate(seed)
+        row = point(jobs, skewed, sim.NoStragglers())
+        row["cross_over_intra_bw"] = rho
+        skew_rows.append(row)
+    for rate in cfg["rates"]:
+        jobs = sim.PoissonWorkload(catalog, n_jobs, rate=rate).generate(seed)
+        row = point(jobs, topo, sim.NoStragglers())
+        row["arrival_rate"] = rate
+        load_rows.append(row)
+    scenarios = {"straggler_r_tradeoff": tradeoff,
+                 "stragglers": stragglers_rows,
+                 "bandwidth_skew": skew_rows, "offered_load": load_rows}
+
+    def beats_fixed(rows, baseline="fixed_coded_r2"):
+        tol = 1.0 + 1e-9
+        mean_a = [r["adaptive"]["mean_jct"] for r in rows]
+        mean_b = [r[baseline]["mean_jct"] for r in rows]
+        p99_a = [r["adaptive"]["p99_jct"] for r in rows]
+        p99_b = [r[baseline]["p99_jct"] for r in rows]
+        pointwise = all(a <= b * tol for a, b in zip(mean_a, mean_b)) and \
+            all(a <= b * tol for a, b in zip(p99_a, p99_b))
+        return pointwise and sum(mean_a) < sum(mean_b) and \
+            sum(p99_a) < sum(p99_b)
+
+    beats = {name: beats_fixed(scenarios[name])
+             for name in ("stragglers", "bandwidth_skew", "offered_load")}
+    return {"cluster": {"K": K_, "P": P_, "intra_bw": SIM_INTRA_BW,
+                        "cross_bw": SIM_CROSS_BW},
+            "cost_model_calibrated_from": None,
+            "table1_zero_contention": {"rows": table1, "all_match": True},
+            "scenarios": scenarios, "scheduler_beats_fixed_coded": beats}
+
+
+def drift_run(sim, metrics, drift, n_jobs, seed, t_shift, recalibrate):
+    """``calibration_bench._drift_run``: one seeded scheduled stream whose
+    straggler regime shifts ``CAL_SHIFT_FACTOR``-fold at ``t_shift``."""
+    K_, P_ = SCHED_K, SCHED_P
+    stale = cal_stale_cost(sim)
+    topo = sim.RackTopology(P=P_, cross_bw=2e5, intra_bw=2e6)
+    cluster = sim.ClusterSim(topo, K=K_, cost_model=stale, seed=seed)
+    cluster.at(t_shift, lambda: setattr(
+        cluster, "stragglers",
+        sim.DeterministicSlowdown((CAL_SHIFT_FACTOR,) * K_)))
+    chooser = sim.SchemeChooser(K_, cost_model=stale,
+                                compile_real_plans=False)
+    monitor = drift.DriftMonitor(drift.DriftConfig(
+        ewma_alpha=0.3, threshold=0.2, min_observations=3))
+    sched = sim.MultiJobScheduler(chooser, policy="fifo", max_concurrent=2,
+                                  drift=monitor, recalibrate=recalibrate)
+    wl = sim.PoissonWorkload(sim.default_catalog(K_, P_), n_jobs=n_jobs,
+                             rate=2.0)
+    stats = sched.run(wl.generate(seed), cluster)
+    post = []
+    for s in stats:
+        d = sched.decisions.get(s.job_id)
+        if d is None or s.submit < t_shift:
+            continue
+        actual = s.finish - s.submit
+        post.append(abs(d.est_jct - actual) / max(actual, 1e-12))
+    return {"post_shift_rel_errs": post, "monitor": monitor.state(),
+            "n_jobs": len(stats),
+            "refit_trace_events": sum(
+                1 for e in cluster.tracer.events if e.kind == "sched_refit"),
+            "banked_regret_s": metrics.registry().counter(
+                "stale_model_regret_seconds_total").value(layer="sim")}
+
+
+def drift_section(np, sim, metrics, drift, smoke=False, seed=0):
+    """``calibration_bench.drift``: the stale model against the online
+    refit on the same stream, each on a reset registry."""
+    n_jobs, t_shift = CAL_DRIFT[smoke]
+    metrics.reset()
+    stale = drift_run(sim, metrics, drift, n_jobs, seed, t_shift, False)
+    metrics.reset()
+    refit = drift_run(sim, metrics, drift, n_jobs, seed, t_shift, True)
+    stale_mean = float(np.mean(stale["post_shift_rel_errs"]))
+    refit_mean = float(np.mean(refit["post_shift_rel_errs"]))
+    fired = refit["monitor"]["drift_events"] >= 1
+    refits = refit["monitor"]["refits"]
+    check(fired, "the EWMA drift detector fired after the regime shift")
+    check(refits >= 1 and refit["refit_trace_events"] == refits,
+          f"{refits} refits, {refit['refit_trace_events']} sched_refit "
+          f"trace events")
+    check(refit_mean < stale_mean, f"the online refit ({refit_mean}) beats "
+          f"the stale model ({stale_mean}) after the shift")
+    return {"n_jobs": n_jobs, "t_shift": t_shift,
+            "shift_factor": CAL_SHIFT_FACTOR,
+            "stale_mean_rel_err": stale_mean,
+            "refit_mean_rel_err": refit_mean,
+            "improvement": stale_mean / max(refit_mean, 1e-12),
+            "drift_fired": fired, "refits": refits,
+            "banked_regret_s": refit["banked_regret_s"],
+            "stale_monitor": stale["monitor"],
+            "refit_monitor": refit["monitor"], "ok": True}
+
+
+def determinism_section(sim, metrics, drift, smoke=False, seed=0):
+    """``calibration_bench.determinism``: the sha256 of the ``jct_*`` and
+    ``stale_model*`` metrics after the refit stream, twice."""
+    import hashlib
+    n_jobs, t_shift = CAL_DETERMINISM[smoke]
+
+    def snap_text():
+        metrics.reset()
+        drift_run(sim, metrics, drift, n_jobs, seed, t_shift, True)
+        snap = metrics.snapshot()
+        sub = {name: snap[name] for name in sorted(snap)
+               if name.startswith("jct_") or name.startswith("stale_model")}
+        return json.dumps(sub, sort_keys=True)
+
+    a, b = snap_text(), snap_text()
+    sha_a = hashlib.sha256(a.encode()).hexdigest()
+    sha_b = hashlib.sha256(b.encode()).hexdigest()
+    check(a == b, "jct_* metric snapshots bit-identical per seed")
+    return {"n_jobs": n_jobs, "sha256": sha_a, "identical": sha_a == sha_b,
+            "ok": True}
+
+
+def resilience_frontier(res, sim, table1_rows, n_seeds):
+    """``resilience_bench``'s frontier cells of ``table1_rows``."""
+    regimes = res.straggler_regimes(exp_scale=1.0, rack_p=0.25,
+                                    rack_factor=4.0)
+    return res.cloning_vs_coding_frontier(
+        rows=table1_rows, policies=res.DEFAULT_POLICIES, regimes=regimes,
+        cost=res_bench_cost(sim), intra_bw=RES_INTRA_BW,
+        cross_bw=RES_CROSS_BW, n_seeds=n_seeds, tasks_per_server=8)
+
+
+def resilience_hedged(res, sim, cc, smoke=False, seed=0):
+    """``resilience_bench``'s ``hedged_vs_static`` on a cleared plan cache
+    (the bench process reaches it with none of its plans compiled)."""
+    n_jobs, n_probe = RES_HEDGED[smoke]
+    cc.plan_cache_clear()
+    return res.hedged_vs_static_stream(
+        K=8, P=4, stragglers=sim.RackCorrelated(0.25, 4.0),
+        cost=res_bench_cost(sim), intra_bw=1e6, cross_bw=1e5, rate=4.0,
+        n_jobs=n_jobs, n_probe=n_probe, seed=seed)
+
+
+def resilience_determinism(res, sim, seed=7):
+    """``resilience_bench._determinism_check``: one straggling frontier
+    cell with speculation, simulated twice, gives the same trace."""
+    def run():
+        topo = sim.RackTopology(P=3, cross_bw=RES_CROSS_BW,
+                                intra_bw=RES_INTRA_BW)
+        cluster = sim.ClusterSim(topo, 9, res_bench_cost(sim),
+                                 sim.ExponentialTail(1.0), seed,
+                                 speculation=res.get_policy("late"))
+        cluster.submit(sim.JobSpec("histogram", 72, 18, 1), "hybrid", 2)
+        stats = cluster.run()
+        return [s.jct for s in stats], list(cluster.trace)
+
+    (j1, t1), (j2, t2) = run(), run()
+    return j1 == j2 and t1 == t2
+
+
+# BENCH_calibration.json's determinism sha256 (784734a6…) predates the
+# scheduler's jct_blame_* and jct_component_* metrics: the JAX package's
+# calibration bench, run today in its own order (conformance, drift,
+# determinism), gives this digest, and so does the port
+# (tests/test_torch_calibration.py runs both).
+CAL_DETERMINISM_SHA256 = ("fc737def877437355224495c51c0d9bc"
+                          "2501482c4cc8c15c4f74914329a183a0")
+
+
+def h100_calibration(torch, np, cc, cal, eng, jobs, drift, count, mesh,
+                     SchemeParams, out_dir, seed, smi):
+    """Phase 4e (d): the calibration bench's phase-fit grid measured on the
+    card and fitted, written to ``out_dir``; then the fused job's warm wall
+    over the conformance grid under unicast/torch and coded/kernel, a
+    conformance fit per pairing, and the simulator held to each fit's
+    linear predictor."""
+    points = [(SchemeParams(K=SCHED_K, P=SCHED_P, Q=16, N=n, r=r), d)
+              for n, r, d in CAL_GRID_POINTS]
+    cc.plan_cache_clear()
+    t0 = time.perf_counter()
+    rows = eng.measure_calibration_grid(jobs.wide_histogram_job, mesh,
+                                        points, iters=5)
+    grid_s = time.perf_counter() - t0
+    for row in rows:
+        secs = list(row["seconds"].values()) + [row["meta"]["shuffle_s"]]
+        check(all(math.isfinite(s) and s > 0 for s in secs)
+              and row["meta"]["backend"] == "cuda",
+              f"calibration row N={row['meta']['N']} d={row['meta']['d']}: "
+              f"finite positive seconds on the card {row['seconds']}")
+    model, residuals = cal.calibrate_with_residuals(rows)
+    cpu_model, _ = cal.load_default_cost_model()
+    fit = {}
+    for phase in ("map", "pack", "reduce", "plan_compile"):
+        c, ref = model.phase_coeffs(phase), cpu_model.phase_coeffs(phase)
+        res = residuals.get(phase, {})
+        fit[phase] = {"alpha": c.alpha, "beta": c.beta,
+                      "cpu_alpha": ref.alpha, "cpu_beta": ref.beta,
+                      **res}
+        say(f"  calibration {phase}: H100 alpha={c.alpha:.6e} s "
+            f"beta={c.beta:.6e} s/unit (rmse {res.get('rmse_s', 0) * 1e3:.4f}"
+            f" ms, rel_rmse {res.get('rel_rmse', 0):.4f}) | committed CPU "
+            f"fit alpha={ref.alpha:.6e} beta={ref.beta:.6e} [{smi}]")
+    path = pathlib.Path(out_dir) / "h100_cost_model.json"
+    provenance = {"bench": "chip_smoke.phase_4e", "backend": "cuda",
+                  "device": smi, "torch": torch.__version__,
+                  "mesh_shape": [SCHED_P, SCHED_K // SCHED_P],
+                  "points": [{"N": p.N, "Q": p.Q, "r": p.r, "d": d}
+                             for p, d in points],
+                  "iters": 5, "seed": seed}
+    cal.save_cost_model(model, str(path), residuals=residuals,
+                        provenance=provenance)
+    reloaded, _ = cal.load_cost_model(str(path))
+    check(reloaded == model, "the H100 cost model round-trips exactly")
+
+    launches = dict.fromkeys(KERNELS, 0)
+    conformance, dense = {}, {}
+    for mc, impl in (("unicast", "torch"), ("coded", "kernel")):
+        cells = []
+        for n, q, d in CONFORMANCE_SIZES:
+            job = jobs.wide_histogram_job(d)
+            for r in CONFORMANCE_RS:
+                p = SchemeParams(K=SCHED_K, P=SCHED_P, Q=q, N=n, r=r)
+                rng = np.random.default_rng(seed * 1009 + r)
+                subfiles = rng.integers(0, 1 << 16, size=(
+                    n, CONFORMANCE_TOKENS)).astype(np.int32)
+                want = expected_launches(mc, impl, r)
+
+                def call():
+                    t1 = time.perf_counter()
+                    res = eng.run_job_distributed(job, subfiles, p, mesh,
+                                                  fused=True, multicast=mc,
+                                                  combine_impl=impl)
+                    torch.cuda.synchronize()
+                    return res, time.perf_counter() - t1
+                best = math.inf
+                for it in range(6):                 # warm, then best of 5
+                    (res, s), counts, _ = count(call)
+                    check(counts == want, f"conformance N={n} r={r} d={d} "
+                          f"{mc}/{impl} launches {counts}, expected {want}")
+                    add_counts(launches, counts)
+                    if it:
+                        best = min(best, s)
+                key = (n, q, d, r)
+                if key not in dense:
+                    dense[key] = eng.run_job(job, subfiles, p,
+                                             "hybrid").outputs
+                check(torch.equal(res.outputs, dense[key]),
+                      f"conformance {key} {mc}/{impl}: outputs == run_job")
+                check(math.isfinite(best) and best > 0,
+                      f"conformance {key}: wall {best}")
+                cells.append({"p": p, "scheme": "hybrid", "d": d,
+                              "measured_s": best})
+        model_c = cal.fit_conformance(cells)
+        for c in cells:
+            lin = model_c.predict(c["p"], "hybrid", c["d"])
+            simj = model_c.sim_stats(c["p"], "hybrid", c["d"]).jct
+            check(abs(simj - lin) <= 1e-9 * max(lin, 1e-12),
+                  f"{mc}/{impl} N={c['p'].N} r={c['p'].r} d={c['d']}: sim "
+                  f"JCT {simj} == the linear predictor {lin}")
+        report = cal.conformance_report(model_c, cells, via_sim=True)
+        for row in report:
+            check(all(math.isfinite(row[k]) and row[k] > 0
+                      for k in ("measured_s", "predicted_s")),
+                  f"conformance row finite and positive: {row}")
+            drift.record_prediction(row["predicted_s"], row["measured_s"],
+                                    layer="engine", scheme="hybrid")
+            say(f"  conformance {mc}/{impl} N={row['N']} r={row['r']} "
+                f"d={row['d']}: measured {row['measured_s'] * 1e3:.4f} ms, "
+                f"sim {row['predicted_s'] * 1e3:.4f} ms, rel_err "
+                f"{row['rel_err']:.4f} [{smi}]")
+        errs = [row["rel_err"] for row in report]
+        conformance[f"{mc}/{impl}"] = {
+            "theta": list(model_c.theta), "cells": report,
+            "max_rel_err": max(errs), "mean_rel_err": float(np.mean(errs)),
+            "within_band": max(errs) <= CONFORMANCE_TOL}
+        say(f"  conformance {mc}/{impl}: max rel err {max(errs):.4f}, mean "
+            f"{float(np.mean(errs)):.4f} (the bench's band "
+            f"{CONFORMANCE_TOL}, set on CPU walls: reported, not gated); "
+            f"theta {[f'{t:.4e}' for t in model_c.theta]} [{smi}]")
+    check(launches["coded_encode"] > 0 and launches["coded_decode"] > 0,
+          f"the coded/kernel conformance cells launched the linear pair: "
+          f"{launches}")
+    return ({"grid_s": grid_s, "phase_fit": fit, "residuals": residuals,
+             "artifact": str(path), "conformance": conformance},
+            model, launches)
+
+
+def scheduler_on_card(torch, np, sim, pl, cc, cost_model, seed, smi):
+    """Phase 4e (e): one seeded ``run_scheduled`` stream on
+    ``default_catalog(8, 4)`` with the H100 cost model, every hybrid
+    candidate placed by the annealer on the card, then the same stream with
+    the annealer on the CPU: decisions, ``JobStats`` and the trace must be
+    identical, and every placement a permutation."""
+    import dataclasses
+    solver = pl.SOLVERS["anneal"]
+
+    def stream(device):
+        calls, walls = [], []
+
+        def recording(p, C, rng, **kw):
+            t1 = time.perf_counter()
+            perm = solver(p, C, rng, **kw)
+            calls.append({"N": p.N, "r": p.r, "device": str(kw["device"]),
+                          "wall_s": time.perf_counter() - t1,
+                          "perm": np.asarray(perm).tolist()})
+            return perm
+
+        cc.plan_cache_clear()
+        topo = sim.RackTopology(P=SCHED_P, cross_bw=ANNEAL_STREAM_CROSS_BW,
+                                intra_bw=SIM_INTRA_BW)
+        cluster = sim.ClusterSim(topo, SCHED_K, cost_model,
+                                 sim.ExponentialTail(0.5), seed)
+        chooser = sim.SchemeChooser(SCHED_K, cost_model=cost_model,
+                                    placement_solver="anneal",
+                                    placement_device=device)
+        choose = chooser.choose
+
+        def timed_choose(spec, cl):
+            t1 = time.perf_counter()
+            d = choose(spec, cl)
+            walls.append(time.perf_counter() - t1)
+            return d
+        chooser.choose = timed_choose
+        jobs = sim.PoissonWorkload(sim.default_catalog(SCHED_K, SCHED_P),
+                                   ANNEAL_STREAM_JOBS, rate=4.0
+                                   ).generate(seed)
+        pl.SOLVERS["anneal"] = recording
+        try:
+            t1 = time.perf_counter()
+            stats, sched = sim.run_scheduled(jobs, cluster, chooser)
+            wall = time.perf_counter() - t1
+        finally:
+            pl.SOLVERS["anneal"] = solver
+        return ({"stats": [dataclasses.asdict(s) for s in stats],
+                 "decisions": {k: dataclasses.asdict(v) for k, v in
+                               sorted(sched.decisions.items())},
+                 "trace": [dataclasses.astuple(e)
+                           for e in cluster.tracer.events]},
+                calls, walls, wall, stats, list(cluster.tracer.events))
+
+    card, card_calls, card_walls, card_s, stats, events = stream("cuda")
+    cpu, cpu_calls, _, cpu_s, _, _ = stream("cpu")
+    check(card_calls and all(c["device"] == "cuda" for c in card_calls)
+          and all(c["device"] == "cpu" for c in cpu_calls),
+          "the annealer ran on the card, then on the CPU")
+    check(all(sorted(c["perm"]) == list(range(c["N"]))
+              for c in card_calls + cpu_calls),
+          "every annealed placement is a permutation")
+    check([c["perm"] for c in card_calls] == [c["perm"] for c in cpu_calls],
+          f"the annealer's {len(card_calls)} placements on the card == on "
+          f"the CPU")
+    for part in ("decisions", "stats", "trace"):
+        check(card[part] == cpu[part], f"the annealer stream's {part} on "
+              f"the card == with the annealer on the CPU")
+    picks = {}
+    for d in card["decisions"].values():
+        picks[f"{d['scheme']}:r{d['r']}"] = picks.get(
+            f"{d['scheme']}:r{d['r']}", 0) + 1
+    anneal_ms = [c["wall_s"] * 1e3 for c in card_calls]
+    say(f"  (e) scheduler stream ({ANNEAL_STREAM_JOBS} jobs, anneal on "
+        f"cuda): "
+        f"decisions {picks}; choose wall per admission ms "
+        + " ".join(f"{w * 1e3:.1f}" for w in card_walls)
+        + f" (median {statistics.median(card_walls) * 1e3:.1f}); "
+        f"{len(card_calls)} anneal calls, median "
+        f"{statistics.median(anneal_ms):.1f} ms; stream {card_s:.2f} s, "
+        f"{cpu_s:.2f} s replayed with the annealer on the CPU; decisions, "
+        f"JobStats, trace and placements identical [{smi}]")
+    return ({"n_jobs": ANNEAL_STREAM_JOBS, "decisions": picks,
+             "choose_ms": [w * 1e3 for w in card_walls],
+             "anneal_ms": anneal_ms, "card_stream_s": card_s,
+             "cpu_stream_s": cpu_s}, stats, events)
+
+
+def scheduler_phase(torch, np, sim, pl, res, cc, cal, costs, eng, jobs,
+                    metrics, drift, report, count, SchemeParams, table1_grid,
+                    make_mesh, out_dir, seed, smi):
+    """Phase 4e: the committed simulator benches reproduced by the port's
+    scheduler and resilience policies, the H100 calibration with the linear
+    combine pair on its path, the annealer stream card against CPU, and the
+    report."""
+    info = {}
+    # (a) BENCH_sim.json, every stream on a cleared plan cache
+    t0 = time.perf_counter()
+    want = json.loads((ROOT / "BENCH_sim.json").read_text())
+    got = sim_bench(np, sim, cc, costs, SchemeParams, table1_grid)
+    diffs = bench_diff(got, {k: want[k] for k in got})
+    check(not diffs, f"BENCH_sim.json reproduced: {diffs[:5]}")
+    check(all(got["scheduler_beats_fixed_coded"].values()),
+          "the adaptive scheduler beats the fixed coded baseline")
+    exact = got == {k: want[k] for k in got}
+    info["sim_bench_s"] = time.perf_counter() - t0
+    say(f"  (a) BENCH_sim.json: {len(got['table1_zero_contention']['rows'])}"
+        f" Table I cells and every sweep's decisions and JCTs reproduced "
+        f"({'bit for bit' if exact else f'within {BENCH_RTOL} rel'}); "
+        f"{info['sim_bench_s']:.1f} s [{smi}]")
+    # (b) BENCH_calibration.json: drift and determinism, on an empty
+    # registry (a metric keeps the help string it was first declared
+    # with, and the determinism digest hashes it)
+    t0 = time.perf_counter()
+    metrics.registry().clear()
+    want = json.loads((ROOT / "BENCH_calibration.json").read_text())
+    dr = drift_section(np, sim, metrics, drift)
+    diffs = bench_diff(dr, want["drift"])
+    check(not diffs, f"BENCH_calibration.json drift reproduced: "
+          f"{diffs[:5]}")
+    det = determinism_section(sim, metrics, drift)
+    check(det["sha256"] == CAL_DETERMINISM_SHA256,
+          f"determinism sha256 {det['sha256']} == the JAX package's "
+          f"{CAL_DETERMINISM_SHA256}")
+    info["calibration_bench_s"] = time.perf_counter() - t0
+    say(f"  (b) BENCH_calibration.json: drift stale "
+        f"{dr['stale_mean_rel_err']:.6f} -> refit "
+        f"{dr['refit_mean_rel_err']:.6f}, {dr['refits']} refits "
+        f"== the file; determinism sha256 {det['sha256'][:16]}… == the JAX "
+        f"package's (the file's {want['determinism']['sha256'][:16]}… "
+        f"predates the blame metrics); {info['calibration_bench_s']:.1f} s "
+        f"[{smi}]")
+    # (c) BENCH_resilience.json: the leading rows' frontier cells,
+    # hedged_vs_static and the trace determinism check
+    t0 = time.perf_counter()
+    want = json.loads((ROOT / "BENCH_resilience.json").read_text())
+    cells = resilience_frontier(res, sim, res.TABLE1_ROWS[:RES_ROWS],
+                                want["n_seeds"])
+    by_key = {(tuple(c["params"]), c["regime"], c["scheme"], c["r"],
+               c["policy"]): c for c in want["frontier"]}
+    n_exact = 0
+    for c in cells:
+        row = c.to_row()
+        ref = by_key[(tuple(row["params"]), row["regime"], row["scheme"],
+                      row["r"], row["policy"])]
+        diffs = bench_diff(row, ref)
+        check(not diffs, f"BENCH_resilience.json frontier cell {diffs[:3]}")
+        n_exact += row == ref
+    hedged = resilience_hedged(res, sim, cc)
+    diffs = bench_diff(hedged, want["hedged_vs_static"])
+    check(not diffs, f"BENCH_resilience.json hedged_vs_static: {diffs[:5]}")
+    check(resilience_determinism(res, sim),
+          "speculation-enabled trace deterministic")
+    info["resilience_bench_s"] = time.perf_counter() - t0
+    say(f"  (c) BENCH_resilience.json: {len(cells)} frontier cells of rows "
+        f"{[list(r) for r in res.TABLE1_ROWS[:RES_ROWS]]} at n_seeds "
+        f"{want['n_seeds']} ({n_exact} bit for bit, the rest within "
+        f"{BENCH_RTOL} rel), hedged_vs_static (hedged p99 "
+        f"{hedged['hedged']['p99_jct']:.6f} vs static "
+        f"{hedged['static']['p99_jct']:.6f}, decisions exact) and the "
+        f"trace determinism check; {info['resilience_bench_s']:.1f} s "
+        f"[{smi}]")
+    # (d) the H100 calibration, the linear pair on the coded/kernel cells
+    t0 = time.perf_counter()
+    mesh = make_mesh((SCHED_P, SCHED_K // SCHED_P), ("rack", "server"))
+    cal_info, h100_model, launches = h100_calibration(
+        torch, np, cc, cal, eng, jobs, drift, count, mesh, SchemeParams,
+        out_dir, seed, smi)
+    info["calibration"] = cal_info
+    info["calibration_s"] = time.perf_counter() - t0
+    say(f"  (d) H100 calibration: grid {cal_info['grid_s']:.1f} s, fit "
+        f"written to {cal_info['artifact']}; conformance honest on both "
+        f"pairings; launches {launches}; {info['calibration_s']:.1f} s "
+        f"[{smi}]")
+    # (e) the annealer stream, card against CPU
+    t0 = time.perf_counter()
+    info["stream"], stats, events = scheduler_on_card(
+        torch, np, sim, pl, cc, h100_model, seed, smi)
+    info["stream_s"] = time.perf_counter() - t0
+    # (f) the report of the phase's registry and the card stream
+    rep = report.build_report(events=events, stats=stats,
+                              title="chip_smoke phase 4e")
+    paths = [report.write_report(str(pathlib.Path(out_dir) / name), rep)
+             for name in ("obs_report.md", "obs_report.html")]
+    rows = {k: (len(v) if isinstance(v, (list, dict)) else 1)
+            for k, v in rep.items() if k != "title"}
+    rows["blame jobs"] = len(rep["blame"].get("jobs", ()))
+    check(rows["blame jobs"] == ANNEAL_STREAM_JOBS and rows["scalars"] > 0
+          and rows["prediction_hists"] > 0,
+          f"the report holds the stream's jobs and the registry: {rows}")
+    say(f"  (f) report: {', '.join(paths)}; rows by section {rows} [{smi}]")
+    info["report_rows"] = rows
+    return info, launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the LM kernels against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -1901,13 +2587,14 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import placement as pl
+    from repro_torch import resilience as res
     from repro_torch import sim
     from repro_torch.configs import ARCHS, get_arch
     from repro_torch.core import coded_collectives as cc
     from repro_torch.core.assignment import hybrid_assignment
     from repro_torch.core import costs
     from repro_torch.core import degraded as dg
-    from repro_torch.core.params import SchemeParams
+    from repro_torch.core.params import TABLE1_GRID, SchemeParams
     from repro_torch.distributed.launch import run_ranks
     from repro_torch.distributed.meshes import make_mesh
     from repro_torch.kernels import _build
@@ -1919,10 +2606,12 @@ def main(argv=None) -> int:
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
     from repro_torch.models import lm
+    from repro_torch.obs import drift, metrics, report
     from repro_torch.obs.bytes import degraded_rack_bytes, reconcile
     from repro_torch.obs.tracing import enable_tracing
     from repro_torch.resilience import faults
     from repro_torch.serve import engine as serve
+    from repro_torch.sim import calibration as cal
 
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -2088,10 +2777,25 @@ def main(argv=None) -> int:
         f"{placed_launches}; {table2_s:.1f} s Table II, {locality_s:.1f} s "
         f"the phase [{smi}]")
 
+    # ---- 4e. the scheduler, drift, calibration, resilience ---------------
+    # (after 4d, and with no profiler session of its own)
+    t_sched = time.perf_counter()
+    sched_info, sched_launches = scheduler_phase(
+        torch, np, sim, pl, res, cc, cal, costs, eng, jobs, metrics, drift,
+        report, count, SchemeParams, TABLE1_GRID, make_mesh,
+        pathlib.Path(args.out).parent, args.seed, smi)
+    sched_info["phase_s"] = time.perf_counter() - t_sched
+    say(f"phase scheduler: BENCH_sim.json, the drift and determinism of "
+        f"BENCH_calibration.json and the BENCH_resilience.json subset "
+        f"reproduced; the H100 phase fit and conformance honest; the "
+        f"annealer stream identical on the card and the CPU; launches "
+        f"{sched_launches}; {sched_info['phase_s']:.1f} s [{smi}]")
+
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
                "profiled": profile["launches"], "faults": fault_launches,
                "ranks": ranks_launches, "placed": placed_launches,
+               "scheduler": sched_launches,
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
                "card_vs_cpu": cmp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
@@ -2127,6 +2831,10 @@ def main(argv=None) -> int:
         check(kname not in ("coded_encode", "coded_decode")
               or by_path["placed"][kname] > 0,
               f"{kname} launched on the placed path: {by_path['placed']}")
+        check(kname not in ("coded_encode", "coded_decode")
+              or by_path["scheduler"][kname] > 0,
+              f"{kname} launched on the scheduler path: "
+              f"{by_path['scheduler']}")
         row = main_rows[kname]
         kernels.append({"name": kname, "route": "cuda",
                         "source": sources[kname],
@@ -2179,6 +2887,7 @@ def main(argv=None) -> int:
                      "table2_s": table2_s, "placed": placed_rows,
                      "chains_profile": chains_profile,
                      "phase_s": locality_s},
+        "scheduler": sched_info,
         "lm_kernels": flash_rows + wkv_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from math import comb
 from typing import Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -195,12 +196,20 @@ def plan_from_numpy(fields: Mapping[str, object]) -> HybridShufflePlan:
 
 
 # ---------------------------------------------------------------------------
-# Plan cache: LRU with per-family introspection
+# Plan cache: configurable LRU with per-family introspection
 # ---------------------------------------------------------------------------
 #
+# The cache maxsize is configurable (the multi-job scheduler of
+# `repro_torch.sim` charges plan-compile latency on cache miss, and sweeps
+# want to bound or disable caching): set the REPRO_PLAN_CACHE_MAXSIZE env
+# var before import, or call :func:`configure_plan_cache` at runtime.
 # Entries are keyed on (params, perm, family) — two families of the same
 # (params, perm) are distinct plans — and hit/miss counters are kept per
-# family.
+# family so the scheduler's compile-charge accounting stays honest when it
+# prices binomial vs resolvable candidates of one job.
+
+PLAN_CACHE_MAXSIZE_ENV = "REPRO_PLAN_CACHE_MAXSIZE"
+_PLAN_CACHE_DEFAULT_MAXSIZE = 128
 
 
 class FamilyCacheInfo(NamedTuple):
@@ -219,15 +228,46 @@ class PlanCacheInfo(NamedTuple):
     families: Dict[str, FamilyCacheInfo]
 
 
-@functools.lru_cache(maxsize=128)
-def _cached_plan(p: SchemeParams, perm: Tuple[int, ...] | None,
-                family: str) -> HybridShufflePlan:
+def _plan_cache_default_maxsize() -> int:
+    raw = os.environ.get(PLAN_CACHE_MAXSIZE_ENV, "")
+    try:
+        return int(raw)
+    except ValueError:
+        return _PLAN_CACHE_DEFAULT_MAXSIZE
+
+
+def _drop_device_tables() -> None:
+    # the table caches are defined later in the module (they need the plan
+    # type); guard for the import-time configure_plan_cache() call
+    for name in ("device_plan_tables", "rank_plan_tables"):
+        fn = globals().get(name)
+        if fn is not None:
+            fn.cache_clear()
+
+
+def _compile_plan_dispatch(p: SchemeParams, perm: Tuple[int, ...] | None,
+                           family: str) -> HybridShufflePlan:
     """The cached unit: registry dispatch on the full (params, perm, family)
     key."""
     return get_plan_compiler(family)(p, perm)
 
 
+def configure_plan_cache(maxsize: int | None = None):
+    """(Re)build the LRU plan cache with the given maxsize (``None`` -> the
+    ``REPRO_PLAN_CACHE_MAXSIZE`` env var, falling back to 128).  Drops all
+    cached plans (and their device tables — see :func:`plan_cache_clear`)
+    and zeroes the per-family counters; returns the new cache wrapper."""
+    global _PLAN_CACHE
+    if maxsize is None:
+        maxsize = _plan_cache_default_maxsize()
+    _PLAN_CACHE = functools.lru_cache(maxsize=maxsize)(_compile_plan_dispatch)
+    _FAMILY_STATS.clear()
+    _drop_device_tables()
+    return _PLAN_CACHE
+
+
 _FAMILY_STATS: Dict[str, list] = {}   # family -> [hits, misses]
+_PLAN_CACHE = configure_plan_cache()
 
 
 def compile_hybrid_plan(p: SchemeParams,
@@ -241,9 +281,9 @@ def compile_hybrid_plan(p: SchemeParams,
     construction) or ``'resolvable'`` (:mod:`repro_torch.core.resolvable`).
     """
     key_perm = None if perm is None else tuple(int(x) for x in perm)
-    before = _cached_plan.cache_info().misses
-    plan = _cached_plan(p, key_perm, family)
-    missed = _cached_plan.cache_info().misses > before
+    before = _PLAN_CACHE.cache_info().misses
+    plan = _PLAN_CACHE(p, key_perm, family)
+    missed = _PLAN_CACHE.cache_info().misses > before
     st = _FAMILY_STATS.setdefault(family, [0, 0])
     st[1 if missed else 0] += 1
     return plan
@@ -251,7 +291,7 @@ def compile_hybrid_plan(p: SchemeParams,
 
 def plan_cache_info() -> PlanCacheInfo:
     """:class:`PlanCacheInfo` of the plan cache."""
-    info = _cached_plan.cache_info()
+    info = _PLAN_CACHE.cache_info()
     fams = {f: FamilyCacheInfo(h, m) for f, (h, m) in
             sorted(_FAMILY_STATS.items())}
     return PlanCacheInfo(info.hits, info.misses, info.maxsize, info.currsize,
@@ -262,10 +302,9 @@ def plan_cache_clear() -> None:
     """Drop all cached plans AND their device tables (which key on plan
     identity and would otherwise keep evicted plans alive); zero the
     per-family counters."""
-    _cached_plan.cache_clear()
+    _PLAN_CACHE.cache_clear()
     _FAMILY_STATS.clear()
-    device_plan_tables.cache_clear()
-    rank_plan_tables.cache_clear()
+    _drop_device_tables()
 
 
 def compile_hybrid_plan_r2(p: SchemeParams) -> HybridShufflePlan:
@@ -793,8 +832,8 @@ from . import resolvable as _resolvable_family  # noqa: E402,F401
 __all__ = [
     "HybridShufflePlan", "register_plan_compiler", "get_plan_compiler",
     "plan_families", "plan_from_numpy", "compile_hybrid_plan",
-    "compile_hybrid_plan_r2",
-    "plan_cache_info", "plan_cache_clear",
+    "compile_hybrid_plan_r2", "configure_plan_cache", "plan_cache_info",
+    "plan_cache_clear", "PLAN_CACHE_MAXSIZE_ENV",
     "PlanCacheInfo", "FamilyCacheInfo",
     "MULTICAST_MODES", "COMBINE_IMPLS", "DevicePlanTables",
     "upload_plan_tables", "device_plan_tables", "rank_plan_tables",

@@ -188,35 +188,45 @@ def anneal_chains(perms: torch.Tensor, C: torch.Tensor,
     chain and temperature, returning each chain's best permutation.
 
     ``perms`` is int64 [B, N] (updated in place), ``C`` float32 [N, G],
-    ``group_of_slot`` int64 [N] and ``temps`` float32 [n_steps], all on the
-    generator's device.  Each step draws a, b and u from ``gen``, gathers
-    the deltas, accepts where ``delta >= 0`` or ``log(u) * t < delta``,
-    swaps by ``scatter_`` and keeps a chain's best only when its objective
-    rises by more than 1e-6.  Nothing in the loop reads a value back to
-    the host, so the steps queue on the card without a synchronisation.
+    ``group_of_slot`` int64 [N] and ``temps`` float32 [n_steps], all on one
+    device; ``gen`` lies on that device or on the CPU.  Every step's draws
+    (a, b and log u) are made up front on the generator's device and moved
+    to the chains' device once.  Each step gathers the deltas, accepts
+    where ``delta >= 0`` or ``log(u) * t < delta``, swaps by ``scatter_``
+    and keeps a chain's best only when its float64 objective rises by more
+    than 1e-6.  The loop is elementwise IEEE arithmetic, gathers and
+    scatters only, so from a CPU generator the chains take the same steps
+    and return the same permutations on the card and on the CPU (the
+    starting objectives are float64 sums of float32 entries, exact in any
+    order for a locality matrix's entries).  Nothing in the loop reads a
+    value back to the host, so the steps queue on the card without a
+    synchronisation.
     """
     n_chains, n = perms.shape
+    n_steps = temps.shape[0]
     G = C.shape[1]
     Cf = C.reshape(-1)                                          # [N * G]
     dev = perms.device
-    obj = Cf.take(perms * G + group_of_slot[None, :]).sum(dim=1)   # [B]
+    draw = dict(generator=gen, device=gen.device)
+    a_all = torch.randint(0, n, (n_steps, n_chains, 1), **draw).to(dev)
+    b_all = torch.randint(0, n, (n_steps, n_chains, 1), **draw).to(dev)
+    log_u_all = torch.rand((n_steps, n_chains), **draw).clamp_min_(
+        1e-12).log_().to(dev)
+    obj = Cf.double().take(perms * G + group_of_slot[None, :]).sum(dim=1)
     best_perms, best_obj = perms.clone(), obj.clone()
-    zero = torch.zeros((), dtype=C.dtype, device=dev)
+    zero = torch.zeros((), dtype=obj.dtype, device=dev)
     # one step per temperature, as lax.scan over the schedule
-    for step in range(temps.shape[0]):
-        a = torch.randint(0, n, (n_chains, 1), generator=gen, device=dev)
-        b = torch.randint(0, n, (n_chains, 1), generator=gen, device=dev)
-        u = torch.rand((n_chains,), generator=gen,
-                       device=dev).clamp_min_(1e-12)
-        ia, ib = perms.gather(1, a), perms.gather(1, b)         # [B, 1]
+    for step in range(n_steps):
+        a, b = a_all[step], b_all[step]                         # [B, 1]
+        ia, ib = perms.gather(1, a), perms.gather(1, b)
         ga, gb = group_of_slot.take(a), group_of_slot.take(b)
         delta = ((Cf.take(ib * G + ga) + Cf.take(ia * G + gb))
                  - (Cf.take(ia * G + ga) + Cf.take(ib * G + gb)))[:, 0]
-        accept = (delta >= 0) | (torch.log(u) * temps[step] < delta)
+        accept = (delta >= 0) | (log_u_all[step] * temps[step] < delta)
         acc = accept[:, None]
         perms.scatter_(1, a, torch.where(acc, ib, ia))
         perms.scatter_(1, b, torch.where(acc, ia, ib))
-        obj = obj + torch.where(accept, delta, zero)
+        obj = obj + torch.where(accept, delta.double(), zero)
         improved = obj > best_obj + 1e-6          # strictly better only
         best_obj = torch.where(improved, obj, best_obj)
         best_perms = torch.where(improved[:, None], perms, best_perms)
@@ -247,12 +257,13 @@ def anneal_perm(p: SchemeParams, C: np.ndarray,
     start from random permutations drawn from ``rng``; then exactly one
     ``rng.integers(2**31)`` seeds the device generator, so the caller's
     stream advances as the JAX package's ``anneal_jax`` advances it.  The
-    chains' own draws come from ``torch.Generator``, so the permutation
-    found differs from ``anneal_jax``'s bit for bit; its guarantees do
-    not.  The best objective seen by any chain is tracked, and a warm start
-    is only ever REPLACED by a strictly better permutation — so the
-    result's objective is >= every warm start's, deterministically (ties
-    return the first warm start).
+    chains' own draws come from a host ``torch.Generator``, so the
+    permutation found differs from ``anneal_jax``'s bit for bit (its
+    guarantees do not) and is the same on every device.  The best
+    objective seen by any chain is tracked, and a warm start is only ever
+    REPLACED by a strictly better permutation — so the result's objective
+    is >= every warm start's, deterministically (ties return the first
+    warm start).
     """
     dev = resolve_device(device)
     gos = np.asarray(hybrid_group_of_slot(p))
@@ -266,7 +277,9 @@ def anneal_perm(p: SchemeParams, C: np.ndarray,
     for k in range(n_chains):
         base[k] = warm[k] if k < len(warm) else rng.permutation(p.N)
 
-    gen = torch.Generator(device=dev)
+    # the chains' draws come from the host generator whatever the device,
+    # so the result for a seed is the same on the card and on the CPU
+    gen = torch.Generator()
     gen.manual_seed(int(rng.integers(2 ** 31)))
     Cd = torch.as_tensor(np.asarray(C), dtype=torch.float32, device=dev)
     gos_d = torch.as_tensor(gos, dtype=torch.int64, device=dev)

@@ -240,8 +240,8 @@ class RackCorrelated(StragglerModel):
 # With ``submit(speculation=policy)`` the map phase stops being one barrier
 # event and becomes per-task execution: every server runs its assigned
 # subfile chunks sequentially on one map slot, a pluggable policy
-# (the JAX package's ``resilience/speculation.py``, not ported yet —
-# duck-typed here, so any object with its hooks will do) observes progress and launches BACKUP
+# (:mod:`repro_torch.resilience.speculation` — duck-typed here so the sim
+# stays importable without that package) observes progress and launches BACKUP
 # attempts that contend for real slots (they queue behind the target
 # server's own tasks) and for fetch bandwidth (a backup without a local
 # input replica moves the input through the fluid network first).  The
@@ -694,7 +694,8 @@ class _SimJob:
     # duck-typed here to keep the sim importable without the placement package):
     # pre-map fetch loads + per-server map-work factors
     placement: Optional[object] = None
-    # speculation policy (duck-typed like the placement bridge): non-None turns the map phase task-granular
+    # speculation policy (repro_torch.resilience.speculation, duck-typed like
+    # the placement bridge): non-None turns the map phase task-granular
     speculation: Optional[object] = None
     phase: str = "submitted"
     stage_idx: int = 0
@@ -842,8 +843,8 @@ class ClusterSim:
         network stage before the map phase (contending with concurrent
         shuffles), and its per-server factors skew the map barrier.
 
-        ``speculation`` is a speculation policy (the JAX package's
-        ``resilience/speculation.py`` policies, duck-typed):
+        ``speculation`` is a :mod:`repro_torch.resilience.speculation`
+        policy:
         non-None turns this job's map phase task-granular with speculative
         backup launches (defaults to the cluster-wide policy passed to
         ``ClusterSim``; pass the registry's ``none`` policy to force the
