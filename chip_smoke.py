@@ -9,8 +9,10 @@ P=4, Q=16, N=1680) with ``wide_histogram_job(d=2048)``, each subfile
 16,384 int32 tokens drawn from ``--seed`` in [0, 2^16); every per-key
 total stays below 2^24, so every partial sum of the integer-valued float32
 payloads is exact in any order and all results compare bit for bit.  LM
-serving: ``ServeEngine`` at full width for qwen2-1.5b and rwkv6-3b, bf16
-weights drawn on the card from ``--seed``, 8 slots, ``max_seq`` 2112.
+serving: ``ServeEngine`` at full width for qwen2-1.5b, rwkv6-3b and
+deepseek-v2-lite-16b (MLA attention, 64-expert MoE with the sorted
+dispatch), bf16 weights drawn on the card from ``--seed``, 8 slots,
+``max_seq`` 2112.
 
 Phases, one printed line each (plus detail lines):
 
@@ -118,10 +120,12 @@ Phases, one printed line each (plus detail lines):
               plain mirror ``wkv_subchunk_ref``, and both kernels'
               ``ptxas`` lines with the tensor-core kernel's shared memory
               and blocks an SM.  Head dims over
-              128: MLA's absorbed attention at hd 576 (16 query heads on
-              one latent kv head; a 1 x 2048 causal prefill on the CUDA
-              cores, decode over 1,500 and over per-batch valid keys of a
-              2,112-long cache on split-kv) and one odd shape at hd 192.
+              128: MLA's absorbed attention at hd 576 at deepseek-v2-lite's
+              serving shapes (16 query heads on one latent kv head; the
+              8 x 2048 causal prefill into the 2,112-long cache on the
+              CUDA cores, a decode step over 2,049 keys on split-kv, both
+              timed in turns with SDPA; decode over per-batch valid keys)
+              and one odd shape at hd 192.
 6. serve    — per arch: ``generate`` (8 prompts of 2,048 tokens; after a
               warm-up call, 1 new token three times for the time to first
               token, 32 new tokens twice: greedy output identical; medians
@@ -129,10 +133,17 @@ Phases, one printed line each (plus detail lines):
               64-2,048 tokens, 8-32 new tokens), time to first token,
               decode ms per step, tokens/s, peak memory, a profiled decode
               step; then fp32 at full width: prefill and decode logits
-              within 2e-3 of ``forward``'s.
+              within 2e-3 of ``forward``'s (MoE through the capacity-less
+              dispatch: the sorted one's capacity depends on how many
+              tokens a call routes).  deepseek-v2-lite serves through the
+              sorted dispatch (one group; at 8 decode slots each expert
+              keeps one token-choice a step).
 7. card vs cpu — at each arch's ``reduced()`` config, the same weights on
               the card (kernels) and on the CPU (plain versions): the same
-              greedy tokens, logits within 1e-4.
+              greedy tokens, logits within 1e-4; the MoE archs
+              (deepseek-v2-lite-16b, grok-1-314b) with ``dense_moe`` both
+              ways, and the smallest gap between a token's k-th and
+              (k+1)-th router probability reported.
 8. kernels line — one JSON object with all six kernels: launches on the
               main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -151,8 +162,10 @@ faults that holds on the ``none`` and ``restart`` rungs, and the degraded
 rungs (``decode_around``, ``partial_remap``: unicast stage 1) launch
 none; every LM forward (a prefill or one decode step) must launch its
 kernel once per layer (28 flash launches for qwen2-1.5b, 32 WKV launches
-for rwkv6-3b) and call no plain version; every time-to-first-token call
-runs all of them on the ``tensor_core`` route of its kernel.  Main paths:
+for rwkv6-3b, 27 flash launches for deepseek-v2-lite-16b) and call no
+plain version; every time-to-first-token call runs all of them on its
+prefill route (``tensor_core``; ``cuda_core`` at MLA's hd 576), and
+deepseek-v2-lite's decode steps on ``split_kv``.  Main paths:
 the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
 the XOR pair, full-width serving for the LM kernels; the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
@@ -324,12 +337,14 @@ def profile_once(torch, fn, calls: int):
     kernel name (copies and fills not counted), its mean device time times
     its launches per call.
 
-    Launches per call are each name's event count over ``calls``, rounded:
-    the profiler often drops a few of a session's kernel records or hands
-    them to the next session (on the H100 with torch 2.11: 17 or 18 of 20
-    records in most profiles of a run), and a few records lost or gained
-    must not move the time.  Every count that is not a whole multiple of
-    ``calls`` is printed."""
+    Launches per call are each name's event count over ``calls``, rounded,
+    and at least one for a name with any record: the profiler often drops
+    a few of a session's kernel records or hands them to the next session
+    (on the H100 with torch 2.11: 17 or 18 of 20 records in most profiles
+    of a run, and fewer the more sessions and records a process has taken:
+    9 of 20 after phase 6 served three models and profiled their decode
+    steps), and records lost or gained must not move the time.  Every
+    count that is not a whole multiple of ``calls`` is printed."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -342,7 +357,7 @@ def profile_once(torch, fn, calls: int):
         if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
                 or ev.key.startswith(("Memcpy", "Memset"))):
             continue
-        per_call = round(ev.count / calls)
+        per_call = max(round(ev.count / calls), 1)
         if ev.count % calls:
             say(f"  profiler: {ev.count} records of {ev.key[:60]} over "
                 f"{calls} calls, counted as {per_call} a call")
@@ -2105,11 +2120,12 @@ FLASH_CASES = [
     ("kv_valid", 2, 8, 128, 4, 4, 64, False, 0, 57, None),
     # head dims over 128: MLA's absorbed attention (deepseek-v2-lite:
     # kv_lora_rank 512 + rope_head_dim 64 = 576, 16 query heads on one
-    # latent kv head), a 1 x 2048 causal prefill and a decode step of 8
-    # slots over 1,500 and over per-batch valid keys of a 2,112-long cache;
-    # then one odd shape at hd 192
-    ("mla_prefill", 1, 2048, 2048, 16, 1, 576, True, 0, None, None),
-    ("mla_decode", 8, 1, 2112, 16, 1, 576, True, 1499, 1500, None),
+    # latent kv head) at phase 6's shapes: the 8 x 2048 causal prefill into
+    # the 2,112-long latent cache (2,048 valid keys) and the first decode
+    # step (2,049 valid keys), then per-batch valid keys; then one odd
+    # shape at hd 192
+    ("mla_prefill", 8, 2048, 2112, 16, 1, 576, True, 0, 2048, None),
+    ("mla_decode", 8, 1, 2112, 16, 1, 576, True, 2048, 2049, None),
     ("mla_decode_per_batch", 8, 1, 2112, 16, 1, 576, True, 2110,
      (2111, 1500, 1, 64, 2000, 777, 1024, 2048), None),
     ("odd_hd192", 2, 100, 230, 8, 2, 192, True, 130, 200, None)]
@@ -2365,10 +2381,13 @@ def wall(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
+def serve_phase(torch, np, lm, serve, counts, cfg, kernel, prefill_route,
+                seed, smi):
     """Drive ``ServeEngine.generate`` and ``.serve`` at full width in bf16
-    (weights drawn on the card from ``seed``), check launch counts per
-    call, greedy determinism, and fp32 decode == forward; time it."""
+    (weights drawn on the card from ``seed``; MoE layers on the sorted
+    dispatch), check launch counts per call (every prefill layer on
+    ``prefill_route``), greedy determinism, and fp32 decode == forward;
+    time it."""
     L, V = cfg.n_layers, cfg.vocab_size
     rng = np.random.default_rng(seed + 303)
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
@@ -2402,11 +2421,11 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
     # GEMM heuristics), which would also bias decode_ms below: warm up
     first, _ = run(lambda: eng.generate(prompts, 1), L,
                    "generate 1 warm-up")
-    # time to first token: prefill of 8 x 2048 and the first greedy token
-    # every prefill layer on the tensor cores: 28 flash calls on
-    # tensor_core, or 32 WKV calls on tensor_core
+    # time to first token: prefill of 8 x 2048 and the first greedy token,
+    # every prefill layer on its route: 28 flash calls or 32 WKV calls on
+    # tensor_core, or 27 hd-576 flash calls on cuda_core
     ttft = [run(lambda: eng.generate(prompts, 1), L, "generate 1",
-                "tensor_core")[1] for _ in range(3)]
+                prefill_route)[1] for _ in range(3)]
     toks, gen_a = run(lambda: eng.generate(prompts, NEW), L * NEW,
                       f"generate {NEW}")
     again, gen_b = run(lambda: eng.generate(prompts, NEW), L * NEW,
@@ -2432,7 +2451,10 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
     prof = profile_decode(torch, lm, cfg, params, prompts, counts, kernel)
     del eng, params
     torch.cuda.empty_cache()
-    # fp32 at full width: prefill and decode logits equal forward's
+    # fp32 at full width: prefill and decode logits equal forward's.  MoE
+    # layers take the capacity-less dispatch here: the sorted one keeps
+    # C = f(tokens routed in the call) choices an expert, so a decode step
+    # (2 tokens, C = 1) drops choices that forward (600 tokens) keeps
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False      # full fp32 products
     try:
@@ -2440,14 +2462,16 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
         toks32 = torch.as_tensor(rng.integers(0, V, (2, 300)), device=dev)
         n_pre = 298
         with torch.inference_mode():
-            (full, _, _), _ = run(lambda: lm.forward(params, cfg, toks32),
+            (full, _, _), _ = run(lambda: lm.forward(params, cfg, toks32,
+                                                     dense_moe=True),
                                   L, "forward fp32")
             cache = lm.init_cache(cfg, 2, 304, torch.float32, device=dev)
             (lg_pre, cache), _ = run(lambda: lm.prefill(
-                params, cfg, toks32[:, :n_pre], cache), L, "prefill fp32")
+                params, cfg, toks32[:, :n_pre], cache, dense_moe=True), L,
+                "prefill fp32")
             (lg_dec, cache), _ = run(lambda: lm.decode_step(
-                params, cfg, toks32[:, n_pre], cache, n_pre), L,
-                "decode_step fp32")
+                params, cfg, toks32[:, n_pre], cache, n_pre,
+                dense_moe=True), L, "decode_step fp32")
         check(bool(torch.isfinite(full).all())
               and tuple(full.shape) == (2, 300, V),
               f"{cfg.name}: forward logits not finite or mis-shaped")
@@ -2476,15 +2500,15 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, seed):
         f"in {gen_ms:.3f} ms ({res['generate_tokens_per_s']:.1f} tok/s); "
         f"serve 12 requests {n_served} tokens in {serve_ms:.3f} ms "
         f"({res['serve_tokens_per_s']:.1f} tok/s); peak memory "
-        f"{peak_gb:.3f} GB; greedy identical on two runs")
+        f"{peak_gb:.3f} GB; greedy identical on two runs [{smi}]")
     say(f"  serve {cfg.name} fp32: |prefill - forward| = {errs[0]!r}, "
         f"|decode - forward| = {errs[1]!r} (limit 2e-3); {L} {kernel} "
         f"launches per forward, prefill and decode step; {kernel} routes "
         f"{routes}")
     say(f"  profile {cfg.name} decode step (x{prof['steps']}): wall_ms="
         f"{prof['wall_ms']:.3f} device_busy_ms={prof['device_busy_ms']:.3f} "
-        f"device_idle_share={prof['idle_share']:.3f}")
-    for k2 in prof["by_kernel"][:6]:
+        f"device_idle_share={prof['idle_share']:.3f} [{smi}]")
+    for k2 in prof["by_kernel"][:8]:
         say(f"    {k2['ms']:.3f} ms x{k2['count']} {k2['name']}")
     return res
 
@@ -2521,45 +2545,86 @@ def profile_decode(torch, lm, cfg, params, prompts, counts, kernel,
 # Phase 7: the card (kernels) against the CPU (plain versions)
 # ---------------------------------------------------------------------------
 
-def card_vs_cpu_phase(torch, np, lm, serve, counts, get_arch, seed):
+# (arch, dense_moe): the MoE archs with both dispatches
+CARD_VS_CPU = (("qwen2-1.5b", False), ("rwkv6-3b", False),
+               ("deepseek-v2-lite-16b", False), ("deepseek-v2-lite-16b", True),
+               ("grok-1-314b", False), ("grok-1-314b", True))
+
+
+def router_margin(torch, moe, fn):
+    """(fn(), the smallest gap between a token's k-th and (k+1)-th router
+    probability over every ``moe.route`` call ``fn`` makes): how far the
+    routing was from a tie that the card and the CPU could break apart."""
+    route, gaps = moe.route, []
+
+    def spy(router_w, x, top_k):
+        probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+        top = probs.topk(top_k + 1, dim=-1).values
+        gaps.append(float((top[:, top_k - 1] - top[:, top_k]).min()))
+        return route(router_w, x, top_k)
+
+    moe.route = spy
+    try:
+        out = fn()
+    finally:
+        moe.route = route
+    return out, min(gaps)
+
+
+def card_vs_cpu_phase(torch, np, lm, moe, serve, counts, get_arch, seed):
     """At each arch's reduced() config, the same fp32 weights on the card
     and on the CPU give the same greedy tokens, and logits within 1e-4
-    (fp32 on both sides, TF32 off; the sums run in other orders)."""
+    (fp32 on both sides, TF32 off; the sums run in other orders); MoE
+    archs with each dispatch, beside their routing margin."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
     rows = []
     try:
-        for name in ("qwen2-1.5b", "rwkv6-3b"):
+        for name, dense_moe in CARD_VS_CPU:
             cfg = get_arch(name).reduced()
             p_cpu = lm.init_params(seed, cfg, device="cpu")
             p_gpu = tree_to(p_cpu, "cuda")
             prompts = np.random.default_rng(seed).integers(
                 0, cfg.vocab_size, (2, 24)).astype(np.int32)
-            cpu_eng = serve.ServeEngine(cfg, p_cpu, 2, 40, device="cpu")
-            gpu_eng = serve.ServeEngine(cfg, p_gpu, 2, 40)
-            want = cpu_eng.generate(prompts, 8)
+            cpu_eng = serve.ServeEngine(cfg, p_cpu, 2, 40,
+                                        dense_moe=dense_moe, device="cpu")
+            gpu_eng = serve.ServeEngine(cfg, p_gpu, 2, 40,
+                                        dense_moe=dense_moe)
+            margin = None
+            if cfg.moe:
+                want, margin = router_margin(
+                    torch, moe, lambda: cpu_eng.generate(prompts, 8))
+            else:
+                want = cpu_eng.generate(prompts, 8)
             got, launches, plain = counts(lambda: gpu_eng.generate(prompts,
                                                                    8))
             kernel = "wkv_scan" if cfg.attn_free else "flash_attention"
+            what = f"{name} reduced dense_moe={dense_moe}"
             check(np.array_equal(got, want)
                   and launches[kernel] == 8 * cfg.n_layers
                   and not any(plain.values()),
-                  f"{name} reduced: card {got.tolist()} vs cpu "
-                  f"{want.tolist()}, launches {launches}, plain {plain}")
+                  f"{what}: card {got.tolist()} vs cpu {want.tolist()}, "
+                  f"launches {launches}, plain {plain}, router margin "
+                  f"{margin}")
             toks = torch.as_tensor(prompts).long()
             with torch.inference_mode():
-                lc = lm.forward(p_cpu, cfg, toks)[0]
+                lc = lm.forward(p_cpu, cfg, toks, dense_moe=dense_moe)[0]
                 (lg, _, _), launches, _ = counts(
-                    lambda: lm.forward(p_gpu, cfg, toks.cuda()))
+                    lambda: lm.forward(p_gpu, cfg, toks.cuda(),
+                                       dense_moe=dense_moe))
             err = float((lg.cpu() - lc).abs().max())
-            check(err < 1e-4, f"{name} reduced: card vs cpu logits {err}")
+            check(err < 1e-4, f"{what}: card vs cpu logits {err}")
             for k2, n in launches.items():
                 total[k2] += n
-            rows.append({"arch": name, "greedy_equal": True,
-                         "max_abs_logit_err": err})
-            say(f"  card vs cpu {name} reduced: greedy tokens equal, "
-                f"max |logits| error {err!r} (limit 1e-4)")
+            rows.append({"arch": name, "dense_moe": dense_moe,
+                         "greedy_equal": True, "max_abs_logit_err": err,
+                         "router_margin": margin})
+            say(f"  card vs cpu {what}: greedy tokens equal, max |logits| "
+                f"error {err!r} (limit 1e-4)"
+                + ("" if margin is None else
+                   f"; smallest k-th/(k+1)-th router probability gap on "
+                   f"the CPU {margin!r}"))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return rows, total
@@ -2605,7 +2670,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv_scan import ref as rw_ref
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
-    from repro_torch.models import lm
+    from repro_torch.models import lm, moe
     from repro_torch.obs import drift, metrics, report
     from repro_torch.obs.bytes import degraded_rack_bytes, reconcile
     from repro_torch.obs.tracing import enable_tracing
@@ -2740,18 +2805,26 @@ def main(argv=None) -> int:
     # ---- 6. serving at full width, launch counts per call ----------------
     counts = Counts(torch, (ops, fa, rw))
     serving = {}
-    for arch, kernel in (("qwen2-1.5b", "flash_attention"),
-                         ("rwkv6-3b", "wkv_scan")):
+    for arch, kernel, prefill_route in (
+            ("qwen2-1.5b", "flash_attention", "tensor_core"),
+            ("rwkv6-3b", "wkv_scan", "tensor_core"),
+            ("deepseek-v2-lite-16b", "flash_attention", "cuda_core")):
+        t_arch = time.perf_counter()
         serving[arch] = serve_phase(torch, np, lm, serve, counts,
-                                    ARCHS[arch], kernel, args.seed)
+                                    ARCHS[arch], kernel, prefill_route,
+                                    args.seed, smi)
+        serving[arch]["phase_s"] = time.perf_counter() - t_arch
         say(f"phase serve {arch}: ServeEngine generate and serve at full "
-            f"width on the card; launches {serving[arch]['launches']}")
+            f"width on the card; launches {serving[arch]['launches']}; "
+            f"{serving[arch]['phase_s']:.1f} s [{smi}]")
 
     # ---- 7. the card against the CPU at the reduced configs --------------
-    cmp_rows, cmp_launches = card_vs_cpu_phase(torch, np, lm, serve, counts,
-                                               get_arch, args.seed)
-    say("phase card vs cpu: reduced qwen2-1.5b and rwkv6-3b give the same "
-        "greedy tokens on the card (kernels) and the CPU (plain versions)")
+    cmp_rows, cmp_launches = card_vs_cpu_phase(torch, np, lm, moe, serve,
+                                               counts, get_arch, args.seed)
+    say("phase card vs cpu: reduced qwen2-1.5b, rwkv6-3b, "
+        "deepseek-v2-lite-16b and grok-1-314b (MoE with both dispatches) "
+        "give the same greedy tokens on the card (kernels) and the CPU "
+        "(plain versions)")
 
     # ---- 2, continued: device time per call of the main combine rows ----
     profile_main_rows(torch, ops, ref, to_profile, args.seed)
@@ -2816,6 +2889,12 @@ def main(argv=None) -> int:
           and flash_routes.get("split_kv", 0) > 0,
           f"serving qwen2-1.5b took the tensor-core prefill and the "
           f"split-kv decode: {flash_routes}")
+    mla_routes = serving["deepseek-v2-lite-16b"]["routes"]
+    check(mla_routes.get("cuda_core", 0) > 0
+          and mla_routes.get("split_kv", 0) > 0
+          and not mla_routes.get("tensor_core", 0),
+          f"serving deepseek-v2-lite-16b took the hd-576 cuda-core prefill "
+          f"and the split-kv decode: {mla_routes}")
     wkv_routes = serving["rwkv6-3b"]["routes"]
     check(wkv_routes.get("tensor_core", 0) > 0
           and wkv_routes.get("step", 0) > 0,
@@ -2863,9 +2942,21 @@ def main(argv=None) -> int:
                     large_hd[r["route"]] = large_hd.get(r["route"], 0) + 1
             check(set(large_hd) == {"cuda_core", "split_kv"},
                   f"head dims over 128 ran on both routes: {large_hd}")
+            # the MLA path (hd 576): its launches by route, and phase 5's
+            # rows at its prefill and decode shapes
+            mla = {}
+            for tag in ("mla_prefill", "mla_decode"):
+                row = flash_main[tag]
+                mla[tag] = {k: row[k] for k in (
+                    "B", "Sq", "Sk", "H", "KV", "hd", "kv_valid", "route",
+                    "max_abs_err", "ms", "device_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms",
+                    "library_device_ms")}
             kernels[-1].update(launches_by_route=flash_routes,
                                device_kernels_per_call=per_call,
-                               hd_over_128_calls_by_route=large_hd)
+                               hd_over_128_calls_by_route=large_hd,
+                               mla_launches_by_route=mla_routes,
+                               mla_rows=mla)
         if kname == "wkv_scan":
             # by route on the main path (prefill on tensor_core, decode's
             # one-step calls on step), and phase 5's checked cases

@@ -82,6 +82,11 @@ class ArchConfig:
         from ..models.lm import count_params
         return count_params(self)
 
+    def n_active_params(self) -> int:
+        """Active parameters per token (MoE: top_k + shared experts only)."""
+        from ..models.lm import count_params
+        return count_params(self, active_only=True)
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
         kw = dataclasses.asdict(self)

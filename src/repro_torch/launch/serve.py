@@ -5,7 +5,8 @@
       --requests 6 --slots 2 --prompt-len 16 --max-new 8 [--device cpu]
 
 Runs on the CUDA card unless ``--device`` says otherwise; weights are drawn
-from ``--seed``.
+from ``--seed``.  MoE layers take the capacity-less dispatch
+(``dense_moe=True``), as the JAX entry point runs them.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def main(argv=None) -> None:
     params = lm.init_params(args.seed, cfg, device=device)
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
                       max_seq=args.prompt_len + args.max_new + 8,
-                      seed=args.seed, device=device)
+                      dense_moe=True, seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rng.integers(0, cfg.vocab_size,
                                  rng.integers(4, args.prompt_len + 1)

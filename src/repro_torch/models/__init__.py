@@ -1,1 +1,2 @@
-"""The LM stack of the port (dense GQA and RWKV6 families)."""
+"""The LM stack of the port (dense GQA, MoE with GQA or MLA attention, and
+RWKV6 families)."""

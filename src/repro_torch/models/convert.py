@@ -3,7 +3,10 @@
 The JAX tree (``repro.models.lm.init_params``, as numpy arrays) holds each
 layer stack as ``group<i>`` with a leading ``[L]`` axis on every leaf; the
 port holds a list of L per-layer dicts.  Weights stay ``[d_in, d_out]`` and
-are used as ``x @ W`` on both sides, so nothing is transposed.
+are used as ``x @ W`` on both sides, so nothing is transposed.  MoE
+expert stacks ``[L, E, ...]`` split on the layer axis only.  Every leaf
+takes the requested dtype but the MoE router, which stays float32 as the
+JAX package keeps it (``FP32_LEAVES``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,8 @@ from ..configs.base import ArchConfig
 from ..distributed.meshes import DeviceLike, resolve_device
 from .lm import layer_groups
 
+FP32_LEAVES = frozenset({"router"})
+
 
 def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     a = np.asarray(x)
@@ -27,7 +32,9 @@ def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
 
 def _convert(tree, device, dtype):
     if isinstance(tree, Mapping):
-        return {k: _convert(v, device, dtype) for k, v in tree.items()}
+        return {k: _convert(v, device,
+                            torch.float32 if k in FP32_LEAVES else dtype)
+                for k, v in tree.items()}
     return _tensor(tree, device, dtype)
 
 
@@ -42,7 +49,8 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> Dict:
     """The port's parameters from a JAX parameter tree of numpy arrays, on
-    ``device`` (default: the CUDA card; raises without one) in ``dtype``."""
+    ``device`` (default: the CUDA card; raises without one) in ``dtype``
+    (the router in float32)."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     groups = {f"group{gi}": g.count

@@ -3,7 +3,8 @@ far:
 
   family   mixer                       ffn
   ------   -----                       ---
-  dense    GQA attention (+rope)       swiglu       qwen2
+  dense    GQA attention (+rope)       swiglu       qwen2, granite
+  moe      GQA or MLA attention        MoE (+dense leading layers)
   ssm      RWKV6 time-mix              RWKV6 channel-mix (attn-free)
 
 Parameters are a dict: ``embed``, ``group<i>`` (a list of per-layer dicts,
@@ -15,12 +16,15 @@ parameters over without a transpose.
 
 The JAX package's activation-sharding hints (``shard_acts``, ``sp_gather``,
 ``sp_scatter``) are identities without a sharding policy and are dropped;
-sharding comes with the port's distributed layer.  The other families (MoE,
-MLA, hybrid, enc-dec, VLM prefixes) raise :class:`NotImplementedError`.
+sharding comes with the port's distributed layer.  The other families
+(hybrid, enc-dec, VLM prefixes) raise :class:`NotImplementedError`.
 
-Caches are updated in place (the dense KV cache is written with a slice
-assignment; RWKV states are replaced in the cache dict), so a cache passed
-to :func:`prefill` or :func:`decode_step` is the one returned.
+Caches are updated in place (the dense KV and MLA latent caches are
+written with a slice assignment; RWKV states are replaced in the cache
+dict), so a cache passed to :func:`prefill` or :func:`decode_step` is the
+one returned.  :func:`forward` returns the MoE load-balance loss summed
+over layers; :func:`prefill` and :func:`decode_step` do not compute it
+(the JAX package discards it there).
 """
 from __future__ import annotations
 
@@ -34,6 +38,8 @@ from ..distributed.meshes import DeviceLike, resolve_device
 from .attention import blockwise_attention
 from .layers import apply_rope, dense_init, embed_init, layer_norm, rms_norm, \
     swiglu
+from .mla import init_mla_cache, init_mla_params, mla_attention
+from .moe import aux_load_balance_loss, init_moe_params, moe_ffn
 from .rwkv import (cmix_forward, init_cmix_params, init_tmix_params,
                    init_tmix_state, tmix_forward)
 
@@ -46,15 +52,15 @@ Positions = Union[int, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LayerGroup:
-    kind: str          # attn_mlp | rwkv
+    kind: str          # attn_mlp | attn_moe | rwkv
     count: int
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family not in ("dense", "ssm") or cfg.mla or cfg.moe:
+    if cfg.family not in ("dense", "moe", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet (the port "
-            f"runs dense GQA and RWKV6 models)")
+            f"runs dense GQA, MoE with GQA or MLA, and RWKV6 models)")
 
 
 def layer_groups(cfg: ArchConfig) -> List[LayerGroup]:
@@ -62,6 +68,10 @@ def layer_groups(cfg: ArchConfig) -> List[LayerGroup]:
     _check_ported(cfg)
     if cfg.family == "dense":
         return [LayerGroup("attn_mlp", cfg.n_layers)]
+    if cfg.family == "moe":
+        fd = cfg.moe.first_dense_layers
+        groups = [LayerGroup("attn_mlp", fd)] if fd else []
+        return groups + [LayerGroup("attn_moe", cfg.n_layers - fd)]
     return [LayerGroup("rwkv", cfg.n_layers)]
 
 
@@ -144,11 +154,16 @@ def _ln(d: int, dtype, device) -> Dict:
 def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
                       device) -> Dict:
     d = cfg.d_model
-    if kind == "attn_mlp":
-        return {"ln1": torch.ones((d,), dtype=dtype, device=device),
-                "attn": init_attn_params(gen, cfg, dtype, device),
-                "ln2": torch.ones((d,), dtype=dtype, device=device),
-                "mlp": _init_mlp(gen, cfg, dtype, device)}
+    if kind in ("attn_mlp", "attn_moe"):
+        p = {"ln1": torch.ones((d,), dtype=dtype, device=device),
+             "attn": (init_mla_params(gen, cfg, dtype, device) if cfg.mla
+                      else init_attn_params(gen, cfg, dtype, device)),
+             "ln2": torch.ones((d,), dtype=dtype, device=device)}
+        if kind == "attn_mlp":
+            p["mlp"] = _init_mlp(gen, cfg, dtype, device)
+        else:
+            p["moe"] = init_moe_params(gen, cfg, dtype, device)
+        return p
     if kind == "rwkv":
         return {"ln1": _ln(d, dtype, device),
                 "tmix": init_tmix_params(gen, cfg, dtype, device),
@@ -160,17 +175,32 @@ def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
 def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[Dict] = None,
                 cache_index: Optional[int] = None, mixer_chunk: int = 64,
-                ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """One block. Returns (x, new_cache)."""
+                dense_moe: bool = False, moe_groups: int = 1,
+                with_aux: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[Dict],
+                           Optional[torch.Tensor]]:
+    """One block. Returns (x, new_cache, moe_aux_loss): the aux loss is
+    None for a layer without MoE, or when ``with_aux`` is false."""
     eps = cfg.norm_eps
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
         h = rms_norm(x, p["ln1"], eps)
-        a, cache = attn_forward(p["attn"], cfg, h, positions, cache=cache,
-                                cache_index=cache_index,
-                                window=cfg.sliding_window)
+        if cfg.mla:
+            a, cache = mla_attention(p["attn"], cfg, h, positions,
+                                     cache=cache, cache_index=cache_index)
+        else:
+            a, cache = attn_forward(p["attn"], cfg, h, positions,
+                                    cache=cache, cache_index=cache_index,
+                                    window=cfg.sliding_window)
         x = x + a
         h = rms_norm(x, p["ln2"], eps)
-        return x + swiglu(h, **p["mlp"]), cache
+        if kind == "attn_mlp":
+            return x + swiglu(h, **p["mlp"]), cache, None
+        aux = (aux_load_balance_loss(p["moe"]["router"],
+                                     h.reshape(-1, h.shape[-1]),
+                                     cfg.moe.top_k) if with_aux else None)
+        x = x + moe_ffn(p["moe"], cfg.moe, h, dense_dispatch=dense_moe,
+                        n_groups=moe_groups)
+        return x, cache, aux
     if kind == "rwkv":
         h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)
         t_state = cache["tmix"] if cache is not None else None
@@ -183,7 +213,7 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
         x = x + c
         if cache is not None:
             cache["tmix"], cache["cmix_shift"] = t_new, c_shift
-        return x, cache
+        return x, cache, None
     raise NotImplementedError(f"layer kind {kind!r} is not ported yet")
 
 
@@ -225,11 +255,17 @@ def leaves(tree) -> List[torch.Tensor]:
 
 
 def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Exact parameter count from a shape-only (``meta``) init.  Dense and
-    RWKV models have no inactive parameters, so ``active_only`` changes
-    nothing here."""
-    return sum(t.numel() for t in leaves(init_params(0, cfg,
-                                                      device="meta")))
+    """Exact parameter count from a shape-only (``meta``) init;
+    ``active_only`` leaves out the routed experts a token does not reach
+    (n_routed - top_k a MoE layer)."""
+    total = sum(t.numel() for t in leaves(init_params(0, cfg,
+                                                       device="meta")))
+    if active_only and cfg.moe:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert
+        n_moe_layers = cfg.n_layers - m.first_dense_layers
+        total -= n_moe_layers * (m.n_routed - m.top_k) * per_expert
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +274,13 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 
 def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
            positions: Optional[torch.Tensor], cache: Optional[Dict],
-           cache_index: Optional[int], mixer_chunk: int) -> torch.Tensor:
-    """Embedding, every layer and the final norm: [B, S] -> [B, S, D]."""
+           cache_index: Optional[int], mixer_chunk: int, *,
+           dense_moe: bool = False, moe_groups: int = 1,
+           with_aux: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Embedding, every layer and the final norm: [B, S] -> ([B, S, D], the
+    MoE aux loss summed over layers, 0 unless ``with_aux``)."""
     x = params["embed"][tokens]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device)
@@ -251,14 +291,18 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         layers = params[f"group{gi}"]
         caches = cache[f"group{gi}"] if cache is not None else None
         for li, layer_p in enumerate(layers):
-            x, _ = apply_layer(g.kind, layer_p, cfg, x, positions,
-                               cache=caches[li] if caches else None,
-                               cache_index=cache_index,
-                               mixer_chunk=mixer_chunk)
+            x, _, a = apply_layer(g.kind, layer_p, cfg, x, positions,
+                                  cache=caches[li] if caches else None,
+                                  cache_index=cache_index,
+                                  mixer_chunk=mixer_chunk,
+                                  dense_moe=dense_moe, moe_groups=moe_groups,
+                                  with_aux=with_aux)
+            if a is not None:
+                aux = aux + a
     fn = params["final_norm"]
     if isinstance(fn, dict):
-        return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps)
-    return rms_norm(x, fn, cfg.norm_eps)
+        return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps), aux
+    return rms_norm(x, fn, cfg.norm_eps), aux
 
 
 def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -272,13 +316,14 @@ def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
 def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, cache_index: Optional[int] = None,
-            mixer_chunk: int = 64, logits_f32: bool = False,
+            mixer_chunk: int = 64, dense_moe: bool = False,
+            logits_f32: bool = False, moe_groups: int = 1,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Full forward. tokens: [B, S].  Returns (logits [B, S, V], cache,
-    aux loss 0 — no MoE here)."""
-    x = _trunk(params, cfg, tokens, positions, cache, cache_index,
-               mixer_chunk)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    MoE aux loss summed over layers: 0 for a model without MoE)."""
+    x, aux = _trunk(params, cfg, tokens, positions, cache, cache_index,
+                    mixer_chunk, dense_moe=dense_moe, moe_groups=moe_groups,
+                    with_aux=True)
     return _head(params, cfg, x, logits_f32), cache, aux
 
 
@@ -289,7 +334,9 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
 def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                       dtype, device) -> Dict:
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    if kind == "attn_mlp":
+    if kind in ("attn_mlp", "attn_moe"):
+        if cfg.mla:
+            return init_mla_cache(cfg, batch, max_seq, dtype, device)
         shape = (batch, max_seq, KV, hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -311,22 +358,24 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *,
 
 
 def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
-            cache: Dict, *, mixer_chunk: int = 64,
-            ) -> Tuple[torch.Tensor, Dict]:
+            cache: Dict, *, mixer_chunk: int = 64, dense_moe: bool = False,
+            moe_groups: int = 1) -> Tuple[torch.Tensor, Dict]:
     """Run the prompt through the model, filling the cache.  Returns
     (last-position logits [B, V], cache); the head runs on the last
     position only."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    x = _trunk(params, cfg, tokens, positions, cache, 0, mixer_chunk)
+    x, _ = _trunk(params, cfg, tokens, positions, cache, 0, mixer_chunk,
+                  dense_moe=dense_moe, moe_groups=moe_groups)
     return _head(params, cfg, x[:, -1]), cache
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
-                cache: Dict, pos: Positions) -> Tuple[torch.Tensor, Dict]:
+                cache: Dict, pos: Positions, *, dense_moe: bool = False,
+                ) -> Tuple[torch.Tensor, Dict]:
     """One decode step. token: [B]; pos: the current position (an int or a
     0-d tensor).  Returns (logits [B, V], cache)."""
     pos = int(pos)
     positions = torch.arange(pos, pos + 1, device=token.device)
-    x = _trunk(params, cfg, token[:, None], positions, cache, pos,
-               mixer_chunk=1)
+    x, _ = _trunk(params, cfg, token[:, None], positions, cache, pos,
+                  mixer_chunk=1, dense_moe=dense_moe)
     return _head(params, cfg, x[:, 0]), cache

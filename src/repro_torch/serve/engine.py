@@ -36,10 +36,12 @@ class Request:
     done: bool = False
 
 
-def make_serve_step(cfg: ArchConfig) -> Callable:
+def make_serve_step(cfg: ArchConfig, *, dense_moe: bool = False
+                    ) -> Callable:
     """step(params, cache, token [B], pos) -> (logits [B, V], cache)."""
     def step(params, cache, token, pos):
-        return lm.decode_step(params, cfg, token, cache, pos)
+        return lm.decode_step(params, cfg, token, cache, pos,
+                              dense_moe=dense_moe)
     return step
 
 
@@ -64,20 +66,25 @@ class ServeEngine:
     """Fixed-slot batched engine (one uniform position per step).
 
     ``device`` defaults to the CUDA card (raises without one); the
-    parameters must already live there.
+    parameters must already live there.  ``dense_moe`` runs MoE layers
+    through the capacity-less dispatch; by default they take the sorted
+    dispatch with one group, whose expert capacity drops token-choices
+    (at 8 decode slots of deepseek-v2-lite, C = 1 a step).
     """
 
     def __init__(self, cfg: ArchConfig, params: Dict, batch_slots: int,
-                 max_seq: int, dtype=torch.float32, *, seed: int = 0,
+                 max_seq: int, dtype=torch.float32, *,
+                 dense_moe: bool = False, seed: int = 0,
                  device: DeviceLike = None):
         self.cfg = cfg
         self.params = params
         self.B = batch_slots
         self.max_seq = max_seq
         self.dtype = dtype
+        self.dense_moe = dense_moe
         self.seed = seed
         self.device = resolve_device(device)
-        self._decode = make_serve_step(cfg)
+        self._decode = make_serve_step(cfg, dense_moe=dense_moe)
 
     # -- batched generation (uniform prompts) -------------------------------
     @torch.inference_mode()
@@ -94,7 +101,8 @@ class ServeEngine:
                               device=self.device)
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.device)
-        logits, cache = lm.prefill(self.params, self.cfg, tokens, cache)
+        logits, cache = lm.prefill(self.params, self.cfg, tokens, cache,
+                                   dense_moe=self.dense_moe)
         def sample(logits, pos):
             gen = (step_generator(self.seed, pos, self.device)
                    if temperature > 0.0 else None)

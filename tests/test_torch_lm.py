@@ -1,10 +1,11 @@
-"""The port's LM stack against the JAX package's on the CPU, at both ported
-architectures' ``reduced()`` configs: layers one by one, the parameter
-carry-over, and ``forward`` / ``prefill`` / ``decode_step`` logits from the
-same weights (fp32, within 1e-4: XLA and ATen sum in different orders).
-Also the port's own invariant (decode matches forward within 2e-3, as
-tests/test_models.py holds the JAX package to) and full-size parameter
-counts."""
+"""The port's LM stack against the JAX package's on the CPU, at every ported
+architecture's ``reduced()`` config (dense GQA, MoE with MLA or GQA, RWKV6):
+layers one by one, the parameter carry-over, and ``forward`` (logits and
+MoE aux loss) / ``prefill`` / ``decode_step`` logits from the same weights
+(fp32, within 1e-4: XLA and ATen sum in different orders).  Also the
+port's own invariant (decode matches forward within 2e-3 under the
+capacity-less MoE dispatch, as tests/test_models.py holds the JAX package
+to) and full-size parameter counts."""
 import dataclasses
 
 import jax
@@ -84,7 +85,7 @@ def test_unported_arch_raises():
     with pytest.raises(KeyError, match="not ported"):
         get_arch("hymba-1.5b")
     with pytest.raises(NotImplementedError):
-        lm.layer_groups(J_ARCHS["deepseek-v2-lite-16b"])
+        lm.layer_groups(J_ARCHS["hymba-1.5b"])
 
 
 def test_norms_and_mlp_match_jax():
@@ -149,14 +150,16 @@ def test_rwkv_blocks_match_jax():
 
 def test_params_from_jax_keeps_every_weight(model):
     cfg, jparams, params = model
-    n = cfg.n_layers
-    assert len(params["group0"]) == n
+    counts = {f"group{gi}": g.count
+              for gi, g in enumerate(lm.layer_groups(cfg))}
+    assert sum(counts.values()) == cfg.n_layers
+    assert all(len(params[k]) == n for k, n in counts.items())
     flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
     for path, leaf in flat:
         keys = [p.key for p in path]
-        if keys[0] == "group0":
-            for i in range(n):
-                node = params["group0"][i]
+        if keys[0] in counts:
+            for i in range(counts[keys[0]]):
+                node = params[keys[0]][i]
                 for key in keys[1:]:
                     node = node[key]
                 np.testing.assert_array_equal(node.numpy(),
@@ -208,11 +211,12 @@ def test_forward_matches_jax(model):
     toks = _tokens(cfg, 2, 24)
     logits, _, aux = lm.forward(params, cfg, torch.from_numpy(toks).long(),
                                 mixer_chunk=8)
-    jlogits, _, _ = j_lm.forward(jparams, cfg_j(cfg), jnp.asarray(toks),
-                                 mixer_chunk=8)
+    jlogits, _, jaux = j_lm.forward(jparams, cfg_j(cfg), jnp.asarray(toks),
+                                    mixer_chunk=8)
     assert logits.shape == (2, 24, cfg.vocab_size)
     _close(logits, jlogits)
-    assert float(aux) == 0.0
+    _close(aux, jaux)
+    assert (float(aux) > 0.0) == (cfg.moe is not None)
 
 
 def test_prefill_and_decode_match_jax(model):
@@ -243,13 +247,15 @@ def test_decode_matches_forward(model):
     params = lm.init_params(3, cfg, device="cpu")
     B, S = 2, 12
     toks = torch.from_numpy(_tokens(cfg, B, S, seed=2)).long()
-    full, _, _ = lm.forward(params, cfg, toks, mixer_chunk=4)
+    full, _, _ = lm.forward(params, cfg, toks, mixer_chunk=4,
+                            dense_moe=True)
     n_pre = S - 2
     cache = lm.init_cache(cfg, B, S + 4, torch.float32, device="cpu")
     lg, cache = lm.prefill(params, cfg, toks[:, :n_pre], cache,
-                           mixer_chunk=4)
+                           mixer_chunk=4, dense_moe=True)
     errs = [float((lg - full[:, n_pre - 1]).abs().max())]
-    lg, cache = lm.decode_step(params, cfg, toks[:, n_pre], cache, n_pre)
+    lg, cache = lm.decode_step(params, cfg, toks[:, n_pre], cache, n_pre,
+                               dense_moe=True)
     errs.append(float((lg - full[:, n_pre]).abs().max()))
     assert max(errs) < 2e-3, errs
     assert fa_ops.PLAIN_CALLS["flash_attention"] + \

@@ -21,11 +21,13 @@ from benchmarks import resilience_bench
 from repro import resilience as jres
 from repro import sim as jsim
 from repro.core import coded_collectives as jcc
+from repro.core import degraded as jdeg
 from repro.core.params import SchemeParams as JParams
 from repro.obs import metrics as jmetrics
 from repro_torch import resilience as tres
 from repro_torch import sim as tsim
 from repro_torch.core import coded_collectives as tcc
+from repro_torch.core import degraded as tdeg
 from repro_torch.core.params import SchemeParams
 from repro_torch.obs import metrics as tmetrics
 
@@ -46,6 +48,8 @@ def _chip_smoke():
 def _fresh_state():
     for mod in (tcc, jcc):
         mod.plan_cache_clear()
+    for mod in (tdeg, jdeg):
+        mod.degraded_cache_clear()
     for mod in (tmetrics, jmetrics):
         mod.registry().clear()
     yield

@@ -28,6 +28,7 @@ from benchmarks import sim_bench
 from repro import resilience as jres
 from repro import sim as jsim
 from repro.core import coded_collectives as jcc
+from repro.core import degraded as jdeg
 from repro.core.params import SchemeParams as JParams
 from repro.obs import metrics as jmetrics
 from repro_torch import placement as tpl
@@ -35,6 +36,7 @@ from repro_torch import resilience as tres
 from repro_torch import sim as tsim
 from repro_torch.core import coded_collectives as tcc
 from repro_torch.core import costs as tcosts
+from repro_torch.core import degraded as tdeg
 from repro_torch.core.params import TABLE1_GRID, SchemeParams
 from repro_torch.obs import metrics as tmetrics
 
@@ -51,10 +53,15 @@ def _chip_smoke():
 
 @pytest.fixture(autouse=True)
 def _fresh_state():
-    """Cold plan caches and empty registries in both packages, before and
-    after: the compile charge reads the process-global plan cache."""
+    """Cold plan and degraded-plan caches and empty registries in both
+    packages, before and after: the compile charge reads the process-global
+    plan cache, and the availability charge compiles a base plan only when
+    its degraded plan is not already in the side cache (filled by any
+    earlier test in the process)."""
     for mod in (tcc, jcc):
         mod.plan_cache_clear()
+    for mod in (tdeg, jdeg):
+        mod.degraded_cache_clear()
     for mod in (tmetrics, jmetrics):
         mod.registry().clear()
     yield

@@ -1,5 +1,5 @@
-"""The port's serving engine against the JAX package's on the CPU, at both
-ported architectures' ``reduced()`` configs and the same weights (carried
+"""The port's serving engine against the JAX package's on the CPU, at every
+ported architecture's ``reduced()`` config and the same weights (carried
 by ``params_from_jax``): greedy ``generate`` and ``serve`` give the same
 tokens.  Temperature sampling cannot match JAX's bits; it is checked to be
 deterministic per (seed, pos).  Entry points given no device raise on a
