@@ -9,10 +9,16 @@ P=4, Q=16, N=1680) with ``wide_histogram_job(d=2048)``, each subfile
 16,384 int32 tokens drawn from ``--seed`` in [0, 2^16); every per-key
 total stays below 2^24, so every partial sum of the integer-valued float32
 payloads is exact in any order and all results compare bit for bit.  LM
-serving: ``ServeEngine`` at full width for qwen2-1.5b, rwkv6-3b and
+serving (``SERVE_CASES``), bf16 weights and stub frontend inputs drawn on
+the card from ``--seed``: at full size qwen2-1.5b, rwkv6-3b and
 deepseek-v2-lite-16b (MLA attention, 64-expert MoE with the sorted
-dispatch), bf16 weights drawn on the card from ``--seed``, 8 slots,
-``max_seq`` 2112.
+dispatch), 8 slots x 2,048-token prompts into a 2,112-long cache;
+hymba-1.5b, 8 slots x 2,560-token prompts past its 2,048 window (a
+2,048-slot ring); whisper-large-v3, 8 slots x (1,500 stub frames, 416 +
+32 decoder tokens: its 448-token context); and llava-next-34b at full
+width and depth, 2 slots x (2,880 stub patch embeddings + 256 tokens),
+with its fp32 check cut to 12 of its 60 layers.  qwen2-72b and
+llama3-405b fit no card and run at ``reduced()`` (phase 7).
 
 Phases, one printed line each (plus detail lines):
 
@@ -125,25 +131,36 @@ Phases, one printed line each (plus detail lines):
               8 x 2048 causal prefill into the 2,112-long cache on the
               CUDA cores, a decode step over 2,049 keys on split-kv, both
               timed in turns with SDPA; decode over per-batch valid keys)
-              and one odd shape at hd 192.
-6. serve    — per arch: ``generate`` (8 prompts of 2,048 tokens; after a
-              warm-up call, 1 new token three times for the time to first
-              token, 32 new tokens twice: greedy output identical; medians
-              of the host-clock walls), ``serve`` (12 requests, prompts of
-              64-2,048 tokens, 8-32 new tokens), time to first token,
-              decode ms per step, tokens/s, peak memory, a profiled decode
-              step; then fp32 at full width: prefill and decode logits
-              within 2e-3 of ``forward``'s (MoE through the capacity-less
-              dispatch: the sorted one's capacity depends on how many
-              tokens a call routes).  deepseek-v2-lite serves through the
-              sorted dispatch (one group; at 8 decode slots each expert
-              keeps one token-choice a step).
-7. card vs cpu — at each arch's ``reduced()`` config, the same weights on
-              the card (kernels) and on the CPU (plain versions): the same
-              greedy tokens, logits within 1e-4; the MoE archs
-              (deepseek-v2-lite-16b, grok-1-314b) with ``dense_moe`` both
-              ways, and the smallest gap between a token's k-th and
-              (k+1)-th router probability reported.
+              and one odd shape at hd 192.  The new families' serving
+              shapes (``FAMILY_TAGS``, bf16 timed against SDPA in turns and
+              profiled): Hymba's windowed prefill and ring decode,
+              Whisper's encoder (one query head per kv head, 1,500 keys off
+              the 64-key tile), cross prefill and cross decode, LLaVA's
+              prefill.  Hymba's SSM scan (``ssm_scan_phase``): the
+              inclusive identity on the WKV ``step`` kernel against the
+              plain inclusive recurrence at its prefill and decode shapes.
+6. serve    — per arch of ``SERVE_CASES``: ``generate`` (after a warm-up
+              call, 1 new token three times for the time to first token,
+              32 new tokens twice: greedy output identical; medians of the
+              host-clock walls), ``serve`` (12 requests, prompts of 64 to
+              the case's prompt length, 8-32 new tokens; skipped for
+              whisper and llava, whose stub frontend inputs ``serve``
+              does not carry), time to first token, decode ms per step,
+              tokens/s, peak memory, a profiled decode step; then fp32 at
+              full width: prefill and decode logits within 2e-3 of
+              ``forward``'s (MoE through the capacity-less dispatch: the
+              sorted one's capacity depends on how many tokens a call
+              routes; hymba prefills 2,098 tokens so that its decode step
+              reads a wrapped ring; llava at 12 of 60 layers, whose fp32
+              weights would be 137.6 GB).  deepseek-v2-lite serves
+              through the sorted dispatch (one group; at 8 decode slots
+              each expert keeps one token-choice a step).
+7. card vs cpu — at all ten archs' ``reduced()`` configs, the same weights
+              and stub frontend inputs on the card (kernels) and on the
+              CPU (plain versions): the same greedy tokens, logits within
+              1e-4; the MoE archs (deepseek-v2-lite-16b, grok-1-314b) with
+              ``dense_moe`` both ways, and the smallest gap between a
+              token's k-th and (k+1)-th router probability reported.
 8. kernels line — one JSON object with all six kernels: launches on the
               main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -161,11 +178,15 @@ none; ``coded_reduce_scatter_r2`` one encode per destination rack; under
 faults that holds on the ``none`` and ``restart`` rungs, and the degraded
 rungs (``decode_around``, ``partial_remap``: unicast stage 1) launch
 none; every LM forward (a prefill or one decode step) must launch its
-kernel once per layer (28 flash launches for qwen2-1.5b, 32 WKV launches
-for rwkv6-3b, 27 flash launches for deepseek-v2-lite-16b) and call no
-plain version; every time-to-first-token call runs all of them on its
-prefill route (``tensor_core``; ``cuda_core`` at MLA's hd 576), and
-deepseek-v2-lite's decode steps on ``split_kv``.  Main paths:
+kernels as ``per_forward`` counts them and call no plain version: 28
+flash launches for qwen2-1.5b, 32 WKV launches for rwkv6-3b, 27 flash
+launches for deepseek-v2-lite-16b, 32 flash and 32 WKV launches for
+hymba-1.5b, 96 flash launches a whisper-large-v3 prefill (32 encoder, 32
+self, 32 cross) and 64 a decode step, 60 flash launches for
+llava-next-34b; every time-to-first-token call runs all of them on its
+prefill route (flash ``tensor_core``, ``cuda_core`` at MLA's hd 576;
+WKV ``tensor_core`` for RWKV6, ``step`` for Hymba's SSM), and the new
+families' and deepseek-v2-lite's decode steps take ``split_kv``.  Main paths:
 the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
 the XOR pair, full-width serving for the LM kernels; the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
@@ -179,6 +200,7 @@ prints no result.  Imports nothing of JAX or of the JAX package ``repro``.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import pathlib
@@ -187,6 +209,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, NamedTuple, Optional, Tuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 K, P, Q, N, D = 16, 4, 16, 1680, 2048
@@ -2128,9 +2151,33 @@ FLASH_CASES = [
     ("mla_decode", 8, 1, 2112, 16, 1, 576, True, 2048, 2049, None),
     ("mla_decode_per_batch", 8, 1, 2112, 16, 1, 576, True, 2110,
      (2111, 1500, 1, 64, 2000, 777, 1024, 2048), None),
-    ("odd_hd192", 2, 100, 230, 8, 2, 192, True, 130, 200, None)]
+    ("odd_hd192", 2, 100, 230, 8, 2, 192, True, 130, 200, None),
+    # phase 6's new families: Hymba's windowed prefill over 2,560-token
+    # prompts (window 2,048) and a decode step over its full 2,048-slot
+    # ring (no mask but the valid slots); Whisper's bidirectional encoder
+    # at one query head per kv head over 1,500 frames, its cross-attention
+    # prefill of the 416-token decoder prompt over the 1,500 encoder keys
+    # and a cross decode step; LLaVA's prefill of 2,880 patches + 256
+    # tokens into its 3,168-long cache
+    ("hymba_prefill", 8, 2560, 2560, 25, 5, 64, True, 0, None, 2048),
+    ("hymba_ring_decode", 8, 1, 2048, 25, 5, 64, False, 0, 2048, None),
+    ("whisper_encoder", 8, 1500, 1500, 20, 20, 64, False, 0, None, None),
+    ("whisper_cross_prefill", 8, 416, 1500, 20, 20, 64, False, 0, None,
+     None),
+    ("whisper_cross_decode", 8, 1, 1500, 20, 20, 64, False, 0, None, None),
+    ("llava_prefill", 2, 3136, 3168, 56, 8, 128, True, 0, 3136, None)]
+FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
+               "whisper_cross_prefill", "whisper_cross_decode",
+               "llava_prefill")
 FLASH_TIMED = ("prefill", "decode", "decode_2111", "mla_prefill",
-               "mla_decode")
+               "mla_decode") + FAMILY_TAGS
+# the bf16 route of each new family's shape (fp32 prefill: cuda_core)
+FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
+                "hymba_ring_decode": "split_kv",
+                "whisper_encoder": "tensor_core",
+                "whisper_cross_prefill": "tensor_core",
+                "whisper_cross_decode": "split_kv",
+                "llava_prefill": "tensor_core"}
 # the route a head dim over 128 takes: never the tensor cores
 LARGE_HD_ROUTE = {"mla_prefill": "cuda_core", "mla_decode": "split_kv",
                   "mla_decode_per_batch": "split_kv",
@@ -2185,6 +2232,10 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
             check(hd <= 128 or route == LARGE_HD_ROUTE[tag],
                   f"flash {tag} hd={hd}: route {route}, expected "
                   f"{LARGE_HD_ROUTE.get(tag)}")
+            check(tag not in FAMILY_ROUTE or dtype == torch.float32
+                  or route == FAMILY_ROUTE[tag],
+                  f"flash {tag}: route {route}, expected "
+                  f"{FAMILY_ROUTE.get(tag)}")
             want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
                                         window=window)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
@@ -2217,7 +2268,11 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                    "flops": flops}
             row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
                                                      dname)
-            is_main = tag in FLASH_TIMED
+            # the new families' shapes are timed against SDPA and profiled
+            # at their serving dtype (bf16) alone: every profiler session
+            # a process takes costs the later sessions records
+            is_main = tag in FLASH_TIMED and (
+                tag not in FAMILY_TAGS or dtype == torch.bfloat16)
             reps, inner = (5, 5) if is_main else (3, 10)
             if hd > 128 and Sq > 16:            # a CUDA-core prefill
                 reps, inner = 3, 2
@@ -2228,14 +2283,19 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 3, 2 if is_main else 10)
             row["library_ms"] = None
             if is_main:
-                # one SDPA call on the keys the queries see (prefill: causal
-                # over all keys; decode: the valid prefix of the cache)
+                # one SDPA call on the keys the queries see (a causal
+                # prefill: causal over the valid keys; a window: its boolean
+                # mask; bidirectional or decode: the valid prefix)
                 kv_n = valid or Sk
                 qt = q.transpose(1, 2)
                 kt, vt = (x[:, :kv_n].transpose(1, 2) for x in (k, v))
+                sdpa_kw = {"is_causal": causal and Sq > 1}
+                if window is not None:
+                    qi = pos[:, None]
+                    kj = torch.arange(kv_n, device=dev)[None, :]
+                    sdpa_kw = {"attn_mask": (kj <= qi) & (kj > qi - window)}
                 sdpa = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=tag.endswith("prefill"),
-                    enable_gqa=True)
+                    qt, kt, vt, enable_gqa=True, **sdpa_kw)
                 # a sanity check of the yardstick (its own bf16 rounding)
                 lib_err = float((sdpa().transpose(1, 2).float()
                                  - want.float()).abs().max().item())
@@ -2365,11 +2425,133 @@ def wkv_phase(torch, rw, rw_ref, peaks, seed):
     return rows, main
 
 
+# Hymba's SSM scan on the WKV kernel (the inclusive identity): its prefill
+# over 8 x 2,560 tokens and one decode step, 25 heads, state 16, head 64,
+# fp32 streams (the step route)
+SSM_CASES = [("hymba_inclusive_prefill", 8, 2560, 25, 16, 64),
+             ("hymba_inclusive_decode", 8, 1, 25, 16, 64)]
+# the step kernel's fp32 tolerance of WKV_CASES
+SSM_TOL = 3e-4
+
+
+def ssm_scan_phase(torch, rw, ssm, linrec, peaks, seed):
+    """``ssm.inclusive_scan`` on the card (one WKV launch on ``step``,
+    r = q * exp(log_w), u = 0, plus (q . k) v) against the plain
+    ``chunked_linear_recurrence(mode="inclusive")`` at Hymba's shapes, with
+    streams drawn as the SSM makes them (dt = softplus(.), log_w = dt * A,
+    A = -[1..16]); times of the identity's whole call and of the plain
+    version."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 404)
+    rows, main = [], {}
+    for tag, B, S, h, Nk, Nv in SSM_CASES:
+        rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+        q = rnd(B, S, h, Nk)
+        dt = torch.nn.functional.softplus(rnd(B, S, h))
+        A = -torch.linspace(1.0, float(Nk), Nk, device=dev)
+        k, v = rnd(B, S, h, Nk) * dt[..., None], rnd(B, S, h, Nv)
+        log_w, s0 = dt[..., None] * A, 0.1 * rnd(B, h, Nk, Nv)
+        rw.reset_launch_counts()
+        out, sT = ssm.inclusive_scan(q, k, v, log_w, s0)
+        torch.cuda.synchronize()
+        check(rw.LAUNCHES["wkv_scan"] == 1 and rw.ROUTE_CALLS["step"] == 1
+              and rw.PLAIN_CALLS["wkv_scan"] == 0,
+              f"ssm scan {tag}: one WKV launch on step, got "
+              f"{rw.ROUTE_CALLS}, plain {rw.PLAIN_CALLS}")
+        plain = lambda: linrec.chunked_linear_recurrence(
+            q, k, v, log_w, initial_state=s0, mode="inclusive", chunk=16,
+            return_state=True)
+        want, want_sT = plain()
+        torch.testing.assert_close(out, want, rtol=SSM_TOL, atol=SSM_TOL)
+        torch.testing.assert_close(sT, want_sT, rtol=SSM_TOL, atol=SSM_TOL)
+        err = max(float((out - want).abs().max()),
+                  float((sT - want_sT).abs().max()))
+        n_in = B * S * h
+        # the WKV call: r, k, log_w and v read once, out written once, the
+        # state read and written
+        nbytes = 4 * n_in * (3 * Nk + 2 * Nv) + 8 * B * h * Nk * Nv
+        flops = 7.0 * n_in * Nk * Nv
+        row = {"name": "wkv_scan", "case": tag, "B": B, "S": S, "h": h,
+               "Nk": Nk, "Nv": Nv, "dtype": "float32", "route": "step",
+               "mode": "inclusive", "max_abs_err": err,
+               "tolerance": f"rtol={SSM_TOL},atol={SSM_TOL}",
+               "bytes": nbytes, "flops": flops, "library_ms": None}
+        row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
+                                                 "float32")
+        call = lambda: ssm.inclusive_scan(q, k, v, log_w, s0)
+        row["ms"] = cuda_ms(torch, call, 5, 5)
+        row["plain_ms"] = cuda_ms(torch, plain, 3, 1)
+        row["device_ms"], row["device_kernels"] = device_per_call(torch,
+                                                                  call)
+        rows.append(row)
+        main[tag] = row
+        say(f"  kernel wkv_scan {tag} (inclusive identity) B={B} S={S} h={h} "
+            f"Nk={Nk} Nv={Nv} float32 route=step: ms={row['ms']:.6f} "
+            f"plain_ms={row['plain_ms']:.6f} library_ms=null bound_ms="
+            f"{row['bound_ms']:.6f} ({row['bound_by']}) max_abs_err={err!r} "
+            f"tolerance={row['tolerance']} device_ms={row['device_ms']:.6f} "
+            f"in {row['device_kernels']:g} device kernels")
+        del q, k, v, log_w, out, want
+    return rows, main
+
+
 # ---------------------------------------------------------------------------
 # Phase 6: serving at full width
 # ---------------------------------------------------------------------------
 
-SLOTS, PROMPT, NEW, MAX_SEQ = 8, 2048, 32, 2112
+NEW = 32
+
+
+class ServeCase(NamedTuple):
+    """One arch served in phase 6.  ``prefill_routes``: the route every
+    launch of each kernel takes in a time-to-first-token call;
+    ``max_seq``: the cache length (None: prefix + prompt + new tokens);
+    ``requests``: run ``serve`` on 12 requests (``serve`` carries no
+    frontend inputs, so a model that takes them skips it); ``fp32``:
+    (text tokens, prefilled tokens, layers) of the fp32 check at full
+    width, layers None for the whole depth."""
+    arch: str
+    slots: int
+    prompt: int
+    prefill_routes: Dict[str, str]
+    max_seq: Optional[int] = None
+    requests: bool = True
+    fp32: Tuple[int, int, Optional[int]] = (300, 298, None)
+
+
+SERVE_CASES = (
+    # a 2,112-long cache: phase 5's decode cases read one of that length
+    ServeCase("qwen2-1.5b", 8, 2048, {"flash_attention": "tensor_core"},
+              2112),
+    ServeCase("rwkv6-3b", 8, 2048, {"wkv_scan": "tensor_core"}, 2112),
+    ServeCase("deepseek-v2-lite-16b", 8, 2048,
+              {"flash_attention": "cuda_core"}, 2112),
+    # prompts longer than the 2,048 window: the window masks in the
+    # prefill and the ring (2,048 slots) wraps; the fp32 check prefills
+    # 2,098 tokens so that its decode step reads a wrapped ring
+    ServeCase("hymba-1.5b", 8, 2560, {"flash_attention": "tensor_core",
+                                      "wkv_scan": "step"},
+              fp32=(2100, 2098, None)),
+    # 1,500 stub frames; 416 + 32 tokens fill the 448-token decoder context
+    ServeCase("whisper-large-v3", 8, 416, {"flash_attention": "tensor_core"},
+              requests=False),
+    # 2,880 stub patch embeddings + 256 tokens; 2 slots (68.8 GB of bf16
+    # weights); the fp32 check (137.6 GB at full depth) at 12 of 60 layers
+    ServeCase("llava-next-34b", 2, 256, {"flash_attention": "tensor_core"},
+              requests=False, fp32=(60, 58, 12)),
+)
+
+
+def per_forward(cfg, prefill: bool) -> Dict[str, int]:
+    """The LM kernels' launches in one forward of ``cfg``: flash once per
+    attention (an enc-dec prefill: encoder, decoder self and cross; its
+    decode step: self and cross), WKV once per RWKV or Hymba layer."""
+    L = cfg.n_layers
+    flash = 0 if cfg.attn_free else L
+    if cfg.family == "encdec":
+        flash = 2 * L + (cfg.encoder_layers if prefill else 0)
+    wkv = L if (cfg.attn_free or cfg.ssm) else 0
+    return {"flash_attention": flash, "wkv_scan": wkv}
 
 
 def wall(torch, fn):
@@ -2381,32 +2563,42 @@ def wall(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def serve_phase(torch, np, lm, serve, counts, cfg, kernel, prefill_route,
-                seed, smi):
-    """Drive ``ServeEngine.generate`` and ``.serve`` at full width in bf16
-    (weights drawn on the card from ``seed``; MoE layers on the sorted
-    dispatch), check launch counts per call (every prefill layer on
-    ``prefill_route``), greedy determinism, and fp32 decode == forward;
-    time it."""
-    L, V = cfg.n_layers, cfg.vocab_size
+def serve_phase(torch, np, lm, serve, frontends, counts, cfg, case, seed,
+                smi):
+    """Drive ``ServeEngine.generate`` (and ``.serve``) at full width in
+    bf16 (weights and frontend inputs drawn on the card from ``seed``; MoE
+    layers on the sorted dispatch), check launch counts per call (every
+    prefill launch on ``case.prefill_routes``), greedy determinism, and
+    fp32 decode == forward; time it."""
+    V = cfg.vocab_size
+    slots, prompt = case.slots, case.prompt
     rng = np.random.default_rng(seed + 303)
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
-    routes = {}
+    routes = {k: {} for k in LM_KERNELS}
+    pre, dec = per_forward(cfg, True), per_forward(cfg, False)
+    front_n = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    max_seq = case.max_seq or front_n + prompt + NEW
 
-    def run(fn, want, what, want_route=None):
+    def run(fn, want, what, want_routes=None):
         (out, ms), launches, plain = counts(lambda: wall(torch, fn))
-        check(launches[kernel] == want and not any(plain.values()),
+        check(all(launches[k] == n for k, n in want.items())
+              and not any(plain.values()),
               f"{cfg.name} {what}: launches {launches} plain {plain}, "
-              f"expected {want} {kernel} launches and no plain call")
+              f"expected {want} and no plain call")
         for k2, n in launches.items():
             total[k2] += n
-        got = counts.routes.get(kernel, {})
-        check(want_route is None or got.get(want_route) == want,
-              f"{cfg.name} {what}: routes {got}, expected all {want} "
-              f"{kernel} calls on {want_route}")
-        for r, n in got.items():
-            routes[r] = routes.get(r, 0) + n
+        for k2, route in (want_routes or {}).items():
+            got = counts.routes.get(k2, {})
+            check(got.get(route) == want[k2],
+                  f"{cfg.name} {what}: {k2} routes {got}, expected all "
+                  f"{want[k2]} calls on {route}")
+        for k2 in LM_KERNELS:
+            for r, n in counts.routes.get(k2, {}).items():
+                routes[k2][r] = routes[k2].get(r, 0) + n
         return out, ms
+
+    def steps(n_decode):
+        return {k: pre[k] + n_decode * dec[k] for k in LM_KERNELS}
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2414,96 +2606,123 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, prefill_route,
                                                          torch.bfloat16))
     n_params = sum(t.numel() for t in lm.leaves(params))
     dev = params["embed"].device
-    eng = serve.ServeEngine(cfg, params, batch_slots=SLOTS, max_seq=MAX_SEQ,
+    front = frontends.frontend_inputs(
+        torch.Generator(device=dev).manual_seed(seed + 505), cfg, slots,
+        torch.bfloat16)
+    eng = serve.ServeEngine(cfg, params, batch_slots=slots, max_seq=max_seq,
                             dtype=torch.bfloat16, seed=seed)
-    prompts = rng.integers(0, V, (SLOTS, PROMPT)).astype(np.int32)
+    prompts = rng.integers(0, V, (slots, prompt)).astype(np.int32)
+    gen = lambda n: eng.generate(prompts, n, **front)
     # the first call at these shapes pays one-time costs (allocator growth,
     # GEMM heuristics), which would also bias decode_ms below: warm up
-    first, _ = run(lambda: eng.generate(prompts, 1), L,
-                   "generate 1 warm-up")
-    # time to first token: prefill of 8 x 2048 and the first greedy token,
-    # every prefill layer on its route: 28 flash calls or 32 WKV calls on
-    # tensor_core, or 27 hd-576 flash calls on cuda_core
-    ttft = [run(lambda: eng.generate(prompts, 1), L, "generate 1",
-                prefill_route)[1] for _ in range(3)]
-    toks, gen_a = run(lambda: eng.generate(prompts, NEW), L * NEW,
-                      f"generate {NEW}")
-    again, gen_b = run(lambda: eng.generate(prompts, NEW), L * NEW,
+    first, _ = run(lambda: gen(1), pre, "generate 1 warm-up")
+    # time to first token: the prefill and the first greedy token, every
+    # prefill launch on its route
+    ttft = [run(lambda: gen(1), pre, "generate 1",
+                case.prefill_routes)[1] for _ in range(3)]
+    toks, gen_a = run(lambda: gen(NEW), steps(NEW - 1), f"generate {NEW}")
+    again, gen_b = run(lambda: gen(NEW), steps(NEW - 1),
                        f"generate {NEW} again")
     check(np.array_equal(toks, again) and np.array_equal(toks[:, :1], first),
           f"{cfg.name}: greedy generate differs between runs")
-    check(toks.shape == (SLOTS, NEW) and ((toks >= 0) & (toks < V)).all(),
+    check(toks.shape == (slots, NEW) and ((toks >= 0) & (toks < V)).all(),
           f"{cfg.name}: generated tokens out of range")
     ttft_ms, gen_ms = statistics.median(ttft), statistics.median([gen_a,
                                                                   gen_b])
     decode_ms = (gen_ms - ttft_ms) / (NEW - 1)
-    # continuous batching: 12 requests, two waves of up to 8 slots
-    reqs = [serve.Request(rng.integers(0, V, int(rng.integers(64, PROMPT + 1))
-                                       ).astype(np.int32),
-                          int(rng.integers(8, NEW + 1))) for _ in range(12)]
-    want = sum(L * max(r.max_new_tokens for r in reqs[i:i + SLOTS])
-               for i in range(0, len(reqs), SLOTS))
-    done, serve_ms = run(lambda: eng.serve(reqs), want, "serve 12 requests")
-    check(all(r.done and len(r.out_tokens) == r.max_new_tokens
-              for r in done), f"{cfg.name}: serve left a request unfinished")
-    n_served = sum(r.max_new_tokens for r in done)
+    res = {"arch": cfg.name, "n_params": n_params, "dtype": "bfloat16",
+           "slots": slots, "prompt": prompt, "front_tokens": front_n,
+           "frontend": sorted(front), "new_tokens": NEW, "max_seq": max_seq,
+           "init_ms": init_ms, "ttft_ms": ttft_ms, "ttft_runs_ms": ttft,
+           "generate_runs_ms": [gen_a, gen_b], "generate_ms": gen_ms,
+           "decode_ms_per_step": decode_ms,
+           "generate_tokens_per_s": slots * NEW / (gen_ms / 1e3),
+           "launches_per_prefill": pre, "launches_per_decode_step": dec}
+    serve_text = "serve skipped (it takes no frontend inputs)"
+    if case.requests:
+        # continuous batching: 12 requests, two waves of up to 8 slots
+        reqs = [serve.Request(rng.integers(0, V, int(rng.integers(
+            64, prompt + 1))).astype(np.int32), int(rng.integers(8, NEW + 1)))
+            for _ in range(12)]
+        want = {k: sum(steps(max(r.max_new_tokens
+                                 for r in reqs[i:i + slots]) - 1)[k]
+                       for i in range(0, len(reqs), slots))
+                for k in LM_KERNELS}
+        done, serve_ms = run(lambda: eng.serve(reqs), want,
+                             "serve 12 requests")
+        check(all(r.done and len(r.out_tokens) == r.max_new_tokens
+                  for r in done),
+              f"{cfg.name}: serve left a request unfinished")
+        n_served = sum(r.max_new_tokens for r in done)
+        res.update(serve_ms=serve_ms, serve_new_tokens=n_served,
+                   serve_tokens_per_s=n_served / (serve_ms / 1e3),
+                   serve_prompt_lens=[len(r.prompt) for r in reqs],
+                   serve_max_new=[r.max_new_tokens for r in reqs])
+        serve_text = (f"serve 12 requests {n_served} tokens in "
+                      f"{serve_ms:.3f} ms "
+                      f"({res['serve_tokens_per_s']:.1f} tok/s)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    prof = profile_decode(torch, lm, cfg, params, prompts, counts, kernel)
-    del eng, params
+    total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
+    prof = profile_decode(torch, lm, cfg, params, prompts, front, counts,
+                          dec, slots, max_seq)
+    del eng, params, front
     torch.cuda.empty_cache()
-    # fp32 at full width: prefill and decode logits equal forward's.  MoE
-    # layers take the capacity-less dispatch here: the sorted one keeps
-    # C = f(tokens routed in the call) choices an expert, so a decode step
-    # (2 tokens, C = 1) drops choices that forward (600 tokens) keeps
+    # fp32 at full width (a cut depth where fp32 weights outgrow the card):
+    # prefill and decode logits equal forward's.  MoE layers take the
+    # capacity-less dispatch here: the sorted one keeps C = f(tokens routed
+    # in the call) choices an expert, so a decode step (2 tokens, C = 1)
+    # drops choices that forward (600 tokens) keeps
+    n_text, n_pre, depth = case.fp32
+    cfg32 = cfg if depth is None else dataclasses.replace(cfg,
+                                                          n_layers=depth)
+    pre32, dec32 = per_forward(cfg32, True), per_forward(cfg32, False)
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False      # full fp32 products
     try:
-        params = lm.init_params(seed, cfg, torch.float32)
-        toks32 = torch.as_tensor(rng.integers(0, V, (2, 300)), device=dev)
-        n_pre = 298
+        params = lm.init_params(seed, cfg32, torch.float32)
+        toks32 = torch.as_tensor(rng.integers(0, V, (2, n_text)), device=dev)
+        front32 = frontends.frontend_inputs(
+            torch.Generator(device=dev).manual_seed(seed + 606), cfg32, 2)
         with torch.inference_mode():
-            (full, _, _), _ = run(lambda: lm.forward(params, cfg, toks32,
-                                                     dense_moe=True),
-                                  L, "forward fp32")
-            cache = lm.init_cache(cfg, 2, 304, torch.float32, device=dev)
+            (full, _, _), _ = run(lambda: lm.forward(
+                params, cfg32, toks32, dense_moe=True, **front32), pre32,
+                "forward fp32")
+            cache = lm.init_cache(cfg32, 2, front_n + n_text + 4,
+                                  torch.float32, device=dev)
             (lg_pre, cache), _ = run(lambda: lm.prefill(
-                params, cfg, toks32[:, :n_pre], cache, dense_moe=True), L,
-                "prefill fp32")
+                params, cfg32, toks32[:, :n_pre], cache, dense_moe=True,
+                **front32), pre32, "prefill fp32")
             (lg_dec, cache), _ = run(lambda: lm.decode_step(
-                params, cfg, toks32[:, n_pre], cache, n_pre,
-                dense_moe=True), L, "decode_step fp32")
+                params, cfg32, toks32[:, n_pre], cache, front_n + n_pre,
+                dense_moe=True), dec32, "decode_step fp32")
         check(bool(torch.isfinite(full).all())
-              and tuple(full.shape) == (2, 300, V),
+              and tuple(full.shape) == (2, front_n + n_text, V),
               f"{cfg.name}: forward logits not finite or mis-shaped")
-        errs = [float((lg_pre - full[:, n_pre - 1]).abs().max()),
-                float((lg_dec - full[:, n_pre]).abs().max())]
+        errs = [float((lg_pre - full[:, front_n + n_pre - 1]).abs().max()),
+                float((lg_dec - full[:, front_n + n_pre]).abs().max())]
         check(max(errs) < 2e-3, f"{cfg.name}: decode vs forward {errs}")
-        del params, full, cache
+        del params, full, cache, front32
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     torch.cuda.empty_cache()
-    res = {"arch": cfg.name, "n_params": n_params, "dtype": "bfloat16",
-           "slots": SLOTS, "prompt": PROMPT, "new_tokens": NEW,
-           "max_seq": MAX_SEQ, "init_ms": init_ms, "ttft_ms": ttft_ms,
-           "ttft_runs_ms": ttft, "generate_runs_ms": [gen_a, gen_b],
-           "generate_ms": gen_ms, "decode_ms_per_step": decode_ms,
-           "generate_tokens_per_s": SLOTS * NEW / (gen_ms / 1e3),
-           "serve_ms": serve_ms, "serve_new_tokens": n_served,
-           "serve_tokens_per_s": n_served / (serve_ms / 1e3),
-           "serve_prompt_lens": [len(r.prompt) for r in reqs],
-           "serve_max_new": [r.max_new_tokens for r in reqs],
-           "peak_memory_gb": peak_gb, "decode_vs_forward_fp32": errs,
-           "profile": prof, "launches": total, "routes": routes}
-    say(f"  serve {cfg.name}: {n_params} params bf16, init_ms={init_ms:.1f}; "
-        f"ttft_ms={ttft_ms:.3f} (8 x {PROMPT} prefill + first token) "
-        f"decode_ms_per_step={decode_ms:.3f} generate {SLOTS}x{NEW} tokens "
+    res.update(peak_memory_gb=peak_gb, card_memory_gb=total_gb,
+               free_at_peak_gb=total_gb - peak_gb,
+               decode_vs_forward_fp32=errs,
+               fp32_check={"text_tokens": n_text, "prefilled": n_pre,
+                           "layers": cfg32.n_layers},
+               profile=prof, launches=total, routes=routes)
+    shape = (f"{slots} x ({front_n} + {prompt})" if front_n
+             else f"{slots} x {prompt}")
+    front_text = "".join(f"; stub {k}" for k in res["frontend"])
+    say(f"  serve {cfg.name}: {n_params} params bf16, init_ms={init_ms:.1f}"
+        f"{front_text}; ttft_ms={ttft_ms:.3f} ({shape} prefill + first token) "
+        f"decode_ms_per_step={decode_ms:.3f} generate {slots}x{NEW} tokens "
         f"in {gen_ms:.3f} ms ({res['generate_tokens_per_s']:.1f} tok/s); "
-        f"serve 12 requests {n_served} tokens in {serve_ms:.3f} ms "
-        f"({res['serve_tokens_per_s']:.1f} tok/s); peak memory "
-        f"{peak_gb:.3f} GB; greedy identical on two runs [{smi}]")
-    say(f"  serve {cfg.name} fp32: |prefill - forward| = {errs[0]!r}, "
-        f"|decode - forward| = {errs[1]!r} (limit 2e-3); {L} {kernel} "
-        f"launches per forward, prefill and decode step; {kernel} routes "
+        f"{serve_text}; peak memory {peak_gb:.3f} GB of {total_gb:.3f}; "
+        f"greedy identical on two runs [{smi}]")
+    say(f"  serve {cfg.name} fp32 ({cfg32.n_layers} layers): |prefill - "
+        f"forward| = {errs[0]!r}, |decode - forward| = {errs[1]!r} (limit "
+        f"2e-3); launches a prefill {pre}, a decode step {dec}; routes "
         f"{routes}")
     say(f"  profile {cfg.name} decode step (x{prof['steps']}): wall_ms="
         f"{prof['wall_ms']:.3f} device_busy_ms={prof['device_busy_ms']:.3f} "
@@ -2513,29 +2732,32 @@ def serve_phase(torch, np, lm, serve, counts, cfg, kernel, prefill_route,
     return res
 
 
-def profile_decode(torch, lm, cfg, params, prompts, counts, kernel,
-                   steps: int = 4):
+def profile_decode(torch, lm, cfg, params, prompts, front, counts, dec,
+                   slots, max_seq, steps: int = 4):
     """Device busy time and idle share of ``steps`` warm decode steps after
-    an 8 x 2048 prefill, by torch.profiler."""
+    the serving prefill, by torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
     dev = params["embed"].device
+    n_front = front["prefix_embeds"].shape[1] if "prefix_embeds" in front \
+        else 0
+    pos0 = n_front + prompts.shape[1]
     with torch.inference_mode():
-        cache = lm.init_cache(cfg, SLOTS, MAX_SEQ, torch.bfloat16, device=dev)
+        cache = lm.init_cache(cfg, slots, max_seq, torch.bfloat16, device=dev)
         tokens = torch.as_tensor(prompts, device=dev).long()
-        logits, cache = lm.prefill(params, cfg, tokens, cache)
+        logits, cache = lm.prefill(params, cfg, tokens, cache, **front)
         tok = logits.argmax(-1)
-        logits, cache = lm.decode_step(params, cfg, tok, cache, PROMPT)
+        logits, cache = lm.decode_step(params, cfg, tok, cache, pos0)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             def run():
                 lg = logits
                 for i in range(steps):
                     lg, _ = lm.decode_step(params, cfg, lg.argmax(-1), cache,
-                                           PROMPT + 1 + i)
+                                           pos0 + 1 + i)
                 return lg
             (_, ms), launches, _ = counts(lambda: wall(torch, run))
-    check(launches[kernel] == steps * cfg.n_layers,
-          f"profiled decode launches {launches}")
+    check(all(launches[k] == steps * n for k, n in dec.items()),
+          f"profiled decode launches {launches}, expected {steps} x {dec}")
     busy, by_kernel = device_time(prof)
     return {"steps": steps, "wall_ms": ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / ms, "by_kernel": by_kernel}
@@ -2545,10 +2767,13 @@ def profile_decode(torch, lm, cfg, params, prompts, counts, kernel,
 # Phase 7: the card (kernels) against the CPU (plain versions)
 # ---------------------------------------------------------------------------
 
-# (arch, dense_moe): the MoE archs with both dispatches
+# (arch, dense_moe): all ten archs, the MoE archs with both dispatches
 CARD_VS_CPU = (("qwen2-1.5b", False), ("rwkv6-3b", False),
                ("deepseek-v2-lite-16b", False), ("deepseek-v2-lite-16b", True),
-               ("grok-1-314b", False), ("grok-1-314b", True))
+               ("grok-1-314b", False), ("grok-1-314b", True),
+               ("granite-3-2b", False), ("qwen2-72b", False),
+               ("llama3-405b", False), ("hymba-1.5b", False),
+               ("whisper-large-v3", False), ("llava-next-34b", False))
 
 
 def router_margin(torch, moe, fn):
@@ -2571,11 +2796,14 @@ def router_margin(torch, moe, fn):
     return out, min(gaps)
 
 
-def card_vs_cpu_phase(torch, np, lm, moe, serve, counts, get_arch, seed):
-    """At each arch's reduced() config, the same fp32 weights on the card
-    and on the CPU give the same greedy tokens, and logits within 1e-4
-    (fp32 on both sides, TF32 off; the sums run in other orders); MoE
-    archs with each dispatch, beside their routing margin."""
+def card_vs_cpu_phase(torch, np, lm, moe, serve, frontends, counts,
+                      get_arch, seed):
+    """At each arch's reduced() config, the same fp32 weights (and stub
+    frontend inputs) on the card and on the CPU give the same greedy
+    tokens, and logits within 1e-4 (fp32 on both sides, TF32 off; the sums
+    run in other orders); MoE archs with each dispatch, beside their
+    routing margin.  Hymba's 24-token prompts and 8 new tokens wrap its
+    16-slot ring."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     total = dict.fromkeys(KERNELS + LM_KERNELS, 0)
@@ -2585,6 +2813,9 @@ def card_vs_cpu_phase(torch, np, lm, moe, serve, counts, get_arch, seed):
             cfg = get_arch(name).reduced()
             p_cpu = lm.init_params(seed, cfg, device="cpu")
             p_gpu = tree_to(p_cpu, "cuda")
+            front = frontends.frontend_inputs(
+                torch.Generator().manual_seed(seed + 1), cfg, 2)
+            front_gpu = tree_to(front, "cuda")
             prompts = np.random.default_rng(seed).integers(
                 0, cfg.vocab_size, (2, 24)).astype(np.int32)
             cpu_eng = serve.ServeEngine(cfg, p_cpu, 2, 40,
@@ -2596,23 +2827,25 @@ def card_vs_cpu_phase(torch, np, lm, moe, serve, counts, get_arch, seed):
                 want, margin = router_margin(
                     torch, moe, lambda: cpu_eng.generate(prompts, 8))
             else:
-                want = cpu_eng.generate(prompts, 8)
-            got, launches, plain = counts(lambda: gpu_eng.generate(prompts,
-                                                                   8))
-            kernel = "wkv_scan" if cfg.attn_free else "flash_attention"
+                want = cpu_eng.generate(prompts, 8, **front)
+            got, launches, plain = counts(lambda: gpu_eng.generate(
+                prompts, 8, **front_gpu))
+            pre, dec = per_forward(cfg, True), per_forward(cfg, False)
+            expect = {k: pre[k] + 7 * dec[k] for k in LM_KERNELS}
             what = f"{name} reduced dense_moe={dense_moe}"
             check(np.array_equal(got, want)
-                  and launches[kernel] == 8 * cfg.n_layers
+                  and all(launches[k] == n for k, n in expect.items())
                   and not any(plain.values()),
                   f"{what}: card {got.tolist()} vs cpu {want.tolist()}, "
                   f"launches {launches}, plain {plain}, router margin "
                   f"{margin}")
             toks = torch.as_tensor(prompts).long()
             with torch.inference_mode():
-                lc = lm.forward(p_cpu, cfg, toks, dense_moe=dense_moe)[0]
+                lc = lm.forward(p_cpu, cfg, toks, dense_moe=dense_moe,
+                                **front)[0]
                 (lg, _, _), launches, _ = counts(
                     lambda: lm.forward(p_gpu, cfg, toks.cuda(),
-                                       dense_moe=dense_moe))
+                                       dense_moe=dense_moe, **front_gpu))
             err = float((lg.cpu() - lc).abs().max())
             check(err < 1e-4, f"{what}: card vs cpu logits {err}")
             for k2, n in launches.items():
@@ -2670,7 +2903,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.rwkv_scan import ref as rw_ref
     from repro_torch.mapreduce import engine as eng
     from repro_torch.mapreduce import jobs
-    from repro_torch.models import lm, moe
+    from repro_torch.models import frontends, linrec, lm, moe, ssm
     from repro_torch.obs import drift, metrics, report
     from repro_torch.obs.bytes import degraded_rack_bytes, reconcile
     from repro_torch.obs.tracing import enable_tracing
@@ -2783,6 +3016,8 @@ def main(argv=None) -> int:
     # ---- 5. the LM kernels ------------------------------------------------
     flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
     wkv_rows, wkv_main = wkv_phase(torch, rw, rw_ref, peaks, args.seed)
+    ssm_rows, ssm_main = ssm_scan_phase(torch, rw, ssm, linrec, peaks,
+                                        args.seed)
     wkv_case_routes = {}
     for row in wkv_rows:
         wkv_case_routes[row["route"]] = wkv_case_routes.get(row["route"],
@@ -2791,7 +3026,9 @@ def main(argv=None) -> int:
           f"phase 5's WKV cases ran on both routes: {wkv_case_routes}")
     say(f"phase lm kernels: {len(flash_rows)} flash_attention and "
         f"{len(wkv_rows)} wkv_scan shape/dtype cases match their plain "
-        f"versions; wkv_scan cases by route {wkv_case_routes}")
+        f"versions; wkv_scan cases by route {wkv_case_routes}; "
+        f"{len(ssm_rows)} SSM scans (the inclusive identity on wkv_scan) "
+        f"match the plain inclusive recurrence")
     # both WKV kernels as compiled, and the tensor-core kernel's shared
     # memory and blocks an SM as the runtime reports them
     if "wkv_scan" in nvcc:
@@ -2805,26 +3042,25 @@ def main(argv=None) -> int:
     # ---- 6. serving at full width, launch counts per call ----------------
     counts = Counts(torch, (ops, fa, rw))
     serving = {}
-    for arch, kernel, prefill_route in (
-            ("qwen2-1.5b", "flash_attention", "tensor_core"),
-            ("rwkv6-3b", "wkv_scan", "tensor_core"),
-            ("deepseek-v2-lite-16b", "flash_attention", "cuda_core")):
+    for case in SERVE_CASES:
+        arch = case.arch
         t_arch = time.perf_counter()
-        serving[arch] = serve_phase(torch, np, lm, serve, counts,
-                                    ARCHS[arch], kernel, prefill_route,
-                                    args.seed, smi)
+        serving[arch] = serve_phase(torch, np, lm, serve, frontends, counts,
+                                    ARCHS[arch], case, args.seed, smi)
         serving[arch]["phase_s"] = time.perf_counter() - t_arch
         say(f"phase serve {arch}: ServeEngine generate and serve at full "
             f"width on the card; launches {serving[arch]['launches']}; "
             f"{serving[arch]['phase_s']:.1f} s [{smi}]")
 
     # ---- 7. the card against the CPU at the reduced configs --------------
-    cmp_rows, cmp_launches = card_vs_cpu_phase(torch, np, lm, moe, serve,
-                                               counts, get_arch, args.seed)
-    say("phase card vs cpu: reduced qwen2-1.5b, rwkv6-3b, "
-        "deepseek-v2-lite-16b and grok-1-314b (MoE with both dispatches) "
-        "give the same greedy tokens on the card (kernels) and the CPU "
-        "(plain versions)")
+    cmp_rows, cmp_launches = card_vs_cpu_phase(
+        torch, np, lm, moe, serve, frontends, counts, get_arch, args.seed)
+    say(f"phase card vs cpu: all {len(ARCHS)} archs at reduced() "
+        f"({', '.join(sorted({r['arch'] for r in cmp_rows}))}; the MoE "
+        f"archs with both dispatches) give the same greedy tokens on the "
+        f"card (kernels) and the CPU (plain versions)")
+    check({r["arch"] for r in cmp_rows} == set(ARCHS),
+          f"card vs cpu covered every arch: {sorted(ARCHS)}")
 
     # ---- 2, continued: device time per call of the main combine rows ----
     profile_main_rows(torch, ops, ref, to_profile, args.seed)
@@ -2884,22 +3120,36 @@ def main(argv=None) -> int:
     sources.update(coded_decode=DECODE_SOURCE,
                    xor_encode=XOR_SOURCE, xor_decode=XOR_SOURCE,
                    flash_attention=FLASH_SOURCE, wkv_scan=WKV_SOURCE)
-    flash_routes = serving["qwen2-1.5b"]["routes"]
+    flash_routes = serving["qwen2-1.5b"]["routes"]["flash_attention"]
     check(flash_routes.get("tensor_core", 0) > 0
           and flash_routes.get("split_kv", 0) > 0,
           f"serving qwen2-1.5b took the tensor-core prefill and the "
           f"split-kv decode: {flash_routes}")
-    mla_routes = serving["deepseek-v2-lite-16b"]["routes"]
+    mla_routes = serving["deepseek-v2-lite-16b"]["routes"]["flash_attention"]
     check(mla_routes.get("cuda_core", 0) > 0
           and mla_routes.get("split_kv", 0) > 0
           and not mla_routes.get("tensor_core", 0),
           f"serving deepseek-v2-lite-16b took the hd-576 cuda-core prefill "
           f"and the split-kv decode: {mla_routes}")
-    wkv_routes = serving["rwkv6-3b"]["routes"]
+    wkv_routes = serving["rwkv6-3b"]["routes"]["wkv_scan"]
     check(wkv_routes.get("tensor_core", 0) > 0
           and wkv_routes.get("step", 0) > 0,
           f"serving rwkv6-3b took the tensor-core prefill and the step "
           f"decode: {wkv_routes}")
+    # the new families: flash's tensor-core prefill (Hymba's window,
+    # Whisper's bidirectional encoder and cross attention, LLaVA's prefix)
+    # and split-kv decode (Hymba's ring, Whisper's self and cross), and
+    # Hymba's SSM on WKV's step route
+    family_routes = {a: serving[a]["routes"] for a in
+                     ("hymba-1.5b", "whisper-large-v3", "llava-next-34b")}
+    for a, r in family_routes.items():
+        fl = r["flash_attention"]
+        check(fl.get("tensor_core", 0) > 0 and fl.get("split_kv", 0) > 0,
+              f"serving {a} took the tensor-core prefill and the split-kv "
+              f"decode: {r}")
+    hy = family_routes["hymba-1.5b"]["wkv_scan"]
+    check(hy.get("step", 0) > 0 and not hy.get("tensor_core", 0),
+          f"serving hymba-1.5b ran its SSM on the WKV step route: {hy}")
     kernels = []
     for kname in KERNELS + LM_KERNELS:
         launches = by_path[main_path[kname]].get(kname, 0)
@@ -2952,18 +3202,48 @@ def main(argv=None) -> int:
                     "max_abs_err", "ms", "device_ms", "plain_ms",
                     "bound_ms", "bound_by", "library_ms",
                     "library_device_ms")}
+            # the new families' rows of phase 5 (bf16, their serving
+            # shapes) and their launches by route and per forward
+            family = {tag: {k: flash_main[tag][k] for k in (
+                "B", "Sq", "Sk", "H", "KV", "hd", "causal", "kv_valid",
+                "window", "route", "max_abs_err", "ms", "device_ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_device_ms")} for tag in FAMILY_TAGS}
             kernels[-1].update(launches_by_route=flash_routes,
                                device_kernels_per_call=per_call,
                                hd_over_128_calls_by_route=large_hd,
                                mla_launches_by_route=mla_routes,
-                               mla_rows=mla)
+                               mla_rows=mla,
+                               family_launches_by_route={
+                                   a: r["flash_attention"]
+                                   for a, r in family_routes.items()},
+                               family_launches_per_forward={
+                                   a: {"prefill": serving[a][
+                                       "launches_per_prefill"][kname],
+                                       "decode_step": serving[a][
+                                       "launches_per_decode_step"][kname]}
+                                   for a in family_routes},
+                               family_rows=family)
         if kname == "wkv_scan":
             # by route on the main path (prefill on tensor_core, decode's
             # one-step calls on step), and phase 5's checked cases
+            # Hymba's SSM (the inclusive identity): phase 5's rows, its
+            # launches by route and per forward
+            inclusive = {tag: {k: row[k] for k in (
+                "B", "S", "h", "Nk", "Nv", "route", "max_abs_err", "ms",
+                "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")} for tag, row in ssm_main.items()}
             kernels[-1].update(launches_by_route=wkv_routes,
                                checked_cases_by_route=wkv_case_routes,
                                tc_smem_bytes=tc_smem,
-                               tc_blocks_per_sm=tc_blocks)
+                               tc_blocks_per_sm=tc_blocks,
+                               hymba_launches_by_route=hy,
+                               hymba_launches_per_forward={
+                                   "prefill": serving["hymba-1.5b"][
+                                       "launches_per_prefill"][kname],
+                                   "decode_step": serving["hymba-1.5b"][
+                                       "launches_per_decode_step"][kname]},
+                               inclusive_rows=inclusive)
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -2979,7 +3259,7 @@ def main(argv=None) -> int:
                      "chains_profile": chains_profile,
                      "phase_s": locality_s},
         "scheduler": sched_info,
-        "lm_kernels": flash_rows + wkv_rows, "serving": serving,
+        "lm_kernels": flash_rows + wkv_rows + ssm_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "seconds": time.perf_counter() - t_start}, indent=1))
     say(json.dumps({"kernels": kernels}))

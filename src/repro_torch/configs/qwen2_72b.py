@@ -1,0 +1,17 @@
+"""qwen2-72b [dense] — GQA with QKV bias. [arXiv:2407.10671; hf]"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-72b",
+    family="dense",
+    n_layers=80,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab_size=152064,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    sub_quadratic=False,
+)

@@ -6,7 +6,13 @@
 
 Runs on the CUDA card unless ``--device`` says otherwise; weights are drawn
 from ``--seed``.  MoE layers take the capacity-less dispatch
-(``dense_moe=True``), as the JAX entry point runs them.
+(``dense_moe=True``), as the JAX entry point runs them.  Every arch of
+``ARCHS`` runs at its ``reduced()`` config.  A text model serves the
+requests through ``ServeEngine.serve``; a model with a frontend
+(whisper-large-v3's audio frames, llava-next-34b's patch prefix) takes
+stub frontend inputs drawn from ``--seed``, which ``serve`` does not
+carry, so its requests run in waves of ``--slots`` prompts of
+``--prompt-len`` tokens through ``ServeEngine.generate``.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from ..configs import ARCHS, get_arch
 from ..distributed.meshes import resolve_device
 from ..models import lm
+from ..models.frontends import frontend_inputs
 from ..serve.engine import Request, ServeEngine
 
 
@@ -38,18 +45,34 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = get_arch(args.arch).reduced()
     params = lm.init_params(args.seed, cfg, device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    front = frontend_inputs(gen, cfg, args.slots)
+    n_front = cfg.n_frontend_tokens if "prefix_embeds" in front else 0
     eng = ServeEngine(cfg, params, batch_slots=args.slots,
-                      max_seq=args.prompt_len + args.max_new + 8,
+                      max_seq=n_front + args.prompt_len + args.max_new + 8,
                       dense_moe=True, seed=args.seed, device=device)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rng.integers(0, cfg.vocab_size,
+                                 args.prompt_len if front else
                                  rng.integers(4, args.prompt_len + 1)
                                  ).astype(np.int32),
                     max_new_tokens=args.max_new,
                     temperature=args.temperature)
             for _ in range(args.requests)]
     t0 = time.time()
-    done = eng.serve(reqs)
+    if front:
+        for i in range(0, len(reqs), args.slots):
+            wave = reqs[i:i + args.slots]
+            prompts = np.zeros((args.slots, args.prompt_len), np.int32)
+            for j, r in enumerate(wave):
+                prompts[j] = r.prompt
+            toks = eng.generate(prompts, args.max_new, args.temperature,
+                                **front)
+            for j, r in enumerate(wave):
+                r.out_tokens, r.done = list(map(int, toks[j])), True
+        done = reqs
+    else:
+        done = eng.serve(reqs)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0

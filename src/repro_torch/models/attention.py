@@ -6,9 +6,12 @@
     (:mod:`repro_torch.kernels.flash_attention`); on a CPU tensor it runs
     the blockwise online-softmax formulation of the JAX package, block for
     block, so the CPU path is held against JAX in the tests.
+  * :func:`ring_cache_attention` — decode over a sliding-window ring
+    cache, masked by the position stored in each slot (the JAX
+    formulation; the CPU path), and :func:`ring_decode_attention`, its card
+    formulation: flash over the first ``min(pos + 1, Wc)`` slots with no
+    causal or window mask.
   * :func:`dense_attention` — the unchunked oracle.
-
-``ring_cache_attention`` belongs to the hybrid family and is not ported yet.
 """
 from __future__ import annotations
 
@@ -87,6 +90,46 @@ def _blockwise_plain(q, k, v, q_positions, kv_valid_len, *, causal, window,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ring_cache_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                         v_ring: torch.Tensor, kpos: torch.Tensor,
+                         q_positions: torch.Tensor,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Attention over a sliding-window RING cache in plain PyTorch.
+
+    q: [B, Sq, H, hd]; k_ring, v_ring: [B, Wc, KV, hd]; kpos: [Wc] int —
+    the absolute position stored in each slot (-1 = empty); q_positions:
+    [Sq].  Causal and window masking is by position, so slot order does not
+    matter.
+    """
+    B, Sq, H, hd = q.shape
+    Wc, KV = k_ring.shape[1], k_ring.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    s = torch.einsum("bqkgh,bckh->bqkgc", qg, k_ring.float()) * hd ** -0.5
+    kp, qp = kpos.to(torch.int64)[None, :], q_positions.to(torch.int64)
+    mask = (kp >= 0) & (kp <= qp[:, None])                       # [Sq, Wc]
+    if window is not None:
+        mask = mask & (kp > qp[:, None] - window)
+    s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgc,bckh->bqkgh", p, v_ring.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, pos: int) -> torch.Tensor:
+    """One decode step at position ``pos`` over a ring of ``Wc`` slots that
+    a prefill and the decode steps before this one filled in order, ``Wc``
+    at most the window.  The ring then holds exactly the positions
+    ``(pos - Wc, pos]`` that exist, in slots ``[0, min(pos + 1, Wc))``, and
+    all of them are inside the window and causal: so this equals
+    :func:`ring_cache_attention` with no mask but the valid slot count.
+    On a CUDA tensor one flash launch (the ``split_kv`` route)."""
+    n = min(int(pos) + 1, k_ring.shape[1])
+    return fa_ops.flash_attention(q, k_ring, v_ring, causal=False,
+                                  kv_valid=n)
 
 
 def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

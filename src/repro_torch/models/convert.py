@@ -1,12 +1,13 @@
 """Carry the JAX package's LM parameters into the port.
 
 The JAX tree (``repro.models.lm.init_params``, as numpy arrays) holds each
-layer stack as ``group<i>`` with a leading ``[L]`` axis on every leaf; the
-port holds a list of L per-layer dicts.  Weights stay ``[d_in, d_out]`` and
+layer stack as ``group<i>`` (and an enc-dec model's encoder as
+``encoder``) with a leading ``[L]`` axis on every leaf; the port holds a
+list of L per-layer dicts.  Weights stay ``[d_in, d_out]`` and
 are used as ``x @ W`` on both sides, so nothing is transposed.  MoE
 expert stacks ``[L, E, ...]`` split on the layer axis only.  Every leaf
-takes the requested dtype but the MoE router, which stays float32 as the
-JAX package keeps it (``FP32_LEAVES``).
+takes the requested dtype but the MoE router and the SSM's ``log_a``,
+which stay float32 as the JAX package keeps them (``FP32_LEAVES``).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ..configs.base import ArchConfig
 from ..distributed.meshes import DeviceLike, resolve_device
 from .lm import layer_groups
 
-FP32_LEAVES = frozenset({"router"})
+FP32_LEAVES = frozenset({"router", "log_a"})
 
 
 def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
@@ -50,11 +51,13 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
                     dtype: torch.dtype = torch.float32) -> Dict:
     """The port's parameters from a JAX parameter tree of numpy arrays, on
     ``device`` (default: the CUDA card; raises without one) in ``dtype``
-    (the router in float32)."""
+    (``FP32_LEAVES`` in float32)."""
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     groups = {f"group{gi}": g.count
               for gi, g in enumerate(layer_groups(cfg))}
+    if cfg.family == "encdec":
+        groups["encoder"] = cfg.encoder_layers
     for name, sub in np_params.items():
         if name in groups:
             out[name] = [_convert(_layer(sub, i), dev, dtype)

@@ -1,5 +1,5 @@
-"""Shared building blocks: norms, the gated MLP, RoPE and init helpers (the
-port's ``repro/models/layers.py``).
+"""Shared building blocks: norms, the gated and GELU MLPs, RoPE, sinusoidal
+positions and init helpers (the port's ``repro/models/layers.py``).
 
 Norms and RoPE compute in fp32 and cast back to the input's dtype, as the
 JAX versions do.  Weights are laid out ``[d_in, d_out]`` and applied as
@@ -62,6 +62,14 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return (F.silu(x @ w1) * (x @ w3)) @ w2
 
 
+def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Whisper-style MLP: gelu(x W1 + b1) W2 + b2, with the tanh GELU the
+    JAX package uses (``approximate=True``; the exact one differs by about
+    1e-3)."""
+    return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -83,3 +91,22 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d: int, device="cpu") -> torch.Tensor:
+    """Whisper encoder's fixed sinusoidal embedding table [seq, d]."""
+    return sinusoidal_at(torch.arange(seq, device=device), d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embeddings at arbitrary positions [S] -> [S, d] fp32: sin
+    in the even columns, cos in the odd ones."""
+    pos = positions.float()[:, None]
+    div = torch.exp(-torch.log(torch.tensor(10_000.0))
+                    * torch.arange(0, d, 2, dtype=torch.float32) / d)
+    angles = pos * div.to(positions.device)
+    tab = torch.empty((positions.shape[0], d), dtype=torch.float32,
+                      device=positions.device)
+    tab[:, 0::2] = torch.sin(angles)
+    tab[:, 1::2] = torch.cos(angles)
+    return tab

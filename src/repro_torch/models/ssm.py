@@ -1,0 +1,173 @@
+"""Selective-SSM (Mamba-style) head of Hymba's parallel SSM branch (the
+port's ``repro/models/ssm.py``).
+
+Per head: a depthwise causal conv, then the selective state-space
+recurrence
+
+    h_t = exp(A * dt_t) h_{t-1} + dt_t * B_t x_t        h in R^{state x hd}
+    y_t = C_t^T h_t + D * x_t
+
+mapped onto the gated linear recurrence in mode 'inclusive' with
+q_t = C_t, k_t = dt_t * B_t, v_t = x_t, log_w = A * dt_t (A < 0).
+
+The scan (:func:`inclusive_scan`): on a CPU tensor the plain chunked
+recurrence of :mod:`.linrec` in mode 'inclusive', as the JAX package
+computes it; on a CUDA tensor the hand-written WKV kernel
+(:mod:`repro_torch.kernels.rwkv_scan`) through the identity
+
+    q_t^T S_t = (q_t * exp(log_w_t))^T S_{t-1} + (q_t . k_t) v_t
+
+(:func:`wkv_inclusive`): the kernel with r = q * exp(log_w) and u = 0
+computes the first term and carries the state, the second is
+elementwise.  The streams are fp32 (``_selective_terms``), so the kernel
+takes its ``step`` route, and a decode step's S = 1 is the same call.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ArchConfig
+from ..kernels.rwkv_scan import ops as rw_ops
+from .layers import dense_init, normal
+from .linrec import chunked_linear_recurrence, recurrent_step
+
+
+def init_ssm_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
+    s = cfg.ssm
+    assert s is not None
+    d = cfg.d_model
+    h, hd = cfg.n_heads, cfg.head_dim
+    inner = h * hd
+    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=device)
+    log_a = torch.log(torch.linspace(1.0, float(s.state_dim), s.state_dim,
+                                     device=device))
+    return {
+        "w_in": dense_init(gen, d, inner, dtype, device),      # x path
+        "w_gate": dense_init(gen, d, inner, dtype, device),    # silu gate
+        "conv": normal(gen, (s.conv_width, inner), 1.0 / s.conv_width,
+                       dtype, device),
+        "conv_b": zeros(inner),
+        # selective parameters (computed from the post-conv stream)
+        "w_B": dense_init(gen, inner, h * s.state_dim, dtype, device),
+        "w_C": dense_init(gen, inner, h * s.state_dim, dtype, device),
+        "w_dt": dense_init(gen, inner, h, dtype, device),
+        "dt_bias": zeros(h),
+        # A (negative, per head/state) in fp32 whatever the model dtype
+        "log_a": log_a[None, :].repeat(h, 1),                  # [h, state]
+        "d_skip": torch.ones((h, 1), dtype=dtype, device=device),
+        "w_out": dense_init(gen, inner, d, dtype, device),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 prev: Optional[torch.Tensor],
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv. x: [B,S,C]; w: [W,C]; prev: [B,W-1,C] carry.
+    Returns (silu(y) [B,S,C], new carry [B,W-1,C])."""
+    W, S = w.shape[0], x.shape[1]
+    pad = (torch.zeros((x.shape[0], W - 1, x.shape[-1]), dtype=x.dtype,
+                       device=x.device)
+           if prev is None else prev.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)                           # [B, S+W-1, C]
+    y = sum(xp[:, i:i + S] * w[i] for i in range(W)) + b
+    return F.silu(y), (xp[:, -(W - 1):] if W > 1 else pad)
+
+
+def _selective_terms(p: Dict, cfg: ArchConfig, u: torch.Tensor):
+    """u: [..., inner] post-conv stream -> (q, k, v, log_w) per head; q, k
+    and log_w fp32, v in u's dtype."""
+    s = cfg.ssm
+    h, hd = cfg.n_heads, cfg.head_dim
+    lead = u.shape[:-1]
+    B_t = (u @ p["w_B"]).reshape(*lead, h, s.state_dim)
+    C_t = (u @ p["w_C"]).reshape(*lead, h, s.state_dim)
+    dt = F.softplus((u @ p["w_dt"]).float() + p["dt_bias"].float())
+    A = -torch.exp(p["log_a"].float())                        # [h, state]
+    log_w = dt[..., None] * A                                 # [..., h, state]
+    k = B_t.float() * dt[..., None]
+    v = u.reshape(*lead, h, hd)
+    return C_t.float(), k, v, log_w
+
+
+def wkv_inclusive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor,
+                  initial_state: Optional[torch.Tensor] = None, *,
+                  chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive recurrence through the WKV op (see the module
+    docstring): q, k, log_w [B, S, h, Nk], v [B, S, h, Nv], one dtype.
+    Returns (out [B, S, h, Nv], final state [B, h, Nk, Nv] fp32).  On a
+    CUDA tensor one WKV launch; on a CPU tensor the WKV op's plain version
+    (``chunk`` its chunk length)."""
+    u = torch.zeros(q.shape[2:], dtype=torch.float32, device=q.device)
+    out, state = rw_ops.wkv_scan(q * torch.exp(log_w), k, v, log_w, u,
+                                 initial_state, chunk=chunk)
+    return out + (q * k).sum(-1, keepdim=True) * v, state
+
+
+def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_w: torch.Tensor,
+                   initial_state: Optional[torch.Tensor] = None, *,
+                   chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """out_t = q_t^T S_t with S_t = diag(exp log_w_t) S_{t-1} + k_t v_t^T.
+    Returns (out, final state).  CPU: the plain chunked recurrence
+    (``chunk`` its chunk length); CUDA: :func:`wkv_inclusive`."""
+    if q.device.type == "cpu":
+        rw_ops.PLAIN_CALLS["wkv_scan"] += 1
+        return chunked_linear_recurrence(
+            q, k, v, log_w, initial_state=initial_state, mode="inclusive",
+            chunk=chunk, return_state=True)
+    return wkv_inclusive(q, k, v, log_w, initial_state, chunk=chunk)
+
+
+def ssm_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
+                state: Optional[Dict] = None, *, chunk: int = 64,
+                ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """x: [B,S,D] -> [B,S,D].  state: {'conv': [B,W-1,inner],
+    'ssm': [B,h,state,hd]} for streaming/decode; the new state is returned
+    (None when stateless)."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    keep_state = state is not None
+    u = x @ p["w_in"]
+    gate = F.silu(x @ p["w_gate"])
+    u, conv_carry = _causal_conv(u, p["conv"], p["conv_b"],
+                                 state["conv"] if keep_state else None)
+    q, k, v, log_w = _selective_terms(p, cfg, u)
+    out, s_new = inclusive_scan(q, k, v.float(), log_w,
+                                state["ssm"] if keep_state else None,
+                                chunk=chunk)
+    out = out + v * p["d_skip"].to(v.dtype)[None, None]
+    out = out.reshape(*x.shape[:-1], h * hd).to(x.dtype)
+    out = (out * gate) @ p["w_out"]
+    new_state = {"conv": conv_carry, "ssm": s_new} if keep_state else None
+    return out, new_state
+
+
+def ssm_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
+             ) -> Tuple[torch.Tensor, Dict]:
+    """Single-token decode in plain PyTorch. x: [B,D]."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    u = x @ p["w_in"]                                         # [B, inner]
+    gate = F.silu(x @ p["w_gate"])
+    window = torch.cat([state["conv"].to(u.dtype), u[:, None]], dim=1)
+    y = torch.einsum("bwc,wc->bc", window, p["conv"]) + p["conv_b"]
+    u = F.silu(y)
+    q, k, v, log_w = _selective_terms(p, cfg, u)
+    out, ssm_new = recurrent_step(q, k, v.float(), log_w, state["ssm"],
+                                  mode="inclusive")
+    out = out + v * p["d_skip"].to(v.dtype)[None]
+    out = out.reshape(x.shape[0], h * hd).to(x.dtype)
+    out = (out * gate) @ p["w_out"]
+    return out, {"conv": window[:, 1:], "ssm": ssm_new}
+
+
+def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device) -> Dict:
+    s = cfg.ssm
+    inner = cfg.n_heads * cfg.head_dim
+    return {"conv": torch.zeros((batch, s.conv_width - 1, inner),
+                                dtype=dtype, device=device),
+            "ssm": torch.zeros((batch, cfg.n_heads, s.state_dim,
+                                cfg.head_dim), dtype=torch.float32,
+                               device=device)}

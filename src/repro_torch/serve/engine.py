@@ -89,26 +89,42 @@ class ServeEngine:
     # -- batched generation (uniform prompts) -------------------------------
     @torch.inference_mode()
     def generate(self, prompts: np.ndarray, max_new_tokens: int,
-                 temperature: float = 0.0) -> np.ndarray:
-        """prompts: [B, L] (uniform length).  Returns [B, max_new_tokens]."""
+                 temperature: float = 0.0, enc_frames=None,
+                 prefix_embeds=None) -> np.ndarray:
+        """prompts: [B, L] (uniform length).  ``enc_frames`` [B, S_enc, D]
+        (enc-dec: required) and ``prefix_embeds`` [B, n_front, D] (VLM)
+        are arrays or tensors, moved to the engine's device; the first
+        decode position is L + n_front.  Returns [B, max_new_tokens]."""
         B, L = prompts.shape
         if B != self.B:
             raise ValueError(f"generate: {B} prompts for {self.B} slots")
-        if L + max_new_tokens - 1 > self.max_seq:
-            raise ValueError(f"generate: {L} + {max_new_tokens} tokens do "
-                             f"not fit max_seq {self.max_seq}")
+        if self.cfg.family == "encdec" and enc_frames is None:
+            raise ValueError(f"generate: {self.cfg.name} is an enc-dec "
+                             f"model and needs enc_frames")
+        front = {}
+        for key, x in (("enc_frames", enc_frames),
+                       ("prefix_embeds", prefix_embeds)):
+            if x is not None:
+                front[key] = torch.as_tensor(x, device=self.device)
+        n_front = (prefix_embeds.shape[1] if prefix_embeds is not None
+                   else 0)
+        if L + n_front + max_new_tokens - 1 > self.max_seq:
+            raise ValueError(f"generate: {n_front} prefix + {L} + "
+                             f"{max_new_tokens} tokens do not fit max_seq "
+                             f"{self.max_seq}")
         cache = lm.init_cache(self.cfg, B, self.max_seq, self.dtype,
                               device=self.device)
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.device)
         logits, cache = lm.prefill(self.params, self.cfg, tokens, cache,
-                                   dense_moe=self.dense_moe)
+                                   dense_moe=self.dense_moe, **front)
+
         def sample(logits, pos):
             gen = (step_generator(self.seed, pos, self.device)
                    if temperature > 0.0 else None)
             return sample_token(logits, gen, temperature)
 
-        pos = L
+        pos = L + n_front
         out = np.zeros((B, max_new_tokens), np.int32)
         tok = sample(logits, pos)
         for t in range(max_new_tokens):
@@ -123,7 +139,9 @@ class ServeEngine:
     # -- slot-based continuous batching --------------------------------------
     def serve(self, requests: List[Request]) -> List[Request]:
         """Run a request list to completion with slot reuse.  Prompts are
-        left-padded with token 0 per wave; slots join at wave boundaries."""
+        left-padded with token 0 per wave; slots join at wave boundaries.
+        No frontend inputs, as in the JAX engine: an enc-dec model raises
+        (``generate`` takes its frames)."""
         queue = list(requests)
         while queue:
             wave = queue[: self.B]

@@ -1,5 +1,6 @@
-"""The port's LM stack against the JAX package's on the CPU, at every ported
-architecture's ``reduced()`` config (dense GQA, MoE with MLA or GQA, RWKV6):
+"""The port's LM stack against the JAX package's on the CPU, at every
+architecture's ``reduced()`` config (dense GQA, VLM, MoE with MLA or GQA,
+RWKV6, Hymba, Whisper; frontend inputs as the same numpy arrays):
 layers one by one, the parameter carry-over, and ``forward`` (logits and
 MoE aux loss) / ``prefill`` / ``decode_step`` logits from the same weights
 (fp32, within 1e-4: XLA and ATen sum in different orders).  Also the
@@ -81,11 +82,16 @@ def test_configs_and_reduced_match_jax(name):
         fields(J_ARCHS[name].reduced())
 
 
-def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="not ported"):
-        get_arch("hymba-1.5b")
-    with pytest.raises(NotImplementedError):
-        lm.layer_groups(J_ARCHS["hymba-1.5b"])
+def test_archs_equal_jax():
+    assert sorted(ARCHS) == sorted(J_ARCHS)
+    assert len(ARCHS) == 10
+    for name in ARCHS:
+        assert get_arch(name) is ARCHS[name]
+        assert [dataclasses.astuple(g) for g in lm.layer_groups(ARCHS[name])
+                ] == [dataclasses.astuple(g)
+                      for g in j_lm.layer_groups(J_ARCHS[name])]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("gpt-5")
 
 
 def test_norms_and_mlp_match_jax():
@@ -153,6 +159,8 @@ def test_params_from_jax_keeps_every_weight(model):
     counts = {f"group{gi}": g.count
               for gi, g in enumerate(lm.layer_groups(cfg))}
     assert sum(counts.values()) == cfg.n_layers
+    if cfg.family == "encdec":                 # the stacked encoder
+        counts["encoder"] = cfg.encoder_layers
     assert all(len(params[k]) == n for k, n in counts.items())
     flat, _ = jax.tree_util.tree_flatten_with_path(jparams)
     for path, leaf in flat:
@@ -206,14 +214,32 @@ def _tokens(cfg, B, S, seed=0):
         0, cfg.vocab_size, (B, S)).astype(np.int32)
 
 
+def _front(cfg, B, seed=7):
+    """Frontend inputs as numpy arrays: ({torch kwargs}, {JAX kwargs},
+    prefix length)."""
+    rng = np.random.default_rng(seed)
+    kw = {}
+    if cfg.frontend == "vision":
+        kw["prefix_embeds"] = rng.normal(
+            size=(B, cfg.n_frontend_tokens, cfg.d_model)) * 0.02
+    if cfg.family == "encdec":
+        kw["enc_frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)) * 0.02
+    kw = {k: v.astype(np.float32) for k, v in kw.items()}
+    n_front = cfg.n_frontend_tokens if "prefix_embeds" in kw else 0
+    return ({k: torch.from_numpy(v) for k, v in kw.items()},
+            {k: jnp.asarray(v) for k, v in kw.items()}, n_front)
+
+
 def test_forward_matches_jax(model):
     cfg, jparams, params = model
     toks = _tokens(cfg, 2, 24)
+    tkw, jkw, n_front = _front(cfg, 2)
     logits, _, aux = lm.forward(params, cfg, torch.from_numpy(toks).long(),
-                                mixer_chunk=8)
+                                mixer_chunk=8, **tkw)
     jlogits, _, jaux = j_lm.forward(jparams, cfg_j(cfg), jnp.asarray(toks),
-                                    mixer_chunk=8)
-    assert logits.shape == (2, 24, cfg.vocab_size)
+                                    mixer_chunk=8, **jkw)
+    assert logits.shape == (2, n_front + 24, cfg.vocab_size)
     _close(logits, jlogits)
     _close(aux, jaux)
     assert (float(aux) > 0.0) == (cfg.moe is not None)
@@ -223,17 +249,19 @@ def test_prefill_and_decode_match_jax(model):
     cfg, jparams, params = model
     B, S, n_dec, max_seq = 2, 10, 3, 16
     toks = _tokens(cfg, B, S + n_dec, seed=1)
+    tkw, jkw, n_front = _front(cfg, B)
+    max_seq += n_front
     cache = lm.init_cache(cfg, B, max_seq, torch.float32, device="cpu")
     jcache = j_lm.init_cache(cfg_j(cfg), B, max_seq, jnp.float32)
     lg, cache = lm.prefill(params, cfg, torch.from_numpy(toks[:, :S]).long(),
-                           cache)
+                           cache, **tkw)
     jlg, jcache = j_lm.prefill(jparams, cfg_j(cfg), jnp.asarray(toks[:, :S]),
-                               jcache)
+                               jcache, **jkw)
     assert lg.shape == (B, cfg.vocab_size)
     _close(lg, jlg)
     for i in range(n_dec):
-        pos = S + i
-        tok = toks[:, pos]
+        pos = n_front + S + i
+        tok = toks[:, S + i]
         lg, cache = lm.decode_step(params, cfg, torch.from_numpy(tok).long(),
                                    cache, pos)
         jlg, jcache = j_lm.decode_step(jparams, cfg_j(cfg), jnp.asarray(tok),
@@ -247,16 +275,17 @@ def test_decode_matches_forward(model):
     params = lm.init_params(3, cfg, device="cpu")
     B, S = 2, 12
     toks = torch.from_numpy(_tokens(cfg, B, S, seed=2)).long()
+    tkw, _, nf = _front(cfg, B)
     full, _, _ = lm.forward(params, cfg, toks, mixer_chunk=4,
-                            dense_moe=True)
+                            dense_moe=True, **tkw)
     n_pre = S - 2
-    cache = lm.init_cache(cfg, B, S + 4, torch.float32, device="cpu")
+    cache = lm.init_cache(cfg, B, nf + S + 4, torch.float32, device="cpu")
     lg, cache = lm.prefill(params, cfg, toks[:, :n_pre], cache,
-                           mixer_chunk=4, dense_moe=True)
-    errs = [float((lg - full[:, n_pre - 1]).abs().max())]
-    lg, cache = lm.decode_step(params, cfg, toks[:, n_pre], cache, n_pre,
-                               dense_moe=True)
-    errs.append(float((lg - full[:, n_pre]).abs().max()))
+                           mixer_chunk=4, dense_moe=True, **tkw)
+    errs = [float((lg - full[:, nf + n_pre - 1]).abs().max())]
+    lg, cache = lm.decode_step(params, cfg, toks[:, n_pre], cache,
+                               nf + n_pre, dense_moe=True)
+    errs.append(float((lg - full[:, nf + n_pre]).abs().max()))
     assert max(errs) < 2e-3, errs
     assert fa_ops.PLAIN_CALLS["flash_attention"] + \
         rw_ops.PLAIN_CALLS["wkv_scan"] > 0

@@ -1,7 +1,8 @@
 """The port's serving engine against the JAX package's on the CPU, at every
-ported architecture's ``reduced()`` config and the same weights (carried
-by ``params_from_jax``): greedy ``generate`` and ``serve`` give the same
-tokens.  Temperature sampling cannot match JAX's bits; it is checked to be
+architecture's ``reduced()`` config and the same weights (carried by
+``params_from_jax``): greedy ``generate`` (with the same numpy frontend
+inputs for whisper and llava) and ``serve`` give the same tokens; an
+enc-dec model's ``serve``, which carries no frontend inputs, raises.  Temperature sampling cannot match JAX's bits; it is checked to be
 deterministic per (seed, pos).  Entry points given no device raise on a
 host without a card."""
 import jax
@@ -38,6 +39,19 @@ def _prompts(cfg, B, L, seed):
         0, cfg.vocab_size, (B, L)).astype(np.int32)
 
 
+def _front(cfg, B, seed=9):
+    """Stub frontend inputs as numpy arrays (both engines take them)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = rng.normal(
+            size=(B, cfg.n_frontend_tokens, cfg.d_model)) * 0.02
+    if cfg.family == "encdec":
+        out["enc_frames"] = rng.normal(
+            size=(B, cfg.encoder_seq, cfg.d_model)) * 0.02
+    return {k: v.astype(np.float32) for k, v in out.items()}
+
+
 def _requests(cfg, request_cls, seed):
     rng = np.random.default_rng(seed)
     return [request_cls(rng.integers(0, cfg.vocab_size,
@@ -49,14 +63,22 @@ def _requests(cfg, request_cls, seed):
 def test_generate_greedy_matches_jax(engines):
     eng, jeng = engines
     prompts = _prompts(eng.cfg, 2, 9, seed=0)
-    out = eng.generate(prompts, 8)
+    front = _front(eng.cfg, 2)
+    out = eng.generate(prompts, 8, **front)
     assert out.shape == (2, 8) and out.dtype == np.int32
-    np.testing.assert_array_equal(out, jeng.generate(prompts, 8))
-    np.testing.assert_array_equal(out, eng.generate(prompts, 8))
+    np.testing.assert_array_equal(
+        out, jeng.generate(prompts, 8,
+                           **{k: jax.numpy.asarray(v)
+                              for k, v in front.items()}))
+    np.testing.assert_array_equal(out, eng.generate(prompts, 8, **front))
 
 
 def test_serve_greedy_matches_jax(engines):
     eng, jeng = engines
+    if eng.cfg.family == "encdec":
+        with pytest.raises(ValueError, match="enc_frames"):
+            eng.serve(_requests(eng.cfg, engine.Request, seed=1))
+        return
     mine = eng.serve(_requests(eng.cfg, engine.Request, seed=1))
     theirs = jeng.serve(_requests(eng.cfg, j_engine.Request, seed=1))
     assert all(r.done and len(r.out_tokens) == r.max_new_tokens
@@ -68,23 +90,27 @@ def test_greedy_matches_argmax_forward(engines):
     """First generated token == argmax of the full-forward logits."""
     eng, _ = engines
     prompts = _prompts(eng.cfg, 2, 8, seed=2)
+    front = _front(eng.cfg, 2)
     logits, _, _ = lm.forward(eng.params, eng.cfg,
-                              torch.from_numpy(prompts).long())
-    np.testing.assert_array_equal(eng.generate(prompts, 1)[:, 0],
+                              torch.from_numpy(prompts).long(),
+                              **{k: torch.from_numpy(v)
+                                 for k, v in front.items()})
+    np.testing.assert_array_equal(eng.generate(prompts, 1, **front)[:, 0],
                                   logits[:, -1].argmax(-1).numpy())
 
 
 def test_temperature_sampling_is_deterministic_per_seed_and_pos(engines):
     eng, _ = engines
     prompts = _prompts(eng.cfg, 2, 6, seed=3)
-    a = eng.generate(prompts, 6, temperature=1.5)
+    front = _front(eng.cfg, 2)
+    a = eng.generate(prompts, 6, temperature=1.5, **front)
     np.testing.assert_array_equal(a, eng.generate(prompts, 6,
-                                                  temperature=1.5))
+                                                  temperature=1.5, **front))
     assert ((a >= 0) & (a < eng.cfg.vocab_size)).all()
     other = engine.ServeEngine(eng.cfg, eng.params, 2, 64, seed=1,
                                device="cpu")
     assert not np.array_equal(a, other.generate(prompts, 6,
-                                                temperature=1.5))
+                                                temperature=1.5, **front))
     # one draw depends on (seed, pos) only
     logits = torch.randn(4, 50, generator=torch.Generator().manual_seed(0))
     draw = lambda seed, pos: engine.sample_token(
@@ -109,8 +135,11 @@ def test_entry_points_need_a_device_without_a_card():
             call()
 
 
-def test_launcher_runs_on_the_cpu(capsys):
-    launch_serve.main(["--arch", "rwkv6-3b", "--requests", "3", "--slots",
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "hymba-1.5b",
+                                  "whisper-large-v3", "llava-next-34b"])
+def test_launcher_runs_on_the_cpu(capsys, arch):
+    launch_serve.main(["--arch", arch, "--requests", "3", "--slots",
                        "2", "--max-new", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("req ") == 3 and "tok/s on cpu" in out
+    assert out.count(" -> [") == 3
