@@ -4,7 +4,7 @@ check it.
 
     python3 chip_smoke.py [--seed 0] [--out chiprun_out/chip_smoke.json]
 
-Two paths of the port run here.  MapReduce: the paper's Table I row (K=16,
+Three paths of the port run here.  MapReduce: the paper's Table I row (K=16,
 P=4, Q=16, N=1680) with ``wide_histogram_job(d=2048)``, each subfile
 16,384 int32 tokens drawn from ``--seed`` in [0, 2^16); every per-key
 total stays below 2^24, so every partial sum of the integer-valued float32
@@ -18,7 +18,10 @@ hymba-1.5b, 8 slots x 2,560-token prompts past its 2,048 window (a
 32 decoder tokens: its 448-token context); and llava-next-34b at full
 width and depth, 2 slots x (2,880 stub patch embeddings + 256 tokens),
 with its fp32 check cut to 12 of its 60 layers.  qwen2-72b and
-llama3-405b fit no card and run at ``reduced()`` (phase 7).
+llama3-405b fit no card and run at ``reduced()`` (phase 7).  Training
+(phase 9): Qwen2-1.5B at full width in fp32 (AdamW, 8 x 2,048 tokens of
+the port's synthetic pipeline, two microbatches, remat), weights drawn on
+the card from ``--seed``; all ten archs at ``reduced()``.
 
 Phases, one printed line each (plus detail lines):
 
@@ -161,12 +164,48 @@ Phases, one printed line each (plus detail lines):
               1e-4; the MoE archs (deepseek-v2-lite-16b, grok-1-314b) with
               ``dense_moe`` both ways, and the smallest gap between a
               token's k-th and (k+1)-th router probability reported.
-8. kernels line — one JSON object with all six kernels: launches on the
-              main path and per path, and numbers at the main path's
+9. train    — after phase 7 and phase 2's device times, before 4d,
+              (b) first (its profiled step is the phase's first profiler
+              session): (a) both backward kernels (``flash_attention_backward``,
+              ``wkv_scan_backward``) against autograd through their plain
+              versions, fp32 and bf16, at the training shapes
+              (``TRAIN_FLASH_CASES``: Qwen2-1.5B's [4, 2048, 12, 128] on
+              2 kv heads, Whisper's encoder and its 416 x 1,500 cross
+              attention, Hymba's 2,048 window, MLA's hd 576;
+              ``TRAIN_WKV_CASES``: RWKV6-3B's [8, 2048, 40, 64] and
+              Hymba's SSM identity), the same gradients twice bit for
+              bit, CUDA-event, plain and (flash) SDPA-backward times in
+              turns, the bound, and the device time at the kernels line's
+              rows (``BWD_PROFILED``).  (b) Qwen2-1.5B at full width,
+              fp32 parameters and AdamW moments, 8 x 2,048 tokens of the
+              port's ``SyntheticPipeline`` in two microbatches, remat,
+              ``TRAIN_STEPS`` steps of ``make_train_step``: loss finite
+              and falling; the first step's launches counted; step wall
+              (median of the later steps), tokens/s, peak memory, and the
+              idle share of one more, profiled step.  (c) one train step
+              of all ten archs at ``reduced()`` (the MoE ones with both
+              dispatches) on the card against the CPU: loss within 1e-5,
+              each gradient leaf within 1e-4 of its own largest entry,
+              the card's update within 1e-4 of each leaf's update of the
+              CPU optimizer on the card's gradients.  (d) reduced
+              qwen2 preempted before step 4 and resumed from its step-3
+              checkpoint through ``run_with_restarts``, bit-identical to
+              the uninterrupted run (in a spawned process with
+              deterministic algorithms on and ``CUBLAS_WORKSPACE_CONFIG``
+              set before its card starts; the other phases keep the
+              default cuBLAS).
+              (e) ``coded_r2`` on four ranks over gloo on the card,
+              gradients within 1e-5 of the full-batch step under every
+              single rack failure.
+8. kernels line — one JSON object with all eight kernels: launches on
+              the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
               call); for flash and WKV, launches by route (for flash also
               the device kernels per call each route took in phase 5's
-              profile).
+              profile); for the two backward kernels, phase 9 (a)'s fp32
+              row at Qwen2's and RWKV6-3B's training shapes (no Pallas
+              kernel: ``replaces`` names the jnp function the JAX package
+              differentiates).
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -186,9 +225,17 @@ self, 32 cross) and 64 a decode step, 60 flash launches for
 llava-next-34b; every time-to-first-token call runs all of them on its
 prefill route (flash ``tensor_core``, ``cuda_core`` at MLA's hd 576;
 WKV ``tensor_core`` for RWKV6, ``step`` for Hymba's SSM), and the new
-families' and deepseek-v2-lite's decode steps take ``split_kv``.  Main paths:
+families' and deepseek-v2-lite's decode steps take ``split_kv``.  A
+full-width Qwen2-1.5B train step (two microbatches, remat) launches
+2 x 2 x 28 flash forwards, all on ``cuda_core`` (fp32; never split-kv),
+and 2 x 28 flash backwards, and calls no plain version; a reduced train
+step launches the WKV backward for rwkv6 and hymba and the flash backward
+for every arch with attention; a rank's ``coded_r2`` gradient launches
+one ``coded_encode`` a destination rack.  Main paths:
 the fused engine for the linear pair, the int32 ``hybrid_shuffle`` for
-the XOR pair, full-width serving for the LM kernels; the combine
+the XOR pair, full-width serving for the LM kernels, training for the
+backward kernels (the full-width Qwen2-1.5B step for flash, phase 9 (c)'s
+reduced steps for WKV); the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
 (phase 4d) and ``scheduler`` path (phase 4e's coded/kernel conformance
 cells) must launch too.
@@ -203,6 +250,7 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -2871,6 +2919,602 @@ def tree_to(tree, device):
     return tree.to(device)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: training
+# ---------------------------------------------------------------------------
+
+BWD_KERNELS = ("flash_attention_backward", "wkv_scan_backward")
+BWD_SOURCES = {
+    "flash_attention_backward":
+        "src/repro_torch/kernels/flash_attention/csrc/flash_backward.cu",
+    "wkv_scan_backward":
+        "src/repro_torch/kernels/rwkv_scan/csrc/wkv_backward.cu"}
+# no Pallas kernel: the jnp functions the JAX package's jax.value_and_grad
+# differentiates
+BWD_REPLACES = {"flash_attention_backward":
+                "src/repro/models/attention.py:25",
+                "wkv_scan_backward": "src/repro/models/linrec.py:44"}
+# gradients relative to the largest |gradient| of the tensor: fp32 FMAs in
+# other orders; bf16 gradients are rounded to 2^-8 and the saved bf16
+# output enters D = dO . O
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (tag, B, Sq, Sk, H, KV, hd, causal, window): Qwen2-1.5B's training
+# microbatch (4 x 2,048, 12 heads on 2 kv heads), Whisper's encoder (one
+# query head a kv head, 1,500 frames) and its cross attention (the
+# 416-token decoder over the 1,500 encoder keys), Hymba's 2,048 window
+# over 2,560 tokens, and MLA's hd 576 on one latent head (DeepSeek-V2-Lite:
+# 16 heads), each at its serving batch: the plain version's S^2 scores fit
+# the card at every one of them
+TRAIN_FLASH_CASES = [
+    ("qwen2_train", 4, 2048, 2048, 12, 2, 128, True, None),
+    ("whisper_encoder", 8, 1500, 1500, 20, 20, 64, False, None),
+    ("whisper_cross", 8, 416, 1500, 20, 20, 64, False, None),
+    ("hymba_window", 8, 2560, 2560, 25, 5, 64, True, 2048),
+    ("mla", 8, 2048, 2048, 16, 1, 576, True, None)]
+# (tag, B, S, h, Nk, Nv): RWKV6-3B's time-mix over 8 x 2,048 and Hymba's
+# SSM through the inclusive identity (r = q exp(log_w), u = 0) over
+# 8 x 2,560: state 16 x head 64, log_w = dt * A with A in [-16, -1]
+TRAIN_WKV_CASES = [("rwkv6_train", 8, 2048, 40, 64, 64),
+                   ("hymba_ssm", 8, 2560, 25, 16, 64)]
+TRAIN_STEPS = 4
+# the (a) rows the kernels line reports, fp32 and bf16, take the profiler's
+# device time; the others CUDA events alone: late in the script profiler
+# sessions lose records, and one of the 0.55 s hd-576 calls held none in
+# nine sessions
+BWD_PROFILED = ("qwen2_train", "rwkv6_train")
+
+
+def _rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def _sdpa_backward(torch, q, k, v, dout, causal, window):
+    """One SDPA backward call (the library yardstick) on the kernel's
+    inputs: autograd.grad of scaled_dot_product_attention's output, its
+    graph kept, so each call is the backward alone."""
+    F = torch.nn.functional
+    qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                  for x in (q, k, v))
+    kw = {"is_causal": causal}
+    if window is not None:
+        qi = torch.arange(q.shape[1], device=q.device)[:, None]
+        kj = torch.arange(k.shape[1], device=q.device)[None, :]
+        kw = {"attn_mask": (kj <= qi) & (kj > qi - window)}
+    out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+    dt = dout.transpose(1, 2)
+
+    def run():
+        return [g.transpose(1, 2) for g in torch.autograd.grad(
+            out, (qt, kt, vt), dt, retain_graph=True)]
+    return run
+
+
+def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
+    """Phase 9 (a): both backward kernels against autograd through their
+    plain versions on the card, fp32 and bf16, the same gradients twice bit
+    for bit, CUDA-event, plain and (flash) SDPA-backward times in turns, the
+    bound, and at ``BWD_PROFILED``'s rows the card's own time per call."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 901)
+    rows, main = [], {}
+    for tag, B, Sq, Sk, H, KV, hd, causal, window in TRAIN_FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            mk = lambda *s: torch.randn(*s, generator=g, device=dev).to(
+                dtype)
+            q, k, v = mk(B, Sq, H, hd), mk(B, Sk, KV, hd), mk(B, Sk, KV, hd)
+            dout = mk(B, Sq, H, hd)
+            # Whisper's cross attention: every query at position 0
+            pos = (torch.zeros(Sq, dtype=torch.long, device=dev)
+                   if Sq != Sk else torch.arange(Sq, device=dev))
+            kw = dict(causal=causal, window=window, q_positions=pos)
+            fa.reset_launch_counts()
+            with torch.no_grad():
+                out = fa.flash_attention(q, k, v, **kw)
+            check(not fa.ROUTE_CALLS["split_kv"],
+                  f"flash backward {tag}: the forward took split_kv")
+            kernel = lambda: fab.flash_attention_backward(q, k, v, out, dout,
+                                                          **kw)
+            fab.reset_launch_counts()
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            check(fab.LAUNCHES["flash_attention_backward"] == 2,
+                  f"flash backward {tag}: launches {fab.LAUNCHES}")
+            plain = lambda: fa_ref.attention_backward_ref(
+                q, k, v, dout, pos, causal=causal, window=window)
+            want = plain()
+            errs = [_rel(a, b) for a, b in zip(got, want)]
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"flash backward {tag} {dname}: two calls differ")
+            check(max(errs) < BWD_TOL[dname],
+                  f"flash backward {tag} {dname}: errors {errs} against "
+                  f"{BWD_TOL[dname]}")
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            del want
+            pairs = B * H * visible_pairs(Sq, Sk, 0, None, causal,
+                                          window)[0]
+            # pass 1's scores, then S, dP, dV, dK, dQ: 6 products of 2 hd
+            flops = 12.0 * hd * pairs
+            size = q.element_size()
+            nbytes = size * 4 * (q.numel() + k.numel())
+            b_ms, b_by = bound(peaks, nbytes, flops, dname)
+            sdpa = _sdpa_backward(torch, q, k, v, dout, causal, window)
+            lib_err = max(_rel(a, b) for a, b in zip(sdpa(), got))
+            check(lib_err < (1e-2 if dtype == torch.float32 else 0.1),
+                  f"SDPA backward disagrees with the kernel: {lib_err}")
+            slow = hd > 128 or Sq * Sk * B * H > 4e9
+            reps, inner = (3, 1) if slow else (3, 3)
+            turns = [cuda_ms(torch, fn, reps, inner)
+                     for fn in (kernel, sdpa, sdpa, kernel)]
+            row = {"name": "flash_attention_backward", "case": tag, "B": B,
+                   "Sq": Sq, "Sk": Sk, "H": H, "KV": KV, "hd": hd,
+                   "causal": causal, "window": window, "dtype": dname,
+                   "max_abs_err": err, "max_rel_err": max(errs),
+                   "tolerance": f"{BWD_TOL[dname]} of max |grad|",
+                   "bitwise_repeat": True, "flops": flops, "bytes": nbytes,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "ms_turns": [turns[0], turns[3]],
+                   "library_ms_turns": [turns[1], turns[2]],
+                   "ms": statistics.mean([turns[0], turns[3]]),
+                   "library_ms": statistics.mean([turns[1], turns[2]]),
+                   "plain_ms": cuda_ms(torch, plain, 3, 1)}
+            row["device_ms"] = row["device_kernels"] = None
+            if tag in BWD_PROFILED:
+                row["device_ms"], row["device_kernels"] = device_per_call(
+                    torch, kernel, calls=10)
+            rows.append(row)
+            main.setdefault((tag, dname), row)
+            say(f"  backward flash_attention_backward {tag} B={B} Sq={Sq} "
+                f"Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
+                f"window={window} {dname}: kernel_ms={row['ms']:.6f} "
+                f"{_device_text(row)} plain_ms="
+                f"{row['plain_ms']:.6f} sdpa_backward_ms="
+                f"{row['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+                f"max_rel_err={max(errs)!r} (limit {BWD_TOL[dname]}) "
+                f"bitwise repeat; in turns {[round(t, 6) for t in turns]} "
+                f"[{smi}]")
+            del q, k, v, out, dout, got, again, sdpa
+            torch.cuda.empty_cache()
+    for tag, B, S, h, Nk, Nv in TRAIN_WKV_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).replace("torch.", "")
+            rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
+            if tag == "hymba_ssm":
+                a = torch.linspace(1.0, 16.0, Nk, device=dev)
+                log_w = -torch.nn.functional.softplus(rnd(B, S, h, Nk)) * a
+                q, k = rnd(B, S, h, Nk), 0.5 * rnd(B, S, h, Nk)
+                r = q * torch.exp(log_w)
+                u = torch.zeros(h, Nk, device=dev)
+            else:
+                r, k = 0.5 * rnd(B, S, h, Nk), 0.5 * rnd(B, S, h, Nk)
+                log_w, u = -torch.exp(rnd(B, S, h, Nk) - 1.0), \
+                    0.5 * rnd(h, Nk)
+            r, k = r.to(dtype), k.to(dtype)
+            v, dout = rnd(B, S, h, Nv).to(dtype), rnd(B, S, h, Nv).to(dtype)
+            kernel = lambda: rwb.wkv_scan_backward(r, k, v, log_w, u, dout)
+            rwb.reset_launch_counts()
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            check(rwb.LAUNCHES["wkv_scan_backward"] == 2,
+                  f"wkv backward {tag}: launches {rwb.LAUNCHES}")
+            plain = lambda: rw_ref.wkv_backward_ref(r, k, v, log_w, u, dout)
+            want = plain()
+            errs = [_rel(a, b) for a, b in zip(got, want)]
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"wkv backward {tag} {dname}: two calls differ")
+            check(max(errs) < BWD_TOL[dname],
+                  f"wkv backward {tag} {dname}: errors {errs} against "
+                  f"{BWD_TOL[dname]}")
+            err = max(float((a.float() - b.float()).abs().max())
+                      for a, b in zip(got, want))
+            del want
+            size = r.element_size()
+            # r, k, v, dout read, dr, dk, dv written; log_w read and dlog_w
+            # written in fp32; u read, du written in fp32
+            nbytes = (size * (4 * r.numel() + 3 * v.numel())
+                      + 4 * 2 * log_w.numel() + 4 * 2 * u.numel())
+            b_ms, b_by = bound(peaks, nbytes)
+            turns = [cuda_ms(torch, kernel, 3, 3) for _ in range(2)]
+            row = {"name": "wkv_scan_backward", "case": tag, "B": B, "S": S,
+                   "h": h, "Nk": Nk, "Nv": Nv, "dtype": dname,
+                   "max_abs_err": err, "max_rel_err": max(errs),
+                   "tolerance": f"{BWD_TOL[dname]} of max |grad|",
+                   "bitwise_repeat": True, "bytes": nbytes,
+                   "bound_ms": b_ms, "bound_by": b_by, "ms_turns": turns,
+                   "ms": statistics.mean(turns), "library_ms": None,
+                   "plain_ms": cuda_ms(torch, plain, 3, 1)}
+            row["device_ms"] = row["device_kernels"] = None
+            if tag in BWD_PROFILED:
+                row["device_ms"], row["device_kernels"] = device_per_call(
+                    torch, kernel, calls=10)
+            rows.append(row)
+            main.setdefault((tag, dname), row)
+            say(f"  backward wkv_scan_backward {tag} B={B} S={S} h={h} "
+                f"Nk={Nk} Nv={Nv} {dname}: kernel_ms={row['ms']:.6f} "
+                f"{_device_text(row)} plain_ms="
+                f"{row['plain_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) "
+                f"max_rel_err={max(errs)!r} (limit {BWD_TOL[dname]}) "
+                f"bitwise repeat [{smi}]")
+            del r, k, v, dout, got, again
+            torch.cuda.empty_cache()
+    return rows, main
+
+
+def _device_text(row) -> str:
+    if row["device_ms"] is None:
+        return "device_ms=not measured (CUDA events only)"
+    return (f"device_ms={row['device_ms']:.6f} ({row['device_kernels']:g} "
+            f"device kernels)")
+
+
+def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
+    """Phase 9 (b): Qwen2-1.5B at full width, fp32 parameters and AdamW
+    moments, a global batch of 8 x 2,048 tokens in two microbatches,
+    remat, TRAIN_STEPS steps of ``make_train_step``.  The first step's
+    launches are counted; the walls of the others are timed; one more
+    step is profiled for the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tc = tr.TrainConfig(n_microbatches=2, remat=True,
+                        opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                decay_steps=100))
+    t0 = time.perf_counter()
+    state = tr.init_train_state(seed, cfg, tc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in opt.tree_leaves(state["params"]))
+    pipe = pipeline.SyntheticPipeline(cfg, 8, 2048, seed=seed)
+    step = tr.make_train_step(cfg, tc)
+    losses, walls, launches = [], [], None
+    for i in range(TRAIN_STEPS):
+        batch = pipe.batch_at(i)
+        if i == 0:
+            ((state, m), ms), launches, plain = counts(
+                lambda: wall(torch, lambda: step(state, batch)))
+            routes = counts.routes["flash_attention"]
+        else:
+            (state, m), ms = wall(torch, lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        walls.append(ms)
+        say(f"  train qwen2-1.5b step {i + 1}: loss {losses[-1]!r} "
+            f"grad_norm {float(m['grad_norm'])!r} wall {ms:.1f} ms "
+            f"[{smi}]")
+    L = cfg.n_layers
+    n_micro = tc.n_microbatches
+    want = {"flash_attention": 2 * L * n_micro,
+            "flash_attention_backward": L * n_micro}
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"qwen2-1.5b training: losses {losses}")
+    check(all(launches[k] == n for k, n in want.items())
+          and routes == {"tensor_core": 0, "split_kv": 0,
+                         "cuda_core": want["flash_attention"]}
+          and not any(plain.values()),
+          f"qwen2-1.5b train step launches {launches}, routes {routes}, "
+          f"plain {plain}; want {want} on cuda_core (a forward and a remat "
+          f"recompute a layer and microbatch, one backward)")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = pipe.batch_at(TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (state, m), prof_ms = wall(torch, lambda: step(state, batch))
+    busy, by_kernel = device_time(prof)
+    # how much of the step the profile holds: its flash backward records
+    # of the step's launches (the profiler drops records, and a dropped
+    # record makes the card look idler than it was)
+    records = sum(ev.count for ev in prof.key_averages()
+                  if ev.key.startswith("void fa_bwd::fab_dq"))
+    check(records > 0, "the profiled train step holds no flash backward "
+          "record")
+    step_ms = statistics.median(walls[1:])
+    tokens = 8 * 2048
+    info = {"arch": cfg.name, "params": n_params, "dtype": "float32",
+            "global_batch": [8, 2048], "n_microbatches": n_micro,
+            "remat": True, "optimizer": "adamw", "steps": TRAIN_STEPS,
+            "losses": losses, "step_walls_ms": walls,
+            "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_memory_gb": peak_gb, "init_s": init_s,
+            "launches_first_step": launches, "routes_first_step": routes,
+            "profiled_step_ms": prof_ms, "device_busy_ms": busy,
+            "profiled_flash_backward_records": [
+                records, want["flash_attention_backward"]],
+            "idle_share": 1.0 - busy / prof_ms, "by_kernel": by_kernel}
+    say(f"  train qwen2-1.5b full width ({n_params} fp32 parameters, "
+        f"AdamW, 8 x 2048 tokens in 2 microbatches, remat): step "
+        f"{step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
+        f"{info['tokens_per_s']:.1f} tokens/s, peak "
+        f"{peak_gb:.3f} GB allocated, losses {[round(x, 4) for x in losses]}"
+        f"; profiled step {prof_ms:.1f} ms, device busy {busy:.1f} ms, idle "
+        f"share {info['idle_share']:.3f} (the profile holds {records} of "
+        f"{want['flash_attention_backward']} flash backward records) "
+        f"[{smi}]")
+    for k in by_kernel[:6]:
+        say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
+    del state, m, batch, prof
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+def _leaf_errs(got, want, floor):
+    """Each leaf's worst error relative to that leaf's own largest entry,
+    or to ``floor`` where the leaf is smaller (zero up to rounding)."""
+    return [float((a.cpu().float() - w.float()).abs().max())
+            / max(float(w.abs().max()), floor) for a, w in zip(got, want)]
+
+
+def train_card_vs_cpu_phase(torch, tr, opt, pipeline, counts, get_arch,
+                            seed, smi):
+    """Phase 9 (c): one ``make_train_step`` step at every arch's reduced()
+    config from the same weights and batch on the card (kernels) and the
+    CPU (plain versions), fp32 with TF32 off; the MoE archs with
+    ``dense_moe`` both ways.  The gradients each step hands its optimizer
+    are recorded.  Gates: loss within 1e-5; each gradient leaf within 1e-4
+    of that leaf's largest entry (a leaf below 1e-3 of the tree's largest
+    gradient is held to 1e-3 of it); the card's updated parameters within
+    1e-4 of each leaf's update of the CPU optimizer applied to the card's
+    own gradients (Adam's first step normalises each gradient element, so
+    between two devices' gradients an element near zero moves its
+    parameter by up to lr; this holds the optimizer's arithmetic on the
+    card, and the gradient gate holds the gradients); and the card's step
+    within 1e-4 of the CPU's step, absolute."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    total = dict.fromkeys(KERNELS + LM_KERNELS + BWD_KERNELS, 0)
+    rows = []
+    seen = []
+    real_update = tr.optimizer_update
+
+    def recording_update(grads, *rest):
+        seen.append(grads)
+        return real_update(grads, *rest)
+    tr.optimizer_update = recording_update
+    try:
+        for name, dense_moe in CARD_VS_CPU:
+            cfg = get_arch(name).reduced()
+            tc = tr.TrainConfig(n_microbatches=1, remat=True,
+                                dense_moe=dense_moe,
+                                opt=opt.OptimizerConfig(lr=1e-3,
+                                                        warmup_steps=1,
+                                                        decay_steps=50))
+            seq = 32 + (cfg.n_frontend_tokens if cfg.frontend == "vision"
+                        else 0)
+            batch = pipeline.SyntheticPipeline(cfg, 2, seq, seed=seed,
+                                               device="cpu").batch_at(0)
+            cpu = tr.init_train_state(seed, cfg, tc, device="cpu")
+            gpu = tree_to(cpu, "cuda")
+            bgpu = tree_to(batch, "cuda")
+            step = tr.make_train_step(cfg, tc)
+            seen.clear()
+            new_cpu, m_cpu = step(cpu, batch)
+            (new_gpu, m_gpu), launches, plain = counts(
+                lambda: step(gpu, bgpu))
+            g_cpu, g_gpu = seen
+            want = opt.tree_leaves(g_cpu)
+            floor = 1e-3 * max(float(w.abs().max()) for w in want)
+            g_errs = _leaf_errs(opt.tree_leaves(g_gpu), want, floor)
+            g_err = max(g_errs)
+            # the CPU optimizer on the card's gradients
+            ref_params, _, _ = real_update(tree_to(g_gpu, "cpu"),
+                                           cpu["opt"], cpu["params"], tc.opt)
+            old = opt.tree_leaves(cpu["params"])
+            ref = opt.tree_leaves(ref_params)
+            u_err = max(
+                float((a.cpu() - r).abs().max())
+                / max(float((r - o).abs().max()), 1e-3 * tc.opt.lr)
+                for a, r, o in zip(opt.tree_leaves(new_gpu["params"]), ref,
+                                   old))
+            l_err = abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) / abs(
+                float(m_cpu["loss"]))
+            p_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+                opt.tree_leaves(new_gpu["params"]),
+                opt.tree_leaves(new_cpu["params"])))
+            what = f"{name} reduced dense_moe={dense_moe}"
+            uses = {"flash_attention_backward": not cfg.attn_free,
+                    "wkv_scan_backward": bool(cfg.attn_free or cfg.ssm)}
+            check(l_err < 1e-5 and g_err < 1e-4 and u_err < 1e-4
+                  and p_err < 1e-4,
+                  f"{what}: card vs cpu train step: loss {l_err}, grads "
+                  f"{g_err} of each leaf's max (worst leaf "
+                  f"{g_errs.index(g_err)}), update {u_err}, params {p_err}")
+            check(all((launches[k] > 0) == u for k, u in uses.items())
+                  and not any(plain.values()),
+                  f"{what}: train step launches {launches}, plain {plain}; "
+                  f"backward kernels expected {uses}")
+            for k, n in launches.items():
+                total[k] += n
+            rows.append({"arch": name, "dense_moe": dense_moe,
+                         "loss_rel_err": l_err, "grad_leaf_rel_err": g_err,
+                         "update_rel_err": u_err, "param_abs_err": p_err,
+                         "launches": launches})
+            say(f"  train card vs cpu {what}: loss {l_err!r} (limit 1e-5), "
+                f"grads {g_err!r} of each leaf's max |grad| over "
+                f"{len(want)} leaves (limit 1e-4), card update {u_err!r} "
+                f"of each leaf's update (limit 1e-4), params {p_err!r} "
+                f"(limit 1e-4); backward launches "
+                f"{ {k: launches[k] for k in BWD_KERNELS} } [{smi}]")
+    finally:
+        tr.optimizer_update = real_update
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return rows, total
+
+
+def restart_rank(dev, seed: int):
+    """What phase 9 (d)'s one spawned process runs (module level: it is
+    imported by name): reduced qwen2 on the card, 6 steps with a checkpoint
+    after step 3, preempted before step 4 and resumed through
+    ``run_with_restarts``, and the uninterrupted run beside it, with
+    deterministic algorithms on (the embedding's backward accumulates with
+    atomics otherwise).  Returns the steps each run ran, the steps the
+    resumed one reported, its tensors' count and device, and whether every
+    tensor is bit-identical."""
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import fault
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer as tr
+
+    torch.use_deterministic_algorithms(True)
+    cfg = get_arch("qwen2-1.5b").reduced()
+    tc = tr.TrainConfig(n_microbatches=2, remat=True,
+                        opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                decay_steps=50))
+    state0 = tr.init_train_state(seed, cfg, tc, device=dev)
+    pipe = SyntheticPipeline(cfg, 4, 64, seed=seed, device=dev)
+    step = tr.make_train_step(cfg, tc)
+
+    def run(ckpt_dir, preempt_at):
+        sim = fault.PreemptionSimulator(preempt_at)
+        final, ran = {}, []
+
+        def loop(start):
+            s = state0 if start == 0 else ckpt.restore_checkpoint(
+                state0, ckpt_dir)[0]
+            for i in range(start, 6):
+                if start == 0:
+                    sim.check(i)
+                s, m = step(s, pipe.batch_at(i))
+                if i == 3:
+                    ckpt.save_checkpoint(s, ckpt_dir, i)
+                final["state"] = s
+                ran.append(i)
+                yield i, m
+        done = [i for i, _ in fault.run_with_restarts(loop, ckpt_dir)]
+        return final["state"], ran, done
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, ran_a, _ = run(os.path.join(tmp, "a"), None)
+        resumed, ran_b, done_b = run(os.path.join(tmp, "b"), 4)
+    torch.cuda.synchronize()
+    la, lb = opt.tree_leaves(straight), opt.tree_leaves(resumed)
+    same = len(la) == len(lb) and all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(la, lb))
+    return ran_a, ran_b, done_b, len(la), str(la[0].device), same
+
+
+def train_restart_phase(run_ranks, seed, smi):
+    """Phase 9 (d): :func:`restart_rank` in one spawned process on the
+    card, started with ``CUBLAS_WORKSPACE_CONFIG`` in its environment so
+    that its cuBLAS is deterministic from its start, while this process
+    and every other phase keep the default cuBLAS.  Gate: parameters,
+    moments and counters bit-identical to the uninterrupted run."""
+    key, before = "CUBLAS_WORKSPACE_CONFIG", os.environ.get(
+        "CUBLAS_WORKSPACE_CONFIG")
+    os.environ[key] = ":4096:8"
+    try:
+        (ran_a, ran_b, done_b, n, where, same), = run_ranks(
+            restart_rank, 1, backend="gloo", device="cuda", args=(seed,),
+            timeout_s=600.0)
+    finally:
+        if before is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = before
+    check(ran_a == list(range(6)) and ran_b == list(range(6))
+          and done_b[-1] == 5 and same and where.startswith("cuda"),
+          f"restart on the card: steps {ran_a} / {ran_b}, bit-identical "
+          f"{same}, on {where}")
+    say(f"  train restart: reduced qwen2 on the card (a spawned process "
+        f"with deterministic cuBLAS), preempted before step 4, resumed from "
+        f"the step-3 checkpoint through run_with_restarts: {n} parameter, "
+        f"moment and counter tensors bit-identical to the uninterrupted run "
+        f"[{smi}]")
+    return {"steps": 6, "checkpoint_at": 3, "preempt_at": 4,
+            "tensors": n, "bit_identical": same}
+
+
+TRAIN_PODS = 4
+TRAIN_FAILED = (None, 0, 1, 2, 3)
+
+
+def train_rank(dev, seed: int):
+    """What each rank of phase 9 (e) runs (module level: the ranks import
+    it by name): reduced qwen2's coded_r2 gradients on this rank's rack,
+    with no failure and each rack failed, and its coded_encode launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.distributed.meshes import make_process_mesh
+    from repro_torch.kernels.coded_combine import ops
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_arch("qwen2-1.5b").reduced()
+    tc = tr.TrainConfig(n_microbatches=1, remat=True)
+    params = tree_to(tr.init_train_state(seed, cfg, tc, device="cpu")
+                     ["params"], dev)
+    batch = SyntheticPipeline(cfg, 12, 16, seed=seed, device=dev).batch_at(0)
+    mesh = make_process_mesh((TRAIN_PODS,), ("rack",), device=dev)
+    coded = tr.make_coded_batch_r2(batch, TRAIN_PODS)
+    out = {}
+    for failed in TRAIN_FAILED:
+        ops.reset_launch_counts()
+        g, loss = tr.coded_grads_r2(params, cfg, tc, coded, mesh,
+                                    failed=failed)
+        torch.cuda.synchronize()
+        out[failed] = ([x.cpu() for x in opt.tree_leaves(g)], float(loss),
+                       dict(ops.LAUNCHES), str(g["embed"].device))
+    return out
+
+
+def train_ranks_phase(torch, tr, opt, pipeline, run_ranks, get_arch, seed,
+                      smi):
+    """Phase 9 (e): ``coded_r2`` on four ranks (one a rack) on the card
+    over gloo, as phase 4c spawns them: every rank's gradient within 1e-5
+    of the single-process full-batch step's largest entry, with no failure
+    and with each rack failed, and one ``coded_encode`` launch per
+    destination rack."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = get_arch("qwen2-1.5b").reduced()
+        tc = tr.TrainConfig(n_microbatches=1, remat=True)
+        params = tree_to(tr.init_train_state(seed, cfg, tc, device="cpu")
+                         ["params"], "cuda")
+        batch = pipeline.SyntheticPipeline(cfg, 12, 16,
+                                           seed=seed).batch_at(0)
+        g_ref, l_ref = tr.accumulate_grads(params, cfg, tc, batch)
+        want = [x.cpu() for x in opt.tree_leaves(g_ref)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = max(float(w.abs().max()) for w in want)
+    t0 = time.perf_counter()
+    results = run_ranks(train_rank, TRAIN_PODS, backend="gloo",
+                        device="cuda", args=(seed,), timeout_s=600.0)
+    ranks_s = time.perf_counter() - t0
+    worst, launches = 0.0, dict.fromkeys(KERNELS, 0)
+    for rank, out in enumerate(results):
+        for failed in TRAIN_FAILED:
+            grads, loss, ln, where = out[failed]
+            err = max(float((a - w).abs().max())
+                      for a, w in zip(grads, want)) / scale
+            worst = max(worst, err)
+            check(err < 1e-5 and abs(loss - float(l_ref)) < 1e-5 * abs(
+                float(l_ref)) and where.startswith("cuda"),
+                  f"coded_r2 rank {rank} failed={failed}: gradient {err} "
+                  f"of max |grad|, loss {loss} vs {float(l_ref)}, on "
+                  f"{where}")
+            check(ln["coded_encode"] == TRAIN_PODS
+                  and not ln["coded_decode"],
+                  f"coded_r2 rank {rank} failed={failed}: launches {ln}, "
+                  f"want {TRAIN_PODS} coded_encode (one a destination)")
+            add_counts(launches, ln)
+    say(f"  train coded_r2: {TRAIN_PODS} ranks on the card over gloo, "
+        f"failed in {list(TRAIN_FAILED)}: every rank's gradient within "
+        f"{worst!r} of max |grad| of the full-batch step (limit 1e-5), one "
+        f"coded_encode a destination rack; launches {launches}; "
+        f"{ranks_s:.1f} s [{smi}]")
+    return {"pods": TRAIN_PODS, "failed": list(TRAIN_FAILED),
+            "worst_grad_rel_err": worst, "launches": launches,
+            "seconds": ranks_s}, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2896,9 +3540,12 @@ def main(argv=None) -> int:
     from repro_torch.distributed.launch import run_ranks
     from repro_torch.distributed.meshes import make_mesh
     from repro_torch.kernels import _build
+    from repro_torch.data import pipeline
     from repro_torch.kernels.coded_combine import ops, ref
+    from repro_torch.kernels.flash_attention import backward as fab
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv_scan import backward as rwb
     from repro_torch.kernels.rwkv_scan import ops as rw
     from repro_torch.kernels.rwkv_scan import ref as rw_ref
     from repro_torch.mapreduce import engine as eng
@@ -2910,6 +3557,8 @@ def main(argv=None) -> int:
     from repro_torch.resilience import faults
     from repro_torch.serve import engine as serve
     from repro_torch.sim import calibration as cal
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer as tr
 
     t_start = time.perf_counter()
     # ---- 1. device -------------------------------------------------------
@@ -2925,8 +3574,8 @@ def main(argv=None) -> int:
     name = torch.cuda.get_device_name(0)
     # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda m: m.build(), (ops, fa, rw)))
+    with ThreadPoolExecutor(5) as pool:
+        list(pool.map(lambda m: m.build(), (ops, fa, rw, fab, rwb)))
     build_s = time.perf_counter() - t0
     # an entry exists only if this process ran nvcc (else the library was
     # built earlier from the same sources and only loaded)
@@ -3066,6 +3715,39 @@ def main(argv=None) -> int:
     profile_main_rows(torch, ops, ref, to_profile, args.seed)
     say("phase kernels (device time): the main combine rows profiled")
 
+    # ---- 9. training ------------------------------------------------------
+    # (before 4d, for its profiles: see 4d)
+    t_train = time.perf_counter()
+    train_counts = Counts(torch, (ops, fa, rw, fab, rwb))
+    # (b) first: its profiled step is phase 9's first profiler session
+    full_info, full_launches = train_full_phase(
+        torch, tr, opt, pipeline, train_counts, ARCHS["qwen2-1.5b"],
+        args.seed, smi)
+    say(f"phase train (b): Qwen2-1.5B trains at full width, loss "
+        f"{full_info['losses'][0]!r} -> {full_info['losses'][-1]!r}; "
+        f"launches a step {full_launches} [{smi}]")
+    bwd_rows, bwd_main = backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref,
+                                        peaks, args.seed, smi)
+    say(f"phase train (a): {len(bwd_rows)} backward kernel cases match "
+        f"autograd through their plain versions, each bit for bit twice "
+        f"[{smi}]")
+    train_cmp_rows, train_cmp_launches = train_card_vs_cpu_phase(
+        torch, tr, opt, pipeline, train_counts, get_arch, args.seed, smi)
+    check({r["arch"] for r in train_cmp_rows} == set(ARCHS),
+          f"train card vs cpu covered every arch: {sorted(ARCHS)}")
+    say(f"phase train (c): a train step of all {len(ARCHS)} archs at "
+        f"reduced() (the MoE archs with both dispatches) on the card equals "
+        f"the CPU's; launches {train_cmp_launches} [{smi}]")
+    restart_info = train_restart_phase(run_ranks, args.seed, smi)
+    say(f"phase train (d): a preempted run resumed on the card is bit-"
+        f"identical to the uninterrupted one [{smi}]")
+    train_ranks_info, train_ranks_launches = train_ranks_phase(
+        torch, tr, opt, pipeline, run_ranks, get_arch, args.seed, smi)
+    train_s = time.perf_counter() - t_train
+    say(f"phase train (e): coded_r2 on {TRAIN_PODS} ranks equals the "
+        f"full-batch step under every single rack failure; phase train "
+        f"{train_s:.1f} s [{smi}]")
+
     # ---- 4d. Section IV: placement, the simulator, a placed job ---------
     # (after every other profile, and the Table I row before Table II: on
     # the card, profiles taken after this phase's million-odd eager
@@ -3106,7 +3788,10 @@ def main(argv=None) -> int:
                "ranks": ranks_launches, "placed": placed_launches,
                "scheduler": sched_launches,
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
-               "card_vs_cpu": cmp_launches}
+               "card_vs_cpu": cmp_launches,
+               "train qwen2-1.5b": full_launches,
+               "train card_vs_cpu": train_cmp_launches,
+               "train ranks": train_ranks_launches}
     # each kernel's main path: the fused engine for the linear pair, the
     # int32 hybrid_shuffle for the XOR pair, full-width serving for the LM
     # kernels
@@ -3244,6 +3929,36 @@ def main(argv=None) -> int:
                                    "decode_step": serving["hymba-1.5b"][
                                        "launches_per_decode_step"][kname]},
                                inclusive_rows=inclusive)
+    # the backward kernels: launches on the train path (the full-width
+    # Qwen2 step for flash; the reduced RWKV6 and Hymba steps of (c) for
+    # WKV, whose full width is not on it), numbers at (a)'s rows of that
+    # path (fp32, the training dtype)
+    bwd_path = {"flash_attention_backward": "train qwen2-1.5b",
+                "wkv_scan_backward": "train card_vs_cpu"}
+    bwd_row = {"flash_attention_backward": bwd_main[("qwen2_train",
+                                                     "float32")],
+               "wkv_scan_backward": bwd_main[("rwkv6_train", "float32")]}
+    for kname in BWD_KERNELS:
+        launches = by_path[bwd_path[kname]].get(kname, 0)
+        check(launches > 0, f"{kname} launched on its path "
+              f"({bwd_path[kname]}): {by_path}")
+        row = bwd_row[kname]
+        kernels.append({"name": kname, "route": "cuda",
+                        "source": BWD_SOURCES[kname],
+                        "replaces": BWD_REPLACES[kname],
+                        "launches": launches,
+                        "launches_by_path": {k: v.get(kname, 0)
+                                             for k, v in by_path.items()},
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"],
+                        "device_ms": row["device_ms"],
+                        "max_rel_err": row["max_rel_err"],
+                        "shape_case": row["case"],
+                        "note": "no Pallas counterpart: the JAX package "
+                                "differentiates its jnp formulation"})
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -3261,6 +3976,9 @@ def main(argv=None) -> int:
         "scheduler": sched_info,
         "lm_kernels": flash_rows + wkv_rows + ssm_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
+        "train": {"backward": bwd_rows, "full_width": full_info,
+                  "card_vs_cpu": train_cmp_rows, "restart": restart_info,
+                  "coded_r2": train_ranks_info, "phase_s": train_s},
         "seconds": time.perf_counter() - t_start}, indent=1))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -21,12 +21,13 @@ recoverable from its pair partners (:func:`coded_reduce_scatter_r2` with
 ``failed``).
 
 Where the JAX functions name an axis of the enclosing ``shard_map``, these
-take the mesh and the axis name.  The trainer's data-parallel modes wait
-for the port's training slice.
+take the mesh and the axis name.  The trainer's data-parallel modes
+(:mod:`repro_torch.train.trainer`) take the batch layouts of
+:func:`batch_pspec`.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -155,6 +156,31 @@ def uncoded_reduce_scatter(grad: torch.Tensor, mesh: ProcessMesh, axis: str,
     return psum_scatter(grad, mesh, axis)
 
 
+# ---------------------------------------------------------------------------
+# Batch layouts of the data-parallel modes (the JAX package's pjit-level
+# policies, over the port's ('rack', 'server') process mesh: its 'pod' is
+# the port's 'rack', its 'data' the port's 'server')
+# ---------------------------------------------------------------------------
+
+DP_MODES = ("dp_flat", "dp_hybrid_r2")
+
+
+def batch_pspec(mode: str, multi_pod: bool) -> Tuple[str, ...]:
+    """The mesh axes the token batch's leading dim is split over, in
+    order, under a DP sync mode (replicated over the others).
+
+    dp_flat      — split over every data-parallel axis.
+    dp_hybrid_r2 — replicated over 'rack' (the paper's map replication with
+                   r = P: every rack maps every chunk => zero cross-rack
+                   shuffle), split over 'server' only.
+    """
+    if mode not in DP_MODES:
+        raise ValueError(f"unknown DP mode {mode}")
+    if not multi_pod:
+        return ("server",)
+    return ("rack", "server") if mode == "dp_flat" else ("server",)
+
+
 def grad_sync_cost(G_bytes: float, P_: int, r: int, mode: str) -> dict:
     """Analytic slow-tier byte cost per rack of one gradient sync (for the
     roofline's collective term).  Receive-side accounting, point-to-point
@@ -174,4 +200,5 @@ def grad_sync_cost(G_bytes: float, P_: int, r: int, mode: str) -> dict:
 
 __all__ = ["hierarchical_allreduce", "chunk_index_table",
            "batch_chunk_for_rack", "coded_reduce_scatter_r2",
-           "uncoded_reduce_scatter", "grad_sync_cost"]
+           "uncoded_reduce_scatter", "DP_MODES", "batch_pspec",
+           "grad_sync_cost"]

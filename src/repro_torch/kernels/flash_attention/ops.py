@@ -30,6 +30,17 @@ strides and needs no padding or block sizes.  Query positions and the
 valid key count are runtime arguments (ints or tensors on the card), so a
 decode step reuses the same launch for every position.
 
+Under autograd (grad mode on and q, k or v requiring a gradient) a card
+call goes through :class:`FlashAttentionFn`: its forward is the same
+launch, its backward the hand-written backward kernel
+(:mod:`.backward`).  Only q, k, v and the output are saved, so a
+rematerialised layer recomputes the forward launch and nothing else.
+Without autograd (serving, ``torch.no_grad``, ``torch.inference_mode``) the
+launch is called directly, so the serving path pays nothing for the
+``Function``.  A gradient through ``kv_valid`` is not implemented: it
+raises.  On a CPU tensor the plain version is differentiable through
+ordinary autograd.
+
 ``LAUNCHES`` counts wrapper calls that launched (one per call, whichever
 route; ``split_kv`` runs two device kernels), ``ROUTE_CALLS`` the same calls
 by route, and ``PLAIN_CALLS`` calls that took the plain version (CPU
@@ -45,7 +56,7 @@ from typing import Dict, Optional, Union
 
 import torch
 
-from . import ref
+from . import backward, ref
 from .. import _build
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
@@ -159,6 +170,64 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                else torch.arange(q_offset, q_offset + Sq))
         return ref.attention_ref(q, k, v, pos, kv_valid, causal=causal,
                                  window=window)
+    return _card(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                 kv_valid=kv_valid, q_positions=q_positions)
+
+
+def takes_function(*tensors: torch.Tensor) -> bool:
+    """Whether a card call goes through the autograd ``Function``: grad
+    mode is on and some input requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+          causal: bool, window: Optional[int], q_offset: int,
+          kv_valid: Union[None, int, torch.Tensor],
+          q_positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """A card call: :class:`FlashAttentionFn` under autograd, else the
+    launch itself."""
+    if takes_function(q, k, v):
+        if kv_valid is not None:
+            raise NotImplementedError(
+                "flash_attention: no gradient through kv_valid (a KV "
+                "cache); call it under torch.no_grad() or without kv_valid")
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      q_positions)
+    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                   kv_valid=kv_valid, q_positions=q_positions)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The card's differentiable flash attention (every key valid): the
+    forward kernels, then :func:`.backward.flash_attention_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_positions):
+        out = _launch(q, k, v, causal=causal, window=window,
+                      q_offset=q_offset, kv_valid=None,
+                      q_positions=q_positions)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.args = (causal, window, q_offset, q_positions)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, q_offset, q_positions = ctx.args
+        dq, dk, dv = backward.flash_attention_backward(
+            q, k, v, out, dout, causal=causal, window=window,
+            q_offset=q_offset, q_positions=q_positions)
+        return dq, dk, dv, None, None, None, None
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool, window: Optional[int], q_offset: int,
+            kv_valid: Union[None, int, torch.Tensor],
+            q_positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """One forward launch on the card (see :func:`flash_attention`)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention: q, k, v must share one CUDA "
                          f"device (or the CPU), got {dev}, {k.device}, "

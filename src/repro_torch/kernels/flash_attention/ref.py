@@ -7,7 +7,8 @@ valid lengths: it is what :func:`..ops.flash_attention` runs for a CPU
 tensor, and what the CUDA kernels are held against on the card.
 ``attention_split_ref`` computes it the way the split-kv decode kernel
 does (per-chunk partials, then a merge in chunk order); the card holds the
-decode kernel against it too.
+decode kernel against it too.  ``attention_backward_ref`` is autograd
+through ``attention_ref``: the plain version of the backward kernel.
 """
 from __future__ import annotations
 
@@ -131,3 +132,17 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         num = num + e[..., None] * acc
     out = num / torch.clamp(den, min=1e-30)[..., None]
     return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, dout: torch.Tensor,
+                           q_positions: torch.Tensor, *, causal: bool = True,
+                           window: Optional[int] = None):
+    """(dq, dk, dv) of :func:`attention_ref` (every key valid) for the
+    gradient ``dout`` of its output: autograd through the plain version, on
+    the inputs' device.  What the backward kernel is held against."""
+    with torch.enable_grad():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = attention_ref(qq, kk, vv, q_positions, None, causal=causal,
+                            window=window)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)

@@ -24,6 +24,15 @@ chunk is masked in the kernel); the JAX wrapper transposes to ``[B*h, S,
 N]`` and pads S for the Pallas grid.  ``chunk`` only sets the CPU plain
 version's chunk length.
 
+Under autograd (grad mode on and r, k, v, log_w or u requiring a gradient)
+a card call goes through :class:`WkvScanFn`: its forward is the same
+launch, its backward the hand-written backward kernel (:mod:`.backward`).
+Without autograd (serving, ``torch.no_grad``, ``torch.inference_mode``) the
+launch is called directly.  A gradient into ``initial_state`` or out of the
+final state is not implemented: the first raises when the call is made,
+the second when the backward reaches it.  On a CPU tensor the plain version
+is differentiable through ordinary autograd.
+
 ``LAUNCHES`` counts kernel launches (one per call, whichever route),
 ``ROUTE_CALLS`` the same calls by route, and ``PLAIN_CALLS`` calls that
 took the plain version (CPU tensors); :func:`reset_launch_counts` zeroes
@@ -38,6 +47,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from . import backward
 from .. import _build
 from ...models.linrec import chunked_linear_recurrence
 
@@ -128,6 +138,61 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             r, k, v, log_w, u=u, initial_state=initial_state, mode="rwkv",
             chunk=chunk, return_state=True)
         return out, sT
+    return _card(r, k, v, log_w, u, initial_state)
+
+
+def takes_function(*tensors: torch.Tensor) -> bool:
+    """Whether a card call goes through the autograd ``Function``: grad
+    mode is on and some input requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _card(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          log_w: torch.Tensor, u: torch.Tensor,
+          initial_state: Optional[torch.Tensor],
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A card call: :class:`WkvScanFn` under autograd, else the launch
+    itself."""
+    if takes_function(r, k, v, log_w, u, *(() if initial_state is None
+                                           else (initial_state,))):
+        if initial_state is not None:
+            raise NotImplementedError(
+                "wkv_scan: no gradient with an initial state (streaming "
+                "state); call it under torch.no_grad() or without one")
+        return WkvScanFn.apply(r, k, v, log_w, u)
+    return _launch(r, k, v, log_w, u, initial_state)
+
+
+class WkvScanFn(torch.autograd.Function):
+    """The card's differentiable WKV scan (zero initial state): the forward
+    kernels, then :func:`.backward.wkv_scan_backward`.  A gradient reaching
+    the final state raises."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u):
+        ctx.set_materialize_grads(False)
+        out, sT = _launch(r, k, v, log_w, u, None)
+        ctx.save_for_backward(r, k, v, log_w, u)
+        return out, sT
+
+    @staticmethod
+    def backward(ctx, dout, dsT):
+        if dsT is not None:
+            raise NotImplementedError(
+                "wkv_scan: no gradient out of the final state")
+        if dout is None:
+            return None, None, None, None, None
+        r, k, v, log_w, u = ctx.saved_tensors
+        return backward.wkv_scan_backward(r, k, v, log_w, u, dout)
+
+
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            log_w: torch.Tensor, u: torch.Tensor,
+            initial_state: Optional[torch.Tensor],
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One forward launch on the card (see :func:`wkv_scan`)."""
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
     tensors = (r, k, v, log_w, u) + (() if initial_state is None
                                      else (initial_state,))
     if r.device.type != "cuda" or any(x.device != r.device for x in tensors):

@@ -2,7 +2,8 @@
 the chunked linear recurrence of :mod:`repro_torch.models.linrec` over the
 Pallas kernel's layout (the port of ``repro/kernels/rwkv_scan/ref.py``),
 and :func:`wkv_subchunk_ref`, the algorithm of the ``tensor_core`` route in
-model layout."""
+model layout; :func:`wkv_backward_ref`, autograd through the chunked
+recurrence, is the plain version of the backward kernel."""
 from __future__ import annotations
 
 from typing import Optional
@@ -120,3 +121,17 @@ def wkv_subchunk_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.stack(outs, 1)                      # [B, nc, h, chunk, Nv]
     out = out.transpose(2, 3).reshape(B, nc * chunk, h, Nv)[:, :S]
     return out.to(r.dtype), state
+
+
+def wkv_backward_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     log_w: torch.Tensor, u: torch.Tensor,
+                     dout: torch.Tensor, *, chunk: int = 64):
+    """(dr, dk, dv, dlog_w, du) of the WKV scan in model layout (zero
+    initial state, final state unused) for the gradient ``dout`` of its
+    output: autograd through :func:`chunked_linear_recurrence` in mode
+    'rwkv' on the inputs' device."""
+    with torch.enable_grad():
+        xs = [x.detach().requires_grad_() for x in (r, k, v, log_w, u)]
+        out, _ = chunked_linear_recurrence(*xs[:4], u=xs[4], mode="rwkv",
+                                           chunk=chunk)
+        return torch.autograd.grad(out, xs, dout)

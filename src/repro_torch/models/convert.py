@@ -65,3 +65,56 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
         else:
             out[name] = _convert(sub, dev, dtype)
     return out
+
+
+def _np_dtype(a) -> torch.dtype:
+    a = np.asarray(a)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+        return torch.bfloat16
+    return torch.from_numpy(np.zeros((), a.dtype)).dtype
+
+
+def _stacked_groups(cfg: ArchConfig) -> Dict[str, int]:
+    groups = {f"group{gi}": g.count
+              for gi, g in enumerate(layer_groups(cfg))}
+    if cfg.family == "encdec":
+        groups["encoder"] = cfg.encoder_layers
+    return groups
+
+
+def _split_like_params(np_tree: Mapping[str, Any], cfg: ArchConfig,
+                       dev: torch.device) -> Dict:
+    """A params-shaped tree (AdamW's m or v) in each leaf's own dtype,
+    layer stacks split on their leading [L] axis."""
+    def conv(tree):
+        if isinstance(tree, Mapping):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, dev, _np_dtype(tree))
+    groups = _stacked_groups(cfg)
+    return {name: ([conv(_layer(sub, i)) for i in range(groups[name])]
+                   if name in groups else conv(sub))
+            for name, sub in np_tree.items()}
+
+
+def train_state_from_jax(np_state: Mapping[str, Any], cfg: ArchConfig,
+                         device: DeviceLike = None,
+                         dtype: torch.dtype = torch.float32) -> Dict:
+    """The port's train state ({"params", "opt", "step"}, as
+    :func:`repro_torch.train.trainer.init_train_state` makes it) from a
+    JAX train state of numpy arrays: params as :func:`params_from_jax`
+    carries them (in ``dtype``), AdamW's m and v split per layer in their
+    own dtype, Adafactor's vr / vc / v as stacked fp32 tensors, ``count``
+    and ``step`` as int32 scalars; on ``device`` (default: the CUDA card;
+    raises without one)."""
+    dev = resolve_device(device)
+    scalar = lambda x: torch.tensor(int(np.asarray(x)), dtype=torch.int32,
+                                    device=dev)
+    opt = np_state["opt"]
+    if "v" in opt:                                        # AdamW
+        new_opt = {"m": _split_like_params(opt["m"], cfg, dev),
+                   "v": _split_like_params(opt["v"], cfg, dev)}
+    else:                                                 # Adafactor
+        new_opt = {"m": _convert(opt["m"], dev, torch.float32)}
+    new_opt["count"] = scalar(opt["count"])
+    return {"params": params_from_jax(np_state["params"], cfg, dev, dtype),
+            "opt": new_opt, "step": scalar(np_state["step"])}

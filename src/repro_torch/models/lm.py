@@ -11,7 +11,7 @@ families:
   encdec   bidirectional enc + causal dec w/ cross-attn, gelu mlp   whisper
 
 Parameters are a dict: ``embed``, ``group<i>`` (a list of per-layer dicts,
-one per layer of the stack, applied in a Python loop: no scan, no remat),
+one per layer of the stack, applied in a Python loop: no scan),
 the final norm (plus ``in_norm`` for RWKV, ``encoder`` and ``enc_norm``
 for enc-dec) and ``lm_head`` when the embedding is not tied.  Weights are
 ``[d_in, d_out]`` and used as ``x @ W``, as the JAX package lays them out,
@@ -37,6 +37,15 @@ a cache passed to :func:`prefill` or :func:`decode_step` is the one
 returned.  :func:`forward` returns the MoE load-balance loss summed over
 layers; :func:`prefill` and :func:`decode_step` do not compute it (the
 JAX package discards it there).
+
+Training: :func:`lm_loss` is the next-token cross-entropy of the JAX
+package.  ``forward(remat=True)`` checkpoints each layer
+(``torch.utils.checkpoint``, non-reentrant: a layer's activations are
+recomputed in the backward pass, and on the card its kernels launch again);
+``remat_blocks=n`` adds the JAX package's second level, a checkpoint around
+each block of ``L / n`` layers.  ``scan_layers`` and ``unroll_scans`` are
+accepted for the JAX signature and have no effect: the layers already run
+in a Python loop.
 """
 from __future__ import annotations
 
@@ -44,6 +53,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..distributed.meshes import DeviceLike, resolve_device
@@ -403,8 +413,8 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 # Forward pass
 # ---------------------------------------------------------------------------
 
-def encode(params: Dict, cfg: ArchConfig,
-           enc_frames: torch.Tensor) -> torch.Tensor:
+def encode(params: Dict, cfg: ArchConfig, enc_frames: torch.Tensor, *,
+           remat: bool = False, remat_blocks: int = 1) -> torch.Tensor:
     """Whisper encoder: frame embeddings [B, S_enc, D] -> enc_out.  The
     frames are cast to the weights' dtype first (JAX would promote the
     weights instead; the same where the dtypes agree)."""
@@ -412,10 +422,55 @@ def encode(params: Dict, cfg: ArchConfig,
     Senc = x.shape[1]
     x = x + sinusoidal_positions(Senc, cfg.d_model, x.device).to(x.dtype)
     pos = torch.arange(Senc, device=x.device)
-    for layer_p in params["encoder"]:
-        x, _, _ = apply_layer("enc", layer_p, cfg, x, pos)
+    x, _ = _apply_stack(params["encoder"], "enc", cfg, x, pos,
+                        remat=remat, remat_blocks=remat_blocks)
     return layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"],
                       cfg.norm_eps)
+
+
+def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
+                 x: torch.Tensor, positions: torch.Tensor, *,
+                 caches: Optional[List[Dict]] = None,
+                 cache_index: Optional[int] = None,
+                 enc_out: Optional[torch.Tensor] = None,
+                 mixer_chunk: int = 64, dense_moe: bool = False,
+                 moe_groups: int = 1, with_aux: bool = False,
+                 remat: bool = False, remat_blocks: int = 1,
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One homogeneous stack of layers: (x, the MoE aux loss summed over
+    its layers, or None).  ``remat`` checkpoints each layer (no cache);
+    with ``remat_blocks`` > 1 dividing the layer count, each block of
+    layers is checkpointed around its checkpointed layers, the JAX
+    package's two-level remat (``lm.py``'s outer scan over layer blocks)."""
+    def layer(li: int, x: torch.Tensor):
+        x, _, a = apply_layer(kind, layers[li], cfg, x, positions,
+                              cache=caches[li] if caches else None,
+                              cache_index=cache_index, enc_out=enc_out,
+                              mixer_chunk=mixer_chunk, dense_moe=dense_moe,
+                              moe_groups=moe_groups, with_aux=with_aux)
+        return x, a
+
+    def run(lis, x):
+        aux = None
+        for li in lis:
+            x, a = (checkpoint(layer, li, x, use_reentrant=False) if remat
+                    else layer(li, x))
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
+
+    n = len(layers)
+    if remat and caches:
+        raise ValueError("remat runs without a cache (training forward)")
+    if not (remat and remat_blocks > 1 and n % remat_blocks == 0):
+        return run(range(n), x)
+    inner, aux = n // remat_blocks, None
+    for blk in range(remat_blocks):
+        x, a = checkpoint(run, range(blk * inner, (blk + 1) * inner), x,
+                          use_reentrant=False)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
 
 
 def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
@@ -424,7 +479,8 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
            prefix_embeds: Optional[torch.Tensor] = None,
            enc_out: Optional[torch.Tensor] = None,
            dense_moe: bool = False, moe_groups: int = 1,
-           with_aux: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+           with_aux: bool = False, remat: bool = False,
+           remat_blocks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedding (after the prefix, if any), every layer and the final
     norm: [B, S] -> ([B, n_front + S, D], the MoE aux loss summed over
     layers, 0 unless ``with_aux``)."""
@@ -441,17 +497,15 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     if cfg.family == "encdec":
         x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
     for gi, g in enumerate(layer_groups(cfg)):
-        layers = params[f"group{gi}"]
-        caches = cache[f"group{gi}"] if cache is not None else None
-        for li, layer_p in enumerate(layers):
-            x, _, a = apply_layer(g.kind, layer_p, cfg, x, positions,
-                                  cache=caches[li] if caches else None,
-                                  cache_index=cache_index, enc_out=enc_out,
-                                  mixer_chunk=mixer_chunk,
-                                  dense_moe=dense_moe, moe_groups=moe_groups,
-                                  with_aux=with_aux)
-            if a is not None:
-                aux = aux + a
+        x, a = _apply_stack(params[f"group{gi}"], g.kind, cfg, x, positions,
+                            caches=(cache[f"group{gi}"] if cache is not None
+                                    else None),
+                            cache_index=cache_index, enc_out=enc_out,
+                            mixer_chunk=mixer_chunk, dense_moe=dense_moe,
+                            moe_groups=moe_groups, with_aux=with_aux,
+                            remat=remat, remat_blocks=remat_blocks)
+        if a is not None:
+            aux = aux + a
     fn = params["final_norm"]
     if isinstance(fn, dict):
         return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps), aux
@@ -477,25 +531,66 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
             enc_frames: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
             cache: Optional[Dict] = None, cache_index: Optional[int] = None,
+            scan_layers: bool = True, remat: bool = False,
             mixer_chunk: int = 64, dense_moe: bool = False,
-            logits_f32: bool = False, moe_groups: int = 1,
+            logits_f32: bool = False, unroll_scans: bool = False,
+            remat_blocks: int = 1, moe_groups: int = 1,
             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Full forward. tokens: [B, S_text].
 
     prefix_embeds (vlm): [B, n_front, D] prepended before the token stream.
     enc_frames (encdec): [B, S_enc, D] stub frontend output (without a
     cache; with one, the decoder reads the cross keys prefill stored).
+    ``remat`` / ``remat_blocks``: see the module docstring (no cache);
+    ``scan_layers`` and ``unroll_scans`` have no effect.
     Returns (logits [B, n_front + S_text, V], cache, MoE aux loss summed
     over layers: 0 for a model without MoE)."""
     enc_out = None
     if cfg.family == "encdec" and cache is None:
         _need_frames(cfg, enc_frames)
-        enc_out = encode(params, cfg, enc_frames)
+        enc_out = encode(params, cfg, enc_frames, remat=remat,
+                         remat_blocks=remat_blocks)
     x, aux = _trunk(params, cfg, tokens, positions, cache, cache_index,
                     mixer_chunk, prefix_embeds=prefix_embeds,
                     enc_out=enc_out, dense_moe=dense_moe,
-                    moe_groups=moe_groups, with_aux=True)
+                    moe_groups=moe_groups, with_aux=True, remat=remat,
+                    remat_blocks=remat_blocks)
     return _head(params, cfg, x, logits_f32), cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
+            *, aux_coef: float = 0.01, scan_layers: bool = True,
+            remat: bool = False, dense_moe: bool = False,
+            mixer_chunk: int = 64, unroll_scans: bool = False,
+            remat_blocks: int = 1, moe_groups: int = 1,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy in fp32 over the text positions (a VLM's
+    prefix positions carry no loss), weighted by ``loss_mask``, plus
+    ``aux_coef`` times the MoE load-balance loss.  batch: tokens [B, S],
+    targets [B, S], loss_mask [B, S] (+ prefix_embeds / enc_frames per
+    family).  Returns (loss, {"ce_loss", "moe_aux"})."""
+    logits, _, aux = forward(
+        params, cfg, batch["tokens"],
+        prefix_embeds=batch.get("prefix_embeds"),
+        enc_frames=batch.get("enc_frames"), remat=remat,
+        dense_moe=dense_moe, mixer_chunk=mixer_chunk,
+        remat_blocks=remat_blocks, moe_groups=moe_groups)
+    targets = batch["targets"]
+    npad = logits.shape[1] - targets.shape[1]
+    if npad:                                   # vlm prefix positions: no loss
+        logits = logits[:, npad:]
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - tgt
+    mask = batch.get("loss_mask")
+    mask = torch.ones_like(nll) if mask is None else mask.float()
+    loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss + aux_coef * aux, {"ce_loss": loss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
