@@ -17,8 +17,10 @@ hymba-1.5b, 8 slots x 2,560-token prompts past its 2,048 window (a
 2,048-slot ring); whisper-large-v3, 8 slots x (1,500 stub frames, 416 +
 32 decoder tokens: its 448-token context); and llava-next-34b at full
 width and depth, 2 slots x (2,880 stub patch embeddings + 256 tokens),
-with its fp32 check cut to 12 of its 60 layers.  qwen2-72b and
-llama3-405b fit no card and run at ``reduced()`` (phase 7).  Training
+with its fp32 check cut to 12 of its 60 layers.  qwen2-72b fits no card
+whole: phase 10 runs it at full width, cut in depth, sharded over four
+ranks on the one card (tensor parallelism); llama3-405b runs at
+``reduced()`` (phase 7).  Training
 (phase 9): Qwen2-1.5B at full width in fp32 (AdamW, 8 x 2,048 tokens of
 the port's synthetic pipeline, two microbatches, remat), weights drawn on
 the card from ``--seed``; all ten archs at ``reduced()``.
@@ -139,7 +141,10 @@ Phases, one printed line each (plus detail lines):
               profiled): Hymba's windowed prefill and ring decode,
               Whisper's encoder (one query head per kv head, 1,500 keys off
               the 64-key tile), cross prefill and cross decode, LLaVA's
-              prefill.  Hymba's SSM scan (``ssm_scan_phase``): the
+              prefill.  Phase 10's local heads (``TP_TAGS``: G = 8, the
+              bf16 4 x 1,024 prefill, its last decode step over 1,056
+              slots and the fp32 2 x 256 check, each dtype on the route
+              ``TP_ROUTE`` names).  Hymba's SSM scan (``ssm_scan_phase``): the
               inclusive identity on the WKV ``step`` kernel against the
               plain inclusive recurrence at its prefill and decode shapes.
 6. serve    — per arch of ``SERVE_CASES``: ``generate`` (after a warm-up
@@ -197,6 +202,38 @@ Phases, one printed line each (plus detail lines):
               (e) ``coded_r2`` on four ranks over gloo on the card,
               gradients within 1e-5 of the full-batch step under every
               single rack failure.
+10. tp      — after 4e: tensor parallelism over four ranks on the card
+              (gloo, spawned once; NCCL refuses two ranks on one
+              device), each drawing its shards of the weights from
+              ``--seed`` one leaf at a time.  (a) qwen2-72b at full width,
+              2 of 80 layers, fp32, (data 1, model 4) under
+              ``default_rules(fsdp=False)``: 2 slots x 256-token prompts,
+              ``prefill`` and 8 greedy ``decode_step``s, then
+              ``ServeEngine.generate``: logits within 1e-4 of the largest
+              |logit| of the unsharded run on the card (this process,
+              before the spawn), the same greedy tokens on every rank,
+              each rank's weight bytes equal to the local bytes of
+              ``param_pspecs``, and each rank's flash launches by route
+              (fp32 prefill on ``cuda_core``, decode on ``split_kv``).
+              (b) the same at 8 of 80 layers in bf16, 4 slots x
+              1,024-token prompts + 32 new tokens: time to first token,
+              decode ms a step, tokens/s (the slowest rank's host walls),
+              each rank's peak memory, spawn to rendezvous, the device
+              bounds of the prefill and a decode step, and the share of
+              the prefill and of the decode steps spent in the model-axis
+              collectives (the largest over ranks; host clock, a
+              synchronisation around each collective and each model call,
+              in a run of its own); the routes (bf16 prefill on
+              ``tensor_core`` at 8 query heads a kv head, decode on
+              ``split_kv``); greedy agreement with the unsharded bf16 run
+              printed, not gated.  Gloo on one card, not NCCL.  (c)
+              reduced qwen2-72b (kv heads duplicated at model 4), one
+              AdamW step on (data 2, model 2) and on (data 1, model 4)
+              with sequence TP: loss and clipping norm within 1e-5 of the
+              unsharded full-batch step's, each gathered gradient leaf
+              within 1e-4 of its largest entry, the gathered parameters
+              within 1e-6 of each leaf's largest of the unsharded AdamW
+              fed that gradient.
 8. kernels line — one JSON object with all eight kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -238,7 +275,9 @@ backward kernels (the full-width Qwen2-1.5B step for flash, phase 9 (c)'s
 reduced steps for WKV); the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
 (phase 4d) and ``scheduler`` path (phase 4e's coded/kernel conformance
-cells) must launch too.
+cells) must launch too, and the ``tp`` path (phase 10, summed over its
+ranks: the ``generate`` of (a) and (b) and the steps of (c)) launches
+flash forward and backward.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -2213,7 +2252,14 @@ FLASH_CASES = [
     ("whisper_cross_prefill", 8, 416, 1500, 20, 20, 64, False, 0, None,
      None),
     ("whisper_cross_decode", 8, 1, 1500, 20, 20, 64, False, 0, None, None),
-    ("llava_prefill", 2, 3136, 3168, 56, 8, 128, True, 0, 3136, None)]
+    ("llava_prefill", 2, 3136, 3168, 56, 8, 128, True, 0, 3136, None),
+    # phase 10's local heads (qwen2-72b at model 4: 16 query heads on 2 kv
+    # heads, G = 8): (b)'s 4 x 1,024 prefill into its 1,056-long cache and
+    # its last decode step (position 1,054), (a)'s fp32 2 x 256 prefill
+    # into a 264-long cache
+    ("tp_prefill", 4, 1024, 1056, 16, 2, 128, True, 0, 1024, None),
+    ("tp_decode", 4, 1, 1056, 16, 2, 128, True, 1054, 1055, None),
+    ("tp_check", 2, 256, 264, 16, 2, 128, True, 0, 256, None)]
 FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
                "whisper_cross_prefill", "whisper_cross_decode",
                "llava_prefill")
@@ -2226,6 +2272,14 @@ FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
                 "whisper_cross_prefill": "tensor_core",
                 "whisper_cross_decode": "split_kv",
                 "llava_prefill": "tensor_core"}
+# the routes of phase 10's shapes, by dtype
+TP_TAGS = ("tp_prefill", "tp_decode", "tp_check")
+TP_ROUTE = {("tp_prefill", "bfloat16"): "tensor_core",
+            ("tp_prefill", "float32"): "cuda_core",
+            ("tp_decode", "bfloat16"): "split_kv",
+            ("tp_decode", "float32"): "split_kv",
+            ("tp_check", "bfloat16"): "tensor_core",
+            ("tp_check", "float32"): "cuda_core"}
 # the route a head dim over 128 takes: never the tensor cores
 LARGE_HD_ROUTE = {"mla_prefill": "cuda_core", "mla_decode": "split_kv",
                   "mla_decode_per_batch": "split_kv",
@@ -2284,12 +2338,15 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                   or route == FAMILY_ROUTE[tag],
                   f"flash {tag}: route {route}, expected "
                   f"{FAMILY_ROUTE.get(tag)}")
+            dname = str(dtype).replace("torch.", "")
+            check(TP_ROUTE.get((tag, dname), route) == route,
+                  f"flash {tag} {dname}: route {route}, expected "
+                  f"{TP_ROUTE.get((tag, dname))}")
             want = fa_ref.attention_ref(q, k, v, pos, valid, causal=causal,
                                         window=window)
             tol = 2e-5 if dtype == torch.float32 else 2e-2
             torch.testing.assert_close(out, want, rtol=tol, atol=tol)
             err = float((out.float() - want.float()).abs().max().item())
-            dname = str(dtype).replace("torch.", "")
             if route == "split_kv":
                 split = fa_ref.attention_split_ref(
                     q, k, v, pos, valid, causal=causal, window=window,
@@ -3515,6 +3572,463 @@ def train_ranks_phase(torch, tr, opt, pipeline, run_ranks, get_arch, seed,
             "seconds": ranks_s}, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: tensor parallelism (qwen2-72b at full width on four ranks)
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+TP_ARCH = "qwen2-72b"
+# (layers of 80, dtype, slots, prompt tokens, new tokens)
+TP_CHECK = (2, "float32", 2, 256, 8)
+TP_TIMED = (8, "bfloat16", 4, 1024, 32)
+# fp32 logits against the unsharded run, of the largest |logit|: the
+# row-split products (wo, w2, the head) sum in rank order
+TP_LOGIT_TOL = 1e-4
+# (c): reduced qwen2-72b (8 query heads on 2 kv heads: duplicated at
+# model 4), (data, model) and sequence TP, a batch of 8 x 64
+TP_TRAIN = (((2, 2), False), ((1, 4), True))
+TP_TRAIN_BATCH = (8, 64)
+# the loss relative; each gradient leaf against its own largest entry (as
+# phase 9 (c)); each updated parameter against the leaf's largest, of the
+# unsharded AdamW fed the gathered gradient (the sharded clipping norm
+# sums in another order: an ulp of p)
+TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-5, 1e-4, 1e-6
+
+
+def tp_config(get_arch, layers: int):
+    """qwen2-72b at full width, cut to ``layers`` of its 80."""
+    return dataclasses.replace(get_arch(TP_ARCH), n_layers=layers)
+
+
+def tp_prompts(np, cfg, slots: int, length: int, seed: int):
+    return np.random.default_rng(seed + 1010).integers(
+        0, cfg.vocab_size, (slots, length)).astype(np.int32)
+
+
+def tp_train_config(tr, opt):
+    return tr.TrainConfig(n_microbatches=1, remat=True,
+                          opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                  decay_steps=50))
+
+
+def tp_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
+    """The least device time (ms, and "bytes" or "operations") of (b)'s
+    bf16 prefill and of its mean decode step on the one card that holds
+    all four ranks: the bytes it must move (each layer weight and the head
+    read once, the rows of the embedding table it looks up, the cache read
+    and written) over the HBM rate, or its FLOPs (the 2-D weights', the
+    head on the last position at prefill, attention on the visible pairs)
+    over the bf16 tensor-core rate, whichever is larger."""
+    meta = lm.init_params(0, cfg, torch.bfloat16, device="meta")
+    trunk = lm.leaves(meta["group0"]) + [meta["final_norm"]]
+    head = meta["embed" if cfg.tie_embeddings else "lm_head"].numel()
+    w_bytes = 2 * (sum(x.numel() for x in trunk) + head)
+    w_flops = 2 * sum(x.numel() for x in trunk if x.dim() == 2)
+    H, hd, d, L = cfg.n_heads, cfg.head_dim, cfg.d_model, cfg.n_layers
+    kv_tok = 2 * 2 * cfg.n_kv_heads * hd * L          # bf16 k and v bytes
+    tokens = slots * plen
+    pre = bound(peaks, w_bytes + tokens * (2 * d + kv_tok),
+                w_flops * tokens + 2 * head * slots
+                + 4 * hd * H * L * slots * plen * (plen + 1) / 2,
+                "bfloat16")
+    # decode step i (of new - 1) reads plen + i + 1 cached positions
+    keys = plen + new / 2
+    step = bound(peaks, w_bytes + slots * (2 * d + kv_tok * (keys + 1)),
+                 (w_flops + 2 * head) * slots + 4 * hd * H * L * slots * keys,
+                 "bfloat16")
+    return pre, step
+
+
+def tp_greedy(torch, lm, params, cfg, prompts, new: int, dtype, dev):
+    """``prefill`` then ``new`` greedy ``decode_step``s: the logits of each
+    (fp32, on the CPU, [new + 1, B, V]) and the tokens [new + 1, B]."""
+    with torch.inference_mode():
+        B, L = prompts.shape
+        cache = lm.init_cache(cfg, B, L + new, dtype, device=dev)
+        lg, cache = lm.prefill(params, cfg, torch.as_tensor(
+            prompts, device=dev).long(), cache)
+        steps, toks = [lg.float().cpu()], [lg.argmax(-1)]
+        for i in range(new):
+            lg, cache = lm.decode_step(params, cfg, toks[-1], cache, L + i)
+            steps.append(lg.float().cpu())
+            toks.append(lg.argmax(-1))
+        return torch.stack(steps), torch.stack(toks).cpu()
+
+
+class _CollectiveClock:
+    """Host seconds in the model's collectives, by the model call they run
+    in (``lm.prefill`` or ``lm.decode_step``), beside those calls' own
+    walls, so each share is read within one run: every model call and
+    every outermost collective call (``psum`` calls ``all_gather``) is
+    timed between two device synchronisations."""
+
+    NAMES = ("all_gather", "psum", "psum_scatter", "all_to_all")
+    CALLS = ("prefill", "decode_step")
+
+    def __init__(self, torch, col, lm):
+        self.torch, self.lm, self.call, self.depth = torch, lm, None, 0
+        self.wall = dict.fromkeys(self.CALLS, 0.0)
+        self.coll = dict.fromkeys(self.CALLS, 0.0)
+        self.saved = ([(col, n, getattr(col, n)) for n in self.NAMES]
+                      + [(lm, n, getattr(lm, n)) for n in self.CALLS])
+
+    def __enter__(self):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._model(name, fn) if mod is self.lm
+                    else self._collective(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+    def share(self, call: str) -> float:
+        return self.coll[call] / self.wall[call]
+
+    def _model(self, name, fn):
+        def timed(*args, **kwargs):
+            self.torch.cuda.synchronize()
+            t0, self.call = time.perf_counter(), name
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.torch.cuda.synchronize()
+                self.wall[name] += time.perf_counter() - t0
+                self.call = None
+        return timed
+
+    def _collective(self, fn):
+        def timed(*args, **kwargs):
+            if self.depth or self.call is None:
+                return fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.depth += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.depth -= 1
+                self.torch.cuda.synchronize()
+                self.coll[self.call] += time.perf_counter() - t0
+        return timed
+
+
+def tp_rank(dev, seed: int, t_spawn: float):
+    """What each of phase 10's ranks runs (module level: the ranks import
+    it by name), on a ('data', 'model') process mesh over the four ranks:
+    (a) the fp32 check, (b) the timed bf16 serving, (c) the train steps.
+    Returns CPU tensors and numbers."""
+    t_enter = time.time()
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.distributed.meshes import make_process_mesh
+    from repro_torch.kernels.flash_attention import backward as fab
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as serve
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer as tr
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = Counts(torch, (fa, fab))
+    mesh = make_process_mesh((1, TP_RANKS), ("data", "model"), device=dev)
+    pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
+    out = {"rank": mesh.rank, "spawn_to_rendezvous_s": t_enter - t_spawn,
+           "device": str(dev)}
+
+    # (a) the fp32 check at 2 layers
+    layers, dtype, slots, plen, new = TP_CHECK
+    cfg = tp_config(get_arch, layers)
+    prompts = tp_prompts(np, cfg, slots, plen, seed)
+    params = tpl.init_shard_params(seed, cfg, pol, torch.float32,
+                                   device=dev)
+    meta = lm.init_params(0, cfg, torch.float32, device="meta")
+    out["weight_bytes"] = tpl.local_bytes(params)
+    out["spec_bytes"] = sh.tree_local_bytes(
+        meta, sh.param_pspecs(meta, pol), mesh)
+    with sh.use_policy(pol):
+        (steps, toks), launches, plain = counts(lambda: tp_greedy(
+            torch, lm, params, cfg, prompts, new, torch.float32, dev))
+        out["check_routes"] = dict(counts.routes["flash_attention"])
+        out["check_plain"] = plain
+        eng = serve.ServeEngine(cfg, params, slots, plen + new,
+                                torch.float32, device=dev)
+        gen, gen_launches, _ = counts(lambda: eng.generate(prompts, new))
+        out["check_generate_routes"] = dict(
+            counts.routes["flash_attention"])
+    out.update(check_logits=steps, check_tokens=toks,
+               check_generate=gen, launches={"a": gen_launches})
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # (b) timed bf16 serving at 8 layers
+    layers, dtype, slots, plen, new = TP_TIMED
+    cfg = tp_config(get_arch, layers)
+    prompts = tp_prompts(np, cfg, slots, plen, seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = tpl.init_shard_params(seed, cfg, pol, torch.bfloat16,
+                                   device=dev)
+    out["timed_weight_bytes"] = tpl.local_bytes(params)
+    with sh.use_policy(pol):
+        eng = serve.ServeEngine(cfg, params, slots, plen + new,
+                                torch.bfloat16, device=dev)
+        eng.generate(prompts, 2)                          # warm-up
+        _, ttft_ms = wall(torch, lambda: eng.generate(prompts, 1))
+        (gen, t_ms), launches, plain = counts(
+            lambda: wall(torch, lambda: eng.generate(prompts, new)))
+        out["timed_routes"] = dict(counts.routes["flash_attention"])
+        out["timed_plain"] = plain
+        with _CollectiveClock(torch, col, lm) as clock:
+            eng.generate(prompts, 8)
+    out.update(timed_tokens=gen, ttft_ms=ttft_ms, generate_ms=t_ms,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               collective_share={c: clock.share(c) for c in clock.CALLS})
+    out["launches"]["b"] = launches
+    del params, eng
+    torch.cuda.empty_cache()
+
+    # (c) one AdamW step of reduced qwen2-72b per mesh
+    cfg = get_arch(TP_ARCH).reduced()
+    tc = tp_train_config(tr, opt)
+    full = tr.init_train_state(seed, cfg, tc, device=dev)["params"]
+    batch = SyntheticPipeline(cfg, *TP_TRAIN_BATCH, seed=seed,
+                              device=dev).batch_at(0)
+    out["train"] = {}
+    for shape, seq in TP_TRAIN:
+        tmesh = make_process_mesh(shape, ("data", "model"), device=dev)
+        rules = sh.default_rules(False, fsdp=False)
+        tpol = sh.ShardingPolicy(tmesh, sh.with_sequence_tp(rules)
+                                 if seq else rules)
+        local = opt.tree_map(lambda x: x.clone(),
+                             tpl.shard_params(full, cfg, tpol))
+        state = {"params": local, "opt": opt.init_opt_state(local, tc.opt),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        with sh.use_policy(tpol):
+            (new_state, m), launches, plain = counts(
+                lambda: tr.make_train_step(cfg, tc)(state, batch))
+            routes = dict(counts.routes["flash_attention"])
+            grads, _ = tr._policy_grads(local, cfg, tc, batch, tpol)
+            grads = tpl.gather_params(grads, cfg, tpol)
+            params = tpl.gather_params(new_state["params"], cfg, tpol)
+        out["train"][(shape, seq)] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": [x.cpu() for x in opt.tree_leaves(grads)],
+            "params": [x.cpu() for x in opt.tree_leaves(params)],
+            "routes": routes, "plain": plain}
+        out["launches"][f"c {shape} seq_tp={seq}"] = launches
+    return out
+
+
+def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
+             peaks, seed, smi):
+    """Phase 10: the unsharded references in this process, then one spawn
+    of ``tp_rank`` on four ranks over gloo on the card; the gates and the
+    printed numbers.  Returns (info, launches summed over ranks and
+    parts)."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.train.optimizer import adamw_update, init_opt_state
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    try:
+        # (a) reference: the unsharded port, fp32, 2 layers
+        layers, _, slots, plen, new = TP_CHECK
+        cfg = tp_config(get_arch, layers)
+        prompts = tp_prompts(np, cfg, slots, plen, seed)
+        params = lm.init_params(seed, cfg, torch.float32, device="cuda")
+        ref_steps, ref_toks = tp_greedy(torch, lm, params, cfg, prompts,
+                                        new, torch.float32, "cuda")
+        ref_gen = serve.ServeEngine(cfg, params, slots, plen + new,
+                                    torch.float32, device="cuda"
+                                    ).generate(prompts, new)
+        del params
+        torch.cuda.empty_cache()
+        # (b) reference tokens: unsharded bf16, 8 layers
+        layers, _, slots, plen, new = TP_TIMED
+        cfg8 = tp_config(get_arch, layers)
+        params = lm.init_params(seed, cfg8, torch.bfloat16, device="cuda")
+        ref_timed = serve.ServeEngine(cfg8, params, slots, plen + new,
+                                      torch.bfloat16, device="cuda"
+                                      ).generate(
+            tp_prompts(np, cfg8, slots, plen, seed), new)
+        del params
+        torch.cuda.empty_cache()
+        # (c) reference: the unsharded full-batch step
+        rcfg = get_arch(TP_ARCH).reduced()
+        tc = tp_train_config(tr, opt)
+        state = tr.init_train_state(seed, rcfg, tc, device="cuda")
+        batch = pipeline.SyntheticPipeline(rcfg, *TP_TRAIN_BATCH,
+                                           seed=seed,
+                                           device="cuda").batch_at(0)
+        ref_grads, _ = tr.accumulate_grads(state["params"], rcfg, tc, batch)
+        _, ref_m = tr.make_train_step(rcfg, tc)(state, batch)
+        ref_s = time.perf_counter() - t_phase
+        t_spawn = time.time()
+        t0 = time.perf_counter()
+        results = run_ranks(tp_rank, TP_RANKS, backend="gloo",
+                            device="cuda", args=(seed, t_spawn),
+                            timeout_s=900.0)
+        ranks_s = time.perf_counter() - t0
+
+        # (a) gates
+        scale = float(ref_steps.abs().max())
+        worst = 0.0
+        for res in results:
+            r = res["rank"]
+            check(res["device"].startswith("cuda"),
+                  f"tp rank {r} ran on {res['device']}")
+            err = float((res["check_logits"] - ref_steps).abs().max())
+            worst = max(worst, err / scale)
+            check(err <= TP_LOGIT_TOL * scale,
+                  f"tp (a) rank {r}: logits {err / scale!r} of max "
+                  f"|logit| from the unsharded run (limit {TP_LOGIT_TOL})")
+            check(torch.equal(res["check_tokens"], ref_toks)
+                  and np.array_equal(res["check_generate"], ref_gen),
+                  f"tp (a) rank {r}: greedy tokens differ from the "
+                  f"unsharded run")
+            check(res["weight_bytes"] == res["spec_bytes"],
+                  f"tp (a) rank {r}: {res['weight_bytes']} weight bytes, "
+                  f"the specs give {res['spec_bytes']}")
+            want = {"tensor_core": 0, "split_kv": TP_CHECK[0] * TP_CHECK[4],
+                    "cuda_core": TP_CHECK[0]}
+            check(res["check_routes"] == want
+                  and not any(res["check_plain"].values()),
+                  f"tp (a) rank {r}: flash launches by route "
+                  f"{res['check_routes']} (want {want}), plain "
+                  f"{res['check_plain']}")
+            # (b) routes: tensor-core prefill at G = 8, split-kv decode
+            L8, new8 = TP_TIMED[0], TP_TIMED[4]
+            want = {"tensor_core": L8, "split_kv": L8 * (new8 - 1),
+                    "cuda_core": 0}
+            check(res["timed_routes"] == want
+                  and not any(res["timed_plain"].values()),
+                  f"tp (b) rank {r}: flash launches by route "
+                  f"{res['timed_routes']} (want {want})")
+        first = results[0]
+        check(all(np.array_equal(res["timed_tokens"], first["timed_tokens"])
+                  for res in results),
+              "tp (b): every rank returned the same tokens")
+        say(f"  tp (a): {TP_ARCH} at full width, {TP_CHECK[0]} of 80 "
+            f"layers, fp32, (data 1, model {TP_RANKS}) over gloo on one "
+            f"card: prefill and {TP_CHECK[4]} decode logits within "
+            f"{worst!r} of max |logit| of the unsharded run (limit "
+            f"{TP_LOGIT_TOL}); greedy tokens identical on every rank; "
+            f"weight bytes a rank {first['weight_bytes']} == the specs' "
+            f"local bytes; flash a rank by route "
+            f"{first['check_routes']} (generate "
+            f"{first['check_generate_routes']}) [{smi}]")
+
+        # (b) numbers: the slowest rank's
+        ttft = max(res["ttft_ms"] for res in results)
+        gen_ms = max(res["generate_ms"] for res in results)
+        slots, new = TP_TIMED[2], TP_TIMED[4]
+        step_ms = (gen_ms - ttft) / (new - 1)
+        (pre_bound, pre_by), (step_bound, step_by) = tp_bounds(
+            torch, lm, cfg8, slots, TP_TIMED[3], new, peaks)
+        agree = float(np.mean(first["timed_tokens"] == ref_timed))
+        info = {"arch": TP_ARCH, "ranks": TP_RANKS, "backend": "gloo",
+                "card": smi, "check": {
+                    "layers": TP_CHECK[0], "dtype": TP_CHECK[1],
+                    "slots": TP_CHECK[2], "prompt": TP_CHECK[3],
+                    "new": TP_CHECK[4], "worst_logit_rel_err": worst,
+                    "weight_bytes_per_rank": first["weight_bytes"],
+                    "routes_per_rank": first["check_routes"]},
+                "timed": {
+                    "layers": TP_TIMED[0], "dtype": TP_TIMED[1],
+                    "slots": slots, "prompt": TP_TIMED[3], "new": new,
+                    "ttft_ms": ttft, "generate_ms": gen_ms,
+                    "decode_ms_per_step": step_ms,
+                    "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+                    "decode_step_bound_ms": step_bound,
+                    "decode_step_bound_by": step_by,
+                    "tokens_per_s": slots * new / (gen_ms / 1e3),
+                    "peak_gb_by_rank": [res["peak_gb"] for res in results],
+                    "weight_gb_per_rank": first["timed_weight_bytes"] / 1e9,
+                    "spawn_to_rendezvous_s": [res["spawn_to_rendezvous_s"]
+                                              for res in results],
+                    "collective_share_prefill": max(
+                        res["collective_share"]["prefill"]
+                        for res in results),
+                    "collective_share_decode": max(
+                        res["collective_share"]["decode_step"]
+                        for res in results),
+                    "greedy_agreement_with_unsharded_bf16": agree,
+                    "routes_per_rank": first["timed_routes"]},
+                "reference_s": ref_s, "ranks_s": ranks_s}
+        t = info["timed"]
+        say(f"  tp (b): {TP_ARCH} at full width, {TP_TIMED[0]} of 80 "
+            f"layers, bf16, {slots} slots x {TP_TIMED[3]}-token prompts + "
+            f"{new} new, 4 ranks over gloo on one card (not NCCL): TTFT "
+            f"{ttft!r} ms (the prefill's device bound {pre_bound!r} ms, "
+            f"{pre_by}), decode {step_ms!r} ms a step (bound "
+            f"{step_bound!r} ms, {step_by}), "
+            f"{t['tokens_per_s']!r} tokens/s; peak GB by rank "
+            f"{t['peak_gb_by_rank']}; spawn to rendezvous s "
+            f"{t['spawn_to_rendezvous_s']}; model-axis collectives "
+            f"{t['collective_share_prefill']!r} of a prefill and "
+            f"{t['collective_share_decode']!r} of a decode step (host "
+            f"clock, a synchronisation around each); greedy agreement "
+            f"with the unsharded bf16 run {agree!r} (not gated) [{smi}]")
+
+        # (c) gates: each rank's loss, gathered gradient and parameters
+        want_grads = [g for g in opt.tree_leaves(ref_grads)]
+        loss, gnorm = float(ref_m["loss"]), float(ref_m["grad_norm"])
+        train_rows = []
+        for shape, seq in TP_TRAIN:
+            worst_g = worst_p = 0.0
+            for res in results:
+                got = res["train"][(shape, seq)]
+                grads = [g.cuda() for g in got["grads"]]
+                g_err = max(_rel(a, b) for a, b in zip(grads, want_grads))
+                upd, _, _ = adamw_update(
+                    opt.tree_unflatten(state["params"], grads),
+                    init_opt_state(state["params"], tc.opt),
+                    state["params"], tc.opt)
+                p_err = max(_rel(a.cuda(), b) for a, b in zip(
+                    got["params"], opt.tree_leaves(upd)))
+                worst_g, worst_p = max(worst_g, g_err), max(worst_p, p_err)
+                check(abs(got["loss"] - loss) <= TP_LOSS_TOL * abs(loss)
+                      and abs(got["grad_norm"] - gnorm)
+                      <= TP_LOSS_TOL * abs(gnorm)
+                      and g_err <= TP_GRAD_TOL and p_err <= TP_PARAM_TOL
+                      and got["routes"].get("cuda_core", 0) > 0
+                      and not any(got["plain"].values()),
+                      f"tp (c) {shape} seq_tp={seq} rank {res['rank']}: "
+                      f"loss {got['loss']} vs {loss}, norm "
+                      f"{got['grad_norm']} vs {gnorm}, gradient {g_err}, "
+                      f"parameters {p_err}, routes {got['routes']}, plain "
+                      f"{got['plain']}")
+            train_rows.append({"mesh": list(shape), "seq_tp": seq,
+                               "worst_grad_rel_err": worst_g,
+                               "worst_param_rel_err": worst_p})
+            say(f"  tp (c): reduced {TP_ARCH} (8 query heads on 2 kv "
+                f"heads), (data {shape[0]}, model {shape[1]})"
+                f"{' with sequence TP' if seq else ''}: one AdamW step's "
+                f"loss and norm within {TP_LOSS_TOL} of the unsharded "
+                f"step's, gradient within {worst_g!r} of each leaf's max "
+                f"(limit {TP_GRAD_TOL}), parameters within {worst_p!r} of "
+                f"the unsharded AdamW on it (limit {TP_PARAM_TOL}) [{smi}]")
+        info["train"] = train_rows
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    launches = dict.fromkeys(("flash_attention",
+                              "flash_attention_backward"), 0)
+    for res in results:
+        for part in res["launches"].values():
+            add_counts(launches, part)
+    check(all(launches.values()),
+          f"tp: flash forward and backward launched on the path: "
+          f"{launches}")
+    info["launches"] = launches
+    info["phase_s"] = time.perf_counter() - t_phase
+    return info, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3782,6 +4296,14 @@ def main(argv=None) -> int:
         f"annealer stream identical on the card and the CPU; launches "
         f"{sched_launches}; {sched_info['phase_s']:.1f} s [{smi}]")
 
+    # ---- 10. tensor parallelism: qwen2-72b at full width on 4 ranks -----
+    tp_info, tp_launches = tp_phase(torch, np, lm, serve, tr, opt, pipeline,
+                                    run_ranks, get_arch, peaks, args.seed,
+                                    smi)
+    say(f"phase tp: {TP_ARCH} at full width on {TP_RANKS} ranks (gloo, one "
+        f"card): the fp32 check and the training gate hold; launches "
+        f"{tp_launches}; {tp_info['phase_s']:.1f} s [{smi}]")
+
     # ---- 8. kernels line -------------------------------------------------
     by_path = {"shuffle": shuffle_launches, **engine_launches,
                "profiled": profile["launches"], "faults": fault_launches,
@@ -3791,7 +4313,7 @@ def main(argv=None) -> int:
                "card_vs_cpu": cmp_launches,
                "train qwen2-1.5b": full_launches,
                "train card_vs_cpu": train_cmp_launches,
-               "train ranks": train_ranks_launches}
+               "train ranks": train_ranks_launches, "tp": tp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
     # int32 hybrid_shuffle for the XOR pair, full-width serving for the LM
     # kernels
@@ -3902,13 +4424,25 @@ def main(argv=None) -> int:
                                family_launches_by_route={
                                    a: r["flash_attention"]
                                    for a, r in family_routes.items()},
+                               tp_launches_by_route_per_rank={
+                                   "check": tp_info["check"][
+                                       "routes_per_rank"],
+                                   "timed": tp_info["timed"][
+                                       "routes_per_rank"]},
                                family_launches_per_forward={
                                    a: {"prefill": serving[a][
                                        "launches_per_prefill"][kname],
                                        "decode_step": serving[a][
                                        "launches_per_decode_step"][kname]}
                                    for a in family_routes},
-                               family_rows=family)
+                               family_rows=family,
+                               tp_rows=[{k: r[k] for k in (
+                                   "case", "B", "Sq", "Sk", "H", "KV", "hd",
+                                   "kv_valid", "dtype", "route",
+                                   "max_abs_err", "tolerance", "ms",
+                                   "plain_ms", "bound_ms", "bound_by")}
+                                   for r in flash_rows
+                                   if r["case"] in TP_TAGS])
         if kname == "wkv_scan":
             # by route on the main path (prefill on tensor_core, decode's
             # one-step calls on step), and phase 5's checked cases
@@ -3979,6 +4513,7 @@ def main(argv=None) -> int:
         "train": {"backward": bwd_rows, "full_width": full_info,
                   "card_vs_cpu": train_cmp_rows, "restart": restart_info,
                   "coded_r2": train_ranks_info, "phase_s": train_s},
+        "tp": tp_info,
         "seconds": time.perf_counter() - t_start}, indent=1))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

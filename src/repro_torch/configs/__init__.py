@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 The same ten architectures as the JAX package's registry.  qwen2-72b and
-llama3-405b (about 145 GB and 810 GB of bf16 weights) fit no single card
-and run at ``reduced()`` until the port shards a model.
+llama3-405b (about 145 GB and 810 GB of bf16 weights) fit no single card:
+they run at ``reduced()``, or split over the ranks of a model axis
+(:mod:`repro_torch.distributed.tensor_parallel`).
 """
 from __future__ import annotations
 

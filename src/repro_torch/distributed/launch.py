@@ -41,6 +41,15 @@ from .meshes import DeviceLike, resolve_device
 BACKENDS = ("gloo", "nccl")
 
 
+def default_backend(device: DeviceLike, world_size: int) -> str:
+    """``"nccl"`` where there is a card per rank, else ``"gloo"`` (every
+    rank on one card, or the CPU)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and torch.cuda.device_count() >= world_size:
+        return "nccl"
+    return "gloo"
+
+
 class RankError(RuntimeError):
     """A rank raised, died, or outlived the time limit."""
 

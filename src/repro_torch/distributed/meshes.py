@@ -1,5 +1,6 @@
 """The port's meshes: the counterpart of ``repro/distributed/meshes.py``,
-in two forms.
+in two forms (and :class:`MeshShape`, a mesh's axes with no devices, for
+partition specs).
 
 Stacked (:class:`StackedMesh`): on one card the K = P * Kr servers of the
 ('rack', 'server') grid are the leading ``[P, Kr]`` axes of one tensor,
@@ -47,6 +48,19 @@ class StackedMesh:
     axis_names: Tuple[str, ...]
     axis_sizes: Tuple[int, ...]
     device: torch.device
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """Axis names and sizes only: what a sharding policy reads of a mesh.
+    It stands in for the dry run's fake devices, so that partition specs
+    at 256 or 512 devices can be computed with no ranks."""
+    axis_names: Tuple[str, ...]
+    axis_sizes: Tuple[int, ...]
 
     @property
     def shape(self) -> Dict[str, int]:

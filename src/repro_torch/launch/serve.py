@@ -13,20 +13,34 @@ requests through ``ServeEngine.serve``; a model with a frontend
 stub frontend inputs drawn from ``--seed``, which ``serve`` does not
 carry, so its requests run in waves of ``--slots`` prompts of
 ``--prompt-len`` tokens through ``ServeEngine.generate``.
+
+``--mesh D,M`` (for example ``--mesh 1,4``) spawns D x M ranks through
+``repro_torch.distributed.launch.run_ranks`` on a ('data', 'model')
+process mesh: each draws its shards of the same weights
+(``tensor_parallel.init_shard_params``) and serves under
+``default_rules(fsdp=False)``; the dense family (and the VLM's dense
+trunk) runs so, the others raise.  ``--backend`` defaults to gloo on one
+card or the CPU and to nccl when there are as many cards as ranks.  Rank 0
+prints.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from typing import Dict
 
 import numpy as np
 import torch
 
 from ..configs import ARCHS, get_arch
-from ..distributed.meshes import resolve_device
+from ..distributed import sharding as sh
+from ..distributed import tensor_parallel as tpl
+from ..distributed.launch import BACKENDS, default_backend, run_ranks
+from ..distributed.meshes import make_process_mesh, resolve_device
 from ..models import lm
 from ..models.frontends import frontend_inputs
 from ..serve.engine import Request, ServeEngine
+from .mesh import parse_mesh
 
 
 def main(argv=None) -> None:
@@ -40,11 +54,44 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="serve on D x M ranks, a ('data', 'model') mesh")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="with --mesh (default: nccl with a card a rank, "
+                         "else gloo)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.mesh is None:
+        _serve(args, device)
+        return
+    shape = parse_mesh(args.mesh)
+    world = shape[0] * shape[1]
+    if device.type == "cuda":
+        from ..kernels.flash_attention import ops as fa
+        fa.build()
+    run_ranks(_serve_rank, world,
+              backend=args.backend or default_backend(device, world),
+              device=device, args=(vars(args), shape), timeout_s=3600.0)
+
+
+def _serve_rank(dev: torch.device, arg_dict: Dict, shape: tuple) -> None:
+    """One rank of a ``--mesh`` run."""
+    args = argparse.Namespace(**arg_dict)
+    mesh = make_process_mesh(shape, ("data", "model"), device=dev)
+    policy = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
+    with sh.use_policy(policy):
+        _serve(args, dev, policy, log=mesh.rank == 0)
+
+
+def _serve(args: argparse.Namespace, device: torch.device, policy=None,
+           log: bool = True) -> None:
     cfg = get_arch(args.arch).reduced()
-    params = lm.init_params(args.seed, cfg, device=device)
+    if policy is None:
+        params = lm.init_params(args.seed, cfg, device=device)
+    else:
+        params = tpl.init_shard_params(args.seed, cfg, policy,
+                                       device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     front = frontend_inputs(gen, cfg, args.slots)
     n_front = cfg.n_frontend_tokens if "prefix_embeds" in front else 0
@@ -76,13 +123,17 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0
+    if not log:
+        return
     total_new = sum(len(r.out_tokens) for r in done)
     for i, r in enumerate(done):
         print(f"req {i}: prompt[{len(r.prompt)}] -> {r.out_tokens}")
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else str(device))
+    ranks = "" if policy is None else (
+        f", {policy.mesh.axis_sizes} ('data', 'model') ranks")
     print(f"{total_new} tokens in {dt:.2f}s ({total_new / dt:.1f} tok/s on "
-          f"{where}, reduced config)")
+          f"{where}, reduced config{ranks})")
 
 
 if __name__ == "__main__":

@@ -15,10 +15,19 @@ checkpoint written before it survives, and the same command resumes).
 ``--dp-mode coded_r2`` spawns ``--pods`` ranks (one a rack, gloo) through
 ``repro_torch.distributed.launch.run_ranks``; each maps its P-1 chunks of
 every batch, and rank 0 prints the steps.
+
+``--mesh D,M`` (for example ``--mesh 2,2``; dp_mode ``dp``) spawns D x M
+ranks on a ('data', 'model') process mesh under ``default_rules`` (its
+FSDP overlay is specs only): each holds its shards of the same weights and
+moments, takes its rows of every batch, and checkpoints its shards under
+``--ckpt-dir``/rank<k>.  The dense family (and the VLM's dense trunk)
+runs so, with AdamW; the others raise.  ``--backend`` defaults to gloo on
+one card or the CPU and to nccl when there are as many cards as ranks.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Dict, List
 
@@ -26,13 +35,17 @@ import torch
 
 from ..configs import ARCHS, get_arch
 from ..data.pipeline import SyntheticPipeline
-from ..distributed.meshes import resolve_device
+from ..distributed import sharding as sh
+from ..distributed import tensor_parallel as tpl
+from ..distributed.launch import BACKENDS, default_backend, run_ranks
+from ..distributed.meshes import make_process_mesh, resolve_device
 from ..train.checkpoint import (latest_step, restore_checkpoint,
                                 save_checkpoint)
 from ..train.fault import PreemptionSimulator
-from ..train.optimizer import OptimizerConfig
+from ..train.optimizer import OptimizerConfig, init_opt_state
 from ..train.trainer import (TrainConfig, init_train_state,
                              make_coded_batch_r2, make_train_step)
+from .mesh import parse_mesh
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -57,12 +70,19 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh", default=None, metavar="D,M",
+                    help="train on D x M ranks, a ('data', 'model') mesh")
+    ap.add_argument("--backend", default=None, choices=BACKENDS,
+                    help="with --mesh (default: nccl with a card a rank, "
+                         "else gloo)")
     return ap
 
 
 def _train(args: argparse.Namespace, device: torch.device, mesh=None,
-           log: bool = True) -> List[float]:
-    """The training loop of one process (or one rank); the losses."""
+           log: bool = True, policy=None) -> List[float]:
+    """The training loop of one process (or one rank); the losses.  Under
+    ``policy`` (active in the caller) the state holds this rank's
+    shards."""
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -75,7 +95,13 @@ def _train(args: argparse.Namespace, device: torch.device, mesh=None,
     pipe = SyntheticPipeline(cfg, args.batch, args.seq, seed=args.seed,
                              device=device)
     step_fn = make_train_step(cfg, tc, mesh=mesh)
-    state = init_train_state(args.seed, cfg, tc, device=device)
+    if policy is None:
+        state = init_train_state(args.seed, cfg, tc, device=device)
+    else:                       # this rank's shards of the same state
+        params = tpl.init_shard_params(args.seed, cfg, policy,
+                                       device=device)
+        state = {"params": params, "opt": init_opt_state(params, tc.opt),
+                 "step": torch.zeros((), dtype=torch.int32, device=device)}
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, start = restore_checkpoint(state, args.ckpt_dir)
@@ -92,7 +118,9 @@ def _train(args: argparse.Namespace, device: torch.device, mesh=None,
             batch = make_coded_batch_r2(batch, args.pods)
         state, metrics = step_fn(state, batch)
         losses.append(float(metrics["loss"]))
-        if args.ckpt_dir and (i + 1) % args.ckpt_every == 0 and log:
+        # a replicated state is saved by the logging rank, shards by all
+        if (args.ckpt_dir and (i + 1) % args.ckpt_every == 0
+                and (log or policy is not None)):
             save_checkpoint(state, args.ckpt_dir, i)
         if log and (i % max(args.steps // 20, 1) == 0
                     or i == args.steps - 1):
@@ -104,9 +132,20 @@ def _train(args: argparse.Namespace, device: torch.device, mesh=None,
     return losses
 
 
+def _mesh_rank(dev: torch.device, arg_dict: Dict,
+               shape: tuple) -> List[float]:
+    """One rank of a ``--mesh`` run."""
+    args = argparse.Namespace(**arg_dict)
+    mesh = make_process_mesh(shape, ("data", "model"), device=dev)
+    if args.ckpt_dir:
+        args.ckpt_dir = os.path.join(args.ckpt_dir, f"rank{mesh.rank}")
+    policy = sh.ShardingPolicy(mesh, sh.default_rules(False))
+    with sh.use_policy(policy):
+        return _train(args, dev, log=mesh.rank == 0, policy=policy)
+
+
 def _coded_rank(dev: torch.device, arg_dict: Dict) -> List[float]:
     """One rack of a coded_r2 run (a rank of run_ranks)."""
-    from ..distributed.meshes import make_process_mesh
     args = argparse.Namespace(**arg_dict)
     mesh = make_process_mesh((args.pods,), ("rack",), device=dev)
     return _train(args, dev, mesh=mesh, log=mesh.rank == 0)
@@ -116,9 +155,23 @@ def main(argv=None) -> None:
     args = _parser().parse_args(argv)
     dev = resolve_device(args.device)
     print(f"training {args.arch} ({'full' if args.full else 'reduced'}) "
-          f"on {dev}, dp_mode {args.dp_mode}")
-    if args.dp_mode == "coded_r2":
-        from ..distributed.launch import run_ranks
+          f"on {dev}, dp_mode {args.dp_mode}"
+          + (f", mesh {args.mesh}" if args.mesh else ""))
+    if args.mesh is not None:
+        if args.dp_mode != "dp":
+            raise ValueError(f"--mesh runs dp_mode 'dp', got "
+                             f"{args.dp_mode!r}")
+        shape = parse_mesh(args.mesh)
+        world = shape[0] * shape[1]
+        if dev.type == "cuda":
+            from ..kernels.flash_attention import backward as fab
+            from ..kernels.flash_attention import ops as fa
+            fa.build()
+            fab.build()
+        run_ranks(_mesh_rank, world,
+                  backend=args.backend or default_backend(dev, world),
+                  device=dev, args=(vars(args), shape), timeout_s=3600.0)
+    elif args.dp_mode == "coded_r2":
         if dev.type == "cuda":
             from ..kernels.flash_attention import backward as fab
             from ..kernels.flash_attention import ops as fa

@@ -48,10 +48,19 @@ def _layer(tree, i: int):
 
 def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
                     device: DeviceLike = None,
-                    dtype: torch.dtype = torch.float32) -> Dict:
+                    dtype: torch.dtype = torch.float32, *,
+                    policy=None) -> Dict:
     """The port's parameters from a JAX parameter tree of numpy arrays, on
     ``device`` (default: the CUDA card; raises without one) in ``dtype``
-    (``FP32_LEAVES`` in float32)."""
+    (``FP32_LEAVES`` in float32).  Under a sharding ``policy`` whose model
+    axis is larger than 1, this rank's shards of them
+    (:func:`repro_torch.distributed.tensor_parallel.shard_params`)."""
+    if policy is not None and policy.mesh.shape.get("model", 1) > 1:
+        from ..distributed.tensor_parallel import shard_params
+        full = params_from_jax(np_params, cfg, "cpu", dtype)
+        local = shard_params(full, cfg, policy)
+        dev = resolve_device(device)
+        return _to(local, dev)
     dev = resolve_device(device)
     out: Dict[str, Any] = {}
     groups = {f"group{gi}": g.count
@@ -65,6 +74,16 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
         else:
             out[name] = _convert(sub, dev, dtype)
     return out
+
+
+def _to(tree, dev: torch.device):
+    """A tree's tensors as copies on ``dev`` (views of a larger tensor
+    become tensors of their own)."""
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev, copy=True).contiguous()
 
 
 def _np_dtype(a) -> torch.dtype:

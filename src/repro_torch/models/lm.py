@@ -17,9 +17,19 @@ for enc-dec) and ``lm_head`` when the embedding is not tied.  Weights are
 ``[d_in, d_out]`` and used as ``x @ W``, as the JAX package lays them out,
 so :mod:`.convert` carries JAX parameters over without a transpose.
 
-The JAX package's activation-sharding hints (``shard_acts``, ``sp_gather``,
-``sp_scatter``) are identities without a sharding policy and are dropped;
-sharding comes with the port's distributed layer.
+Sharding: where the JAX package calls its activation-sharding hints
+(``shard_acts``, ``sp_gather``, ``sp_scatter``), the port runs the explicit
+tensor-parallel collectives of :mod:`repro_torch.distributed.tensor_parallel`
+when a policy with a model axis larger than 1 is active
+(:func:`repro_torch.distributed.sharding.use_policy`): the parameters are
+then this rank's shards (``tensor_parallel.shard_params``), head counts
+come from the weights' widths, a cache holds the local kv heads, and the
+batch is this rank's rows.  :func:`forward`, :func:`prefill` and
+:func:`decode_step` return logits gathered over the model axis (the same
+on every rank); :func:`lm_loss` runs a vocab-parallel cross-entropy.  The
+dense family (and the VLM's dense trunk) runs so; the others raise
+``NotImplementedError`` under a model axis.  With no policy, or a model
+axis of size 1, every function is the unsharded code.
 
 Frontends are stubs, as in the JAX package (:mod:`.frontends`): a VLM
 takes ``prefix_embeds [B, n_front, D]`` prepended to the token embeddings
@@ -50,13 +60,15 @@ in a Python loop.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed import tensor_parallel as tpl
 from ..distributed.meshes import DeviceLike, resolve_device
+from ..distributed.sharding import map_with_path
 from .attention import (blockwise_attention, ring_cache_attention,
                         ring_decode_attention)
 from .layers import (apply_rope, dense_init, embed_init, gelu_mlp,
@@ -103,28 +115,53 @@ def layer_groups(cfg: ArchConfig) -> List[LayerGroup]:
 # Attention sub-module (GQA, optional bias/rope; self or cross)
 # ---------------------------------------------------------------------------
 
-def init_attn_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
+# A cut ``put(name, leaf) -> leaf`` is applied to each leaf as it is drawn
+# (``init_params(cut=)``: a rank keeps its shard before the next leaf is
+# drawn); ``_under`` gives the cut of a sub-dict's leaves.
+Cut = Callable[[str, torch.Tensor], torch.Tensor]
+
+
+def _keep(name: str, leaf: torch.Tensor) -> torch.Tensor:
+    return leaf
+
+
+def _under(put: Cut, at: str) -> Cut:
+    return _keep if put is _keep else (
+        lambda name, leaf: put(f"{at}/{name}", leaf))
+
+
+def _cut_all(put: Cut, tree, at: str = ""):
+    """``put`` applied to every leaf of a drawn tree (path from ``at``)."""
+    if put is _keep:
+        return tree
+    return map_with_path(lambda path, leaf, _: put(path, leaf), tree, at)
+
+
+def init_attn_params(gen, cfg: ArchConfig, dtype, device,
+                     put: Cut = _keep) -> Dict:
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    p = {
-        "wq": dense_init(gen, d, H * hd, dtype, device),
-        "wk": dense_init(gen, d, KV * hd, dtype, device),
-        "wv": dense_init(gen, d, KV * hd, dtype, device),
-        "wo": dense_init(gen, H * hd, d, dtype, device),
-    }
+    shapes = {"wq": (d, H * hd), "wk": (d, KV * hd), "wv": (d, KV * hd),
+              "wo": (H * hd, d)}
+    p = {name: put(name, dense_init(gen, *shape, dtype, device))
+         for name, shape in shapes.items()}
     if cfg.qkv_bias:
         for name, n in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
-            p[name] = torch.zeros((n,), dtype=dtype, device=device)
+            p[name] = put(name, torch.zeros((n,), dtype=dtype,
+                                            device=device))
     return p
 
 
 def _qkv(p: Dict, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor,
+         tp: Optional[tpl.TensorParallel] = None,
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H, KV = p["wq"].shape[1] // hd, p["wk"].shape[1] // hd   # local heads
+    kvw = (lambda w: w) if tp is None else tp.kv_weight
     q = xq @ p["wq"]
-    k = xkv @ p["wk"]
-    v = xkv @ p["wv"]
+    k = xkv @ kvw(p["wk"])
+    v = xkv @ kvw(p["wv"])
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + kvw(p["bk"]), v + kvw(p["bv"])
     B, Sq = xq.shape[:2]
     Sk = xkv.shape[1]
     return (q.reshape(B, Sq, H, hd), k.reshape(B, Sk, KV, hd),
@@ -136,14 +173,17 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                  rope: bool = True, window: Optional[int] = None,
                  cache: Optional[Dict] = None,
                  cache_index: Optional[int] = None,
+                 tp: Optional[tpl.TensorParallel] = None,
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """Self-attention with optional RoPE and KV cache.  A dense cache:
     prefill writes ``[cache_index, cache_index + S)``, decode reads the
     valid prefix.  A ring cache (``kpos`` in it): the last ``Wc`` keys go
     to slots ``position % Wc``; a prefill (S > 1) attends over its own
-    windowed sequence, a decode step over the ring."""
+    windowed sequence, a decode step over the ring.  Under ``tp`` the
+    weights, heads and cache are this rank's and the output is its
+    partial sum."""
     B, S, D = x.shape
-    q, k, v = _qkv(p, cfg, x, x)
+    q, k, v = _qkv(p, cfg, x, x, tp)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -208,11 +248,12 @@ def encode_cross_kv(p: Dict, cfg: ArchConfig, enc_out: torch.Tensor) -> Dict:
 # Per-kind layer parameters and application
 # ---------------------------------------------------------------------------
 
-def _init_mlp(gen, cfg: ArchConfig, dtype, device) -> Dict:
+def _init_mlp(gen, cfg: ArchConfig, dtype, device,
+              put: Cut = _keep) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
-    return {"w1": dense_init(gen, d, ff, dtype, device),
-            "w3": dense_init(gen, d, ff, dtype, device),
-            "w2": dense_init(gen, ff, d, dtype, device)}
+    shapes = {"w1": (d, ff), "w3": (d, ff), "w2": (ff, d)}
+    return {name: put(name, dense_init(gen, *shape, dtype, device))
+            for name, shape in shapes.items()}
 
 
 def _init_gelu_mlp(gen, cfg: ArchConfig, dtype, device) -> Dict:
@@ -229,15 +270,21 @@ def _ln(d: int, dtype, device) -> Dict:
 
 
 def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
-                      device) -> Dict:
+                      device, put: Cut = _keep) -> Dict:
+    """One layer's parameters; ``put`` cuts each leaf of a dense block as
+    it is drawn, and the other kinds' leaves once the layer is drawn."""
     d = cfg.d_model
+    if put is not _keep and (kind != "attn_mlp" or cfg.mla):
+        return _cut_all(put, init_layer_params(gen, kind, cfg, dtype,
+                                               device))
     if kind in ("attn_mlp", "attn_moe"):
-        p = {"ln1": torch.ones((d,), dtype=dtype, device=device),
+        p = {"ln1": put("ln1", torch.ones((d,), dtype=dtype, device=device)),
              "attn": (init_mla_params(gen, cfg, dtype, device) if cfg.mla
-                      else init_attn_params(gen, cfg, dtype, device)),
-             "ln2": torch.ones((d,), dtype=dtype, device=device)}
+                      else init_attn_params(gen, cfg, dtype, device,
+                                            _under(put, "attn"))),
+             "ln2": put("ln2", torch.ones((d,), dtype=dtype, device=device))}
         if kind == "attn_mlp":
-            p["mlp"] = _init_mlp(gen, cfg, dtype, device)
+            p["mlp"] = _init_mlp(gen, cfg, dtype, device, _under(put, "mlp"))
         else:
             p["moe"] = init_moe_params(gen, cfg, dtype, device)
         return p
@@ -269,30 +316,46 @@ def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
+def _block_input(x: torch.Tensor, w: torch.Tensor, eps: float,
+                 tp: Optional[tpl.TensorParallel]) -> torch.Tensor:
+    if tp is None:
+        return rms_norm(x, w, eps)
+    return tp.enter(rms_norm(x, tp.norm_weight(w), eps))
+
+
+def _block_output(a: torch.Tensor,
+                  tp: Optional[tpl.TensorParallel]) -> torch.Tensor:
+    return a if tp is None else tp.exit(a)
+
+
 def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
                 positions: torch.Tensor, *, cache: Optional[Dict] = None,
                 cache_index: Optional[int] = None,
                 enc_out: Optional[torch.Tensor] = None,
                 mixer_chunk: int = 64, dense_moe: bool = False,
                 moe_groups: int = 1, with_aux: bool = True,
+                tp: Optional[tpl.TensorParallel] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """One block. Returns (x, new_cache, moe_aux_loss): the aux loss is
-    None for a layer without MoE, or when ``with_aux`` is false."""
+    None for a layer without MoE, or when ``with_aux`` is false.  Under
+    ``tp`` (dense blocks only) each block's input is made whole on every
+    rank and its partial output summed over the model axis (the JAX
+    package's ``sp_gather`` / ``sp_scatter`` points)."""
     eps = cfg.norm_eps
     if kind in ("attn_mlp", "attn_moe"):
-        h = rms_norm(x, p["ln1"], eps)
+        h = _block_input(x, p["ln1"], eps, tp)
         if cfg.mla:
             a, cache = mla_attention(p["attn"], cfg, h, positions,
                                      cache=cache, cache_index=cache_index)
         else:
             a, cache = attn_forward(p["attn"], cfg, h, positions,
                                     cache=cache, cache_index=cache_index,
-                                    window=cfg.sliding_window)
-        x = x + a
-        h = rms_norm(x, p["ln2"], eps)
+                                    window=cfg.sliding_window, tp=tp)
+        x = x + _block_output(a, tp)
+        h = _block_input(x, p["ln2"], eps, tp)
         if kind == "attn_mlp":
-            return x + swiglu(h, **p["mlp"]), cache, None
+            return x + _block_output(swiglu(h, **p["mlp"]), tp), cache, None
         aux = (aux_load_balance_loss(p["moe"]["router"],
                                      h.reshape(-1, h.shape[-1]),
                                      cfg.moe.top_k) if with_aux else None)
@@ -358,24 +421,32 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
-                device: DeviceLike = None) -> Dict:
+                device: DeviceLike = None, cut: Optional[Cut] = None) -> Dict:
     """Model parameters drawn from ``seed`` with a :class:`torch.Generator`
     on ``device`` (default: the CUDA card; raises without one).  The
     distributions are the JAX package's; the numbers are not (use
     :func:`.convert.params_from_jax` for the JAX package's weights).  On the
-    ``meta`` device: shapes only."""
+    ``meta`` device: shapes only.  ``cut(path, leaf)`` replaces each leaf
+    (path as :func:`~repro_torch.distributed.sharding.map_with_path`
+    names it) as soon as it is drawn, before the next draw: a rank keeps
+    its shard of a model no card holds (``tensor_parallel.
+    init_shard_params``) with one full leaf alive at a time (a dense
+    block's; the other kinds hold one layer)."""
     dev = resolve_device(device)
     gen = (None if dev.type == "meta"
            else torch.Generator(device=dev).manual_seed(seed))
+    put = cut or _keep
     d = cfg.d_model
     p: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, d, dtype, dev)}
+        "embed": put("embed", embed_init(gen, cfg.vocab_size, d, dtype, dev))}
     for gi, g in enumerate(layer_groups(cfg)):
-        p[f"group{gi}"] = [init_layer_params(gen, g.kind, cfg, dtype, dev)
-                           for _ in range(g.count)]
+        p[f"group{gi}"] = [init_layer_params(gen, g.kind, cfg, dtype, dev,
+                                             _under(put, f"group{gi}/{j}"))
+                           for j in range(g.count)]
     if cfg.family == "encdec":
-        p["encoder"] = [init_layer_params(gen, "enc", cfg, dtype, dev)
-                        for _ in range(cfg.encoder_layers)]
+        p["encoder"] = [init_layer_params(gen, "enc", cfg, dtype, dev,
+                                          _under(put, f"encoder/{j}"))
+                        for j in range(cfg.encoder_layers)]
         p["enc_norm"] = _ln(d, dtype, dev)
         p["final_norm"] = _ln(d, dtype, dev)
     elif cfg.family == "ssm":
@@ -383,8 +454,12 @@ def init_params(seed: int, cfg: ArchConfig, dtype=torch.float32, *,
         p["final_norm"] = _ln(d, dtype, dev)
     else:
         p["final_norm"] = torch.ones((d,), dtype=dtype, device=dev)
+    for name in ("enc_norm", "in_norm", "final_norm"):     # no draws
+        if name in p:
+            p[name] = _cut_all(put, p[name], name)
     if not cfg.tie_embeddings:
-        p["lm_head"] = dense_init(gen, d, cfg.vocab_size, dtype, dev)
+        p["lm_head"] = put("lm_head",
+                           dense_init(gen, d, cfg.vocab_size, dtype, dev))
     return p
 
 
@@ -436,6 +511,7 @@ def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
                  mixer_chunk: int = 64, dense_moe: bool = False,
                  moe_groups: int = 1, with_aux: bool = False,
                  remat: bool = False, remat_blocks: int = 1,
+                 tp: Optional[tpl.TensorParallel] = None,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One homogeneous stack of layers: (x, the MoE aux loss summed over
     its layers, or None).  ``remat`` checkpoints each layer (no cache);
@@ -447,7 +523,8 @@ def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
                               cache=caches[li] if caches else None,
                               cache_index=cache_index, enc_out=enc_out,
                               mixer_chunk=mixer_chunk, dense_moe=dense_moe,
-                              moe_groups=moe_groups, with_aux=with_aux)
+                              moe_groups=moe_groups, with_aux=with_aux,
+                              tp=tp)
         return x, a
 
     def run(lis, x):
@@ -480,15 +557,21 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
            enc_out: Optional[torch.Tensor] = None,
            dense_moe: bool = False, moe_groups: int = 1,
            with_aux: bool = False, remat: bool = False,
-           remat_blocks: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+           remat_blocks: int = 1, tp: Optional[tpl.TensorParallel] = None,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedding (after the prefix, if any), every layer and the final
     norm: [B, S] -> ([B, n_front + S, D], the MoE aux loss summed over
-    layers, 0 unless ``with_aux``)."""
-    x = params["embed"][tokens]
-    if prefix_embeds is not None:
-        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    layers, 0 unless ``with_aux``).  Under sequence TP the output is this
+    rank's block of the sequence."""
+    if tp is None:
+        x = params["embed"][tokens]
+        if prefix_embeds is not None:
+            x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    else:
+        x = tp.embed(params["embed"], tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    B, S, _ = x.shape
+    S = tokens.shape[1] + (0 if prefix_embeds is None
+                           else prefix_embeds.shape[1])
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if cfg.family == "ssm":
@@ -503,18 +586,24 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                             cache_index=cache_index, enc_out=enc_out,
                             mixer_chunk=mixer_chunk, dense_moe=dense_moe,
                             moe_groups=moe_groups, with_aux=with_aux,
-                            remat=remat, remat_blocks=remat_blocks)
+                            remat=remat, remat_blocks=remat_blocks, tp=tp)
         if a is not None:
             aux = aux + a
     fn = params["final_norm"]
     if isinstance(fn, dict):
         return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps), aux
-    return rms_norm(x, fn, cfg.norm_eps), aux
+    return rms_norm(x, fn if tp is None else tp.norm_weight(fn),
+                    cfg.norm_eps), aux
 
 
 def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
-          logits_f32: bool = False) -> torch.Tensor:
+          logits_f32: bool = False,
+          tp: Optional[tpl.TensorParallel] = None) -> torch.Tensor:
+    """Logits of the final norm's output; under ``tp`` this rank's block of
+    the vocabulary (column-parallel head) when the vocabulary is split."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    if tp is not None:
+        x = tp.head_input(x)
     if logits_f32:
         return x.float() @ head.float()
     return x @ head
@@ -545,6 +634,25 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
     ``scan_layers`` and ``unroll_scans`` have no effect.
     Returns (logits [B, n_front + S_text, V], cache, MoE aux loss summed
     over layers: 0 for a model without MoE)."""
+    tp = tpl.for_call(cfg, tokens.shape[1] + (
+        0 if prefix_embeds is None else prefix_embeds.shape[1]))
+    logits, cache, aux = _forward(
+        params, cfg, tokens, prefix_embeds=prefix_embeds,
+        enc_frames=enc_frames, positions=positions, cache=cache,
+        cache_index=cache_index, remat=remat, mixer_chunk=mixer_chunk,
+        dense_moe=dense_moe, logits_f32=logits_f32,
+        remat_blocks=remat_blocks, moe_groups=moe_groups, tp=tp)
+    return (logits if tp is None else tp.gather_logits(logits)), cache, aux
+
+
+def _forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
+             prefix_embeds, enc_frames, positions, cache, cache_index,
+             remat: bool, mixer_chunk: int, dense_moe: bool,
+             logits_f32: bool, remat_blocks: int, moe_groups: int,
+             tp: Optional[tpl.TensorParallel],
+             ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """:func:`forward` with this rank's block of the vocabulary under
+    ``tp``."""
     enc_out = None
     if cfg.family == "encdec" and cache is None:
         _need_frames(cfg, enc_frames)
@@ -554,8 +662,8 @@ def forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                     mixer_chunk, prefix_embeds=prefix_embeds,
                     enc_out=enc_out, dense_moe=dense_moe,
                     moe_groups=moe_groups, with_aux=True, remat=remat,
-                    remat_blocks=remat_blocks)
-    return _head(params, cfg, x, logits_f32), cache, aux
+                    remat_blocks=remat_blocks, tp=tp)
+    return _head(params, cfg, x, logits_f32, tp), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -572,20 +680,27 @@ def lm_loss(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     prefix positions carry no loss), weighted by ``loss_mask``, plus
     ``aux_coef`` times the MoE load-balance loss.  batch: tokens [B, S],
     targets [B, S], loss_mask [B, S] (+ prefix_embeds / enc_frames per
-    family).  Returns (loss, {"ce_loss", "moe_aux"})."""
-    logits, _, aux = forward(
-        params, cfg, batch["tokens"],
-        prefix_embeds=batch.get("prefix_embeds"),
-        enc_frames=batch.get("enc_frames"), remat=remat,
-        dense_moe=dense_moe, mixer_chunk=mixer_chunk,
-        remat_blocks=remat_blocks, moe_groups=moe_groups)
+    family).  Returns (loss, {"ce_loss", "moe_aux"}).  Under a model axis
+    the cross-entropy is vocab-parallel (the logits are never gathered)."""
+    tokens, prefix = batch["tokens"], batch.get("prefix_embeds")
+    tp = tpl.for_call(cfg, tokens.shape[1] + (
+        0 if prefix is None else prefix.shape[1]))
+    logits, _, aux = _forward(
+        params, cfg, tokens, prefix_embeds=prefix,
+        enc_frames=batch.get("enc_frames"), positions=None, cache=None,
+        cache_index=None, remat=remat, mixer_chunk=mixer_chunk,
+        dense_moe=dense_moe, logits_f32=False, remat_blocks=remat_blocks,
+        moe_groups=moe_groups, tp=tp)
     targets = batch["targets"]
     npad = logits.shape[1] - targets.shape[1]
     if npad:                                   # vlm prefix positions: no loss
         logits = logits[:, npad:]
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, targets[..., None].long())[..., 0]
+    if tp is not None and tp.vocab:
+        lse, tgt = tp.lse_and_target(logits, targets)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None].long())[..., 0]
     nll = lse - tgt
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else mask.float()
@@ -598,8 +713,8 @@ def lm_loss(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
-                      dtype, device) -> Dict:
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+                      dtype, device, kv_heads: Optional[int] = None) -> Dict:
+    KV, hd = kv_heads or cfg.n_kv_heads, cfg.head_dim
     kv = lambda n: {"k": torch.zeros((batch, n, KV, hd), dtype=dtype,
                                      device=device),
                     "v": torch.zeros((batch, n, KV, hd), dtype=dtype,
@@ -626,10 +741,13 @@ def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
 
 def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *,
                device: DeviceLike = None) -> Dict:
-    """Per-layer decode caches, ``group<i>``: a list with one per layer."""
+    """Per-layer decode caches, ``group<i>``: a list with one per layer
+    (under a model axis, of this rank's kv heads)."""
     dev = resolve_device(device)
+    tp = tpl.for_call(cfg)
+    kv = None if tp is None else tp.local_kv_heads
     return {f"group{gi}": [_init_layer_cache(g.kind, cfg, batch, max_seq,
-                                             dtype, dev)
+                                             dtype, dev, kv)
                            for _ in range(g.count)]
             for gi, g in enumerate(layer_groups(cfg))}
 
@@ -649,11 +767,16 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         for layer_p, layer_c in zip(params["group0"], cache["group0"]):
             layer_c["cross"] = encode_cross_kv(layer_p["xattn"], cfg, enc_out)
     n_front = prefix_embeds.shape[1] if prefix_embeds is not None else 0
-    positions = torch.arange(tokens.shape[1] + n_front, device=tokens.device)
+    S = tokens.shape[1] + n_front
+    positions = torch.arange(S, device=tokens.device)
+    tp = tpl.for_call(cfg, S)
     x, _ = _trunk(params, cfg, tokens, positions, cache, 0, mixer_chunk,
                   prefix_embeds=prefix_embeds, dense_moe=dense_moe,
-                  moe_groups=moe_groups)
-    return _head(params, cfg, x[:, -1]), cache
+                  moe_groups=moe_groups, tp=tp)
+    if tp is None:
+        return _head(params, cfg, x[:, -1]), cache
+    return tp.gather_logits(_head(params, cfg, tp.last_position(x),
+                                  tp=tp.at_length(None))), cache
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
@@ -663,6 +786,8 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     0-d tensor; counts a VLM's prefix).  Returns (logits [B, V], cache)."""
     pos = int(pos)
     positions = torch.arange(pos, pos + 1, device=token.device)
+    tp = tpl.for_call(cfg, 1)
     x, _ = _trunk(params, cfg, token[:, None], positions, cache, pos,
-                  mixer_chunk=1, dense_moe=dense_moe)
-    return _head(params, cfg, x[:, 0]), cache
+                  mixer_chunk=1, dense_moe=dense_moe, tp=tp)
+    logits = _head(params, cfg, x[:, 0], tp=tp)
+    return (logits if tp is None else tp.gather_logits(logits)), cache

@@ -13,6 +13,15 @@ Sampling: greedy (argmax, first maximum on ties) or temperature.  The
 temperature draw uses a :class:`torch.Generator` seeded per (seed, pos);
 it cannot reproduce ``jax.random.categorical``'s bits, so parity with the
 JAX engine holds for greedy decoding only.
+
+Under an active sharding policy (:func:`repro_torch.distributed.sharding.
+use_policy`) on a ('data', 'model') process mesh, the parameters are this
+rank's shards: ``generate`` takes this rank's rows of the prompts (as
+``batch_pspecs`` splits them), its cache holds the local kv heads, the
+logits it samples are gathered over the model axis, and the tokens are
+gathered over the batch axes, so every rank returns the same tokens.
+(Temperature draws then use the per-(seed, pos) generator on each rank's
+rows, not the unsharded run's rows.)
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import tensor_parallel as tpl
 from ..distributed.meshes import DeviceLike, resolve_device
+from ..distributed.sharding import active_policy
 from ..models import lm
 
 
@@ -101,20 +112,23 @@ class ServeEngine:
         if self.cfg.family == "encdec" and enc_frames is None:
             raise ValueError(f"generate: {self.cfg.name} is an enc-dec "
                              f"model and needs enc_frames")
+        policy = active_policy()
+        n, idx = (1, 0) if policy is None else tpl.batch_split(policy, B)
+        rows = slice(idx * (B // n), (idx + 1) * (B // n))   # this rank's
         front = {}
         for key, x in (("enc_frames", enc_frames),
                        ("prefix_embeds", prefix_embeds)):
             if x is not None:
-                front[key] = torch.as_tensor(x, device=self.device)
+                front[key] = torch.as_tensor(x, device=self.device)[rows]
         n_front = (prefix_embeds.shape[1] if prefix_embeds is not None
                    else 0)
         if L + n_front + max_new_tokens - 1 > self.max_seq:
             raise ValueError(f"generate: {n_front} prefix + {L} + "
                              f"{max_new_tokens} tokens do not fit max_seq "
                              f"{self.max_seq}")
-        cache = lm.init_cache(self.cfg, B, self.max_seq, self.dtype,
+        cache = lm.init_cache(self.cfg, B // n, self.max_seq, self.dtype,
                               device=self.device)
-        tokens = torch.as_tensor(np.asarray(prompts, np.int64),
+        tokens = torch.as_tensor(np.asarray(prompts[rows], np.int64),
                                  device=self.device)
         logits, cache = lm.prefill(self.params, self.cfg, tokens, cache,
                                    dense_moe=self.dense_moe, **front)
@@ -125,7 +139,7 @@ class ServeEngine:
             return sample_token(logits, gen, temperature)
 
         pos = L + n_front
-        out = np.zeros((B, max_new_tokens), np.int32)
+        out = np.zeros((B // n, max_new_tokens), np.int32)
         tok = sample(logits, pos)
         for t in range(max_new_tokens):
             out[:, t] = tok.cpu().numpy()
@@ -134,6 +148,9 @@ class ServeEngine:
             logits, cache = self._decode(self.params, cache, tok.long(), pos)
             pos += 1
             tok = sample(logits, pos)
+        if n > 1:
+            out = tpl.gather_rows(policy, torch.as_tensor(
+                out, device=self.device), B).cpu().numpy()
         return out
 
     # -- slot-based continuous batching --------------------------------------

@@ -8,6 +8,14 @@ computed in fp32 and cast back to each leaf's dtype, so ``moment_dtype=
 torch.bfloat16`` keeps AdamW's m and v in bf16 (half the optimizer memory)
 while the arithmetic stays fp32.  Global-norm clipping is fused into the
 update.
+
+Under tensor parallelism (``tp``, a
+:class:`repro_torch.distributed.tensor_parallel.TensorParallel`) the trees
+hold this rank's shards: AdamW is elementwise, so it runs on them as they
+are, and the global norm sums the split leaves over the model axis and
+counts replicated and duplicated leaves once, so clipping is the unsharded
+step's.  Adafactor's factored means span split dims: under a model axis it
+raises.
 """
 from __future__ import annotations
 
@@ -91,7 +99,10 @@ def init_opt_state(params: Any, cfg: OptimizerConfig) -> Dict:
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, tp=None) -> torch.Tensor:
+    """The l2 norm of every leaf; of the unsharded tree under ``tp``."""
+    if tp is not None:
+        return torch.sqrt(tp.sum_squares(tree))
     return torch.sqrt(sum(torch.sum(torch.square(x.float()))
                           for x in tree_leaves(tree)))
 
@@ -103,12 +114,12 @@ def _clip_scale(cfg: OptimizerConfig, gnorm: torch.Tensor) -> torch.Tensor:
 
 
 def adamw_update(grads: Any, opt_state: Dict, params: Any,
-                 cfg: OptimizerConfig,
+                 cfg: OptimizerConfig, tp=None,
                  ) -> Tuple[Any, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step.  Returns (new_params, new_opt_state, metrics)."""
     count = opt_state["count"] + 1
     lr = lr_at(cfg, count).to(count.device)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, tp)
     scale = _clip_scale(cfg, gnorm)
     b1, b2 = cfg.b1, cfg.b2
     c = count.to(torch.float32)
@@ -173,8 +184,12 @@ def init_adafactor_state(params: Any) -> Dict:
 
 
 def adafactor_update(grads: Any, opt_state: Dict, params: Any,
-                     cfg: OptimizerConfig,
+                     cfg: OptimizerConfig, tp=None,
                      ) -> Tuple[Any, Dict, Dict[str, torch.Tensor]]:
+    if tp is not None and tp.size > 1:
+        raise NotImplementedError(
+            "adafactor under a model axis > 1 is not ported yet: its "
+            "factored means span split dims (see ROADMAP.md, queue 1)")
     count = opt_state["count"] + 1
     lr = lr_at(cfg, count).to(count.device)
     gnorm = global_norm(grads)
@@ -226,7 +241,7 @@ def adafactor_update(grads: Any, opt_state: Dict, params: Any,
 
 
 def optimizer_update(grads: Any, opt_state: Dict, params: Any,
-                     cfg: OptimizerConfig):
+                     cfg: OptimizerConfig, tp=None):
     if cfg.kind == "adafactor":
-        return adafactor_update(grads, opt_state, params, cfg)
-    return adamw_update(grads, opt_state, params, cfg)
+        return adafactor_update(grads, opt_state, params, cfg, tp)
+    return adamw_update(grads, opt_state, params, cfg, tp)

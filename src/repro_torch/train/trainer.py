@@ -26,8 +26,16 @@ Three DP sync modes (``TrainConfig.dp_mode``).  In one process ``dp`` and
 
 The microbatch loop is a Python loop with a ``grad_dtype`` accumulator;
 ``remat`` checkpoints each layer (:func:`repro_torch.models.lm.forward`).
-The JAX package's ``train_step_shardings`` (pjit shardings of a sharded
-model) waits for the port's sharding layer.
+
+Under an active sharding policy on a ('data', 'model') process mesh
+(:func:`repro_torch.distributed.sharding.use_policy`), the state holds
+this rank's shards (``tensor_parallel.shard_params``): the step takes
+this rank's rows of the batch as ``batch_pspecs`` splits them, runs the
+tensor-parallel forward and backward, takes the mean of the gradients over
+the batch axes (``psum``), and runs AdamW on the local shards with the
+global norm of the whole model.  :func:`train_state_pspecs` gives the
+specs of the JAX package's ``train_step_shardings``; their FSDP overlay
+(ZeRO-3) is specs only here.
 """
 from __future__ import annotations
 
@@ -41,8 +49,11 @@ from ..configs.base import ArchConfig
 from ..core.gradient_sync import (batch_pspec, chunk_index_table,
                                   coded_reduce_scatter_r2,
                                   hierarchical_allreduce)
+from ..distributed import tensor_parallel as tpl
 from ..distributed.collectives import all_gather, psum
 from ..distributed.meshes import DeviceLike, ProcessMesh
+from ..distributed.sharding import (P, ShardingPolicy, active_policy,
+                                    batch_pspecs, param_pspecs)
 from ..models import lm
 from .optimizer import (OptimizerConfig, init_opt_state, optimizer_update,
                         tree_leaves, tree_unflatten)
@@ -233,6 +244,37 @@ def _mesh_grads(params, cfg: ArchConfig, tc: TrainConfig, batch: Dict,
     return _unflat(vec[:G] / n, params, tc.grad_dtype), loss / n
 
 
+def _policy_grads(params, cfg: ArchConfig, tc: TrainConfig, batch: Dict,
+                  policy: ShardingPolicy) -> Tuple[Any, torch.Tensor]:
+    """Under a sharding policy: this rank's rows of the batch through the
+    tensor-parallel model, then the mean over the ranks that split it."""
+    B = next(iter(batch.values())).shape[0]
+    grads, loss = accumulate_grads(params, cfg, tc,
+                                   tpl.local_rows(policy, batch))
+    if tpl.batch_split(policy, B)[0] > 1:
+        vec = _flat(tree_leaves(grads), tc.grad_dtype, 0)
+        grads = _unflat(tpl.mean_over_batch(policy, vec, B), params,
+                        tc.grad_dtype)
+        loss = tpl.mean_over_batch(policy, loss, B)
+    return grads, loss
+
+
+def train_state_pspecs(state: Dict, policy: ShardingPolicy,
+                       fsdp: bool = True, *,
+                       batch: Optional[Dict] = None) -> Dict:
+    """Partition specs of a train state of the model's full shapes (a
+    ``meta``-device state will do) under ``policy``: the JAX package's
+    ``train_step_shardings`` as spec trees.  Returns {"state": {"params",
+    "opt": {"m", "v", "count"}, "step"}, "batch" (None without a batch),
+    "metrics"}."""
+    pspec = param_pspecs(state["params"], policy, fsdp=fsdp)
+    return {"state": {"params": pspec,
+                      "opt": {"m": pspec, "v": pspec, "count": P()},
+                      "step": P()},
+            "batch": None if batch is None else batch_pspecs(policy, batch),
+            "metrics": {"loss": P(), "grad_norm": P(), "lr": P()}}
+
+
 # ---------------------------------------------------------------------------
 # The step
 # ---------------------------------------------------------------------------
@@ -244,8 +286,11 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
     For dp_mode='coded_r2', ``batch`` must be in :func:`make_coded_batch_r2`
     layout and ``mesh`` a process mesh with a 'rack' axis; 'dp' and
     'replicated' on a ('rack', 'server') mesh take the whole global batch
-    in every rank.  The old state's tensors are freed when the caller drops
-    them (the JAX package's ``donate``)."""
+    in every rank.  Under a sharding policy active when the step runs
+    (dp_mode 'dp', no ``mesh``) every rank takes the whole global batch and
+    its state holds its shards (see the module docstring).  The old
+    state's tensors are freed when the caller drops them (the JAX
+    package's ``donate``)."""
     if tc.dp_mode not in TRAIN_DP_MODES:
         raise ValueError(f"dp_mode must be one of {TRAIN_DP_MODES}, got "
                          f"{tc.dp_mode!r}")
@@ -253,7 +298,16 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
         raise ValueError("dp_mode='coded_r2' needs a process mesh")
 
     def step(state, batch):
-        if tc.dp_mode == "coded_r2":
+        policy, tp = active_policy(), None
+        if policy is not None and (mesh is not None or tc.dp_mode != "dp"):
+            raise ValueError(f"a sharding policy runs dp_mode 'dp' with no "
+                             f"mesh argument, got {tc.dp_mode!r} and "
+                             f"{'a' if mesh is not None else 'no'} mesh")
+        if policy is not None:
+            grads, loss = _policy_grads(state["params"], cfg, tc, batch,
+                                        policy)
+            tp = tpl.for_call(cfg)
+        elif tc.dp_mode == "coded_r2":
             grads, loss = coded_grads_r2(state["params"], cfg, tc, batch,
                                          mesh)
         elif mesh is not None:
@@ -261,7 +315,7 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
         else:
             grads, loss = accumulate_grads(state["params"], cfg, tc, batch)
         new_params, new_opt, om = optimizer_update(
-            grads, state["opt"], state["params"], tc.opt)
+            grads, state["opt"], state["params"], tc.opt, tp)
         del grads
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}
@@ -272,4 +326,5 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
 
 __all__ = ["TrainConfig", "TRAIN_DP_MODES", "init_train_state",
            "accumulate_grads", "value_and_grad", "chunk_layout_r2",
-           "make_coded_batch_r2", "coded_grads_r2", "make_train_step"]
+           "make_coded_batch_r2", "coded_grads_r2", "make_train_step",
+           "train_state_pspecs"]
