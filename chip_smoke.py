@@ -180,10 +180,13 @@ Phases, one printed line each (plus detail lines):
               ``TRAIN_WKV_CASES``: RWKV6-3B's [8, 2048, 40, 64] and
               Hymba's SSM identity), the same gradients twice bit for
               bit, CUDA-event, plain and (flash) SDPA-backward times in
-              turns, the bound, and the device time at the kernels line's
-              rows (``BWD_PROFILED``).  (b) Qwen2-1.5B at full width,
-              fp32 parameters and AdamW moments, 8 x 2,048 tokens of the
-              port's ``SyntheticPipeline`` in two microbatches, remat,
+              turns, the bound (flash: the function's 10 * hd FLOPs a
+              visible pair), the route (``tf32x3`` / ``tf32``) and
+              TFLOP/s, and the device time at the kernels line's rows
+              (``BWD_PROFILED``; MLA's fp32 row where the profiler holds
+              records, ``BWD_TRY_PROFILED``).  (b) Qwen2-1.5B at full
+              width, fp32 parameters and AdamW moments, 8 x 2,048 tokens
+              of the port's ``SyntheticPipeline`` in two microbatches, remat,
               ``TRAIN_STEPS`` steps of ``make_train_step``: loss finite
               and falling; the first step's launches counted; step wall
               (median of the later steps), tokens/s, peak memory, and the
@@ -3019,6 +3022,9 @@ TRAIN_STEPS = 4
 # sessions lose records, and one of the 0.55 s hd-576 calls held none in
 # nine sessions
 BWD_PROFILED = ("qwen2_train", "rwkv6_train")
+# rows whose fp32 device time is taken when the profiler holds records
+# (events alone where it does not)
+BWD_TRY_PROFILED = ("mla",)
 
 
 def _rel(a, b) -> float:
@@ -3092,8 +3098,9 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
             del want
             pairs = B * H * visible_pairs(Sq, Sk, 0, None, causal,
                                           window)[0]
-            # pass 1's scores, then S, dP, dV, dK, dQ: 6 products of 2 hd
-            flops = 12.0 * hd * pairs
+            # the function's work, whatever the design: S, dP, dV, dK and
+            # dQ, five products of 2 hd FLOPs a visible (row, key) pair
+            flops = 10.0 * hd * pairs
             size = q.element_size()
             nbytes = size * 4 * (q.numel() + k.numel())
             b_ms, b_by = bound(peaks, nbytes, flops, dname)
@@ -3117,16 +3124,25 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
                    "ms": statistics.mean([turns[0], turns[3]]),
                    "library_ms": statistics.mean([turns[1], turns[2]]),
                    "plain_ms": cuda_ms(torch, plain, 3, 1)}
+            row["route"] = fab.route(dtype)
+            row["tflops"] = flops / row["ms"] / 1e9
             row["device_ms"] = row["device_kernels"] = None
             if tag in BWD_PROFILED:
                 row["device_ms"], row["device_kernels"] = device_per_call(
                     torch, kernel, calls=10)
+            elif tag in BWD_TRY_PROFILED and dtype == torch.float32:
+                try:
+                    row["device_ms"], row["device_kernels"] = \
+                        device_per_call(torch, kernel, calls=5, tries=3)
+                except RuntimeError as e:      # no record: events only
+                    say(f"  backward {tag}: {e}")
             rows.append(row)
             main.setdefault((tag, dname), row)
             say(f"  backward flash_attention_backward {tag} B={B} Sq={Sq} "
                 f"Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} "
-                f"window={window} {dname}: kernel_ms={row['ms']:.6f} "
-                f"{_device_text(row)} plain_ms="
+                f"window={window} {dname} route={row['route']}: "
+                f"kernel_ms={row['ms']:.6f} ({row['tflops']:.1f} TFLOP/s "
+                f"of the function's work) {_device_text(row)} plain_ms="
                 f"{row['plain_ms']:.6f} sdpa_backward_ms="
                 f"{row['library_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) "
                 f"max_rel_err={max(errs)!r} (limit {BWD_TOL[dname]}) "
@@ -3262,7 +3278,7 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     # of the step's launches (the profiler drops records, and a dropped
     # record makes the card look idler than it was)
     records = sum(ev.count for ev in prof.key_averages()
-                  if ev.key.startswith("void fa_bwd::fab_dq"))
+                  if ev.key.startswith("void fa_bwd::dq_mma"))
     check(records > 0, "the profiled train step holds no flash backward "
           "record")
     step_ms = statistics.median(walls[1:])

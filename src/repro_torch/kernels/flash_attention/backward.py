@@ -44,7 +44,16 @@ class _Args(ctypes.Structure):
                    for a in "bsh"]
                 + [("q_pos", ctypes.c_void_p), ("q_offset", ctypes.c_int),
                    ("causal", ctypes.c_int), ("has_window", ctypes.c_int),
-                   ("window", ctypes.c_int), ("scale", ctypes.c_float)])
+                   ("window", ctypes.c_int), ("scale", ctypes.c_float),
+                   ("vec", ctypes.c_int)])
+
+
+def route(dtype: torch.dtype) -> str:
+    """How the kernel's products run on the card, by dtype alone:
+    ``tf32x3`` for fp32 (every operand split into two TF32 parts, three
+    ``mma.sync`` a product), ``tf32`` for bf16 (q, k, v and dO exact in
+    TF32; P and dS, fp32, still split: two ``mma.sync`` for dV, dK, dQ)."""
+    return "tf32x3" if dtype == torch.float32 else "tf32"
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +85,16 @@ def build() -> float:
 
 def _last_dim_unit(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of ``x`` (last dim unit-strided) starts on a
+    16-byte boundary: the kernel then stages it by 16-byte ``cp.async``
+    chunks, else element by element.  A dim of size 1 adds no offset."""
+    size = x.element_size()
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st * size % 16 == 0
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -116,6 +135,9 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention_backward: head dim {hd} > "
                          f"{MAX_HEAD_DIM} is not supported by the kernel")
+    if Sq * (H // KV) >= 1 << 24:
+        raise ValueError(f"flash_attention_backward: {Sq} queries x "
+                         f"{H // KV} heads a kv head >= 2^24 rows")
     q, k, v, out, dout = (_last_dim_unit(x) for x in tensors)
     dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
     dk = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=dev)
@@ -129,12 +151,14 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
             q_positions.to(device=dev, dtype=torch.int32), (Sq,)).contiguous()
         pos_ptr = q_positions.data_ptr()
     strides = [s for x in (q, k, v, out, dout) for s in x.stride()[:3]]
+    vec = sum(1 << n for n, x in enumerate((q, k, v, dout))
+              if rows_aligned(x))
     args = _Args(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
                  B, Sq, Sk, H, KV, hd, *strides, pos_ptr, int(q_offset),
                  int(bool(causal)), int(window is not None),
-                 int(window or 0), hd ** -0.5)
+                 int(window or 0), hd ** -0.5, vec)
     rc = _library().fa_backward(_DTYPES[q.dtype], ctypes.addressof(args),
                                 _build.stream_handle())
     _build.check_launch(rc, "flash_attention_backward")

@@ -28,405 +28,819 @@
 //   the forward (every score NEG_INF): it adds dO_i / Sk to every dV_j and
 //   nothing to dQ or dK (its scores do not depend on q or k).
 //
-// Design (FlashAttention-2's backward without its tuning), two kernels:
-//   fab_dq   one block per (b, kv head, tile of RQ query rows), rows being
-//            the (query, head) pairs of the kv head's G heads.  Pass 1:
-//            D per row from the saved O, then the row's lse over the
-//            visible key tiles (online max / sum, fp32); pass 3: the key
-//            tiles again, recomputing P and dS, accumulating dQ in
-//            registers.  Writes lse and D to scratch for fab_dkdv.
-//            Recomputing lse leaves the tuned forward kernels untouched.
-//   fab_dkdv one block per (b, kv head, tile of BK keys): K and V of the
-//            tile stay in shared memory while the block walks every query
-//            tile that can see them (all G heads), recomputing P and dS
-//            and accumulating dK and dV in registers.
+// What bounds it: operations.  The function needs 10 * hd FLOPs a visible
+// (row, key) pair (S, dP, dV, dK, dQ); this design does 14 * hd (S and dP
+// in both kernels), and in fp32 each product runs three times (split TF32,
+// below): 42 * hd FLOPs of mma.sync, whose TF32 rate on the H100 is about
+// 310 TFLOP/s (tools/mma_tf32_rate.py), well under wgmma's 495.
+//
+// Design: every product on the tensor cores, two kernels, no atomics.
+//   dq_mma   one block per (b, kv head, tile of 16 * RW query rows), rows
+//            being the (query, head) pairs of the kv head's G heads, heavy
+//            (late, causal) tiles first.  D = dO . O per row (fp32 FMAs),
+//            then one pass over the visible key tiles: S = Q K^T and
+//            dP = dO V^T, the row's softmax online (running max and sum,
+//            base 2, as the forward takes it), dS, and dQ += dS K in
+//            registers, rescaled when the max grows and divided by the sum
+//            at the end.  Writes lse (base 2) and D to scratch.
+//   dkdv_mma one block per (b, kv head, pair of key tiles p and n - 1 - p
+//            of 16 * KW keys: under a causal mask the pair evens the
+//            blocks' work): K and V of a tile stay in shared memory while
+//            the block walks every query-row tile that can see them (all G
+//            heads), computing S^T = K Q^T and dP^T = V dO^T, P^T and dS^T
+//            from the saved lse and D, and dV += P^T dO, dK += dS^T Q in
+//            registers.
+// Warps: a warp owns 16 rows (dq) or 16 keys (dkdv), so S (or S^T) lies in
+// its own mma accumulators.  An accumulator fragment feeds the next
+// product's A operand with no shuffle: the contraction index of an m16n8k8
+// tile is permuted (slot t holds column 2t, slot t + 4 column 2t + 1), and
+// the B operand's rows are read in the same order.  Where a warp's 16 x hd
+// output would not fit its registers (hd 128 in dkdv, 256, 576), DW warps
+// split hd, each computes S and dP over its hd slice, and the slices are
+// summed through shared memory in warp order (the same bits in every warp
+// of the group).
+// Products: mma.sync.m16n8k8 TF32 with fp32 accumulators.  An fp32 operand
+// x is split into hi = tf32(x) and lo = tf32(x - hi); a product is
+// lo.hi + hi.lo + hi.hi ("3xTF32"), within a few fp32 roundoffs of an fp32
+// FMA loop.  bf16 q, k, v and do are exact in TF32 and enter unsplit; P
+// and dS are fp32 and are split in both dtypes.  The tensor cores truncate
+// as they accumulate, so a sum that runs over many tiles (dQ, dK, dV) is
+// taken one tile at a time in zeroed accumulators and added in fp32.
+// Staging: tiles go to shared memory with cp.async (16-byte chunks, zero
+// fill past hd and past the last row), double-buffered: the next K/V tile
+// (dq) or Q/dO tile (dkdv) loads while the current one multiplies.  Rows
+// that are not 16-byte aligned (odd strides) are staged by plain loads.
+// bf16 tiles stay bf16 in shared memory and widen as fragments are built.
+// A tile's rows are padded by one 16-byte chunk, so both the row-major
+// fragment reads and the permuted column reads hit 32 banks.
+// Masks: a dq block visits only the key tiles between its rows' lowest and
+// highest visible key; a dkdv block only the row tiles with a row that sees
+// one of its keys (or sees none at all); inside a tile the mask is tested
+// per element.
 // Every output element is written by one thread of one block after a
-// fixed-order loop: no atomics, and two calls give the same bits.  Tiles
-// are staged as fp32 in shared memory (rows padded by one float so that
-// lanes reading different rows hit different banks); every product is an
-// fp32 FMA on the CUDA cores, so the kernel is bound by operations: about
-// 12 * hd FLOPs per visible (row, key) pair (pass 1's scores, then S, dP,
-// dV, dK and dQ), three times the forward's 4 * hd.  Head dims 1..576 run
-// on instances padded to HD = 32, 64, 128, 256 and 576, whose tiles shrink
-// as HD grows so that a block's accumulators stay in registers and its
-// tiles in the 227 KB of shared memory.
+// fixed-order loop: no atomics, and two calls give the same bits.  Head
+// dims 1..576 run on instances padded to HD = 32, 64, 128, 256 and 576.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace fa_bwd {
 
-constexpr int kThreads = 256;
 constexpr int kF32 = 0;                 // dtype codes shared with the wrapper
 constexpr int kBF16 = 1;
-
-__device__ inline float to_f32(float v) { return v; }
-__device__ inline float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ inline void store(float* p, float v) { *p = v; }
-__device__ inline void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const void* q; const void* k; const void* v; const void* o;
   const void* dout;
   void* dq; void* dk; void* dv;
-  float* lse; float* delta;             // scratch [B, H, Sq] each
+  float* lse; float* delta;             // scratch [B * KV * Sq * G] each
   int B, Sq, Sk, H, KV, hd;
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   int64_t o_sb, o_ss, o_sh, d_sb, d_ss, d_sh;
   const int* q_pos; int q_offset;
   int causal, has_window, window;
   float scale;
+  int vec;    // bit 0 q, 1 k, 2 v, 3 do: every row starts 16-byte aligned
 };
 
-// query rows a block serves (RQ) and keys a tile holds (BK), by instance
-template <int HD> struct Tile;
-template <> struct Tile<32> { static constexpr int RQ = 64, BK = 32; };
-template <> struct Tile<64> { static constexpr int RQ = 64, BK = 32; };
-template <> struct Tile<128> { static constexpr int RQ = 32, BK = 32; };
-template <> struct Tile<256> { static constexpr int RQ = 16, BK = 16; };
-template <> struct Tile<576> { static constexpr int RQ = 16, BK = 8; };
-
-// One query row of a (b, kv head) block: flattened index rr = i * G + g.
-struct Row {
-  int64_t qoff, ooff, doff;             // element offsets of q, o, do rows
-  int i, h, lo, hi;                     // visible keys [lo, hi)
-  bool valid;
+// dq: RW groups of 16 rows, QDW warps split hd, BC keys a tile.
+// dkdv: KW groups of 16 keys, KDW warps split hd, BR rows a tile.
+// Sized so that accumulators stay in registers and, at HD 576, so that
+// fp32 tiles fill the 227 KB a block may have; chosen by timing on the
+// H100 at Qwen2's, Whisper's and MLA's training shapes
+// (tools/flash_bwd_variants.py).  ptxas reports small spills in
+// dkdv_mma<float, 64> (28 bytes) and dkdv_mma<float, 576> (8 bytes): the
+// configurations that spill nothing ran slower there.
+template <int HD> struct Cfg;
+template <> struct Cfg<32> {
+  static constexpr int RW = 4, QDW = 1, BC = 32, KW = 4, KDW = 1, BR = 32;
+};
+template <> struct Cfg<64> {
+  static constexpr int RW = 4, QDW = 1, BC = 32, KW = 4, KDW = 1, BR = 32;
+};
+template <> struct Cfg<128> {
+  static constexpr int RW = 4, QDW = 1, BC = 16, KW = 4, KDW = 2, BR = 32;
+};
+template <> struct Cfg<256> {
+  static constexpr int RW = 4, QDW = 2, BC = 16, KW = 2, KDW = 4, BR = 16;
+};
+template <> struct Cfg<576> {
+  static constexpr int RW = 2, QDW = 4, BC = 8, KW = 2, KDW = 4, BR = 8;
 };
 
-__device__ inline Row make_row(const BwdArgs& a, int b, int kvh, int rr) {
-  Row w;
-  const int G = a.H / a.KV;
-  w.valid = rr < a.Sq * G;
-  w.i = w.valid ? rr / G : 0;
-  w.h = kvh * G + (w.valid ? rr % G : 0);
-  w.qoff = b * a.q_sb + w.i * a.q_ss + w.h * a.q_sh;
-  w.ooff = b * a.o_sb + w.i * a.o_ss + w.h * a.o_sh;
-  w.doff = b * a.d_sb + w.i * a.d_ss + w.h * a.d_sh;
-  const int pos = a.q_pos ? a.q_pos[w.i] : a.q_offset + w.i;
-  // clamp in 64 bits: pos - window + 1 and pos + 1 may leave int range
-  const long long lo = a.has_window
-      ? (long long)pos - (long long)a.window + 1 : 0;
-  const long long hi = a.causal ? (long long)pos + 1 : (long long)a.Sk;
-  w.lo = (int)(lo < 0 ? 0 : (lo > a.Sk ? a.Sk : lo));
-  w.hi = (int)(hi < 0 ? 0 : (hi > a.Sk ? a.Sk : hi));
-  if (!w.valid) { w.lo = 0; w.hi = 0; }
-  return w;
+// ---------------------------------------------------------------------------
+// small device helpers
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ float f32(float x) { return x; }
+__device__ __forceinline__ float f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T zero();
+template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
+template <> __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
-// Stage ROWS rows of hd elements into dst (row r at dst + r * (HD + 1)) as
-// fp32: row r from base + off(r), zero past hd and where off(r) < 0.
-template <typename T, int HD, int ROWS, typename OffFn>
-__device__ inline void stage(float* dst, const T* base, int hd, OffFn off) {
-  for (int e = threadIdx.x; e < ROWS * HD; e += kThreads) {
-    const int r = e / HD, d = e % HD;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an mma operand: hi = x rounded to TF32 (nearest, ties away), lo = the
+// rest rounded to TF32: hi + lo holds x to 2^-22 of |x|.  The tensor cores
+// ignore a .tf32 operand's low 13 bits, so lo is rounded by the add alone
+// (hi is masked: lo needs its value).  Truncating both parts instead takes
+// two instructions a value, not four, and holds x to 2^-20: 13 % faster at
+// Qwen2's shape, but its roundoff in gradients that are zero in exact
+// arithmetic (Whisper's key biases) moved Adam's first step past
+// chip_smoke.py's 1e-4 card-against-CPU gate (phase 9 (c))
+struct Op { uint32_t hi, lo; };
+template <bool SPLIT>
+__device__ __forceinline__ Op op(float x) {
+  if (SPLIT) {
+    const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+    return {h, __float_as_uint(x - __uint_as_float(h)) + 0x1000u};
+  }
+  return {__float_as_uint(x), 0u};     // exact in TF32 (bf16 data)
+}
+
+// d += a . b, m16n8k8, TF32 inputs, fp32 accumulators
+__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                    uint32_t a2, uint32_t a3, uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a . b with split operands: the small terms first, then hi . hi
+template <bool SA, bool SB>
+__device__ __forceinline__ void mma3(float (&d)[4], const Op (&a)[4],
+                                     const Op (&b)[2]) {
+  if (SA) mma(d, a[0].lo, a[1].lo, a[2].lo, a[3].lo, b[0].hi, b[1].hi);
+  if (SB) mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].lo, b[1].lo);
+  mma(d, a[0].hi, a[1].hi, a[2].hi, a[3].hi, b[0].hi, b[1].hi);
+}
+
+__device__ __forceinline__ void add4(float (&d)[4], const float (&x)[4]) {
+  d[0] += x[0]; d[1] += x[1]; d[2] += x[2]; d[3] += x[3];
+}
+
+// Row stride of a staged [rows][HD] tile: one 16-byte chunk of padding, so
+// that the row-major fragment reads (row g, column t) and the permuted
+// column reads (row 2t, column g) both hit 32 different banks, and every
+// offset is the lane's base plus a constant
+template <typename T, int HD>
+__device__ __host__ constexpr int ld() { return HD + 16 / (int)sizeof(T); }
+
+// rr / G for 0 <= rr < 2^24 (rows of one (b, kv head)): a float estimate,
+// corrected by one step either way
+__device__ __forceinline__ int div_g(int rr, int G, float inv_g) {
+  int i = __float2int_rz((float)rr * inv_g);
+  i += (i + 1) * G <= rr;
+  i -= i * G > rr;
+  return i;
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, int bytes) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp4(void* dst, const void* src) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Stage ROWS rows of HD elements into the padded tile dst: row r from
+// base + off(r), zero past hd and where off(r) < 0.  16-byte cp.async
+// chunks when every row is 16-byte aligned (vec), plain loads otherwise.
+template <typename T, int HD, int ROWS, int NTH, typename OffFn>
+__device__ __forceinline__ void stage(T* dst, const T* base, int hd,
+                                      bool vec, OffFn off) {
+  constexpr int V = 16 / (int)sizeof(T), CPR = HD / V;
+  for (int e = threadIdx.x; e < ROWS * CPR; e += NTH) {
+    const int r = e / CPR, c = (e % CPR) * V;
     const int64_t o = off(r);
-    dst[r * (HD + 1) + d] = (o >= 0 && d < hd) ? to_f32(base[o + d]) : 0.f;
+    T* d = dst + r * ld<T, HD>() + c;
+    const int n = o < 0 ? 0 : max(0, min(V, hd - c));
+    if (vec) {
+      cp16(d, n ? (const void*)(base + o + c) : (const void*)base,
+           n * (int)sizeof(T));
+    } else {
+#pragma unroll
+      for (int u = 0; u < V; ++u) d[u] = u < n ? base[o + c + u] : zero<T>();
+    }
   }
 }
 
-// a . b over HD padded fp32 elements of two staged rows
-template <int HD>
-__device__ inline float dot(const float* a, const float* b) {
-  float s = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) s = fmaf(a[d], b[d], s);
-  return s;
+// the keys a query at position pos sees: [lo, hi)
+__device__ __forceinline__ void keys_at(const BwdArgs& a, int pos, int& lo,
+                                        int& hi) {
+  // clamp in 64 bits: pos - window + 1 and pos + 1 may leave int range
+  const long long l = a.has_window
+      ? (long long)pos - (long long)a.window + 1 : 0;
+  const long long h = a.causal ? (long long)pos + 1 : (long long)a.Sk;
+  lo = (int)(l < 0 ? 0 : (l > a.Sk ? a.Sk : l));
+  hi = (int)(h < 0 ? 0 : (h > a.Sk ? a.Sk : h));
+}
+// the keys query i sees
+__device__ __forceinline__ void key_range(const BwdArgs& a, int i, int& lo,
+                                          int& hi) {
+  keys_at(a, a.q_pos ? a.q_pos[i] : a.q_offset + i, lo, hi);
 }
 
-template <int HD>
-constexpr int dq_smem_floats() {
-  return (2 * Tile<HD>::RQ + 2 * Tile<HD>::BK) * (HD + 1)
-         + Tile<HD>::RQ * (Tile<HD>::BK + 1) + 2 * Tile<HD>::RQ;
+// Fragments of staged tiles (g = lane / 4, t = lane % 4).
+// A: rows r0..r0+15, contraction columns c0..c0+7
+template <typename T, int HD, bool SPLIT>
+__device__ __forceinline__ void frag_a(Op (&f)[4], const T* tile, int r0,
+                                       int c0, int g, int t) {
+  constexpr int LD = ld<T, HD>();
+  f[0] = op<SPLIT>(f32(tile[(r0 + g) * LD + c0 + t]));
+  f[1] = op<SPLIT>(f32(tile[(r0 + g + 8) * LD + c0 + t]));
+  f[2] = op<SPLIT>(f32(tile[(r0 + g) * LD + c0 + t + 4]));
+  f[3] = op<SPLIT>(f32(tile[(r0 + g + 8) * LD + c0 + t + 4]));
+}
+// B[k][n] = tile[r0 + n][c0 + k]: n over rows r0..r0+7
+template <typename T, int HD, bool SPLIT>
+__device__ __forceinline__ void frag_bt(Op (&f)[2], const T* tile, int r0,
+                                        int c0, int g, int t) {
+  constexpr int LD = ld<T, HD>();
+  f[0] = op<SPLIT>(f32(tile[(r0 + g) * LD + c0 + t]));
+  f[1] = op<SPLIT>(f32(tile[(r0 + g) * LD + c0 + t + 4]));
+}
+// B[k][n] = tile[r0 + k][c0 + n], k in the permuted order (slot t: row
+// 2t, slot t + 4: row 2t + 1) that matches frag_c
+template <typename T, int HD, bool SPLIT>
+__device__ __forceinline__ void frag_bk(Op (&f)[2], const T* tile, int r0,
+                                        int c0, int g, int t) {
+  constexpr int LD = ld<T, HD>();
+  f[0] = op<SPLIT>(f32(tile[(r0 + 2 * t) * LD + c0 + g]));
+  f[1] = op<SPLIT>(f32(tile[(r0 + 2 * t + 1) * LD + c0 + g]));
+}
+// A operand (16 x 8, permuted contraction) from a 16 x 8 accumulator tile:
+// lane (g, t) holds columns 2t and 2t + 1 of rows g and g + 8
+__device__ __forceinline__ void frag_c(Op (&f)[4], const float (&c)[4]) {
+  f[0] = op<true>(c[0]);
+  f[1] = op<true>(c[2]);
+  f[2] = op<true>(c[1]);
+  f[3] = op<true>(c[3]);
 }
 
-template <int HD>
-constexpr int dkdv_smem_floats() {
-  return (2 * Tile<HD>::RQ + 2 * Tile<HD>::BK) * (HD + 1)
-         + 2 * Tile<HD>::RQ * (Tile<HD>::BK + 1) + 2 * Tile<HD>::RQ;
+// x (NT accumulator tiles of a warp) summed over the DW warps of its group
+// through shared memory, in warp order: the same bits in each of them.
+// xput for every slot, one __syncthreads, then xsum.
+template <int NT>
+__device__ __forceinline__ void xput(float4* slot, int lane,
+                                     const float (&x)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+    slot[n * 32 + lane] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+}
+template <int NT, int DW>
+__device__ __forceinline__ void xsum(const float4* first, int stride,
+                                     int lane, float (&x)[NT][4]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    float4 s = first[n * 32 + lane];
+#pragma unroll
+    for (int w = 1; w < DW; ++w) {
+      const float4 p = first[w * stride + n * 32 + lane];
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    x[n][0] = s.x; x[n][1] = s.y; x[n][2] = s.z; x[n][3] = s.w;
+  }
 }
 
-// ---------------------------------------------------------------------------
-// fab_dq: D and lse per row (pass 1), then dQ (pass 3)
-// ---------------------------------------------------------------------------
+// x = A_x B_x^T and y = A_y B_y^T over the k-steps [c0, c0 + 8 KS) of a
+// warp's 16 rows ra.. of tiles tax, tay and NT x 8 rows of tbx, tby (S and
+// dP; S^T and dP^T).  In fp32 the hi.hi, lo.hi and hi.lo terms go to three
+// accumulators (two, the small terms sharing one, when NT >= 4 tiles give
+// enough independent chains and registers are short), with exact bf16
+// operands the even and odd k-steps to two: independent mma chains, summed
+// in fp32 at the end.
+template <typename T, int HD, int NT, int KS>
+__device__ __forceinline__ void qk_pair(float (&x)[NT][4], float (&y)[NT][4],
+                                        const T* tax, const T* tay, int ra,
+                                        const T* tbx, const T* tby, int c0,
+                                        int g, int t) {
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LAST = NT >= 4 ? 1 : 2;     // the hi.lo terms' accumulator
+  float ax[3][NT][4], ay[3][NT][4];
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ax[u][n][e] = ay[u][n][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    Op fx[4], fy[4];
+    frag_a<T, HD, SPLIT>(fx, tax, ra, c0 + 8 * ks, g, t);
+    frag_a<T, HD, SPLIT>(fy, tay, ra, c0 + 8 * ks, g, t);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      Op bx[2], by[2];
+      frag_bt<T, HD, SPLIT>(bx, tbx, 8 * n, c0 + 8 * ks, g, t);
+      frag_bt<T, HD, SPLIT>(by, tby, 8 * n, c0 + 8 * ks, g, t);
+      if (SPLIT) {
+        mma(ax[0][n], fx[0].hi, fx[1].hi, fx[2].hi, fx[3].hi, bx[0].hi,
+            bx[1].hi);
+        mma(ay[0][n], fy[0].hi, fy[1].hi, fy[2].hi, fy[3].hi, by[0].hi,
+            by[1].hi);
+        mma(ax[1][n], fx[0].lo, fx[1].lo, fx[2].lo, fx[3].lo, bx[0].hi,
+            bx[1].hi);
+        mma(ay[1][n], fy[0].lo, fy[1].lo, fy[2].lo, fy[3].lo, by[0].hi,
+            by[1].hi);
+        mma(ax[LAST][n], fx[0].hi, fx[1].hi, fx[2].hi, fx[3].hi, bx[0].lo,
+            bx[1].lo);
+        mma(ay[LAST][n], fy[0].hi, fy[1].hi, fy[2].hi, fy[3].hi, by[0].lo,
+            by[1].lo);
+      } else {
+        mma(ax[ks & 1][n], fx[0].hi, fx[1].hi, fx[2].hi, fx[3].hi,
+            bx[0].hi, bx[1].hi);
+        mma(ay[ks & 1][n], fy[0].hi, fy[1].hi, fy[2].hi, fy[3].hi,
+            by[0].hi, by[1].hi);
+      }
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      x[n][e] = ax[0][n][e] + (ax[1][n][e] + ax[2][n][e]);
+      y[n][e] = ay[0][n][e] + (ay[1][n][e] + ay[2][n][e]);
+    }
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) fab_dq(BwdArgs a) {
-  constexpr int RQ = Tile<HD>::RQ, BK = Tile<HD>::BK, LD = HD + 1;
-  constexpr int TPR = kThreads / RQ;    // threads a row in the row loops
-  constexpr int NACC = RQ * HD / kThreads;
-  extern __shared__ float smem[];
-  float* Qs = smem;                     // [RQ][LD]
-  float* dOs = Qs + RQ * LD;            // [RQ][LD]
-  float* Ks = dOs + RQ * LD;            // [BK][LD]
-  float* Vs = Ks + BK * LD;             // [BK][LD]
-  float* Ss = Vs + BK * LD;             // [RQ][BK + 1] scores, then dS
-  float* lse_s = Ss + RQ * (BK + 1);    // [RQ]
-  float* D_s = lse_s + RQ;              // [RQ]
-  __shared__ Row rows_s[RQ];
-  __shared__ int klo, khi;
+constexpr size_t dq_smem() {
+  using C = Cfg<HD>;
+  constexpr int BQ = 16 * C::RW, NC = C::BC / 8;
+  return (C::QDW > 1 ? (size_t)C::RW * C::QDW * 2 * NC * 32 * 16 : 0)
+         + sizeof(T) * (size_t)(2 * BQ + 4 * C::BC) * ld<T, HD>() + 4 * BQ;
+}
 
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-  const int r0 = blockIdx.x * RQ;
-  const int tid = threadIdx.x;
+template <typename T, int HD>
+constexpr size_t dkdv_smem() {
+  using C = Cfg<HD>;
+  constexpr int BK = 16 * C::KW, NR = C::BR / 8;
+  return (C::KDW > 1 ? (size_t)C::KW * C::KDW * 2 * NR * 32 * 16 : 0)
+         + sizeof(T) * (size_t)(2 * BK + 4 * C::BR) * ld<T, HD>()
+         + 12 * 2 * C::BR;
+}
+
+// ---------------------------------------------------------------------------
+// dq_mma: D per row, then one pass over the key tiles for dQ and lse
+// ---------------------------------------------------------------------------
+// The row's softmax is taken online, as the forward does: with m the
+// running max of the (base 2) scores and l = sum 2^(s - m),
+//   dQ_i = scale / l_i * sum_j 2^(s_ij - m_i) (dP_ij - D_i) K_j,
+// the sum rescaled by 2^(m_old - m_new) when m grows, and
+// lse_i = m_i + log2 l_i at the end: no separate pass for lse.
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * Cfg<HD>::RW * Cfg<HD>::QDW, 1)
+dq_mma(BwdArgs a) {
+  using C = Cfg<HD>;
+  constexpr int DW = C::QDW, BC = C::BC, BQ = 16 * C::RW;
+  constexpr int NTH = 32 * C::RW * DW, NW = NTH / 32;
+  constexpr int DS = HD / DW, NC = BC / 8, ND = DS / 8;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = ld<T, HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* xch = reinterpret_cast<float4*>(smem_raw);  // [RW][DW][2][NC][32]
+  T* Qs = reinterpret_cast<T*>(
+      smem_raw + (DW > 1 ? C::RW * DW * 2 * NC * 32 * 16 : 0));
+  T* dOs = Qs + BQ * LD;                // [BQ][LD]
+  T* Ks = dOs + BQ * LD;                // [2][BC][LD]
+  T* Vs = Ks + 2 * BC * LD;             // [2][BC][LD]
+  float* D_s = reinterpret_cast<float*>(Vs + 2 * BC * LD);  // [BQ]
+
+  const int nbh = a.B * a.KV, G = a.H / a.KV, rows = a.Sq * G;
+  const int n_rt = (rows + BQ - 1) / BQ;
+  const int bh = blockIdx.x % nbh;
+  const int rt = n_rt - 1 - blockIdx.x / nbh;   // late (causal: heavy) first
+  const int b = bh / a.KV, kvh = bh % a.KV, r0 = rt * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int rg = warp / DW, ds = warp % DW, d0 = ds * DS;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* o = static_cast<const T*>(a.o);
   const T* dout = static_cast<const T*>(a.dout);
+  const float sl2 = a.scale * kLog2e;
 
-  if (tid == 0) { klo = a.Sk; khi = 0; }
-  __syncthreads();
-  if (tid < RQ) {
-    const Row w = make_row(a, b, kvh, r0 + tid);
-    rows_s[tid] = w;
-    if (w.hi > w.lo) { atomicMin(&klo, w.lo); atomicMax(&khi, w.hi); }
-  }
-  __syncthreads();
-  stage<T, HD, RQ>(Qs, q, a.hd, [&](int r) -> int64_t {
-    return rows_s[r].valid ? rows_s[r].qoff : -1; });
-  stage<T, HD, RQ>(dOs, dout, a.hd, [&](int r) -> int64_t {
-    return rows_s[r].valid ? rows_s[r].doff : -1; });
-  __syncthreads();
+  const float inv_g = 1.f / (float)G;
+  auto row_off = [&](int r, int64_t sb, int64_t ss, int64_t sh) -> int64_t {
+    const int rr = r0 + r;
+    if (rr >= rows) return -1;
+    const int i = div_g(rr, G, inv_g);
+    return b * sb + (int64_t)i * ss + (int64_t)(kvh * G + rr - i * G) * sh;
+  };
+  stage<T, HD, BQ, NTH>(Qs, q, a.hd, a.vec & 1, [&](int r) {
+    return row_off(r, a.q_sb, a.q_ss, a.q_sh); });
+  stage<T, HD, BQ, NTH>(dOs, dout, a.hd, a.vec & 8, [&](int r) {
+    return row_off(r, a.d_sb, a.d_ss, a.d_sh); });
+  cp_commit();
 
-  // pass 1a: D = dO . O per row, TPR adjacent lanes a row
-  const int my_r = tid / TPR, my_t = tid % TPR;
+  // the tile's visible keys [klo, khi), the same in every warp
+  int klo = a.Sk, khi = 0;
   {
-    const Row& w = rows_s[my_r];
-    float s = 0.f;
-    if (w.valid)
-      for (int d = my_t; d < a.hd; d += TPR)
-        s = fmaf(dOs[my_r * LD + d], to_f32(o[w.ooff + d]), s);
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (my_t == 0) D_s[my_r] = s;
+    const int i0 = r0 / G, i1 = min((r0 + BQ - 1) / G, a.Sq - 1);
+    for (int i = i0 + lane; i <= i1; i += 32) {
+      int lo, hi;
+      key_range(a, i, lo, hi);
+      if (hi > lo) { klo = min(klo, lo); khi = max(khi, hi); }
+    }
+    klo = __reduce_min_sync(0xffffffffu, klo);
+    khi = __reduce_max_sync(0xffffffffu, khi);
   }
+  // this lane's rows (g and g + 8 of its group) and their visible keys
+  int rlo[2], rhi[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rr = r0 + rg * 16 + g + 8 * h;
+    rlo[h] = rhi[h] = 0;
+    if (rr < rows) key_range(a, rr / G, rlo[h], rhi[h]);
+  }
+  // D = dO . O per row (fp32 FMAs in a fixed order)
+  for (int r = warp; r < BQ; r += NW) {
+    float s = 0.f;
+    const int64_t od = row_off(r, a.o_sb, a.o_ss, a.o_sh);
+    const int64_t dd = row_off(r, a.d_sb, a.d_ss, a.d_sh);
+    if (od >= 0)
+      for (int d = lane; d < a.hd; d += 32)
+        s = fmaf(f32(dout[dd + d]), f32(o[od + d]), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) D_s[r] = s;
+  }
+  __syncthreads();
+  const float Dr[2] = {D_s[rg * 16 + g], D_s[rg * 16 + g + 8]};
 
-  // pass 1b: lse per row over its visible keys
-  float m = -CUDART_INF_F, l = 0.f;
-  const int t_lo = (klo / BK) * BK;
-  for (int j0 = t_lo; j0 < khi; j0 += BK) {
-    stage<T, HD, BK>(Ks, k, a.hd, [&](int j) -> int64_t {
+  const int t_lo = (klo / BC) * BC;
+  auto stage_kv = [&](int j0, int s) {
+    stage<T, HD, BC, NTH>(Ks + s * BC * LD, k, a.hd, a.vec & 2,
+                          [&](int j) -> int64_t {
       return j0 + j < a.Sk ? b * a.k_sb + (int64_t)(j0 + j) * a.k_ss
                              + kvh * a.k_sh : -1; });
-    __syncthreads();
-    for (int e = tid; e < RQ * BK; e += kThreads) {
-      const int r = e / BK, j = e % BK;
-      Ss[r * (BK + 1) + j] = a.scale * dot<HD>(Qs + r * LD, Ks + j * LD);
-    }
-    __syncthreads();
-    const int lo = rows_s[my_r].lo, hi = rows_s[my_r].hi;
-    for (int j = my_t; j < BK; j += TPR) {
-      const int key = j0 + j;
-      if (key < lo || key >= hi) continue;
-      const float s = Ss[my_r * (BK + 1) + j];
-      const float mn = fmaxf(m, s);
-      l = l * expf(m - mn) + expf(s - mn);
-      m = mn;
-    }
-    __syncthreads();
-  }
-  {
-    float mall = m;
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      mall = fmaxf(mall, __shfl_xor_sync(0xffffffffu, mall, off));
-    float lt = (l > 0.f) ? l * expf(m - mall) : 0.f;
-#pragma unroll
-    for (int off = TPR / 2; off > 0; off >>= 1)
-      lt += __shfl_xor_sync(0xffffffffu, lt, off);
-    if (my_t == 0) {
-      // a row with no visible key: lse = +inf marks it (uniform weights)
-      const float lse = lt > 0.f ? mall + logf(lt) : CUDART_INF_F;
-      lse_s[my_r] = lse;
-      const Row& w = rows_s[my_r];
-      if (w.valid) {
-        const int64_t idx = ((int64_t)b * a.H + w.h) * a.Sq + w.i;
-        a.lse[idx] = lse;
-        a.delta[idx] = D_s[my_r];
-      }
-    }
-  }
-  __syncthreads();
-
-  // pass 3: dQ = scale * sum_j dS_ij K_j
-  float acc[NACC];
-#pragma unroll
-  for (int n = 0; n < NACC; ++n) acc[n] = 0.f;
-  for (int j0 = t_lo; j0 < khi; j0 += BK) {
-    auto koff = [&](int j) -> int64_t {
-      return j0 + j < a.Sk ? b * a.k_sb + (int64_t)(j0 + j) * a.k_ss
-                             + kvh * a.k_sh : -1; };
-    auto voff = [&](int j) -> int64_t {
+    stage<T, HD, BC, NTH>(Vs + s * BC * LD, v, a.hd, a.vec & 4,
+                          [&](int j) -> int64_t {
       return j0 + j < a.Sk ? b * a.v_sb + (int64_t)(j0 + j) * a.v_ss
-                             + kvh * a.v_sh : -1; };
-    stage<T, HD, BK>(Ks, k, a.hd, koff);
-    stage<T, HD, BK>(Vs, v, a.hd, voff);
+                             + kvh * a.v_sh : -1; });
+  };
+  float4* xs = xch + ((rg * DW + ds) * 2) * NC * 32;     // this warp's slots
+  const float4* xg = xch + (rg * DW * 2) * NC * 32;      // its group's first
+
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  if (t_lo < khi) stage_kv(t_lo, 0);
+  cp_commit();
+  for (int j0 = t_lo, s = 0; j0 < khi; j0 += BC, s ^= 1) {
+    if (j0 + BC < khi) stage_kv(j0 + BC, s ^ 1);
+    cp_commit();
+    cp_wait<1>();
     __syncthreads();
-    for (int e = tid; e < RQ * BK; e += kThreads) {
-      const int r = e / BK, j = e % BK, key = j0 + j;
-      float ds = 0.f;
-      const float lse = lse_s[r];
-      if (key >= rows_s[r].lo && key < rows_s[r].hi
-          && lse != CUDART_INF_F) {
-        const float s = a.scale * dot<HD>(Qs + r * LD, Ks + j * LD);
-        const float dp = dot<HD>(dOs + r * LD, Vs + j * LD);
-        const float p = expf(s - lse);
-        ds = p * (dp - D_s[r]);
-      }
-      Ss[r * (BK + 1) + j] = ds;
+    const T* Kb = Ks + s * BC * LD;
+    const T* Vb = Vs + s * BC * LD;
+    float sc[NC][4], dp[NC][4];
+    qk_pair<T, HD, NC, DS / 8>(sc, dp, Qs, dOs, rg * 16, Kb, Vb, d0, g, t);
+    if (DW > 1) {
+      xput<NC>(xs, lane, sc);
+      xput<NC>(xs + NC * 32, lane, dp);
+      __syncthreads();
+      xsum<NC, DW>(xg, 2 * NC * 32, lane, sc);
+      xsum<NC, DW>(xg + NC * 32, 2 * NC * 32, lane, dp);
     }
-    __syncthreads();
+    // online softmax; dS before the 1 / l in dp's registers
 #pragma unroll
-    for (int n = 0; n < NACC; ++n) {
-      const int e = tid + n * kThreads, r = e / HD, c = e % HD;
-      float s = acc[n];
+    for (int h = 0; h < 2; ++h) {
+      float mx = -CUDART_INF_F;
 #pragma unroll
-      for (int j = 0; j < BK; ++j)
-        s = fmaf(Ss[r * (BK + 1) + j], Ks[j * LD + c], s);
-      acc[n] = s;
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = j0 + 8 * n + 2 * t + e;
+          const bool vis = key >= rlo[h] && key < rhi[h];
+          const float x = vis ? sc[n][2 * h + e] * sl2 : -CUDART_INF_F;
+          sc[n][2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[h], mx);
+      // nothing visible yet: no scores, nothing to rescale
+      const float mu = mn == -CUDART_INF_F ? 0.f : mn;
+      const float corr = ex2(m[h] - mu);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(sc[n][2 * h + e] - mu);   // 0 where masked
+          sum += p;
+          dp[n][2 * h + e] = p * (dp[n][2 * h + e] - Dr[h]);
+        }
+      l[h] = l[h] * corr + sum;
+      m[h] = mn;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][2 * h] *= corr;
+        acc[n][2 * h + 1] *= corr;
+      }
+    }
+    // this tile's dS K in a zeroed accumulator, then one fp32 add: the
+    // tensor cores truncate as they accumulate, and a sum carried through
+    // every key tile would drift toward zero
+    Op fs[NC][4];
+#pragma unroll
+    for (int kk = 0; kk < NC; ++kk) frag_c(fs[kk], dp[kk]);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      float tq[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < NC; ++kk) {
+        Op fk[2];
+        frag_bk<T, HD, SPLIT>(fk, Kb, 8 * kk, d0 + 8 * n, g, t);
+        mma3<true, SPLIT>(tq, fs[kk], fk);
+      }
+      add4(acc[n], tq);
     }
     __syncthreads();
   }
+  cp_wait<0>();
   T* dq = static_cast<T*>(a.dq);
 #pragma unroll
-  for (int n = 0; n < NACC; ++n) {
-    const int e = tid + n * kThreads, r = e / HD, c = e % HD;
-    const Row& w = rows_s[r];
-    if (w.valid && c < a.hd)
-      store(dq + (((int64_t)b * a.Sq + w.i) * a.H + w.h) * a.hd + c,
-            a.scale * acc[n]);
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int rr = r0 + rg * 16 + g + 8 * h;
+    if (rr >= rows) continue;
+    if (ds == 0 && t == 0) {
+      // a row with no visible key: lse = +inf marks it (uniform weights)
+      const int64_t idx = (int64_t)bh * rows + rr;
+      a.lse[idx] = lt > 0.f ? m[h] + log2f(lt) : CUDART_INF_F;
+      a.delta[idx] = Dr[h];
+    }
+    const float f = lt > 0.f ? a.scale / lt : 0.f;
+    T* row = dq + (((int64_t)b * a.Sq + rr / G) * a.H + kvh * G + rr % G)
+                  * a.hd;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = d0 + 8 * n + 2 * t + e;
+        if (c < a.hd) store(row + c, f * acc[n][2 * h + e]);
+      }
   }
 }
 
 // ---------------------------------------------------------------------------
-// fab_dkdv: dK and dV of one key tile over every query tile that sees it
+// dkdv_mma: dK and dV of a key tile over every row tile that sees it
 // ---------------------------------------------------------------------------
+// A block takes key tiles p and n - 1 - p in turn: under a causal mask the
+// early tiles see the most rows, and the pair evens the blocks' work.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads) fab_dkdv(BwdArgs a) {
-  constexpr int RQ = Tile<HD>::RQ, BK = Tile<HD>::BK, LD = HD + 1;
-  constexpr int NACC = BK * HD / kThreads;
-  extern __shared__ float smem[];
-  float* Ks = smem;                     // [BK][LD]
-  float* Vs = Ks + BK * LD;             // [BK][LD]
-  float* Qs = Vs + BK * LD;             // [RQ][LD]
-  float* dOs = Qs + RQ * LD;            // [RQ][LD]
-  float* Ps = dOs + RQ * LD;            // [RQ][BK + 1]
-  float* dSs = Ps + RQ * (BK + 1);      // [RQ][BK + 1]
-  float* lse_s = dSs + RQ * (BK + 1);   // [RQ]
-  float* D_s = lse_s + RQ;              // [RQ]
-  __shared__ Row rows_s[RQ];
+__global__ void __launch_bounds__(32 * Cfg<HD>::KW * Cfg<HD>::KDW, 1)
+dkdv_mma(BwdArgs a) {
+  using C = Cfg<HD>;
+  constexpr int DW = C::KDW, BR = C::BR, BK = 16 * C::KW;
+  constexpr int NTH = 32 * C::KW * DW;
+  constexpr int DS = HD / DW, NR = BR / 8, ND = DS / 8;
+  constexpr bool SPLIT = std::is_same<T, float>::value;
+  constexpr int LD = ld<T, HD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* xch = reinterpret_cast<float4*>(smem_raw);  // [KW][DW][2][NR][32]
+  T* Ks = reinterpret_cast<T*>(
+      smem_raw + (DW > 1 ? C::KW * DW * 2 * NR * 32 * 16 : 0));
+  T* Vs = Ks + BK * LD;                 // [BK][LD]
+  T* Qs = Vs + BK * LD;                 // [2][BR][LD]
+  T* dOs = Qs + 2 * BR * LD;            // [2][BR][LD]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BR * LD);  // [2][BR]
+  float* D_s = lse_s + 2 * BR;          // [2][BR]
+  int* pos_s = reinterpret_cast<int*>(D_s + 2 * BR);           // [2][BR]
 
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-  const int j0 = blockIdx.x * BK;
-  const int j1 = min(j0 + BK, a.Sk);
-  const int tid = threadIdx.x;
-  const int G = a.H / a.KV;
-  const int rows = a.Sq * G;
-  const float inv_sk = 1.f / (float)a.Sk;
+  const int nbh = a.B * a.KV, G = a.H / a.KV, rows = a.Sq * G;
+  const int n_rt = (rows + BR - 1) / BR, n_kt = (a.Sk + BK - 1) / BK;
+  const int bh = blockIdx.x % nbh, pair = blockIdx.x / nbh;
+  const int b = bh / a.KV, kvh = bh % a.KV;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kg = warp / DW, ds = warp % DW, d0 = ds * DS;
+  const float sl2 = a.scale * kLog2e, inv_sk = 1.f / (float)a.Sk;
+  const float inv_g = 1.f / (float)G;
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.dout);
+  float4* xs = xch + ((kg * DW + ds) * 2) * NR * 32;
+  const float4* xg = xch + (kg * DW * 2) * NR * 32;
+  auto row_off = [&](int rr, int64_t sb, int64_t ss, int64_t sh) -> int64_t {
+    if (rr >= rows) return -1;
+    const int i = div_g(rr, G, inv_g);
+    return b * sb + (int64_t)i * ss + (int64_t)(kvh * G + rr - i * G) * sh;
+  };
 
-  stage<T, HD, BK>(Ks, static_cast<const T*>(a.k), a.hd,
-                   [&](int j) -> int64_t {
-    return j0 + j < a.Sk ? b * a.k_sb + (int64_t)(j0 + j) * a.k_ss
-                           + kvh * a.k_sh : -1; });
-  stage<T, HD, BK>(Vs, static_cast<const T*>(a.v), a.hd,
-                   [&](int j) -> int64_t {
-    return j0 + j < a.Sk ? b * a.v_sb + (int64_t)(j0 + j) * a.v_ss
-                           + kvh * a.v_sh : -1; });
+  for (int which = 0; which < 2; ++which) {
+    const int kt = which ? n_kt - 1 - pair : pair;
+    if (which && kt == pair) break;
+    const int j0 = kt * BK, j1 = min(j0 + BK, a.Sk);
+    stage<T, HD, BK, NTH>(Ks, static_cast<const T*>(a.k), a.hd, a.vec & 2,
+                          [&](int j) -> int64_t {
+      return j0 + j < a.Sk ? b * a.k_sb + (int64_t)(j0 + j) * a.k_ss
+                             + kvh * a.k_sh : -1; });
+    stage<T, HD, BK, NTH>(Vs, static_cast<const T*>(a.v), a.hd, a.vec & 4,
+                          [&](int j) -> int64_t {
+      return j0 + j < a.Sk ? b * a.v_sb + (int64_t)(j0 + j) * a.v_ss
+                             + kvh * a.v_sh : -1; });
 
-  float dk_acc[NACC], dv_acc[NACC];
-#pragma unroll
-  for (int n = 0; n < NACC; ++n) { dk_acc[n] = 0.f; dv_acc[n] = 0.f; }
-
-  for (int r0 = 0; r0 < rows; r0 += RQ) {
-    // the tile's rows: visible ranges, lse and D; does any row see a key
-    // of this tile (or see none at all: uniform weights over every key)?
-    int need = 0;
-    if (tid < RQ) {
-      const Row w = make_row(a, b, kvh, r0 + tid);
-      rows_s[tid] = w;
-      float lse = 0.f, D = 0.f;
-      if (w.valid) {
-        const int64_t idx = ((int64_t)b * a.H + w.h) * a.Sq + w.i;
-        lse = a.lse[idx]; D = a.delta[idx];
-        need = (lse == CUDART_INF_F) || (w.lo < j1 && w.hi > j0);
+    // Row tile rt is needed when one of its rows sees a key of this tile or
+    // sees no key at all.  next() walks the needed tiles in order: each
+    // lane tests one of 32 tiles, a ballot keeps the answers (the same in
+    // every warp).
+    auto needed = [&](int rt) -> bool {
+      if (rt >= n_rt) return false;
+      const int i0 = rt * BR / G;
+      const int i1 = min((rt * BR + BR - 1) / G, a.Sq - 1);
+      for (int i = i0; i <= i1; ++i) {
+        int lo, hi;
+        key_range(a, i, lo, hi);
+        if (hi <= lo || (lo < j1 && hi > j0)) return true;
       }
-      lse_s[tid] = lse; D_s[tid] = D;
-    }
-    if (!__syncthreads_or(need)) continue;
-    stage<T, HD, RQ>(Qs, q, a.hd, [&](int r) -> int64_t {
-      return rows_s[r].valid ? rows_s[r].qoff : -1; });
-    stage<T, HD, RQ>(dOs, dout, a.hd, [&](int r) -> int64_t {
-      return rows_s[r].valid ? rows_s[r].doff : -1; });
-    __syncthreads();
-    for (int e = tid; e < RQ * BK; e += kThreads) {
-      const int r = e / BK, j = e % BK, key = j0 + j;
-      float p = 0.f, ds = 0.f;
-      const float lse = lse_s[r];
-      if (key < a.Sk && r0 + r < rows) {
-        if (lse == CUDART_INF_F) {
-          p = inv_sk;
-        } else if (key >= rows_s[r].lo && key < rows_s[r].hi) {
-          const float s = a.scale * dot<HD>(Qs + r * LD, Ks + j * LD);
-          const float dp = dot<HD>(dOs + r * LD, Vs + j * LD);
-          p = expf(s - lse);
-          ds = p * (dp - D_s[r]);
+      return false;
+    };
+    uint32_t pending = 0;
+    int base = -32;
+    auto next = [&]() -> int {
+      while (pending == 0) {
+        base += 32;
+        if (base >= n_rt) return n_rt;
+        pending = __ballot_sync(0xffffffffu, needed(base + lane));
+      }
+      const int bit = __ffs(pending) - 1;
+      pending &= pending - 1;
+      return base + bit;
+    };
+    // Q, dO, lse, D and the positions of row tile rt into buffer s, all
+    // by cp.async (a load the thread waited for would hold the block)
+    auto stage_rows = [&](int rt, int s) {
+      const int r0 = rt * BR;
+      stage<T, HD, BR, NTH>(Qs + s * BR * LD, q, a.hd, a.vec & 1,
+                            [&](int r) {
+        return row_off(r0 + r, a.q_sb, a.q_ss, a.q_sh); });
+      stage<T, HD, BR, NTH>(dOs + s * BR * LD, dout, a.hd, a.vec & 8,
+                            [&](int r) {
+        return row_off(r0 + r, a.d_sb, a.d_ss, a.d_sh); });
+      for (int r = threadIdx.x; r < BR; r += NTH) {
+        const int rr = r0 + r;
+        if (rr < rows) {
+          const int i = div_g(rr, G, inv_g);
+          if (a.q_pos) cp4(pos_s + s * BR + r, a.q_pos + i);
+          else pos_s[s * BR + r] = a.q_offset + i;
+          const int64_t idx = (int64_t)bh * rows + rr;
+          cp4(lse_s + s * BR + r, a.lse + idx);
+          cp4(D_s + s * BR + r, a.delta + idx);
+        } else {                        // past the last row (masked below)
+          pos_s[s * BR + r] = 0;
+          lse_s[s * BR + r] = D_s[s * BR + r] = 0.f;
         }
       }
-      Ps[r * (BK + 1) + j] = p;
-      dSs[r * (BK + 1) + j] = ds;
-    }
-    __syncthreads();
+    };
+
+    float dk[ND][4], dv[ND][4];
 #pragma unroll
-    for (int n = 0; n < NACC; ++n) {
-      const int e = tid + n * kThreads, j = e / HD, c = e % HD;
-      float sv = dv_acc[n], sk = dk_acc[n];
-#pragma unroll 4
-      for (int r = 0; r < RQ; ++r) {
-        sv = fmaf(Ps[r * (BK + 1) + j], dOs[r * LD + c], sv);
-        sk = fmaf(dSs[r * (BK + 1) + j], Qs[r * LD + c], sk);
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+    int rt = next();
+    if (rt < n_rt) stage_rows(rt, 0);
+    cp_commit();
+    for (int s = 0; rt < n_rt; s ^= 1) {
+      const int rt_next = next();
+      if (rt_next < n_rt) stage_rows(rt_next, s ^ 1);
+      cp_commit();
+      cp_wait<1>();
+      __syncthreads();
+      const T* Qb = Qs + s * BR * LD;
+      const T* dOb = dOs + s * BR * LD;
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BR rows
+      float st[NR][4], dpt[NR][4];
+      qk_pair<T, HD, NR, DS / 8>(st, dpt, Ks, Vs, kg * 16, Qb, dOb, d0, g,
+                                 t);
+      if (DW > 1) {
+        xput<NR>(xs, lane, st);
+        xput<NR>(xs + NR * 32, lane, dpt);
+        __syncthreads();
+        xsum<NR, DW>(xg, 2 * NR * 32, lane, st);
+        xsum<NR, DW>(xg + NR * 32, 2 * NR * 32, lane, dpt);
       }
-      dv_acc[n] = sv; dk_acc[n] = sk;
-    }
-    __syncthreads();
-  }
-  T* dk = static_cast<T*>(a.dk);
-  T* dv = static_cast<T*>(a.dv);
+      // P^T into st, dS^T into dpt
 #pragma unroll
-  for (int n = 0; n < NACC; ++n) {
-    const int e = tid + n * kThreads, j = e / HD, c = e % HD;
-    if (j0 + j < a.Sk && c < a.hd) {
-      const int64_t off = (((int64_t)b * a.Sk + j0 + j) * a.KV + kvh)
-                          * a.hd + c;
-      store(dk + off, a.scale * dk_acc[n]);
-      store(dv + off, dv_acc[n]);
+      for (int n = 0; n < NR; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = j0 + kg * 16 + g + 8 * (e / 2);
+          const int rl = 8 * n + 2 * t + (e & 1), r = s * BR + rl;
+          const float lse = lse_s[r];
+          int lo, hi;
+          keys_at(a, pos_s[r], lo, hi);
+          const bool vis = key >= lo && key < hi && rt * BR + rl < rows;
+          const float p = vis ? ex2(st[n][e] * sl2 - lse)
+                              : (lse == CUDART_INF_F ? inv_sk : 0.f);
+          st[n][e] = p;
+          dpt[n][e] = vis ? p * (dpt[n][e] - D_s[r]) : 0.f;
+        }
+      // dV += P^T dO, dK += dS^T Q over this warp's hd slice (each row
+      // tile's sum in zeroed accumulators, then one fp32 add, as for dQ)
+      Op fp[NR][4], fs[NR][4];
+#pragma unroll
+      for (int kk = 0; kk < NR; ++kk) {
+        frag_c(fp[kk], st[kk]);
+        frag_c(fs[kk], dpt[kk]);
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        float tv[4] = {0.f, 0.f, 0.f, 0.f}, tk[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NR; ++kk) {
+          Op fo[2], fq[2];
+          frag_bk<T, HD, SPLIT>(fo, dOb, 8 * kk, d0 + 8 * n, g, t);
+          frag_bk<T, HD, SPLIT>(fq, Qb, 8 * kk, d0 + 8 * n, g, t);
+          mma3<true, SPLIT>(tv, fp[kk], fo);
+          mma3<true, SPLIT>(tk, fs[kk], fq);
+        }
+        add4(dv[n], tv);
+        add4(dk[n], tk);
+      }
+      __syncthreads();
+      rt = rt_next;
+    }
+    cp_wait<0>();
+    __syncthreads();                    // K and V free for the next tile
+    T* dkp = static_cast<T*>(a.dk);
+    T* dvp = static_cast<T*>(a.dv);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int key = j0 + kg * 16 + g + 8 * h;
+      if (key >= a.Sk) continue;
+      const int64_t row = (((int64_t)b * a.Sk + key) * a.KV + kvh) * a.hd;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = d0 + 8 * n + 2 * t + e;
+          if (c < a.hd) {
+            store(dkp + row + c, a.scale * dk[n][2 * h + e]);
+            store(dvp + row + c, dv[n][2 * h + e]);
+          }
+        }
     }
   }
 }
 
 template <typename T, int HD>
 int launch(const BwdArgs& a, cudaStream_t stream) {
-  constexpr int RQ = Tile<HD>::RQ, BK = Tile<HD>::BK;
-  const int G = a.H / a.KV;
-  const size_t dq_bytes = sizeof(float) * dq_smem_floats<HD>();
-  const size_t kv_bytes = sizeof(float) * dkdv_smem_floats<HD>();
-  cudaFuncSetAttribute(fab_dq<T, HD>,
+  using C = Cfg<HD>;
+  constexpr int BQ = 16 * C::RW, BK = 16 * C::KW;
+  const int G = a.H / a.KV, nbh = a.B * a.KV;
+  const size_t dq_bytes = dq_smem<T, HD>(), kv_bytes = dkdv_smem<T, HD>();
+  cudaFuncSetAttribute(dq_mma<T, HD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)dq_bytes);
-  cudaFuncSetAttribute(fab_dkdv<T, HD>,
+  cudaFuncSetAttribute(dkdv_mma<T, HD>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)kv_bytes);
-  const dim3 g1((a.Sq * G + RQ - 1) / RQ, a.B * a.KV);
-  fab_dq<T, HD><<<g1, kThreads, dq_bytes, stream>>>(a);
+  const int g1 = (a.Sq * G + BQ - 1) / BQ * nbh;
+  dq_mma<T, HD><<<g1, 32 * C::RW * C::QDW, dq_bytes, stream>>>(a);
   const cudaError_t e1 = cudaGetLastError();
   if (e1 != cudaSuccess) return (int)e1;
-  const dim3 g2((a.Sk + BK - 1) / BK, a.B * a.KV);
-  fab_dkdv<T, HD><<<g2, kThreads, kv_bytes, stream>>>(a);
+  const int g2 = ((a.Sk + BK - 1) / BK + 1) / 2 * nbh;    // pairs of tiles
+  dkdv_mma<T, HD><<<g2, 32 * C::KW * C::KDW, kv_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -447,10 +861,12 @@ extern "C" {
 int fa_backward_args_size() { return (int)sizeof(fa_bwd::BwdArgs); }
 
 // Returns a cudaError_t (0 = launched).  dtype: q, k, v, o, do and the
-// gradients (0 = fp32, 1 = bf16); 1 <= hd <= 576, H a multiple of KV.
+// gradients (0 = fp32, 1 = bf16); 1 <= hd <= 576, H a multiple of KV,
+// Sq * H / KV < 2^24.
 int fa_backward(int dtype, const void* args, void* stream) {
   const fa_bwd::BwdArgs& a = *static_cast<const fa_bwd::BwdArgs*>(args);
-  if (a.hd < 1 || a.hd > 576 || a.KV < 1 || a.H % a.KV)
+  if (a.hd < 1 || a.hd > 576 || a.KV < 1 || a.H % a.KV
+      || (int64_t)a.Sq * (a.H / a.KV) >= (1 << 24))    // div_g's range
     return (int)cudaErrorInvalidValue;
   if (a.B == 0 || a.Sq == 0 || a.Sk == 0 || a.H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -9,9 +9,15 @@ tensor, and what the CUDA kernels are held against on the card.
 does (per-chunk partials, then a merge in chunk order); the card holds the
 decode kernel against it too.  ``attention_backward_ref`` is autograd
 through ``attention_ref``: the plain version of the backward kernel.
+``attention_backward_split_ref`` computes the same gradients with every
+product's operands split into TF32 parts as the backward kernel's
+``mma.sync`` products take them: the CPU tests' evidence that the split
+keeps fp32's accuracy where one TF32 product does not.  Nothing on the card
+path calls it.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Union
 
 import torch
@@ -146,3 +152,72 @@ def attention_backward_ref(q: torch.Tensor, k: torch.Tensor,
         out = attention_ref(qq, kk, vv, q_positions, None, causal=causal,
                             window=window)
         return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: what the backward kernel's operand rounding (one integer
+    add; the tensor cores drop the low 13 bits) gives."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_einsum(eq: str, a: torch.Tensor, b: torch.Tensor,
+                 split: bool) -> torch.Tensor:
+    """``einsum(eq, a, b)`` on TF32 operands with fp32 sums.  ``split``: each
+    operand x as hi = tf32(x) and lo = tf32(x - hi), the product
+    lo.hi + hi.lo + hi.hi (lo.lo dropped), as the kernel takes fp32
+    operands; otherwise one product of the rounded operands."""
+    ah, bh = tf32_round(a), tf32_round(b)
+    out = torch.einsum(eq, ah, bh)
+    if split:
+        al, bl = tf32_round(a - ah), tf32_round(b - bh)
+        out = (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + out
+    return out
+
+
+def attention_backward_split_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor,
+                                 q_positions: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 split: bool = True):
+    """(dq, dk, dv) of :func:`attention_ref` (every key valid), computed as
+    the backward kernel computes them: S = scale Q K^T, dP = dO V^T,
+    dV = P^T dO, dK = scale dS^T Q and dQ = scale dS K, each product on
+    TF32 operands (:func:`_tf32_einsum`; ``split=False`` rounds each
+    operand once, which the kernel never does with fp32 data), P from the
+    split S, D = dO . O with O the plain forward's output, and a row that
+    sees no key giving 1 / Sk to every dV_j.  fp32 throughout; the
+    gradients take q's, k's and v's dtypes."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    dog = dout.reshape(B, Sq, KV, G, hd).float()
+    kf, vf = k.float(), v.float()
+    mm = lambda eq, a, b: _tf32_einsum(eq, a, b, split)        # noqa: E731
+    s = mm("bqkgh,bskh->bqkgs", qg, kf) * scale
+    dp = mm("bqkgh,bskh->bqkgs", dog, vf)
+    kpos = torch.arange(Sk, device=q.device)
+    qpos = q_positions.to(q.device)[:, None]
+    visible = torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+    if causal:
+        visible = visible & (kpos[None, :] <= qpos)
+    if window is not None:
+        visible = visible & (kpos[None, :] > qpos - window)
+    vis = visible[None, :, None, None, :]
+    empty = ~visible.any(dim=1)[None, :, None, None, None]    # no key seen
+    s = torch.where(vis, s, -math.inf)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(vis, torch.exp(s - torch.where(empty, 0.0, lse)), 0.0)
+    out = attention_ref(q.float(), k.float(), v.float(), q_positions,
+                        causal=causal, window=window)
+    D = (dog * out.reshape(B, Sq, KV, G, hd)).sum(-1, keepdim=True)
+    ds = torch.where(vis, p * (dp - D), 0.0)
+    dv = mm("bqkgs,bqkgh->bskh", torch.where(empty, 1.0 / Sk, p), dog)
+    dk = mm("bqkgs,bqkgh->bskh", ds, qg) * scale
+    dq = mm("bqkgs,bskh->bqkgh", ds, kf) * scale
+    return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
