@@ -133,12 +133,17 @@ Phases, one printed line each (plus detail lines):
               and blocks an SM.  Head dims over
               128: MLA's absorbed attention at hd 576 at deepseek-v2-lite's
               serving shapes (16 query heads on one latent kv head; the
-              8 x 2048 causal prefill into the 2,112-long cache on the
-              CUDA cores, a decode step over 2,049 keys on split-kv, both
-              timed in turns with SDPA; decode over per-batch valid keys)
-              and one odd shape at hd 192.  The new families' serving
-              shapes (``FAMILY_TAGS``, bf16 timed against SDPA in turns and
-              profiled): Hymba's windowed prefill and ring decode,
+              8 x 2048 causal prefill into the 2,112-long cache, with v
+              apart from k and with v = k as the model calls it, in bf16
+              on the wide tensor-core route, also against its plain
+              mirror ``attention_wide_ref`` and twice for the same bits,
+              in fp32 on the CUDA cores; a decode step over 2,049 keys on
+              split-kv; each timed in turns with SDPA (v = k in bf16
+              only); decode over per-batch valid keys) and one odd shape
+              at hd 192 (``LARGE_HD_ROUTE`` names each route).  The new
+              families' serving shapes (``FAMILY_TAGS``, bf16 timed
+              against SDPA in turns and profiled): Hymba's windowed
+              prefill and ring decode,
               Whisper's encoder (one query head per kv head, 1,500 keys off
               the 64-key tile), cross prefill and cross decode, LLaVA's
               prefill.  Phase 10's local heads (``TP_TAGS``: G = 8, the
@@ -237,7 +242,7 @@ Phases, one printed line each (plus detail lines):
               within 1e-4 of its largest entry, the gathered parameters
               within 1e-6 of each leaf's largest of the unsharded AdamW
               fed that gradient.
-8. kernels line — one JSON object with all eight kernels: launches on
+8. kernels line — one JSON object with all nine kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
               call); for flash and WKV, launches by route (for flash also
@@ -245,7 +250,10 @@ Phases, one printed line each (plus detail lines):
               profile); for the two backward kernels, phase 9 (a)'s fp32
               row at Qwen2's and RWKV6-3B's training shapes (no Pallas
               kernel: ``replaces`` names the jnp function the JAX package
-              differentiates).
+              differentiates); for the wide tensor-core flash kernel
+              (``flash_attention_wide``, flash's ``tensor_core_wide``
+              route), its launches serving DeepSeek-V2-Lite and phase 5's
+              bf16 row with v = k.
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -263,7 +271,7 @@ launches for deepseek-v2-lite-16b, 32 flash and 32 WKV launches for
 hymba-1.5b, 96 flash launches a whisper-large-v3 prefill (32 encoder, 32
 self, 32 cross) and 64 a decode step, 60 flash launches for
 llava-next-34b; every time-to-first-token call runs all of them on its
-prefill route (flash ``tensor_core``, ``cuda_core`` at MLA's hd 576;
+prefill route (flash ``tensor_core``, ``tensor_core_wide`` at MLA's hd 576;
 WKV ``tensor_core`` for RWKV6, ``step`` for Hymba's SSM), and the new
 families' and deepseek-v2-lite's decode steps take ``split_kv``.  A
 full-width Qwen2-1.5B train step (two microbatches, remat) launches
@@ -310,6 +318,8 @@ DECODE_SOURCE = ("src/repro_torch/kernels/coded_combine/csrc/"
 XOR_SOURCE = "src/repro_torch/kernels/coded_combine/csrc/xor_stream.cuh"
 FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
+WIDE_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_tc_wide.cuh")
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/wkv_scan.cu"
 REPLACES = {"coded_encode": "src/repro/kernels/coded_combine/kernel.py:58",
             "coded_decode": "src/repro/kernels/coded_combine/kernel.py:74",
@@ -2234,10 +2244,12 @@ FLASH_CASES = [
     # head dims over 128: MLA's absorbed attention (deepseek-v2-lite:
     # kv_lora_rank 512 + rope_head_dim 64 = 576, 16 query heads on one
     # latent kv head) at phase 6's shapes: the 8 x 2048 causal prefill into
-    # the 2,112-long latent cache (2,048 valid keys) and the first decode
-    # step (2,049 valid keys), then per-batch valid keys; then one odd
-    # shape at hd 192
+    # the 2,112-long latent cache (2,048 valid keys) with v drawn apart
+    # from k and with v = k (the model's call: one latent tensor as both),
+    # and the first decode step (2,049 valid keys), then per-batch valid
+    # keys; then one odd shape at hd 192
     ("mla_prefill", 8, 2048, 2112, 16, 1, 576, True, 0, 2048, None),
+    ("mla_prefill_shared", 8, 2048, 2112, 16, 1, 576, True, 0, 2048, None),
     ("mla_decode", 8, 1, 2112, 16, 1, 576, True, 2048, 2049, None),
     ("mla_decode_per_batch", 8, 1, 2112, 16, 1, 576, True, 2110,
      (2111, 1500, 1, 64, 2000, 777, 1024, 2048), None),
@@ -2267,7 +2279,9 @@ FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
                "whisper_cross_prefill", "whisper_cross_decode",
                "llava_prefill")
 FLASH_TIMED = ("prefill", "decode", "decode_2111", "mla_prefill",
-               "mla_decode") + FAMILY_TAGS
+               "mla_prefill_shared", "mla_decode") + FAMILY_TAGS
+# the cases whose v is k (one tensor passed as both)
+SHARED_KV_TAGS = ("mla_prefill_shared",)
 # the bf16 route of each new family's shape (fp32 prefill: cuda_core)
 FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
                 "hymba_ring_decode": "split_kv",
@@ -2283,10 +2297,17 @@ TP_ROUTE = {("tp_prefill", "bfloat16"): "tensor_core",
             ("tp_decode", "float32"): "split_kv",
             ("tp_check", "bfloat16"): "tensor_core",
             ("tp_check", "float32"): "cuda_core"}
-# the route a head dim over 128 takes: never the tensor cores
-LARGE_HD_ROUTE = {"mla_prefill": "cuda_core", "mla_decode": "split_kv",
-                  "mla_decode_per_batch": "split_kv",
-                  "odd_hd192": "cuda_core"}
+# the route a head dim over 128 takes, by dtype: a bf16 prefill at hd 576
+# on the wide tensor cores, fp32 and hd 192 on the CUDA cores, decode
+# split-kv
+LARGE_HD_ROUTE = {
+    **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16" else "cuda_core")
+       for tag in ("mla_prefill", "mla_prefill_shared")
+       for dt in ("bfloat16", "float32")},
+    **{(tag, dt): "split_kv" for tag in ("mla_decode", "mla_decode_per_batch")
+       for dt in ("bfloat16", "float32")},
+    ("odd_hd192", "bfloat16"): "cuda_core",
+    ("odd_hd192", "float32"): "cuda_core"}
 # split-kv against the plain split-kv algorithm, which also computes in fp32
 # and rounds once: about one bf16 ulp of the output
 FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
@@ -2322,7 +2343,8 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
             k = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
-            v = torch.randn(B, Sk, KV, hd, generator=g, device=dev).to(dtype)
+            v = (k if tag in SHARED_KV_TAGS else torch.randn(
+                B, Sk, KV, hd, generator=g, device=dev).to(dtype))
             kw = dict(causal=causal, q_offset=q_off, kv_valid=valid,
                       window=window)
             pos = torch.arange(q_off, q_off + Sq, device=dev)
@@ -2334,14 +2356,14 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                   f"flash {tag}: one launch by one route, got "
                   f"{fa.ROUTE_CALLS}")
             route = routes[0]
-            check(hd <= 128 or route == LARGE_HD_ROUTE[tag],
-                  f"flash {tag} hd={hd}: route {route}, expected "
-                  f"{LARGE_HD_ROUTE.get(tag)}")
+            dname = str(dtype).replace("torch.", "")
+            check(hd <= 128 or route == LARGE_HD_ROUTE[(tag, dname)],
+                  f"flash {tag} hd={hd} {dname}: route {route}, expected "
+                  f"{LARGE_HD_ROUTE.get((tag, dname))}")
             check(tag not in FAMILY_ROUTE or dtype == torch.float32
                   or route == FAMILY_ROUTE[tag],
                   f"flash {tag}: route {route}, expected "
                   f"{FAMILY_ROUTE.get(tag)}")
-            dname = str(dtype).replace("torch.", "")
             check(TP_ROUTE.get((tag, dname), route) == route,
                   f"flash {tag} {dname}: route {route}, expected "
                   f"{TP_ROUTE.get((tag, dname))}")
@@ -2357,6 +2379,25 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 s_rtol, s_atol = FLASH_SPLIT_TOL[dname]
                 torch.testing.assert_close(out, split, rtol=s_rtol,
                                            atol=s_atol)
+            mirror_err = None
+            if route == "tensor_core_wide":
+                # the kernel's own blocks, tiles and roundings, and the
+                # same bits on a second call
+                tile = fa.wide_key_tile(k, v)
+                check(tile == (64 if tag in SHARED_KV_TAGS else 32),
+                      f"flash {tag}: key tile {tile}")
+                mirror = fa_ref.attention_wide_ref(
+                    q, k, v, pos, valid, causal=causal, key_tile=tile)
+                s_rtol, s_atol = FLASH_SPLIT_TOL[dname]
+                torch.testing.assert_close(out, mirror, rtol=s_rtol,
+                                           atol=s_atol)
+                mirror_err = float((out.float() - mirror.float()).abs()
+                                   .max().item())
+                again = fa.flash_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(out, again),
+                      f"flash {tag}: two calls gave different bits")
+                del mirror, again
             # the pairs and keys each batch row's data needs
             pairs = keys = 0
             for b in range(B):
@@ -2364,25 +2405,28 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 p_b, k_b = visible_pairs(Sq, Sk, q_off, vb, causal, window)
                 pairs, keys = pairs + p_b, keys + k_b
             size = q.element_size()
-            nbytes = size * (2 * q.numel() + 2 * keys * KV * hd)
+            n_kv = 1 if v is k else 2          # k and v read once each
+            nbytes = size * (2 * q.numel() + n_kv * keys * KV * hd)
             flops = 4.0 * hd * pairs * H
             row = {"name": "flash_attention", "case": tag, "B": B, "Sq": Sq,
                    "Sk": Sk, "H": H, "KV": KV, "hd": hd, "causal": causal,
                    "q_offset": q_off, "kv_valid": valid_case,
-                   "window": window,
+                   "window": window, "v_is_k": v is k,
                    "dtype": dname, "route": route,
-                   "max_abs_err": err,
+                   "max_abs_err": err, "mirror_max_abs_err": mirror_err,
                    "tolerance": f"rtol={tol},atol={tol}", "bytes": nbytes,
                    "flops": flops}
             row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
                                                      dname)
-            # the new families' shapes are timed against SDPA and profiled
-            # at their serving dtype (bf16) alone: every profiler session
-            # a process takes costs the later sessions records
+            # the new families' shapes and MLA's shared-kv prefill are
+            # timed against SDPA and profiled at their serving dtype (bf16)
+            # alone: every profiler session a process takes costs the later
+            # sessions records
             is_main = tag in FLASH_TIMED and (
-                tag not in FAMILY_TAGS or dtype == torch.bfloat16)
+                tag not in FAMILY_TAGS + SHARED_KV_TAGS
+                or dtype == torch.bfloat16)
             reps, inner = (5, 5) if is_main else (3, 10)
-            if hd > 128 and Sq > 16:            # a CUDA-core prefill
+            if hd > 128 and route == "cuda_core":   # ~60 ms a call
                 reps, inner = 3, 2
             kernel = lambda: fa.flash_attention(q, k, v, **kw)
             row["plain_ms"] = cuda_ms(
@@ -2426,13 +2470,17 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 row["ms"] = cuda_ms(torch, kernel, reps, inner)
             rows.append(row)
             lib = row["library_ms"]
+            mirror = ("" if mirror_err is None else
+                      f" mirror_max_abs_err={mirror_err!r} (the same bits "
+                      f"twice)")
             say(f"  kernel flash_attention {tag} B={B} Sq={Sq} Sk={Sk} H={H} "
                 f"KV={KV} hd={hd} causal={causal} kv_valid={valid_case} "
-                f"window={window} {row['dtype']} route={route}: kernel_ms="
+                f"window={window} v_is_k={v is k} {row['dtype']} "
+                f"route={route}: kernel_ms="
                 f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms="
                 f"{'null' if lib is None else f'{lib:.6f}'} bound_ms="
                 f"{row['bound_ms']:.6f} ({row['bound_by']}) "
-                f"max_abs_err={err!r} tolerance={row['tolerance']}")
+                f"max_abs_err={err!r} tolerance={row['tolerance']}{mirror}")
             if is_main:
                 say(f"    in turns (kernel, SDPA, SDPA, kernel): "
                     f"{turns[0]:.6f} {turns[1]:.6f} {turns[2]:.6f} "
@@ -2617,7 +2665,8 @@ class ServeCase(NamedTuple):
     ``requests``: run ``serve`` on 12 requests (``serve`` carries no
     frontend inputs, so a model that takes them skips it); ``fp32``:
     (text tokens, prefilled tokens, layers) of the fp32 check at full
-    width, layers None for the whole depth."""
+    width, layers None for the whole depth; ``profile_prefill``: profile
+    one serving prefill too (where its time to first token goes)."""
     arch: str
     slots: int
     prompt: int
@@ -2625,6 +2674,7 @@ class ServeCase(NamedTuple):
     max_seq: Optional[int] = None
     requests: bool = True
     fp32: Tuple[int, int, Optional[int]] = (300, 298, None)
+    profile_prefill: bool = False
 
 
 SERVE_CASES = (
@@ -2633,7 +2683,8 @@ SERVE_CASES = (
               2112),
     ServeCase("rwkv6-3b", 8, 2048, {"wkv_scan": "tensor_core"}, 2112),
     ServeCase("deepseek-v2-lite-16b", 8, 2048,
-              {"flash_attention": "cuda_core"}, 2112),
+              {"flash_attention": "tensor_core_wide"}, 2112,
+              profile_prefill=True),
     # prompts longer than the 2,048 window: the window masks in the
     # prefill and the ring (2,048 slots) wraps; the fp32 check prefills
     # 2,098 tokens so that its decode step reads a wrapped ring
@@ -2773,6 +2824,9 @@ def serve_phase(torch, np, lm, serve, frontends, counts, cfg, case, seed,
     total_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     prof = profile_decode(torch, lm, cfg, params, prompts, front, counts,
                           dec, slots, max_seq)
+    pre_prof = (profile_prefill(torch, lm, cfg, params, prompts, front,
+                                counts, pre, slots, max_seq)
+                if case.profile_prefill else None)
     del eng, params, front
     torch.cuda.empty_cache()
     # fp32 at full width (a cut depth where fp32 weights outgrow the card):
@@ -2818,7 +2872,8 @@ def serve_phase(torch, np, lm, serve, frontends, counts, cfg, case, seed,
                decode_vs_forward_fp32=errs,
                fp32_check={"text_tokens": n_text, "prefilled": n_pre,
                            "layers": cfg32.n_layers},
-               profile=prof, launches=total, routes=routes)
+               profile=prof, prefill_profile=pre_prof, launches=total,
+               routes=routes)
     shape = (f"{slots} x ({front_n} + {prompt})" if front_n
              else f"{slots} x {prompt}")
     front_text = "".join(f"; stub {k}" for k in res["frontend"])
@@ -2837,7 +2892,44 @@ def serve_phase(torch, np, lm, serve, frontends, counts, cfg, case, seed,
         f"device_idle_share={prof['idle_share']:.3f} [{smi}]")
     for k2 in prof["by_kernel"][:8]:
         say(f"    {k2['ms']:.3f} ms x{k2['count']} {k2['name']}")
+    if pre_prof is not None:
+        say(f"  profile {cfg.name} prefill: wall_ms="
+            f"{pre_prof['wall_ms']:.3f} device_busy_ms="
+            f"{pre_prof['device_busy_ms']:.3f} device_idle_share="
+            f"{pre_prof['idle_share']:.3f}; flash's wide kernel "
+            f"{pre_prof['flash_wide_ms']:.3f} device ms "
+            f"({pre_prof['flash_wide_share']:.3f} of the busy time) [{smi}]")
+        for k2 in pre_prof["by_kernel"][:8]:
+            say(f"    {k2['ms']:.3f} ms x{k2['count']} {k2['name']}")
     return res
+
+
+def profile_prefill(torch, lm, cfg, params, prompts, front, counts, pre,
+                    slots, max_seq):
+    """Device busy time, idle share and the wide flash kernel's device time
+    of one warm serving prefill, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = params["embed"].device
+    tokens = torch.as_tensor(prompts, device=dev).long()
+    with torch.inference_mode():
+        def run():
+            cache = lm.init_cache(cfg, slots, max_seq, torch.bfloat16,
+                                  device=dev)
+            return lm.prefill(params, cfg, tokens, cache, **front)
+        run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            (_, ms), launches, _ = counts(lambda: wall(torch, run))
+    check(all(launches[k] == n for k, n in pre.items()),
+          f"profiled prefill launches {launches}, expected {pre}")
+    busy, by_kernel = device_time(prof)
+    wide = sum(device_us(ev) for ev in prof.key_averages()
+               if str(getattr(ev, "device_type", "")).endswith("CUDA")
+               and "flash_tc_wide" in ev.key) / 1e3
+    return {"wall_ms": ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / ms, "flash_wide_ms": wide,
+            "flash_wide_share": wide / busy if busy else 0.0,
+            "by_kernel": by_kernel}
 
 
 def profile_decode(torch, lm, cfg, params, prompts, front, counts, dec,
@@ -3262,7 +3354,8 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"qwen2-1.5b training: losses {losses}")
     check(all(launches[k] == n for k, n in want.items())
-          and routes == {"tensor_core": 0, "split_kv": 0,
+          and routes == {"tensor_core": 0, "tensor_core_wide": 0,
+                         "split_kv": 0,
                          "cuda_core": want["flash_attention"]}
           and not any(plain.values()),
           f"qwen2-1.5b train step launches {launches}, routes {routes}, "
@@ -3910,7 +4003,8 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
             check(res["weight_bytes"] == res["spec_bytes"],
                   f"tp (a) rank {r}: {res['weight_bytes']} weight bytes, "
                   f"the specs give {res['spec_bytes']}")
-            want = {"tensor_core": 0, "split_kv": TP_CHECK[0] * TP_CHECK[4],
+            want = {"tensor_core": 0, "tensor_core_wide": 0,
+                    "split_kv": TP_CHECK[0] * TP_CHECK[4],
                     "cuda_core": TP_CHECK[0]}
             check(res["check_routes"] == want
                   and not any(res["check_plain"].values()),
@@ -3919,8 +4013,8 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                   f"{res['check_plain']}")
             # (b) routes: tensor-core prefill at G = 8, split-kv decode
             L8, new8 = TP_TIMED[0], TP_TIMED[4]
-            want = {"tensor_core": L8, "split_kv": L8 * (new8 - 1),
-                    "cuda_core": 0}
+            want = {"tensor_core": L8, "tensor_core_wide": 0,
+                    "split_kv": L8 * (new8 - 1), "cuda_core": 0}
             check(res["timed_routes"] == want
                   and not any(res["timed_plain"].values()),
                   f"tp (b) rank {r}: flash launches by route "
@@ -4217,6 +4311,11 @@ def main(argv=None) -> int:
     tc_smem, tc_blocks = rw.tc_occupancy()
     say(f"  wkv_scan tensor_core: {tc_smem} bytes of dynamic shared memory "
         f"a block, {tc_blocks} blocks an SM")
+    # the wide tensor-core flash kernel as compiled (both key tiles)
+    if "flash_attention" in nvcc:
+        for line in ptxas_entries(nvcc["flash_attention"][1],
+                                  "flash_tc_wide_fwd"):
+            say(f"  ptxas flash_attention tensor_core_wide: {line}")
 
     # ---- 6. serving at full width, launch counts per call ----------------
     counts = Counts(torch, (ops, fa, rw))
@@ -4348,12 +4447,14 @@ def main(argv=None) -> int:
           and flash_routes.get("split_kv", 0) > 0,
           f"serving qwen2-1.5b took the tensor-core prefill and the "
           f"split-kv decode: {flash_routes}")
+    # (the bf16 prefills all on tensor_core_wide, as each TTFT call
+    # checked; cuda_core counts the fp32 check's forward and prefill)
     mla_routes = serving["deepseek-v2-lite-16b"]["routes"]["flash_attention"]
-    check(mla_routes.get("cuda_core", 0) > 0
+    check(mla_routes.get("tensor_core_wide", 0) > 0
           and mla_routes.get("split_kv", 0) > 0
           and not mla_routes.get("tensor_core", 0),
-          f"serving deepseek-v2-lite-16b took the hd-576 cuda-core prefill "
-          f"and the split-kv decode: {mla_routes}")
+          f"serving deepseek-v2-lite-16b took the hd-576 wide tensor-core "
+          f"prefill and the split-kv decode: {mla_routes}")
     wkv_routes = serving["rwkv6-3b"]["routes"]["wkv_scan"]
     check(wkv_routes.get("tensor_core", 0) > 0
           and wkv_routes.get("step", 0) > 0,
@@ -4413,18 +4514,20 @@ def main(argv=None) -> int:
             for r in flash_rows:
                 if r["hd"] > 128:
                     large_hd[r["route"]] = large_hd.get(r["route"], 0) + 1
-            check(set(large_hd) == {"cuda_core", "split_kv"},
-                  f"head dims over 128 ran on both routes: {large_hd}")
+            check(set(large_hd) == {"cuda_core", "split_kv",
+                                    "tensor_core_wide"},
+                  f"head dims over 128 ran on their three routes: "
+                  f"{large_hd}")
             # the MLA path (hd 576): its launches by route, and phase 5's
             # rows at its prefill and decode shapes
             mla = {}
-            for tag in ("mla_prefill", "mla_decode"):
+            for tag in ("mla_prefill", "mla_prefill_shared", "mla_decode"):
                 row = flash_main[tag]
                 mla[tag] = {k: row[k] for k in (
-                    "B", "Sq", "Sk", "H", "KV", "hd", "kv_valid", "route",
-                    "max_abs_err", "ms", "device_ms", "plain_ms",
-                    "bound_ms", "bound_by", "library_ms",
-                    "library_device_ms")}
+                    "B", "Sq", "Sk", "H", "KV", "hd", "kv_valid", "v_is_k",
+                    "dtype", "route", "max_abs_err", "mirror_max_abs_err",
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "library_device_ms")}
             # the new families' rows of phase 5 (bf16, their serving
             # shapes) and their launches by route and per forward
             family = {tag: {k: flash_main[tag][k] for k in (
@@ -4509,6 +4612,43 @@ def main(argv=None) -> int:
                         "shape_case": row["case"],
                         "note": "no Pallas counterpart: the JAX package "
                                 "differentiates its jnp formulation"})
+    # the wide tensor-core flash kernel (bf16 prefill at MLA's hd 576,
+    # flash_attention's tensor_core_wide route): launches on DeepSeek-V2-
+    # Lite's serving path, numbers at phase 5's row of the model's call
+    # (v is k), the v-differs row beside it
+    wide, wide_split = flash_main["mla_prefill_shared"], \
+        flash_main["mla_prefill"]
+    check(wide["route"] == wide_split["route"] == "tensor_core_wide"
+          and wide["dtype"] == wide_split["dtype"] == "bfloat16",
+          f"phase 5's bf16 MLA prefills on tensor_core_wide: "
+          f"{wide['route']}, {wide_split['route']}")
+    wide_by_path = {f"serve {a}": r["routes"].get("flash_attention", {})
+                    .get("tensor_core_wide", 0) for a, r in serving.items()}
+    check(wide_by_path["serve deepseek-v2-lite-16b"]
+          == mla_routes["tensor_core_wide"]
+          and sum(wide_by_path.values()) == mla_routes["tensor_core_wide"],
+          f"only DeepSeek-V2-Lite's serving launched the wide kernel: "
+          f"{wide_by_path}")
+    kernels.append({"name": "flash_attention_wide", "route": "cuda",
+                    "source": WIDE_SOURCE,
+                    "replaces": REPLACES["flash_attention"],
+                    "launches": mla_routes["tensor_core_wide"],
+                    "launches_by_path": wide_by_path,
+                    "max_abs_err": wide["max_abs_err"],
+                    "mirror_max_abs_err": wide["mirror_max_abs_err"],
+                    "ms": wide["ms"], "plain_ms": wide["plain_ms"],
+                    "bound_ms": wide["bound_ms"],
+                    "bound_by": wide["bound_by"],
+                    "library_ms": wide["library_ms"],
+                    "device_ms": wide["device_ms"],
+                    "library_device_ms": wide["library_device_ms"],
+                    "shape_case": "mla_prefill_shared",
+                    "v_differs_row": {k: wide_split[k] for k in (
+                        "max_abs_err", "mirror_max_abs_err", "ms",
+                        "plain_ms", "bound_ms", "library_ms", "device_ms",
+                        "library_device_ms")},
+                    "note": "flash_attention's tensor_core_wide route; its "
+                            "launches are also in flash_attention's"})
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -21,8 +21,14 @@
 //   the reference; scores, the running max m, the denominator l and the
 //   accumulator are fp32; the result is acc / max(l, 1e-30).
 //
-// Three routes; the caller (ops.py) picks one by dtype and shape:
-//   fa_forward_tc    bf16 prefill on the tensor cores (flash_tc.cuh).
+// Four routes; the caller (ops.py) picks one by dtype, shape and arguments:
+//   fa_forward_tc    bf16 prefill on the tensor cores at hd <= 128
+//                    (flash_tc.cuh).
+//   fa_forward_tc_wide
+//                    bf16 prefill on the tensor cores at hd 576, MLA's
+//                    absorbed width, without a window (flash_tc_wide.cuh):
+//                    64 folded (position, head) rows a block, O split by
+//                    columns over two warpgroups.
 //   fa_forward_split decode (at most 16 (query, head) rows per (batch, kv
 //                    head)), fp32 or bf16 (flash_split below): the key range
 //                    is cut into chunks, one block per (batch, kv head,
@@ -34,17 +40,19 @@
 //                    chunks give B * KV * chunks blocks where one block per
 //                    (batch, kv head) gave 16 on 132 SMs.
 //   fa_forward       the CUDA-core kernel below: fp32 prefill (full fp32
-//                    products), and hd not a multiple of 16, hd > 128 or
-//                    rows not 16-byte aligned.
+//                    products), and hd not a multiple of 16, hd 129-575,
+//                    windowed calls over hd 128, or rows not 16-byte
+//                    aligned.
 //
 // Head dims: 1..576 (MLA's absorbed attention works at kv_lora_rank +
 // rope_head_dim = 576).  Each route has instances padded to HD = 32, 64,
 // 128 (the tensor-core route stops there: wgmma m64n{HD}k16 and tiles of HD
-// swizzled columns), then 256 and 576.  Above 128 the instances take
-// another shape so that a block fits the 227 KB of shared memory and its
-// accumulators stay in registers: the CUDA-core kernel holds RW = 8 (HD 256)
-// or 4 (HD 576) rows a warp instead of 16, and the fp32 split-kv kernel at
-// HD 576 takes chunks of 32 keys instead of 64 (split_chunk).
+// swizzled columns), then 256 and 576 (the wide tensor-core route has only
+// 576).  Above 128 the CUDA-core and split-kv instances take another shape
+// so that a block fits the 227 KB of shared memory and its accumulators
+// stay in registers: the CUDA-core kernel holds RW = 8 (HD 256) or 4 (HD
+// 576) rows a warp instead of 16, and the fp32 split-kv kernel at HD 576
+// takes chunks of 32 keys instead of 64 (split_chunk).
 //
 // CUDA-core kernel design (flash_fwd):
 //   * One block of 4 warps serves RB = 4 * RW (64 up to hd 128) rows of one
@@ -74,6 +82,7 @@
 #include <stdint.h>
 
 #include "flash_tc.cuh"
+#include "flash_tc_wide.cuh"
 
 namespace {
 
@@ -714,6 +723,18 @@ int fa_forward_tc(int dtype, const void* args, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   if (a->B == 0 || a->Sq == 0) return 0;
   return tc::dispatch(*a, static_cast<cudaStream_t>(stream));
+}
+
+// The wide tensor-core route: bf16, hd 576, vec, no window.  When v is k
+// (the same pointer and strides, MLA's call) one shared-memory tile serves
+// as both.
+int fa_forward_tc_wide(int dtype, const void* args, void* stream) {
+  const Args* a = static_cast<const Args*>(args);
+  if (bad_shape(a->hd, a->H, a->KV) || dtype != kBF16
+      || a->hd != tcw::HD || !a->vec || a->has_window)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->B == 0 || a->Sq == 0) return 0;
+  return tcw::dispatch(*a, static_cast<cudaStream_t>(stream));
 }
 
 // The split-kv route: Sq * H / KV <= 16 rows per (batch, kv head); the key

@@ -2,13 +2,14 @@
 ops.py``, in model layout.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
-kernels (``csrc/flash_attention.cu`` and ``csrc/flash_tc.cuh``, built at
-first use by :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor
-it runs the plain version :func:`.ref.attention_ref`.  There is no fallback
-from the card to the CPU and no library attention.
+kernels (``csrc/flash_attention.cu``, ``csrc/flash_tc.cuh`` and
+``csrc/flash_tc_wide.cuh``, built at first use by
+:mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the
+plain version :func:`.ref.attention_ref`.  There is no fallback from the
+card to the CPU and no library attention.
 
-On the card :func:`route` picks one of three kernels by dtype and shape
-alone (never by a failure):
+On the card :func:`route` picks one of four kernels by dtype, shape,
+alignment and window alone (never by a failure):
 
 * ``split_kv`` — at most 16 (query, head) rows per (batch, kv head), which
   is decode, fp32 or bf16: one block per (batch, kv head, chunk of
@@ -16,8 +17,14 @@ alone (never by a failure):
   second kernel merges the partials in chunk order (bitwise repeatable).
 * ``tensor_core`` — bf16 prefill with hd <= 128 and a multiple of 16 and
   16-byte aligned rows: ``wgmma`` bf16 products with fp32 accumulators.
+* ``tensor_core_wide`` — bf16 prefill at hd 576 (MLA's absorbed width)
+  with 16-byte aligned rows and no window: ``wgmma`` as above, 64 folded
+  (position, head) rows a block and the output's columns split over two
+  warpgroups.  When v is k (:func:`wide_key_tile`) one shared-memory tile
+  of 64 keys serves as both, else K and V take 32-key tiles.
 * ``cuda_core`` — everything else: fp32 prefill (full fp32 products), hd
-  not a multiple of 16 or over 128, unaligned rows.
+  not a multiple of 16, hd 129-575, windowed calls over hd 128, unaligned
+  rows.
 
 Head dims up to ``MAX_HEAD_DIM`` = 576 run on the card (MLA's absorbed
 attention works at kv_lora_rank + rope_head_dim = 576); a larger one
@@ -61,12 +68,13 @@ from .. import _build
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
-ROUTES = ("tensor_core", "split_kv", "cuda_core")
+ROUTES = ("tensor_core", "tensor_core_wide", "split_kv", "cuda_core")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 MAX_HEAD_DIM = 576
 TC_MAX_HEAD_DIM = 128       # the tensor-core route's widest instance
+WIDE_HEAD_DIM = 576         # the wide tensor-core route's one instance
 SPLIT_MAX_ROWS = 16         # (query, head) rows per (batch, kv head)
 SPLIT_CHUNK = 64            # keys per split-kv chunk (kChunk of the source)
 
@@ -101,14 +109,26 @@ def reset_launch_counts() -> None:
 
 
 def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
-          vec: bool) -> str:
-    """The kernel a card call takes, by dtype and shape alone."""
+          vec: bool, window: Optional[int] = None) -> str:
+    """The kernel a card call takes, by dtype, shape, alignment (``vec``:
+    every row of q, k and v starts 16-byte aligned) and window alone."""
     if Sq * (H // KV) <= SPLIT_MAX_ROWS:
         return "split_kv"
-    if (dtype == torch.bfloat16 and hd % 16 == 0 and hd <= TC_MAX_HEAD_DIM
-            and vec):
-        return "tensor_core"
+    if dtype == torch.bfloat16 and vec:
+        if hd % 16 == 0 and hd <= TC_MAX_HEAD_DIM:
+            return "tensor_core"
+        if hd == WIDE_HEAD_DIM and window is None:
+            return "tensor_core_wide"
     return "cuda_core"
+
+
+def wide_key_tile(k: torch.Tensor, v: torch.Tensor) -> int:
+    """Keys per tile of the wide tensor-core route for these k and v: 64
+    when v is k (the same storage and strides, as MLA passes its latent
+    cache), when one shared-memory tile serves as K and as V; else 32, so
+    that separate K and V tiles fit the same stage."""
+    same = v.data_ptr() == k.data_ptr() and v.stride() == k.stride()
+    return 64 if same else 32
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,6 +140,7 @@ def _library() -> ctypes.CDLL:
             + [p, i32, p, i32, i32, i32, i32, ctypes.c_float, i32, p])
     for fn, argtypes in ((lib.fa_forward, args),
                          (lib.fa_forward_tc, [i32, p, p]),
+                         (lib.fa_forward_tc_wide, [i32, p, p]),
                          (lib.fa_forward_split, [i32, p, i32, p]),
                          (lib.fa_args_offsets, [p, i32])):
         fn.argtypes = argtypes
@@ -264,7 +285,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     strides = q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
     vec = (hd % per16 == 0 and all(p % 16 == 0 for p in ptrs[:3])
            and all(st % per16 == 0 for st in strides))
-    way = route(q.dtype, Sq, H, KV, hd, vec)
+    way = route(q.dtype, Sq, H, KV, hd, vec, window)
     lib = _library()
     stream = _build.stream_handle()
     scalars = (B, Sq, Sk, H, KV, hd, *strides, pos_ptr or 0, int(q_offset),
@@ -289,6 +310,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             rc = lib.fa_forward_split(_DTYPES[q.dtype],
                                       ctypes.addressof(block), n_chunks,
                                       stream)
+        elif way == "tensor_core_wide":
+            rc = lib.fa_forward_tc_wide(_DTYPES[q.dtype],
+                                        ctypes.addressof(block), stream)
         else:
             rc = lib.fa_forward_tc(_DTYPES[q.dtype],
                                    ctypes.addressof(block), stream)

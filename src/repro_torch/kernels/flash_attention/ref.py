@@ -7,8 +7,13 @@ valid lengths: it is what :func:`..ops.flash_attention` runs for a CPU
 tensor, and what the CUDA kernels are held against on the card.
 ``attention_split_ref`` computes it the way the split-kv decode kernel
 does (per-chunk partials, then a merge in chunk order); the card holds the
-decode kernel against it too.  ``attention_backward_ref`` is autograd
-through ``attention_ref``: the plain version of the backward kernel.
+decode kernel against it too.  ``attention_wide_ref`` computes it the way
+the wide tensor-core prefill kernel (hd 576) does: its blocks of folded
+rows, its key tiles in its order, the base-2 online softmax and P as two
+bf16 parts in the P V product; the card holds that kernel against it,
+and the CPU tests hold it against the JAX op.  ``attention_backward_ref``
+is autograd through ``attention_ref``: the plain version of the backward
+kernel.
 ``attention_backward_split_ref`` computes the same gradients with every
 product's operands split into TF32 parts as the backward kernel's
 ``mma.sync`` products take them: the CPU tests' evidence that the split
@@ -137,6 +142,87 @@ def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         den = den + e * l
         num = num + e[..., None] * acc
     out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+WIDE_ROWS = 64          # folded (position, head) rows of a wide-route block
+
+
+def attention_wide_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_positions: torch.Tensor,
+                       kv_valid: Union[None, int, torch.Tensor] = None, *,
+                       causal: bool = True, key_tile: int = 64,
+                       split_p: bool = True) -> torch.Tensor:
+    """:func:`attention_ref`'s function (no window), computed as the wide
+    tensor-core kernel computes it.  The rows of one (batch, kv head) are
+    folded, row r = i * G + g for query i and head g, and cut into blocks
+    of ``WIDE_ROWS``.  A block's key range is [0, hi): the largest end of
+    its rows' visible keys, or [0, Sk) when one of its rows sees none (its
+    weights are then uniform over all Sk keys).  The block walks the tiles
+    of ``key_tile`` keys of that range from the last to the first: scores
+    in fp32 scaled by scale * log2(e) (the fp32 product of the two), keys
+    past the range skipped (weight 0), keys in it that a row does not see
+    NEG_INF; m_t = max(m, max_j s), p = 2^(s - m_t),
+    l = l 2^(m - m_t) + sum p, acc = acc 2^(m - m_t) + P V with fp32 sums,
+    P = hi + lo, hi = bf16(p), lo = bf16(p - hi), as the kernel's two
+    products take it (``split_p=False``: P = bf16(p), one product);
+    out = acc / max(l, 1e-30) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    R = Sq * G
+    nb = -(-R // WIDE_ROWS)
+    pad = nb * WIDE_ROWS - R
+    dev = q.device
+    qf = q.float().reshape(B, Sq, KV, G, hd).permute(0, 2, 1, 3, 4)
+    qf = torch.nn.functional.pad(qf.reshape(B, KV, R, hd), (0, 0, 0, pad))
+    qf = qf.reshape(B, KV, nb, WIDE_ROWS, hd)
+    valid = torch.as_tensor(Sk if kv_valid is None else kv_valid,
+                            device=dev).to(torch.int64)
+    valid = torch.broadcast_to(valid.clamp(0, Sk), (B,))
+    row_pos = q_positions.to(dev, torch.int64).repeat_interleave(G)  # [R]
+    row_hi = torch.broadcast_to(valid[:, None], (B, R))
+    if causal:
+        row_hi = torch.minimum(row_hi, row_pos[None, :] + 1)
+    row_hi = torch.nn.functional.pad(row_hi, (0, pad), value=Sk)
+    row_hi = row_hi.reshape(B, nb, WIDE_ROWS)                   # [B, nb, 64]
+    real = (torch.arange(nb * WIDE_ROWS, device=dev) < R).reshape(
+        nb, WIDE_ROWS)
+    none = (real & (row_hi <= 0)).any(dim=-1)                   # [B, nb]
+    hi = torch.where(none, Sk, torch.where(real, row_hi, 0).amax(dim=-1))
+    n_t = (hi + key_tile - 1) // key_tile                       # [B, nb]
+    scale = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+             * torch.tensor(LOG2E, dtype=torch.float32)).item()
+    m = torch.full((B, KV, nb, WIDE_ROWS), NEG_INF, device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(B, KV, nb, WIDE_ROWS, hd, device=dev)
+    kf, vf = k.float(), v.float()
+    for t in reversed(range(int(n_t.max()) if n_t.numel() else 0)):
+        j0 = t * key_tile
+        keys = torch.arange(j0, j0 + key_tile, device=dev)
+        n_in = max(min(Sk - j0, key_tile), 0)
+        kt = torch.zeros(B, key_tile, KV, hd, device=dev)
+        vt = torch.zeros_like(kt)
+        kt[:, :n_in], vt[:, :n_in] = kf[:, j0:j0 + n_in], vf[:, j0:j0 + n_in]
+        s = torch.einsum("bkrnh,bjkh->bkrnj", qf, kt) * scale
+        s = torch.where((keys >= row_hi[..., None])[:, None], NEG_INF, s)
+        s = torch.where((keys >= hi[..., None])[:, None, :, None, :],
+                        -math.inf, s)
+        m_t = torch.maximum(m, s.amax(dim=-1))
+        corr = torch.exp2(m - m_t)
+        p = torch.exp2(s - m_t[..., None])
+        on = (t < n_t)[:, None, :, None]                         # [B,1,nb,1]
+        l = torch.where(on, l * corr + p.sum(dim=-1), l)
+        pb = p.to(torch.bfloat16).float()
+        if split_p:
+            pb = pb + (p - pb).to(torch.bfloat16).float()
+        pv = torch.einsum("bkrnj,bjkh->bkrnh", pb, vt)
+        acc = torch.where(on[..., None], acc * corr[..., None] + pv, acc)
+        m = torch.where(on, m_t, m)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.reshape(B, KV, nb * WIDE_ROWS, hd)[:, :, :R]
+    out = out.reshape(B, KV, Sq, G, hd).permute(0, 2, 1, 3, 4)
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 

@@ -3,9 +3,11 @@
 package's ``flash_attention`` op (the Pallas kernel in interpret mode) at
 hd 192 and at MLA's absorbed width 576, causal with a valid prefix; the
 plain split-kv algorithm at the chunk the fp32 hd-576 kernel takes; and the
-wrapper's route and chunk choice, which never send hd > 128 to the tensor
-cores.  The card runs both large-hd routes against the plain versions in
-tests/test_torch_kernels_cuda.py and chip_smoke.py."""
+wrapper's route and chunk choice: over hd 128 only an aligned bf16 prefill
+at hd 576 takes the tensor cores (``tensor_core_wide``,
+tests/test_torch_flash_wide.py).  The card runs the large-hd routes
+against the plain versions in tests/test_torch_kernels_cuda.py and
+chip_smoke.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,9 +84,16 @@ def test_split_ref_at_the_large_hd_chunk_matches_attention_ref(dtype):
     (1, 16, 1, "split_kv"),          # MLA decode: 16 rows per kv head
     (8, 4, 2, "split_kv"),
 ])
-def test_route_above_128_is_never_tensor_core(dtype, hd, Sq, H, KV, want):
+def test_route_above_128_takes_the_wide_tensor_cores_only_at_bf16_576(
+        dtype, hd, Sq, H, KV, want):
+    """Over hd 128 a prefill takes ``cuda_core``, except an aligned bf16
+    one at MLA's hd 576, which takes ``tensor_core_wide``; decode takes
+    ``split_kv``; nothing takes ``tensor_core``."""
     for vec in (True, False):
-        assert ops.route(dtype, Sq, H, KV, hd, vec) == want
+        wide = (want == "cuda_core" and dtype == torch.bfloat16
+                and hd == ops.WIDE_HEAD_DIM and vec)
+        assert ops.route(dtype, Sq, H, KV, hd, vec) == (
+            "tensor_core_wide" if wide else want)
 
 
 @pytest.mark.parametrize("dtype,hd,chunk", [

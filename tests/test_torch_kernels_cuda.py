@@ -178,9 +178,9 @@ def test_flash_attention_unaligned_rows_on_card(no_tf32):
 
 
 # ---------------------------------------------------------------------------
-# flash attention: each route (tensor_core, split_kv, cuda_core) and its
-# edges, against attention_ref at FLASH_TOL; split_kv also against the plain
-# split-kv algorithm at SPLIT_TOL
+# flash attention: each route (tensor_core, tensor_core_wide, split_kv,
+# cuda_core) and its edges, against attention_ref at FLASH_TOL; split_kv
+# also against the plain split-kv algorithm at SPLIT_TOL
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Sk, H, KV, hd, causal, q positions start, kv_valid, window,
@@ -220,10 +220,10 @@ ROUTE_CASES = {
     "decode_hd40": (3, 2, 300, 6, 3, 40, True, 250, 252, None,
                     "split_kv", "split_kv"),
     # MLA's absorbed width 576 (16 query heads on one latent kv head):
-    # prefill on the CUDA cores in both dtypes, and decode split-kv (fp32
-    # in 32-key chunks)
+    # prefill on the CUDA cores in fp32 and on the wide tensor-core route
+    # in bf16, and decode split-kv (fp32 in 32-key chunks)
     "mla_prefill_hd576": (2, 160, 300, 16, 1, 576, True, 140, "per_batch",
-                          None, "cuda_core", "cuda_core"),
+                          None, "cuda_core", "tensor_core_wide"),
     "mla_decode_hd576": (8, 1, 2112, 16, 1, 576, True, 2111, "per_batch",
                          None, "split_kv", "split_kv"),
     # hd 192 (MLA's nope + rope query width) with grouped heads

@@ -142,12 +142,12 @@ def test_absorbed_scale_rounds_in_the_model_dtype():
 def test_full_width_attention_takes_the_hd576_flash_routes():
     """deepseek-v2-lite's absorbed attention is one kv head of width
     kv_lora_rank + rope_head_dim = 576 shared by 16 query heads: at 8 x
-    2048 bf16 it routes to ``cuda_core`` (hd > 128 never takes the tensor
-    cores), one decode step of 8 slots to ``split_kv``."""
+    2048 bf16 it routes to ``tensor_core_wide`` (the wide tensor-core
+    prefill), one decode step of 8 slots to ``split_kv``."""
     cfg = ARCHS[NAME]
     hd = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
-    assert hd == 576 <= fa_ops.MAX_HEAD_DIM
+    assert hd == 576 == fa_ops.WIDE_HEAD_DIM <= fa_ops.MAX_HEAD_DIM
     assert fa_ops.route(torch.bfloat16, 2048, cfg.n_heads, 1, hd,
-                        True) == "cuda_core"
+                        True) == "tensor_core_wide"
     assert fa_ops.route(torch.bfloat16, 1, cfg.n_heads, 1, hd,
                         True) == "split_kv"

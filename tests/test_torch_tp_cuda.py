@@ -156,9 +156,11 @@ def test_tp_serving_matches_the_unsharded_run(card, ranks):
         assert torch.equal(got.argmax(-1), want.argmax(-1))
         assert torch.equal(res[torch.bfloat16], ranks[0][torch.bfloat16])
         assert res[(torch.float32, "routes")] == {
-            "tensor_core": 0, "split_kv": 2 * NEW, "cuda_core": 2}
+            "tensor_core": 0, "tensor_core_wide": 0, "split_kv": 2 * NEW,
+            "cuda_core": 2}
         assert res[(torch.bfloat16, "routes")] == {
-            "tensor_core": 2, "split_kv": 2 * NEW, "cuda_core": 0}
+            "tensor_core": 2, "tensor_core_wide": 0, "split_kv": 2 * NEW,
+            "cuda_core": 0}
 
 
 @pytest.mark.cuda
