@@ -137,10 +137,17 @@ Phases, one printed line each (plus detail lines):
               apart from k and with v = k as the model calls it, in bf16
               on the wide tensor-core route, also against its plain
               mirror ``attention_wide_ref`` and twice for the same bits,
-              in fp32 on the CUDA cores; a decode step over 2,049 keys on
-              split-kv; each timed in turns with SDPA (v = k in bf16
-              only); decode over per-batch valid keys) and one odd shape
-              at hd 192 (``LARGE_HD_ROUTE`` names each route).  The new
+              in fp32 on the TF32 ``mma_tf32`` route; a decode step over
+              2,049 keys on split-kv; each timed in turns with SDPA;
+              decode over per-batch valid keys) and one odd shape at hd
+              192 (``LARGE_HD_ROUTE`` names each route).  Every
+              ``mma_tf32`` call is also held against its plain mirror
+              ``attention_mma_ref`` (split-TF32 products) and run twice
+              for the same bits; its fp32 prefills at Qwen2's
+              [8, 2048, 12, 128], MLA's [8, 2048, 16, 576] (v apart and
+              v = k) and phase 10's ``tp_check`` are timed in turns with
+              fp32 SDPA and profiled, with TFLOP/s of the function's
+              work.  The new
               families' serving shapes (``FAMILY_TAGS``, bf16 timed
               against SDPA in turns and profiled): Hymba's windowed
               prefill and ring decode,
@@ -195,9 +202,11 @@ Phases, one printed line each (plus detail lines):
               ``TRAIN_STEPS`` steps of ``make_train_step``: loss finite
               and falling; the first step's launches counted; step wall
               (median of the later steps), tokens/s, peak memory, and the
-              idle share of one more, profiled step.  (c) one train step
-              of all ten archs at ``reduced()`` (the MoE ones with both
-              dispatches) on the card against the CPU: loss within 1e-5,
+              idle share of one more, profiled step, with the flash
+              forward's (``mma_tf32``) share of its device time.  (c) one
+              train step of all ten archs at ``reduced()`` (the MoE ones
+              with both dispatches) on the card against the CPU: loss
+              within 1e-5,
               each gradient leaf within 1e-4 of its own largest entry,
               the card's update within 1e-4 of each leaf's update of the
               CPU optimizer on the card's gradients.  (d) reduced
@@ -222,7 +231,7 @@ Phases, one printed line each (plus detail lines):
               before the spawn), the same greedy tokens on every rank,
               each rank's weight bytes equal to the local bytes of
               ``param_pspecs``, and each rank's flash launches by route
-              (fp32 prefill on ``cuda_core``, decode on ``split_kv``).
+              (fp32 prefill on ``mma_tf32``, decode on ``split_kv``).
               (b) the same at 8 of 80 layers in bf16, 4 slots x
               1,024-token prompts + 32 new tokens: time to first token,
               decode ms a step, tokens/s (the slowest rank's host walls),
@@ -242,7 +251,7 @@ Phases, one printed line each (plus detail lines):
               within 1e-4 of its largest entry, the gathered parameters
               within 1e-6 of each leaf's largest of the unsharded AdamW
               fed that gradient.
-8. kernels line — one JSON object with all nine kernels: launches on
+8. kernels line — one JSON object with all ten kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
               call); for flash and WKV, launches by route (for flash also
@@ -253,7 +262,10 @@ Phases, one printed line each (plus detail lines):
               differentiates); for the wide tensor-core flash kernel
               (``flash_attention_wide``, flash's ``tensor_core_wide``
               route), its launches serving DeepSeek-V2-Lite and phase 5's
-              bf16 row with v = k.
+              bf16 row with v = k; for the TF32 tensor-core flash kernel
+              (``flash_attention_mma``, flash's ``mma_tf32`` route), its
+              launches on the full-width Qwen2-1.5B train step and phase
+              5's fp32 prefill rows.
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -275,7 +287,7 @@ prefill route (flash ``tensor_core``, ``tensor_core_wide`` at MLA's hd 576;
 WKV ``tensor_core`` for RWKV6, ``step`` for Hymba's SSM), and the new
 families' and deepseek-v2-lite's decode steps take ``split_kv``.  A
 full-width Qwen2-1.5B train step (two microbatches, remat) launches
-2 x 2 x 28 flash forwards, all on ``cuda_core`` (fp32; never split-kv),
+2 x 2 x 28 flash forwards, all on ``mma_tf32`` (fp32; never split-kv),
 and 2 x 28 flash backwards, and calls no plain version; a reduced train
 step launches the WKV backward for rwkv6 and hymba and the flash backward
 for every arch with attention; a rank's ``coded_r2`` gradient launches
@@ -320,6 +332,7 @@ FLASH_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                 "flash_attention.cu")
 WIDE_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                "flash_tc_wide.cuh")
+MMA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_mma.cuh"
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/wkv_scan.cu"
 REPLACES = {"coded_encode": "src/repro/kernels/coded_combine/kernel.py:58",
             "coded_decode": "src/repro/kernels/coded_combine/kernel.py:74",
@@ -2282,7 +2295,10 @@ FLASH_TIMED = ("prefill", "decode", "decode_2111", "mla_prefill",
                "mla_prefill_shared", "mla_decode") + FAMILY_TAGS
 # the cases whose v is k (one tensor passed as both)
 SHARED_KV_TAGS = ("mla_prefill_shared",)
-# the bf16 route of each new family's shape (fp32 prefill: cuda_core)
+# the fp32 prefills (route mma_tf32) also timed in turns with fp32 SDPA and
+# profiled: Qwen2's, MLA's with v apart and v = k, phase 10's fp32 check
+MMA_TIMED = ("prefill", "mla_prefill", "mla_prefill_shared", "tp_check")
+# the bf16 route of each new family's shape (fp32 prefill: mma_tf32)
 FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
                 "hymba_ring_decode": "split_kv",
                 "whisper_encoder": "tensor_core",
@@ -2292,22 +2308,22 @@ FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
 # the routes of phase 10's shapes, by dtype
 TP_TAGS = ("tp_prefill", "tp_decode", "tp_check")
 TP_ROUTE = {("tp_prefill", "bfloat16"): "tensor_core",
-            ("tp_prefill", "float32"): "cuda_core",
+            ("tp_prefill", "float32"): "mma_tf32",
             ("tp_decode", "bfloat16"): "split_kv",
             ("tp_decode", "float32"): "split_kv",
             ("tp_check", "bfloat16"): "tensor_core",
-            ("tp_check", "float32"): "cuda_core"}
+            ("tp_check", "float32"): "mma_tf32"}
 # the route a head dim over 128 takes, by dtype: a bf16 prefill at hd 576
-# on the wide tensor cores, fp32 and hd 192 on the CUDA cores, decode
+# on the wide tensor cores, fp32 and hd 192 on the TF32 mma route, decode
 # split-kv
 LARGE_HD_ROUTE = {
-    **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16" else "cuda_core")
+    **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16" else "mma_tf32")
        for tag in ("mla_prefill", "mla_prefill_shared")
        for dt in ("bfloat16", "float32")},
     **{(tag, dt): "split_kv" for tag in ("mla_decode", "mla_decode_per_batch")
        for dt in ("bfloat16", "float32")},
-    ("odd_hd192", "bfloat16"): "cuda_core",
-    ("odd_hd192", "float32"): "cuda_core"}
+    ("odd_hd192", "bfloat16"): "mma_tf32",
+    ("odd_hd192", "float32"): "mma_tf32"}
 # split-kv against the plain split-kv algorithm, which also computes in fp32
 # and rounds once: about one bf16 ulp of the output
 FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
@@ -2380,14 +2396,18 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 torch.testing.assert_close(out, split, rtol=s_rtol,
                                            atol=s_atol)
             mirror_err = None
-            if route == "tensor_core_wide":
-                # the kernel's own blocks, tiles and roundings, and the
-                # same bits on a second call
-                tile = fa.wide_key_tile(k, v)
-                check(tile == (64 if tag in SHARED_KV_TAGS else 32),
-                      f"flash {tag}: key tile {tile}")
-                mirror = fa_ref.attention_wide_ref(
-                    q, k, v, pos, valid, causal=causal, key_tile=tile)
+            if route in ("tensor_core_wide", "mma_tf32"):
+                # the kernel's own roundings (the wide route's blocks and
+                # tiles too), and the same bits on a second call
+                if route == "tensor_core_wide":
+                    tile = fa.wide_key_tile(k, v)
+                    check(tile == (64 if tag in SHARED_KV_TAGS else 32),
+                          f"flash {tag}: key tile {tile}")
+                    mirror = fa_ref.attention_wide_ref(
+                        q, k, v, pos, valid, causal=causal, key_tile=tile)
+                else:
+                    mirror = fa_ref.attention_mma_ref(
+                        q, k, v, pos, valid, causal=causal, window=window)
                 s_rtol, s_atol = FLASH_SPLIT_TOL[dname]
                 torch.testing.assert_close(out, mirror, rtol=s_rtol,
                                            atol=s_atol)
@@ -2418,15 +2438,17 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                    "flops": flops}
             row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
                                                      dname)
-            # the new families' shapes and MLA's shared-kv prefill are
-            # timed against SDPA and profiled at their serving dtype (bf16)
-            # alone: every profiler session a process takes costs the later
+            # the new families' shapes are timed against SDPA and profiled
+            # at their serving dtype (bf16) alone, MLA's shared-kv prefill
+            # and phase 10's check in fp32 only where they take mma_tf32:
+            # every profiler session a process takes costs the later
             # sessions records
-            is_main = tag in FLASH_TIMED and (
+            is_main = (tag in FLASH_TIMED and (
                 tag not in FAMILY_TAGS + SHARED_KV_TAGS
-                or dtype == torch.bfloat16)
+                or dtype == torch.bfloat16)) or (
+                tag in MMA_TIMED and dtype == torch.float32)
             reps, inner = (5, 5) if is_main else (3, 10)
-            if hd > 128 and route == "cuda_core":   # ~60 ms a call
+            if hd > 128 and route == "mma_tf32":    # ~22 ms a call
                 reps, inner = 3, 2
             kernel = lambda: fa.flash_attention(q, k, v, **kw)
             row["plain_ms"] = cuda_ms(
@@ -2460,6 +2482,7 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                 row["library_ms_turns"] = [turns[1], turns[2]]
                 row["ms"] = statistics.mean(row["ms_turns"])
                 row["library_ms"] = statistics.mean(row["library_ms_turns"])
+                row["tflops"] = flops / row["ms"] / 1e9
                 row["device_ms"], row["device_kernels"] = device_per_call(
                     torch, kernel)
                 row["library_device_ms"], _ = device_per_call(torch, sdpa)
@@ -2486,7 +2509,9 @@ def flash_phase(torch, fa, fa_ref, peaks, seed):
                     f"{turns[0]:.6f} {turns[1]:.6f} {turns[2]:.6f} "
                     f"{turns[3]:.6f} ms; kernel / SDPA "
                     f"{row['ms'] / lib:.3f}, bound / kernel "
-                    f"{row['bound_ms'] / row['ms']:.3f}; device time per "
+                    f"{row['bound_ms'] / row['ms']:.3f}, "
+                    f"{row['tflops']:.1f} TFLOP/s of the function's work; "
+                    f"device time per "
                     f"call (profiler) kernel {row['device_ms']:.6f} ms "
                     f"in {row['device_kernels']:g} device kernels, "
                     f"SDPA {row['library_device_ms']:.6f} ms")
@@ -3356,10 +3381,10 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     check(all(launches[k] == n for k, n in want.items())
           and routes == {"tensor_core": 0, "tensor_core_wide": 0,
                          "split_kv": 0,
-                         "cuda_core": want["flash_attention"]}
+                         "mma_tf32": want["flash_attention"]}
           and not any(plain.values()),
           f"qwen2-1.5b train step launches {launches}, routes {routes}, "
-          f"plain {plain}; want {want} on cuda_core (a forward and a remat "
+          f"plain {plain}; want {want} on mma_tf32 (a forward and a remat "
           f"recompute a layer and microbatch, one backward)")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     batch = pipe.batch_at(TRAIN_STEPS)
@@ -3374,6 +3399,13 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
                   if ev.key.startswith("void fa_bwd::dq_mma"))
     check(records > 0, "the profiled train step holds no flash backward "
           "record")
+    # the flash forward's (mma_tf32) device time in the profiled step, and
+    # how many of its launches the profile holds
+    fwd = [ev for ev in prof.key_averages()
+           if str(getattr(ev, "device_type", "")).endswith("CUDA")
+           and "flash_mma" in ev.key]
+    fwd_ms = sum(device_us(ev) for ev in fwd) / 1e3
+    fwd_records = sum(ev.count for ev in fwd)
     step_ms = statistics.median(walls[1:])
     tokens = 8 * 2048
     info = {"arch": cfg.name, "params": n_params, "dtype": "float32",
@@ -3386,6 +3418,10 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
             "profiled_step_ms": prof_ms, "device_busy_ms": busy,
             "profiled_flash_backward_records": [
                 records, want["flash_attention_backward"]],
+            "profiled_flash_forward_ms": fwd_ms,
+            "profiled_flash_forward_records": [
+                fwd_records, want["flash_attention"]],
+            "flash_forward_share": fwd_ms / busy,
             "idle_share": 1.0 - busy / prof_ms, "by_kernel": by_kernel}
     say(f"  train qwen2-1.5b full width ({n_params} fp32 parameters, "
         f"AdamW, 8 x 2048 tokens in 2 microbatches, remat): step "
@@ -3394,8 +3430,10 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
         f"{peak_gb:.3f} GB allocated, losses {[round(x, 4) for x in losses]}"
         f"; profiled step {prof_ms:.1f} ms, device busy {busy:.1f} ms, idle "
         f"share {info['idle_share']:.3f} (the profile holds {records} of "
-        f"{want['flash_attention_backward']} flash backward records) "
-        f"[{smi}]")
+        f"{want['flash_attention_backward']} flash backward records); the "
+        f"flash forward (mma_tf32) {fwd_ms:.1f} device ms, "
+        f"{info['flash_forward_share']:.4f} of the busy time ({fwd_records} "
+        f"of {want['flash_attention']} records) [{smi}]")
     for k in by_kernel[:6]:
         say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
     del state, m, batch, prof
@@ -4005,7 +4043,7 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                   f"the specs give {res['spec_bytes']}")
             want = {"tensor_core": 0, "tensor_core_wide": 0,
                     "split_kv": TP_CHECK[0] * TP_CHECK[4],
-                    "cuda_core": TP_CHECK[0]}
+                    "mma_tf32": TP_CHECK[0]}
             check(res["check_routes"] == want
                   and not any(res["check_plain"].values()),
                   f"tp (a) rank {r}: flash launches by route "
@@ -4014,7 +4052,7 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
             # (b) routes: tensor-core prefill at G = 8, split-kv decode
             L8, new8 = TP_TIMED[0], TP_TIMED[4]
             want = {"tensor_core": L8, "tensor_core_wide": 0,
-                    "split_kv": L8 * (new8 - 1), "cuda_core": 0}
+                    "split_kv": L8 * (new8 - 1), "mma_tf32": 0}
             check(res["timed_routes"] == want
                   and not any(res["timed_plain"].values()),
                   f"tp (b) rank {r}: flash launches by route "
@@ -4106,7 +4144,7 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                       and abs(got["grad_norm"] - gnorm)
                       <= TP_LOSS_TOL * abs(gnorm)
                       and g_err <= TP_GRAD_TOL and p_err <= TP_PARAM_TOL
-                      and got["routes"].get("cuda_core", 0) > 0
+                      and got["routes"].get("mma_tf32", 0) > 0
                       and not any(got["plain"].values()),
                       f"tp (c) {shape} seq_tp={seq} rank {res['rank']}: "
                       f"loss {got['loss']} vs {loss}, norm "
@@ -4448,7 +4486,7 @@ def main(argv=None) -> int:
           f"serving qwen2-1.5b took the tensor-core prefill and the "
           f"split-kv decode: {flash_routes}")
     # (the bf16 prefills all on tensor_core_wide, as each TTFT call
-    # checked; cuda_core counts the fp32 check's forward and prefill)
+    # checked; mma_tf32 counts the fp32 check's forward and prefill)
     mla_routes = serving["deepseek-v2-lite-16b"]["routes"]["flash_attention"]
     check(mla_routes.get("tensor_core_wide", 0) > 0
           and mla_routes.get("split_kv", 0) > 0
@@ -4514,7 +4552,7 @@ def main(argv=None) -> int:
             for r in flash_rows:
                 if r["hd"] > 128:
                     large_hd[r["route"]] = large_hd.get(r["route"], 0) + 1
-            check(set(large_hd) == {"cuda_core", "split_kv",
+            check(set(large_hd) == {"mma_tf32", "split_kv",
                                     "tensor_core_wide"},
                   f"head dims over 128 ran on their three routes: "
                   f"{large_hd}")
@@ -4649,6 +4687,49 @@ def main(argv=None) -> int:
                         "library_device_ms")},
                     "note": "flash_attention's tensor_core_wide route; its "
                             "launches are also in flash_attention's"})
+    # the TF32 tensor-core flash kernel (flash_attention's mma_tf32 route:
+    # every fp32 prefill): launches on the full-width Qwen2-1.5B train step
+    # (a forward and a remat recompute a layer and microbatch), numbers at
+    # phase 5's fp32 prefill rows: Qwen2's [8, 2048, 12, 128], MLA's
+    # [8, 2048, 16, 576] with v apart and v = k, phase 10's check
+    mma_rows = {r["case"]: r for r in flash_rows
+                if r["route"] == "mma_tf32" and r["dtype"] == "float32"
+                and r["case"] in MMA_TIMED}
+    check(set(mma_rows) == set(MMA_TIMED),
+          f"phase 5's fp32 prefills on mma_tf32: {sorted(mma_rows)}")
+    mma_by_path = {f"serve {a}": r["routes"].get("flash_attention", {})
+                   .get("mma_tf32", 0) for a, r in serving.items()}
+    mma_by_path["train qwen2-1.5b"] = full_info["routes_first_step"][
+        "mma_tf32"]
+    mma_by_path["tp check, per rank"] = tp_info["check"][
+        "routes_per_rank"].get("mma_tf32", 0)
+    mma = mma_rows["prefill"]
+    check(mma_by_path["train qwen2-1.5b"] > 0,
+          f"the train step launched mma_tf32: {mma_by_path}")
+    kernels.append({"name": "flash_attention_mma", "route": "cuda",
+                    "source": MMA_SOURCE,
+                    "replaces": REPLACES["flash_attention"],
+                    "launches": mma_by_path["train qwen2-1.5b"],
+                    "launches_by_path": mma_by_path,
+                    "max_abs_err": mma["max_abs_err"],
+                    "mirror_max_abs_err": mma["mirror_max_abs_err"],
+                    "ms": mma["ms"], "plain_ms": mma["plain_ms"],
+                    "bound_ms": mma["bound_ms"], "bound_by": mma["bound_by"],
+                    "library_ms": mma["library_ms"],
+                    "device_ms": mma["device_ms"],
+                    "library_device_ms": mma["library_device_ms"],
+                    "tflops": mma["tflops"], "shape_case": "prefill",
+                    "fp32_rows": {tag: {k: r[k] for k in (
+                        "B", "Sq", "Sk", "H", "KV", "hd", "kv_valid",
+                        "v_is_k", "max_abs_err", "mirror_max_abs_err", "ms",
+                        "ms_turns", "library_ms", "library_ms_turns",
+                        "device_ms", "library_device_ms", "plain_ms",
+                        "bound_ms", "bound_by", "tflops")}
+                        for tag, r in mma_rows.items()},
+                    "train_step_forward_share": full_info[
+                        "flash_forward_share"],
+                    "note": "flash_attention's mma_tf32 route; its launches "
+                            "are also in flash_attention's"})
     say(f"phase kernels line: launches by path {by_path}")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -39,41 +39,23 @@
 //                    each cached key once and is bound by those bytes; the
 //                    chunks give B * KV * chunks blocks where one block per
 //                    (batch, kv head) gave 16 on 132 SMs.
-//   fa_forward       the CUDA-core kernel below: fp32 prefill (full fp32
-//                    products), and hd not a multiple of 16, hd 129-575,
-//                    windowed calls over hd 128, or rows not 16-byte
-//                    aligned.
+//   fa_forward_mma   everything else (flash_mma.cuh): the fp32 prefill, and
+//                    bf16 calls with hd not a multiple of 16, hd 129-575, a
+//                    window over hd 128, or rows not 16-byte aligned.  Every
+//                    product is mma.sync.m16n8k8 TF32 with fp32
+//                    accumulators, fp32 operands split into two TF32 parts
+//                    (three mma a product): within a few fp32 roundoffs of
+//                    fp32 products.
 //
 // Head dims: 1..576 (MLA's absorbed attention works at kv_lora_rank +
 // rope_head_dim = 576).  Each route has instances padded to HD = 32, 64,
 // 128 (the tensor-core route stops there: wgmma m64n{HD}k16 and tiles of HD
 // swizzled columns), then 256 and 576 (the wide tensor-core route has only
-// 576).  Above 128 the CUDA-core and split-kv instances take another shape
-// so that a block fits the 227 KB of shared memory and its accumulators
-// stay in registers: the CUDA-core kernel holds RW = 8 (HD 256) or 4 (HD
-// 576) rows a warp instead of 16, and the fp32 split-kv kernel at HD 576
-// takes chunks of 32 keys instead of 64 (split_chunk).
-//
-// CUDA-core kernel design (flash_fwd):
-//   * One block of 4 warps serves RB = 4 * RW (64 up to hd 128) rows of one
-//     (batch, kv head): the G query heads of a kv head share every K/V tile
-//     read, so K/V are read once per group, not once per query head.
-//   * The kv loop runs inside the block over tiles of BK = 32 keys staged
-//     in shared memory as fp32, with 16-byte loads that a thread issues
-//     together before it stores any (one memory latency per tile, not one
-//     per element).  It covers only the keys some row of the
-//     block can see: [min window start, min(kv_valid, last causal key + 1)),
-//     so a decode step reads kv_valid keys of the cache, not max_seq.
-//   * A row whose keys are all masked gets the reference's value (uniform
-//     weights over all Sk keys): a block holding such a row widens its
-//     range to [0, Sk), where every key of that row scores NEG_INF.  Keys
-//     outside the block's range are skipped outright (weight 0).
-//   * Scores: lane j of a warp scores key j of the tile for each of the
-//     warp's RW rows (fp32 FMAs over hd, Q rows broadcast from shared
-//     memory).  Softmax: warp max / sum per row.  P.V: each lane owns hd/32
-//     output columns of each row; P goes through shared memory.
-//   * fp32 on CUDA cores bounds it by operations: 4 * hd FLOPs per (row,
-//     visible key) against the card's fp32 rate.
+// 576).  Above 128 the TF32 and split-kv instances take another shape so
+// that a block fits the 227 KB of shared memory and its accumulators stay
+// in registers: the TF32 kernel splits hd over 2 (HD 256) or 4 (HD 576)
+// warps, and the fp32 split-kv kernel at HD 576 takes chunks of 32 keys
+// instead of 64 (split_chunk).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -81,6 +63,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "flash_mma.cuh"
 #include "flash_tc.cuh"
 #include "flash_tc_wide.cuh"
 
@@ -88,7 +71,6 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kBK = 32;                 // keys per tile (one per lane)
 constexpr float kNegInf = -1e30f;       // the reference's mask value
 
 constexpr int kF32 = 0;                 // dtype codes shared with ops.py
@@ -149,8 +131,7 @@ template <> struct Vec16<__nv_bfloat16> {
 };
 
 // 16-byte loads a thread keeps in flight while staging: all of a tile's
-// when they are at most kStageLoads (every tile at hd <= 128), else
-// batches of kStageBatch (the wider instances hold more accumulators)
+// when they are at most kStageLoads, else batches of kStageBatch
 constexpr int kStageLoads = 16;
 constexpr int kStageBatch = 8;
 
@@ -196,178 +177,6 @@ __device__ inline void stage(float* dst, int stride, int hd, bool vec,
       const int r = e / HD, d = e % HD;
       const T* p = d < hd ? row(r) : nullptr;
       dst[r * stride + d] = p ? to_f32(p[d]) : 0.f;
-    }
-  }
-}
-
-// shared-memory floats of one block: Q rows, K tile (rows padded by 4 so
-// lane j's float4 reads of row j fall in distinct banks), V tile, P rows
-template <int HD, int RW>
-constexpr int smem_floats() {
-  return kWarps * RW * HD + kBK * (HD + 4) + kBK * HD + kWarps * RW * kBK;
-}
-
-template <typename T, int HD, int RW>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd(const Args a) {
-  constexpr int RB = kWarps * RW;       // rows per block
-  constexpr int DPL = HD / 32;          // output columns per lane
-  constexpr int KS = HD + 4;            // K tile row stride
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                     // [RB][HD]
-  float* ks = qs + RB * HD;             // [kBK][KS]
-  float* vs = ks + kBK * KS;            // [kBK][HD]
-  float* ps = vs + kBK * HD;            // [RB][kBK]
-  __shared__ int s_lo, s_hi, s_empty;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int G = a.H / a.KV;
-  const int b = blockIdx.y / a.KV, kvh = blockIdx.y % a.KV;
-  const int r0 = blockIdx.x * RB;
-  const int n_rows = a.Sq * G;
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  T* out = static_cast<T*>(a.out);
-
-  int valid = a.kv_valid ? a.kv_valid[b] : a.kv_valid_n;
-  valid = min(max(valid, 0), a.Sk);
-
-  // ---- the block's key range: the union of its rows' visible keys
-  if (tid == 0) { s_lo = a.Sk; s_hi = 0; s_empty = 0; }
-  __syncthreads();
-  const int q_first = r0 / G;
-  const int q_last = min(r0 + RB - 1, n_rows - 1) / G;
-  for (int qi = q_first + tid; qi <= q_last; qi += kThreads) {
-    const int pos = a.q_pos ? a.q_pos[qi] : a.q_offset + qi;
-    const int hi = a.causal ? min(valid, pos + 1) : valid;
-    const int lo = a.has_window ? max(0, pos - a.window + 1) : 0;
-    if (hi <= lo) {
-      s_empty = 1;
-    } else {
-      atomicMin(&s_lo, lo);
-      atomicMax(&s_hi, hi);
-    }
-  }
-  // ---- Q rows of the block as fp32, zero past hd and past the last row
-  stage<T, HD, RB>(qs, HD, a.hd, a.vec, [&](int r) -> const T* {
-    const int row = r0 + r;
-    if (row >= n_rows) return nullptr;
-    return q + b * a.q_sb + (row / G) * a.q_ss + (kvh * G + row % G) * a.q_sh;
-  });
-  __syncthreads();
-  const int lo = s_empty ? 0 : s_lo;
-  const int hi = s_empty ? a.Sk : s_hi;
-
-  // per-row state; row i of this warp is block row warp + kWarps * i
-  int pos[RW];
-  bool live[RW];
-  float m[RW], l[RW], acc[RW][DPL];
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    const int row = r0 + warp + kWarps * i;
-    live[i] = row < n_rows;
-    const int qi = live[i] ? row / G : 0;
-    pos[i] = a.q_pos ? a.q_pos[qi] : a.q_offset + qi;
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int j0 = lo; j0 < hi; j0 += kBK) {
-    // ---- stage the K and V tiles as fp32 (zero past hd and past hi)
-    stage<T, HD, kBK>(ks, KS, a.hd, a.vec, [&](int j) -> const T* {
-      return j0 + j < hi ? k + b * a.k_sb + (j0 + j) * a.k_ss + kvh * a.k_sh
-                         : nullptr;
-    });
-    stage<T, HD, kBK>(vs, HD, a.hd, a.vec, [&](int j) -> const T* {
-      return j0 + j < hi ? v + b * a.v_sb + (j0 + j) * a.v_ss + kvh * a.v_sh
-                         : nullptr;
-    });
-    __syncthreads();
-
-    // ---- scores of key j0 + lane for the warp's rows
-    float s[RW];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) s[i] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * KS);
-#pragma unroll 4
-    for (int d4 = 0; d4 < HD / 4; ++d4) {
-      const float4 kk = krow[d4];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float4 qq = reinterpret_cast<const float4*>(
-            qs + (warp + kWarps * i) * HD)[d4];
-        s[i] = fmaf(qq.x, kk.x, s[i]);
-        s[i] = fmaf(qq.y, kk.y, s[i]);
-        s[i] = fmaf(qq.z, kk.z, s[i]);
-        s[i] = fmaf(qq.w, kk.w, s[i]);
-      }
-    }
-
-    // ---- masks and the online softmax, one row at a time
-    const int key = j0 + lane;
-    float* prow = ps + warp * RW * kBK;
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      float x;
-      if (key >= hi) {
-        x = -CUDART_INF_F;              // outside the block's range: skip
-      } else {
-        bool ok = key < valid;
-        if (a.causal) ok = ok && key <= pos[i];
-        if (a.has_window) ok = ok && key > pos[i] - a.window;
-        x = ok ? s[i] * a.scale : kNegInf;
-      }
-      const float m_new = fmaxf(m[i], warp_max(x));
-      const float p = expf(x - m_new);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + warp_sum(p);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPL; ++c) acc[i][c] *= corr;
-      prow[i * kBK + lane] = p;
-    }
-    __syncwarp();
-
-    // ---- acc += P V over the tile's keys
-#pragma unroll 4
-    for (int j4 = 0; j4 < kBK / 4; ++j4) {
-      float vv[4][DPL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int c = 0; c < DPL; ++c)
-          vv[jj][c] = vs[(4 * j4 + jj) * HD + lane + 32 * c];
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        const float4 pp = reinterpret_cast<const float4*>(
-            prow + i * kBK)[j4];
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          acc[i][c] = fmaf(pp.x, vv[0][c], acc[i][c]);
-          acc[i][c] = fmaf(pp.y, vv[1][c], acc[i][c]);
-          acc[i][c] = fmaf(pp.z, vv[2][c], acc[i][c]);
-          acc[i][c] = fmaf(pp.w, vv[3][c], acc[i][c]);
-        }
-      }
-    }
-    __syncthreads();                    // before the next tile overwrites
-  }
-
-  // ---- out = acc / max(l, 1e-30) in q's dtype, layout [B, Sq, H, hd]
-#pragma unroll
-  for (int i = 0; i < RW; ++i) {
-    if (!live[i]) continue;
-    const int row = r0 + warp + kWarps * i;
-    const int qi = row / G, h = kvh * G + row % G;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* o = out + ((int64_t(b) * a.Sq + qi) * a.H + h) * a.hd;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const int d = lane + 32 * c;
-      if (d < a.hd) store(o + d, acc[i][c] * inv);
     }
   }
 }
@@ -610,39 +419,6 @@ flash_merge(const Args a, int n_chunks) {
   }
 }
 
-template <typename T, int HD, int RW>
-int launch(const Args& a, cudaStream_t stream) {
-  constexpr int RB = kWarps * RW;
-  static_assert(sizeof(float) * smem_floats<HD, RW>() <= kMaxSmem,
-                "flash_fwd block over the shared memory");
-  const size_t smem = sizeof(float) * smem_floats<HD, RW>();
-  static bool configured = false;       // one attribute call per variant
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, HD, RW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  const int n_rows = a.Sq * (a.H / a.KV);
-  dim3 grid((n_rows + RB - 1) / RB, a.B * a.KV);
-  flash_fwd<T, HD, RW><<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// 16 rows per warp up to hd 128 (the caller sends calls of at most 16 rows
-// per (batch, kv head) to the split-kv route); above, fewer rows a warp
-// (RW 8 at HD 256, 4 at HD 576: 102,912 and 186,880 bytes of shared memory,
-// 64 and 72 fp32 accumulators a thread)
-template <typename T>
-int dispatch(const Args& a, cudaStream_t stream) {
-  if (a.hd <= 32) return launch<T, 32, 16>(a, stream);
-  if (a.hd <= 64) return launch<T, 64, 16>(a, stream);
-  if (a.hd <= 128) return launch<T, 128, 16>(a, stream);
-  if (a.hd <= 256) return launch<T, 256, 8>(a, stream);
-  return launch<T, 576, 4>(a, stream);
-}
-
 // the chunks' partials, then their merge on the same stream
 template <typename T, int HD>
 int launch_split(const Args& a, int n_chunks, cudaStream_t stream) {
@@ -688,32 +464,23 @@ static bool bad_shape(int hd, int H, int KV) {
   return hd < 1 || hd > 576 || KV < 1 || H % KV != 0;
 }
 
-// The CUDA-core route: any dtype code, alignment and hd <= 576.
-int fa_forward(int dtype, const void* q, const void* k, const void* v,
-               void* out, int B, int Sq, int Sk, int H, int KV, int hd,
-               int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-               int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss,
-               int64_t v_sh, const int* q_pos, int q_offset,
-               const int* kv_valid, int kv_valid_n, int causal,
-               int has_window, int window, float scale, int vec,
-               void* stream) {
-  if (bad_shape(hd, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || Sq == 0) return 0;
-  const Args a{q, k, v, out, B, Sq, Sk, H, KV, hd,
-               q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-               q_pos, q_offset, kv_valid, kv_valid_n,
-               causal, has_window, window, scale, vec, nullptr, nullptr};
+// Every route runs once per layer per step, where the host's cost of
+// passing some 30 scalars through ctypes would set a decode call's time, so
+// each takes the Args block packed by the caller (layout checked against
+// fa_args_offsets at load), as a void pointer: a parameter of the unnamed
+// namespace's Args type would give it internal linkage.
+
+// The TF32 tensor-core route: any dtype code, alignment and hd <= 576.
+int fa_forward_mma(int dtype, const void* args, void* stream) {
+  const Args* a = static_cast<const Args*>(args);
+  if (bad_shape(a->hd, a->H, a->KV))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a->B == 0 || a->Sq == 0 || a->H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch<float>(a, s);
-  if (dtype == kBF16) return dispatch<__nv_bfloat16>(a, s);
+  if (dtype == kF32) return fmma::dispatch<Args, float>(*a, s);
+  if (dtype == kBF16) return fmma::dispatch<Args, __nv_bfloat16>(*a, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
-
-// The two routes below run once per layer per step, where the host's cost
-// of passing some 30 scalars through ctypes would set a decode call's time,
-// so they take the Args block packed by the caller (layout checked against
-// fa_args_offsets at load), as a void pointer: a parameter of the unnamed
-// namespace's Args type would give them internal linkage.
 
 // The tensor-core route: bf16, hd <= 128 and a multiple of 16, vec.
 int fa_forward_tc(int dtype, const void* args, void* stream) {

@@ -1,6 +1,6 @@
 // Tensor-core route of flash attention: bf16 prefill with more than 16
 // (query, head) rows per (batch, kv head).  Included by flash_attention.cu,
-// which holds the shared Args, the CUDA-core route and the split-kv route.
+// which holds the shared Args and the split-kv route.
 //
 // Bound: at the serving prefill (8 x 2048, H 12, KV 2, hd 128, causal) the
 // work is 103 GFLOP of bf16 products against 16 MB of q, k, v and out, so

@@ -11,7 +11,7 @@
 // TFLOP/s).  What hd 576 changes against flash_tc.cuh's hd <= 128:
 //
 //   * Rows: one block per 64 folded (position, head) rows of one (batch,
-//     kv head), n_rows = Sq * G as the CUDA-core kernel folds them (4
+//     kv head), n_rows = Sq * G as the TF32 mma kernel folds them (4
 //     positions x 16 heads at MLA), so each K / V tile read from L2 serves
 //     every query head of the kv head.  Blocks of the latest rows (the most
 //     keys under a causal mask) start first, over every (batch, kv head);
@@ -63,7 +63,7 @@
 //     same bits.
 //
 // Causal or not, int or per-batch kv_valid and runtime q positions; no
-// window (a windowed call takes the CUDA-core route).
+// window (a windowed call takes the TF32 mma route).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -2,8 +2,8 @@
 ops.py``, in model layout.
 
 On a CUDA tensor :func:`flash_attention` launches the hand-written Hopper
-kernels (``csrc/flash_attention.cu``, ``csrc/flash_tc.cuh`` and
-``csrc/flash_tc_wide.cuh``, built at first use by
+kernels (``csrc/flash_attention.cu``, ``csrc/flash_tc.cuh``,
+``csrc/flash_tc_wide.cuh`` and ``csrc/flash_mma.cuh``, built at first use by
 :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the
 plain version :func:`.ref.attention_ref`.  There is no fallback from the
 card to the CPU and no library attention.
@@ -22,9 +22,11 @@ alignment and window alone (never by a failure):
   (position, head) rows a block and the output's columns split over two
   warpgroups.  When v is k (:func:`wide_key_tile`) one shared-memory tile
   of 64 keys serves as both, else K and V take 32-key tiles.
-* ``cuda_core`` — everything else: fp32 prefill (full fp32 products), hd
-  not a multiple of 16, hd 129-575, windowed calls over hd 128, unaligned
-  rows.
+* ``mma_tf32`` — everything else: the fp32 prefill, and bf16 with hd not a
+  multiple of 16, hd 129-575, a window over hd 128 or unaligned rows.
+  ``mma.sync`` TF32 products with fp32 accumulators, an fp32 operand split
+  into two TF32 parts (three products each: within a few fp32 roundoffs of
+  fp32 products); its plain mirror is :func:`.ref.attention_mma_ref`.
 
 Head dims up to ``MAX_HEAD_DIM`` = 576 run on the card (MLA's absorbed
 attention works at kv_lora_rank + rope_head_dim = 576); a larger one
@@ -68,7 +70,7 @@ from .. import _build
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
-ROUTES = ("tensor_core", "tensor_core_wide", "split_kv", "cuda_core")
+ROUTES = ("tensor_core", "tensor_core_wide", "split_kv", "mma_tf32")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
@@ -88,9 +90,8 @@ def split_chunk(dtype: torch.dtype, hd: int) -> int:
 
 
 # ``Args`` of csrc/flash_attention.cu, field by field in declaration order
-# (struct codes, native alignment): the tensor-core and split-kv entry
-# points take it packed, and _library checks these offsets against the
-# compiler's
+# (struct codes, native alignment): every entry point takes it packed, and
+# _library checks these offsets against the compiler's
 ARGS_CODES = "PPPP" + "i" * 6 + "q" * 9 + "PiPiiiifiPP"
 _ARGS = struct.Struct("@" + ARGS_CODES)
 
@@ -119,7 +120,13 @@ def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
             return "tensor_core"
         if hd == WIDE_HEAD_DIM and window is None:
             return "tensor_core_wide"
-    return "cuda_core"
+    return "mma_tf32"
+
+
+# the entry point of each route that takes (dtype, args, stream)
+_ENTRY = {"tensor_core": "fa_forward_tc",
+          "tensor_core_wide": "fa_forward_tc_wide",
+          "mma_tf32": "fa_forward_mma"}
 
 
 def wide_key_tile(k: torch.Tensor, v: torch.Tensor) -> int:
@@ -135,10 +142,8 @@ def wide_key_tile(k: torch.Tensor, v: torch.Tensor) -> int:
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("flash_attention",
                               "flash_attention/csrc/flash_attention.cu")
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    args = ([i32, p, p, p, p] + [i32] * 6 + [i64] * 9
-            + [p, i32, p, i32, i32, i32, i32, ctypes.c_float, i32, p])
-    for fn, argtypes in ((lib.fa_forward, args),
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn, argtypes in ((lib.fa_forward_mma, [i32, p, p]),
                          (lib.fa_forward_tc, [i32, p, p]),
                          (lib.fa_forward_tc_wide, [i32, p, p]),
                          (lib.fa_forward_split, [i32, p, i32, p]),
@@ -292,30 +297,21 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                valid_ptr or 0, valid_n, int(bool(causal)),
                int(window is not None), int(window or 0), hd ** -0.5,
                int(vec))
-    if way == "cuda_core":
-        rc = lib.fa_forward(_DTYPES[q.dtype], *ptrs, *scalars, stream)
+    ml_ptr = acc_ptr = 0
+    if way == "split_kv":
+        n_chunks = max(-(-Sk // split_chunk(q.dtype, hd)), 1)
+        rows = n_chunks * B * Sq * H
+        # each chunk's partial per output row: acc [rows, hd], (m, l)
+        part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=dev)
+        acc_ptr = part.data_ptr()
+        ml_ptr = acc_ptr + 4 * rows * hd
+    block = ctypes.create_string_buffer(_ARGS.size)
+    _ARGS.pack_into(block, 0, *ptrs, *scalars, ml_ptr, acc_ptr)
+    args = ctypes.addressof(block)
+    if way == "split_kv":
+        rc = lib.fa_forward_split(_DTYPES[q.dtype], args, n_chunks, stream)
     else:
-        ml_ptr = acc_ptr = 0
-        if way == "split_kv":
-            n_chunks = max(-(-Sk // split_chunk(q.dtype, hd)), 1)
-            rows = n_chunks * B * Sq * H
-            # each chunk's partial per output row: acc [rows, hd], (m, l)
-            part = torch.empty(rows * (hd + 2), dtype=torch.float32,
-                               device=dev)
-            acc_ptr = part.data_ptr()
-            ml_ptr = acc_ptr + 4 * rows * hd
-        block = ctypes.create_string_buffer(_ARGS.size)
-        _ARGS.pack_into(block, 0, *ptrs, *scalars, ml_ptr, acc_ptr)
-        if way == "split_kv":
-            rc = lib.fa_forward_split(_DTYPES[q.dtype],
-                                      ctypes.addressof(block), n_chunks,
-                                      stream)
-        elif way == "tensor_core_wide":
-            rc = lib.fa_forward_tc_wide(_DTYPES[q.dtype],
-                                        ctypes.addressof(block), stream)
-        else:
-            rc = lib.fa_forward_tc(_DTYPES[q.dtype],
-                                   ctypes.addressof(block), stream)
+        rc = getattr(lib, _ENTRY[way])(_DTYPES[q.dtype], args, stream)
     _build.check_launch(rc, f"flash_attention ({way})")
     LAUNCHES["flash_attention"] += 1
     ROUTE_CALLS[way] += 1

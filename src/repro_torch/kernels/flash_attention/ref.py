@@ -14,6 +14,10 @@ bf16 parts in the P V product; the card holds that kernel against it,
 and the CPU tests hold it against the JAX op.  ``attention_backward_ref``
 is autograd through ``attention_ref``: the plain version of the backward
 kernel.
+``attention_mma_ref`` computes the forward the way the TF32 tensor-core
+kernel (route ``mma_tf32``) does: S and P V as split-TF32 products, the
+base-2 softmax; the card holds that kernel against it, and the CPU tests
+hold it against the JAX op.
 ``attention_backward_split_ref`` computes the same gradients with every
 product's operands split into TF32 parts as the backward kernel's
 ``mma.sync`` products take them: the CPU tests' evidence that the split
@@ -64,20 +68,30 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd).float()
     s = torch.einsum("bqkgh,bskh->bqkgs", qg, k.float()) * (hd ** -0.5)
-    kpos = torch.arange(Sk, device=q.device)
-    qpos = q_positions.to(q.device)
+    mask = _visible(B, Sk, q_positions, kv_valid, causal, window, q.device)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bqkgs,bskh->bqkgh", p, v.float())
+    return out.reshape(B, Sq, H, hd).to(q.dtype)
+
+
+def _visible(B: int, Sk: int, q_positions: torch.Tensor,
+             kv_valid: Union[None, int, torch.Tensor], causal: bool,
+             window: Optional[int], device) -> torch.Tensor:
+    """[B, Sq (or 1), Sk] bool: key j is valid (j < kv_valid, [] or [B]),
+    and, for the query at ``q_positions[i]``, not after it (causal) and
+    inside its window."""
+    kpos = torch.arange(Sk, device=device)
+    qpos = q_positions.to(device)
     valid = torch.as_tensor(Sk if kv_valid is None else kv_valid,
-                            device=q.device).to(torch.int64)
+                            device=device).to(torch.int64)
     valid = torch.broadcast_to(valid, (B,))
     mask = (kpos[None, :] < valid[:, None])[:, None, :]        # [B, 1, Sk]
     if causal:
         mask = mask & (kpos[None, None, :] <= qpos[None, :, None])
     if window is not None:
         mask = mask & (kpos[None, None, :] > qpos[None, :, None] - window)
-    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqkgs,bskh->bqkgh", p, v.float())
-    return out.reshape(B, Sq, H, hd).to(q.dtype)
+    return mask
 
 
 def attention_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -307,3 +321,34 @@ def attention_backward_split_ref(q: torch.Tensor, k: torch.Tensor,
     dq = mm("bqkgs,bskh->bqkgh", ds, kf) * scale
     return (dq.reshape(B, Sq, H, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def attention_mma_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_positions: torch.Tensor,
+                      kv_valid: Union[None, int, torch.Tensor] = None, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      split: bool = True) -> torch.Tensor:
+    """:func:`attention_ref`'s function, computed as the TF32 tensor-core
+    kernel computes it: S = Q K^T on TF32 operands (:func:`_tf32_einsum`:
+    with ``split`` each operand as hi + lo parts, three products; else one
+    rounding each, which the kernel never does with fp32 data), scaled by
+    scale * log2(e) (the fp32 product of the two); a key a row does not see
+    scores NEG_INF, so a row that sees none has uniform weights over all Sk
+    keys; p = 2^(s - max); O = P V on TF32 operands the same way, with fp32
+    sums;
+    out = O / max(sum p, 1e-30) in q's dtype.  The kernel's blocks and key
+    tiles change only the order of its fp32 sums: a key outside a block's
+    range is one no row of the block sees, so it weighs 0 either way."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd).float()
+    scale = (torch.tensor(hd ** -0.5, dtype=torch.float32)
+             * torch.tensor(LOG2E, dtype=torch.float32)).item()
+    s = _tf32_einsum("bqkgh,bskh->bqkgs", qg, k.float(), split) * scale
+    mask = _visible(B, Sk, q_positions, kv_valid, causal, window, q.device)
+    s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = _tf32_einsum("bqkgs,bskh->bqkgh", p, v.float(), split)
+    out = o / torch.clamp(p.sum(dim=-1), min=1e-30)[..., None]
+    return out.reshape(B, Sq, H, hd).to(q.dtype)

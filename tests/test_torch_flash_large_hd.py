@@ -79,18 +79,18 @@ def test_split_ref_at_the_large_hd_chunk_matches_attention_ref(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", [129, 144, 192, 256, 320, 512, 576])
 @pytest.mark.parametrize("Sq,H,KV,want", [
-    (2048, 16, 1, "cuda_core"),      # MLA prefill
-    (17, 1, 1, "cuda_core"),         # just above split_kv
+    (2048, 16, 1, "mma_tf32"),      # MLA prefill
+    (17, 1, 1, "mma_tf32"),         # just above split_kv
     (1, 16, 1, "split_kv"),          # MLA decode: 16 rows per kv head
     (8, 4, 2, "split_kv"),
 ])
 def test_route_above_128_takes_the_wide_tensor_cores_only_at_bf16_576(
         dtype, hd, Sq, H, KV, want):
-    """Over hd 128 a prefill takes ``cuda_core``, except an aligned bf16
+    """Over hd 128 a prefill takes ``mma_tf32``, except an aligned bf16
     one at MLA's hd 576, which takes ``tensor_core_wide``; decode takes
     ``split_kv``; nothing takes ``tensor_core``."""
     for vec in (True, False):
-        wide = (want == "cuda_core" and dtype == torch.bfloat16
+        wide = (want == "mma_tf32" and dtype == torch.bfloat16
                 and hd == ops.WIDE_HEAD_DIM and vec)
         assert ops.route(dtype, Sq, H, KV, hd, vec) == (
             "tensor_core_wide" if wide else want)

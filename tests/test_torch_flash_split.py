@@ -102,13 +102,13 @@ def test_split_ref_matches_attention_ref_in_bf16():
 
 @pytest.mark.parametrize("dtype,Sq,H,KV,hd,vec,want", [
     (torch.bfloat16, 2048, 12, 2, 128, True, "tensor_core"),
-    (torch.float32, 2048, 12, 2, 128, True, "cuda_core"),
+    (torch.float32, 2048, 12, 2, 128, True, "mma_tf32"),
     (torch.bfloat16, 1, 12, 2, 128, True, "split_kv"),
     (torch.float32, 1, 12, 2, 128, True, "split_kv"),
     (torch.bfloat16, 8, 4, 2, 64, True, "split_kv"),       # 16 rows
     (torch.bfloat16, 17, 2, 2, 64, True, "tensor_core"),   # 17 rows
-    (torch.bfloat16, 64, 4, 2, 40, True, "cuda_core"),     # hd % 16
-    (torch.bfloat16, 64, 4, 2, 64, False, "cuda_core"),    # unaligned
+    (torch.bfloat16, 64, 4, 2, 40, True, "mma_tf32"),     # hd % 16
+    (torch.bfloat16, 64, 4, 2, 64, False, "mma_tf32"),    # unaligned
     (torch.bfloat16, 2, 12, 2, 20, False, "split_kv"),     # 12 rows
 ])
 def test_route_by_dtype_and_shape(dtype, Sq, H, KV, hd, vec, want):
@@ -116,7 +116,7 @@ def test_route_by_dtype_and_shape(dtype, Sq, H, KV, hd, vec, want):
 
 
 def test_packed_args_follow_the_c_layout():
-    """The packed ``Args`` of the tensor-core and split-kv entry points:
+    """The packed ``Args`` that every entry point takes:
     every field at the offset the C ABI gives it (ctypes lays a Structure
     out by that ABI; on the card the library's own offsetof values are
     checked at load)."""

@@ -119,11 +119,11 @@ def test_wide_mirror_at_runtime_positions(causal, tile):
     (torch.bfloat16, 2048, 16, 1, 576, True, None, "tensor_core_wide"),
     (torch.bfloat16, 17, 1, 1, 576, True, None, "tensor_core_wide"),
     (torch.bfloat16, 2, 16, 1, 576, True, None, "tensor_core_wide"),
-    (torch.float32, 2048, 16, 1, 576, True, None, "cuda_core"),
-    (torch.bfloat16, 2048, 16, 1, 576, False, None, "cuda_core"),
-    (torch.bfloat16, 2048, 16, 1, 192, True, None, "cuda_core"),
-    (torch.bfloat16, 2048, 16, 1, 560, True, None, "cuda_core"),
-    (torch.bfloat16, 2048, 16, 1, 576, True, 1024, "cuda_core"),
+    (torch.float32, 2048, 16, 1, 576, True, None, "mma_tf32"),
+    (torch.bfloat16, 2048, 16, 1, 576, False, None, "mma_tf32"),
+    (torch.bfloat16, 2048, 16, 1, 192, True, None, "mma_tf32"),
+    (torch.bfloat16, 2048, 16, 1, 560, True, None, "mma_tf32"),
+    (torch.bfloat16, 2048, 16, 1, 576, True, 1024, "mma_tf32"),
     (torch.bfloat16, 2048, 12, 2, 128, True, 1024, "tensor_core"),
     (torch.bfloat16, 1, 16, 1, 576, True, None, "split_kv"),
     (torch.float32, 1, 16, 1, 576, True, None, "split_kv"),

@@ -179,7 +179,7 @@ def test_flash_attention_unaligned_rows_on_card(no_tf32):
 
 # ---------------------------------------------------------------------------
 # flash attention: each route (tensor_core, tensor_core_wide, split_kv,
-# cuda_core) and its edges, against attention_ref at FLASH_TOL; split_kv
+# mma_tf32) and its edges, against attention_ref at FLASH_TOL; split_kv
 # also against the plain split-kv algorithm at SPLIT_TOL
 # ---------------------------------------------------------------------------
 
@@ -189,20 +189,20 @@ def test_flash_attention_unaligned_rows_on_card(no_tf32):
 ROUTE_CASES = {
     # Sq and Sk not multiples of the 64- / 128-row tiles, hd 64
     "ragged_prefill_hd64": (2, 200, 333, 8, 2, 64, True, 133, None, None,
-                            "cuda_core", "tensor_core"),
+                            "mma_tf32", "tensor_core"),
     # hd 128, no causal mask, Sq just over one 128-row tile
     "ragged_prefill_hd128": (1, 130, 195, 4, 2, 128, False, 0, None, None,
-                             "cuda_core", "tensor_core"),
+                             "mma_tf32", "tensor_core"),
     # runtime positions, per-batch valid lengths and a window; batch row 0
     # (valid 120) has rows that see no key (positions >= 183)
     "masks_hd128": (3, 100, 300, 6, 2, 128, True, 150, "per_batch", 64,
-                    "cuda_core", "tensor_core"),
+                    "mma_tf32", "tensor_core"),
     # every row fully masked: uniform weights over all Sk keys
     "all_masked": (2, 40, 90, 4, 2, 64, True, 60, 10, 8,
-                   "cuda_core", "tensor_core"),
+                   "mma_tf32", "tensor_core"),
     # 17 (query, head) rows per (batch, kv head): just above split_kv
     "boundary_17_rows": (2, 17, 80, 2, 2, 64, True, 63, None, None,
-                         "cuda_core", "tensor_core"),
+                         "mma_tf32", "tensor_core"),
     # 16 rows per (batch, kv head): the last shape split_kv takes
     "boundary_16_rows": (2, 8, 80, 4, 2, 64, True, 72, None, None,
                          "split_kv", "split_kv"),
@@ -220,15 +220,15 @@ ROUTE_CASES = {
     "decode_hd40": (3, 2, 300, 6, 3, 40, True, 250, 252, None,
                     "split_kv", "split_kv"),
     # MLA's absorbed width 576 (16 query heads on one latent kv head):
-    # prefill on the CUDA cores in fp32 and on the wide tensor-core route
+    # prefill on the TF32 mma route in fp32 and on the wide tensor-core route
     # in bf16, and decode split-kv (fp32 in 32-key chunks)
     "mla_prefill_hd576": (2, 160, 300, 16, 1, 576, True, 140, "per_batch",
-                          None, "cuda_core", "tensor_core_wide"),
+                          None, "mma_tf32", "tensor_core_wide"),
     "mla_decode_hd576": (8, 1, 2112, 16, 1, 576, True, 2111, "per_batch",
                          None, "split_kv", "split_kv"),
     # hd 192 (MLA's nope + rope query width) with grouped heads
     "prefill_hd192": (2, 100, 230, 8, 2, 192, True, 130, "per_batch", None,
-                      "cuda_core", "cuda_core"),
+                      "mma_tf32", "mma_tf32"),
     "decode_hd192": (3, 2, 400, 8, 2, 192, True, 398, "per_batch", None,
                      "split_kv", "split_kv"),
 }

@@ -6,7 +6,7 @@ so it runs where the port runs:
     python -m pytest -q -m cuda tests/test_torch_moe_cuda.py
 
 * MLA prefill and decode at deepseek-v2-lite's ``reduced()`` config on
-  the card (flash on ``cuda_core`` and ``split_kv``) against the CPU plain
+  the card (flash on ``mma_tf32`` and ``split_kv``) against the CPU plain
   path, fp32 with TF32 off, within 1e-4.
 * The sorted dispatch at deepseek-v2-lite's full layer widths in bf16
   (64 experts, top 6, d 2048; prefill and decode token counts) gives
@@ -73,7 +73,7 @@ def test_mla_prefill_and_decode_on_card_match_cpu(no_tf32):
             pg, cfg, x[:, start:start + n].to(no_tf32), pos.to(no_tf32),
             cache=caches[1], cache_index=start)
         torch.cuda.synchronize()
-        route = "cuda_core" if n > 1 else "split_kv"
+        route = "mma_tf32" if n > 1 else "split_kv"
         assert fa.LAUNCHES["flash_attention"] == 1
         assert fa.ROUTE_CALLS[route] == 1 and fa.PLAIN_CALLS[
             "flash_attention"] == 0

@@ -423,7 +423,7 @@ def test_init_params_cuts_every_leaf_once(arch):
 def test_flash_route_at_the_local_heads():
     """qwen2-72b at model 4 gives each rank 16 query heads on 2 kv heads
     (G = 8, hd 128): bf16 prefill takes the tensor cores, a decode step
-    split-kv, fp32 the CUDA cores (the card side launches them in
+    split-kv, fp32 the TF32 mma route (the card side launches them in
     tests/test_torch_tp_cuda.py)."""
     from repro_torch.kernels.flash_attention import ops as fa
     cfg = get_arch("qwen2-72b")
@@ -436,4 +436,4 @@ def test_flash_route_at_the_local_heads():
     assert (H, KV) == (16, 2)
     assert fa.route(torch.bfloat16, 1024, H, KV, 128, True) == "tensor_core"
     assert fa.route(torch.bfloat16, 1, H, KV, 128, True) == "split_kv"
-    assert fa.route(torch.float32, 256, H, KV, 128, True) == "cuda_core"
+    assert fa.route(torch.float32, 256, H, KV, 128, True) == "mma_tf32"

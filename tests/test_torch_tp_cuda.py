@@ -126,7 +126,7 @@ def test_flash_takes_tensor_core_at_g8(card):
     cores; the launch agrees with the plain version."""
     assert fa.route(torch.bfloat16, 1024, 16, 2, 128, True) == "tensor_core"
     assert fa.route(torch.bfloat16, 1, 16, 2, 128, True) == "split_kv"
-    assert fa.route(torch.float32, 256, 16, 2, 128, True) == "cuda_core"
+    assert fa.route(torch.float32, 256, 16, 2, 128, True) == "mma_tf32"
     g = torch.Generator(device=card).manual_seed(0)
     q = torch.randn(2, 256, 16, 128, generator=g, device=card,
                     dtype=torch.bfloat16)
@@ -157,10 +157,10 @@ def test_tp_serving_matches_the_unsharded_run(card, ranks):
         assert torch.equal(res[torch.bfloat16], ranks[0][torch.bfloat16])
         assert res[(torch.float32, "routes")] == {
             "tensor_core": 0, "tensor_core_wide": 0, "split_kv": 2 * NEW,
-            "cuda_core": 2}
+            "mma_tf32": 2}
         assert res[(torch.bfloat16, "routes")] == {
             "tensor_core": 2, "tensor_core_wide": 0, "split_kv": 2 * NEW,
-            "cuda_core": 0}
+            "mma_tf32": 0}
 
 
 @pytest.mark.cuda

@@ -51,8 +51,9 @@ def build(name: str, spec: str):
     proc = subprocess.run(
         ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,"
          "code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler",
-         "-fPIC", "-Xptxas", "-v", "-o", str(d / "lib.so"),
-         str(d / "flash_backward.cu")], capture_output=True, text=True)
+         "-fPIC", "-Xptxas", "-v", "-I", str(SRC.parent), "-o",
+         str(d / "lib.so"), str(d / "flash_backward.cu")],
+        capture_output=True, text=True)
     spills, fn = [], None
     for line in proc.stderr.splitlines():
         if "Function properties for" in line:
