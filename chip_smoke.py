@@ -127,10 +127,12 @@ Phases, one printed line each (plus detail lines):
               device kernels per call (profiler); split-kv decode calls
               also against the plain split-kv algorithm.  WKV: the route
               each call took (``tensor_core`` for bf16 at Nk = Nv = 64,
-              ``step`` otherwise), tensor-core calls also against their
-              plain mirror ``wkv_subchunk_ref``, and both kernels'
-              ``ptxas`` lines with the tensor-core kernel's shared memory
-              and blocks an SM.  Head dims over
+              ``chunk_f32`` for fp32 at Nk <= 32 and S >= 16, ``step``
+              otherwise), tensor-core calls also against their plain
+              mirror ``wkv_subchunk_ref`` and chunk_f32 calls against
+              ``wkv_chunk_f32_ref``, the kernels' ``ptxas`` lines, and the
+              tensor-core and chunk_f32 kernels' shared memory and blocks
+              an SM.  Head dims over
               128: MLA's absorbed attention at hd 576 at deepseek-v2-lite's
               serving shapes (16 query heads on one latent kv head; the
               8 x 2048 causal prefill into the 2,112-long cache, with v
@@ -156,9 +158,12 @@ Phases, one printed line each (plus detail lines):
               prefill.  Phase 10's local heads (``TP_TAGS``: G = 8, the
               bf16 4 x 1,024 prefill, its last decode step over 1,056
               slots and the fp32 2 x 256 check, each dtype on the route
-              ``TP_ROUTE`` names).  Hymba's SSM scan (``ssm_scan_phase``): the
-              inclusive identity on the WKV ``step`` kernel against the
-              plain inclusive recurrence at its prefill and decode shapes.
+              ``TP_ROUTE`` names).  Hymba's SSM scan (``ssm_scan_phase``):
+              its prefill on the WKV ``chunk_f32`` kernels in inclusive
+              mode (also against their plain version ``wkv_chunk_f32_ref``,
+              twice for the same bits, with the device kernels per call)
+              and its decode step on the identity through the ``step``
+              kernel, each against the plain inclusive recurrence.
 6. serve    — per arch of ``SERVE_CASES``: ``generate`` (after a warm-up
               call, 1 new token three times for the time to first token,
               32 new tokens twice: greedy output identical; medians of the
@@ -251,7 +256,7 @@ Phases, one printed line each (plus detail lines):
               within 1e-4 of its largest entry, the gathered parameters
               within 1e-6 of each leaf's largest of the unsharded AdamW
               fed that gradient.
-8. kernels line — one JSON object with all ten kernels: launches on
+8. kernels line — one JSON object with all eleven kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
               call); for flash and WKV, launches by route (for flash also
@@ -265,7 +270,10 @@ Phases, one printed line each (plus detail lines):
               bf16 row with v = k; for the TF32 tensor-core flash kernel
               (``flash_attention_mma``, flash's ``mma_tf32`` route), its
               launches on the full-width Qwen2-1.5B train step and phase
-              5's fp32 prefill rows.
+              5's fp32 prefill rows; for the fp32 chunk-parallel WKV
+              kernels (``wkv_scan_chunk_f32``, WKV's ``chunk_f32`` route),
+              their launches serving Hymba-1.5B (every prefill's SSM
+              scan) and phase 5's Hymba prefill row.
 
 Launch counts are read per call: zeroed just before every
 ``hybrid_shuffle``, ``run_job_distributed``, ``generate``, ``serve``,
@@ -284,8 +292,9 @@ hymba-1.5b, 96 flash launches a whisper-large-v3 prefill (32 encoder, 32
 self, 32 cross) and 64 a decode step, 60 flash launches for
 llava-next-34b; every time-to-first-token call runs all of them on its
 prefill route (flash ``tensor_core``, ``tensor_core_wide`` at MLA's hd 576;
-WKV ``tensor_core`` for RWKV6, ``step`` for Hymba's SSM), and the new
-families' and deepseek-v2-lite's decode steps take ``split_kv``.  A
+WKV ``tensor_core`` for RWKV6, ``chunk_f32`` in inclusive mode for
+Hymba's SSM), and the new families' and deepseek-v2-lite's decode steps
+take ``split_kv`` (Hymba's SSM decode steps WKV ``step``).  A
 full-width Qwen2-1.5B train step (two microbatches, remat) launches
 2 x 2 x 28 flash forwards, all on ``mma_tf32`` (fp32; never split-kv),
 and 2 x 28 flash backwards, and calls no plain version; a reduced train
@@ -334,6 +343,8 @@ WIDE_SOURCE = ("src/repro_torch/kernels/flash_attention/csrc/"
                "flash_tc_wide.cuh")
 MMA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_mma.cuh"
 WKV_SOURCE = "src/repro_torch/kernels/rwkv_scan/csrc/wkv_scan.cu"
+CHUNK_F32_SOURCE = ("src/repro_torch/kernels/rwkv_scan/csrc/"
+                    "wkv_chunk_f32.cuh")
 REPLACES = {"coded_encode": "src/repro/kernels/coded_combine/kernel.py:58",
             "coded_decode": "src/repro/kernels/coded_combine/kernel.py:74",
             "xor_encode": "src/repro/kernels/coded_combine/kernel.py:91",
@@ -2544,9 +2555,12 @@ def wkv_phase(torch, rw, rw_ref, peaks, seed):
                   f"wkv {tag}: one launch on route "
                   f"{rw.route(dtype, S, Nk, Nv)}, got {rw.ROUTE_CALLS}")
             route = routes[0]
+            # the recurrence at chunk 16: at chunk 64 its differences of
+            # running sums drift up to 4.5e-4 from a float64 recurrence at
+            # these decays, at 16 about 1.1e-4
             want, want_sT = rw.chunked_linear_recurrence(
                 r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
-                chunk=64, return_state=True)
+                chunk=16, return_state=True)
             tol = 3e-4 if dtype == torch.float32 else 3e-2
             torch.testing.assert_close(out, want, rtol=tol, atol=tol)
             torch.testing.assert_close(sT, want_sT, rtol=tol, atol=tol)
@@ -2563,6 +2577,15 @@ def wkv_phase(torch, rw, rw_ref, peaks, seed):
                                                atol=m_atol)
                 mirror_err = max(float((out.float() - mo.float()).abs()
                                        .max()),
+                                 float((sT - ms).abs().max()))
+                del mo, ms
+            if route == "chunk_f32":
+                # its plain version: the same chunks, blocks and sums
+                mo, ms = rw_ref.wkv_chunk_f32_ref(r, k, v, log_w, u, s0,
+                                                  mode="rwkv")
+                torch.testing.assert_close(out, mo, rtol=tol, atol=tol)
+                torch.testing.assert_close(sT, ms, rtol=tol, atol=tol)
+                mirror_err = max(float((out - mo).abs().max()),
                                  float((sT - ms).abs().max()))
                 del mo, ms
             size = r.element_size()
@@ -2606,73 +2629,109 @@ def wkv_phase(torch, rw, rw_ref, peaks, seed):
     return rows, main
 
 
-# Hymba's SSM scan on the WKV kernel (the inclusive identity): its prefill
-# over 8 x 2,560 tokens and one decode step, 25 heads, state 16, head 64,
-# fp32 streams (the step route)
-SSM_CASES = [("hymba_inclusive_prefill", 8, 2560, 25, 16, 64),
-             ("hymba_inclusive_decode", 8, 1, 25, 16, 64)]
-# the step kernel's fp32 tolerance of WKV_CASES
+# Hymba's SSM scan: its prefill over 8 x 2,560 tokens on the inclusive
+# chunk_f32 kernels and one decode step on the WKV identity's step kernel;
+# 25 heads, state 16, head 64, fp32 streams
+SSM_CASES = [("hymba_inclusive_prefill", 8, 2560, 25, 16, 64, "chunk_f32"),
+             ("hymba_inclusive_decode", 8, 1, 25, 16, 64, "step")]
+# the fp32 tolerance of WKV_CASES
 SSM_TOL = 3e-4
 
 
-def ssm_scan_phase(torch, rw, ssm, linrec, peaks, seed):
-    """``ssm.inclusive_scan`` on the card (one WKV launch on ``step``,
-    r = q * exp(log_w), u = 0, plus (q . k) v) against the plain
-    ``chunked_linear_recurrence(mode="inclusive")`` at Hymba's shapes, with
-    streams drawn as the SSM makes them (dt = softplus(.), log_w = dt * A,
-    A = -[1..16]); times of the identity's whole call and of the plain
-    version."""
+def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed):
+    """``ssm.inclusive_scan`` on the card (one WKV call: the prefill on
+    ``chunk_f32`` in inclusive mode, the decode step through the identity
+    r = q * exp(log_w), u = 0, plus (q . k) v, on ``step``) against the
+    plain ``chunked_linear_recurrence(mode="inclusive")`` at Hymba's shapes
+    and, on ``chunk_f32``, against its plain version ``wkv_chunk_f32_ref``
+    and twice for the same bits, with streams drawn as the SSM makes them
+    (dt = softplus(.), log_w = dt * A, A = -[1..16]); times of the whole
+    call and of the plain version (``wkv_chunk_f32_ref`` on chunk_f32, the
+    chunked recurrence on step)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 404)
     rows, main = [], {}
-    for tag, B, S, h, Nk, Nv in SSM_CASES:
+    for tag, B, S, h, Nk, Nv, route in SSM_CASES:
         rnd = lambda *s: torch.randn(s, generator=g, device=dev)
         q = rnd(B, S, h, Nk)
         dt = torch.nn.functional.softplus(rnd(B, S, h))
         A = -torch.linspace(1.0, float(Nk), Nk, device=dev)
         k, v = rnd(B, S, h, Nk) * dt[..., None], rnd(B, S, h, Nv)
         log_w, s0 = dt[..., None] * A, 0.1 * rnd(B, h, Nk, Nv)
+        call = lambda: ssm.inclusive_scan(q, k, v, log_w, s0)
         rw.reset_launch_counts()
-        out, sT = ssm.inclusive_scan(q, k, v, log_w, s0)
+        out, sT = call()
         torch.cuda.synchronize()
-        check(rw.LAUNCHES["wkv_scan"] == 1 and rw.ROUTE_CALLS["step"] == 1
+        check(rw.LAUNCHES["wkv_scan"] == 1 and rw.ROUTE_CALLS[route] == 1
               and rw.PLAIN_CALLS["wkv_scan"] == 0,
-              f"ssm scan {tag}: one WKV launch on step, got "
+              f"ssm scan {tag}: one WKV launch on {route}, got "
               f"{rw.ROUTE_CALLS}, plain {rw.PLAIN_CALLS}")
-        plain = lambda: linrec.chunked_linear_recurrence(
+        recurrence = lambda: linrec.chunked_linear_recurrence(
             q, k, v, log_w, initial_state=s0, mode="inclusive", chunk=16,
             return_state=True)
-        want, want_sT = plain()
+        want, want_sT = recurrence()
         torch.testing.assert_close(out, want, rtol=SSM_TOL, atol=SSM_TOL)
         torch.testing.assert_close(sT, want_sT, rtol=SSM_TOL, atol=SSM_TOL)
         err = max(float((out - want).abs().max()),
                   float((sT - want_sT).abs().max()))
+        del want, want_sT
+        plain, mirror_err, same_bits = recurrence, None, None
+        if route == "chunk_f32":
+            plain = lambda: rw_ref.wkv_chunk_f32_ref(
+                q, k, v, log_w, None, s0, mode="inclusive")
+            mo, ms = plain()
+            torch.testing.assert_close(out, mo, rtol=SSM_TOL, atol=SSM_TOL)
+            torch.testing.assert_close(sT, ms, rtol=SSM_TOL, atol=SSM_TOL)
+            mirror_err = max(float((out - mo).abs().max()),
+                             float((sT - ms).abs().max()))
+            del mo, ms
+            again, again_sT = call()
+            same_bits = bool(torch.equal(out, again)
+                             and torch.equal(sT, again_sT))
+            check(same_bits, f"ssm scan {tag}: two calls differ")
+            del again, again_sT
         n_in = B * S * h
-        # the WKV call: r, k, log_w and v read once, out written once, the
+        # the function: q, k, log_w and v read once, out written once, the
         # state read and written
         nbytes = 4 * n_in * (3 * Nk + 2 * Nv) + 8 * B * h * Nk * Nv
         flops = 7.0 * n_in * Nk * Nv
         row = {"name": "wkv_scan", "case": tag, "B": B, "S": S, "h": h,
-               "Nk": Nk, "Nv": Nv, "dtype": "float32", "route": "step",
+               "Nk": Nk, "Nv": Nv, "dtype": "float32", "route": route,
                "mode": "inclusive", "max_abs_err": err,
+               "mirror_max_abs_err": mirror_err, "same_bits": same_bits,
                "tolerance": f"rtol={SSM_TOL},atol={SSM_TOL}",
                "bytes": nbytes, "flops": flops, "library_ms": None}
+        if route == "chunk_f32":
+            # what the three kernels move at this chunk length: (a) k,
+            # log_w, v in, the chunk states and decays out; (b) those in,
+            # the starting states out; (c) q, k, log_w, v and the starting
+            # states in, out out
+            chunks = -(-S // rw.CHUNK_F32)
+            st = 4 * B * h * chunks * Nk * Nv
+            dec = 4 * B * h * chunks * Nk
+            row["kernel_bytes"] = (4 * n_in * (2 * Nk + Nv) + st + dec
+                                   + st + dec + st
+                                   + 4 * n_in * (3 * Nk + Nv) + st
+                                   + 4 * n_in * Nv)
         row["bound_ms"], row["bound_by"] = bound(peaks, nbytes, flops,
                                                  "float32")
-        call = lambda: ssm.inclusive_scan(q, k, v, log_w, s0)
         row["ms"] = cuda_ms(torch, call, 5, 5)
         row["plain_ms"] = cuda_ms(torch, plain, 3, 1)
         row["device_ms"], row["device_kernels"] = device_per_call(torch,
                                                                   call)
         rows.append(row)
         main[tag] = row
-        say(f"  kernel wkv_scan {tag} (inclusive identity) B={B} S={S} h={h} "
-            f"Nk={Nk} Nv={Nv} float32 route=step: ms={row['ms']:.6f} "
+        mirror = ("" if mirror_err is None else
+                  f" mirror_max_abs_err={mirror_err!r} same_bits="
+                  f"{same_bits}")
+        say(f"  kernel wkv_scan {tag} (inclusive) B={B} S={S} h={h} "
+            f"Nk={Nk} Nv={Nv} float32 route={route}: ms={row['ms']:.6f} "
             f"plain_ms={row['plain_ms']:.6f} library_ms=null bound_ms="
             f"{row['bound_ms']:.6f} ({row['bound_by']}) max_abs_err={err!r} "
-            f"tolerance={row['tolerance']} device_ms={row['device_ms']:.6f} "
-            f"in {row['device_kernels']:g} device kernels")
-        del q, k, v, log_w, out, want
+            f"tolerance={row['tolerance']}{mirror} device_ms="
+            f"{row['device_ms']:.6f} in {row['device_kernels']:g} device "
+            f"kernels")
+        del q, k, v, log_w, out
     return rows, main
 
 
@@ -2714,7 +2773,7 @@ SERVE_CASES = (
     # prefill and the ring (2,048 slots) wraps; the fp32 check prefills
     # 2,098 tokens so that its decode step reads a wrapped ring
     ServeCase("hymba-1.5b", 8, 2560, {"flash_attention": "tensor_core",
-                                      "wkv_scan": "step"},
+                                      "wkv_scan": "chunk_f32"},
               fp32=(2100, 2098, None)),
     # 1,500 stub frames; 416 + 32 tokens fill the 448-token decoder context
     ServeCase("whisper-large-v3", 8, 416, {"flash_attention": "tensor_core"},
@@ -4327,28 +4386,35 @@ def main(argv=None) -> int:
     # ---- 5. the LM kernels ------------------------------------------------
     flash_rows, flash_main = flash_phase(torch, fa, fa_ref, peaks, args.seed)
     wkv_rows, wkv_main = wkv_phase(torch, rw, rw_ref, peaks, args.seed)
-    ssm_rows, ssm_main = ssm_scan_phase(torch, rw, ssm, linrec, peaks,
-                                        args.seed)
+    ssm_rows, ssm_main = ssm_scan_phase(torch, rw, rw_ref, ssm, linrec,
+                                        peaks, args.seed)
     wkv_case_routes = {}
     for row in wkv_rows:
         wkv_case_routes[row["route"]] = wkv_case_routes.get(row["route"],
                                                             0) + 1
     check(set(wkv_case_routes) == set(rw.ROUTES),
-          f"phase 5's WKV cases ran on both routes: {wkv_case_routes}")
+          f"phase 5's WKV cases ran on every route: {wkv_case_routes}")
     say(f"phase lm kernels: {len(flash_rows)} flash_attention and "
         f"{len(wkv_rows)} wkv_scan shape/dtype cases match their plain "
         f"versions; wkv_scan cases by route {wkv_case_routes}; "
-        f"{len(ssm_rows)} SSM scans (the inclusive identity on wkv_scan) "
-        f"match the plain inclusive recurrence")
-    # both WKV kernels as compiled, and the tensor-core kernel's shared
-    # memory and blocks an SM as the runtime reports them
+        f"{len(ssm_rows)} SSM scans (prefill on chunk_f32, decode through "
+        f"the identity on step) match the plain inclusive recurrence")
+    # the WKV kernels as compiled, and the tensor-core and chunk_f32
+    # kernels' shared memory and blocks an SM as the runtime reports them
     if "wkv_scan" in nvcc:
-        for needle in ("wkv_fwd", "wkv_chunk_tc"):
+        for needle in ("wkv_fwd", "wkv_chunk_tc", "chunk_state",
+                       "chunk_scan", "chunk_out"):
             for line in ptxas_entries(nvcc["wkv_scan"][1], needle):
                 say(f"  ptxas wkv_scan: {line}")
     tc_smem, tc_blocks = rw.tc_occupancy()
     say(f"  wkv_scan tensor_core: {tc_smem} bytes of dynamic shared memory "
         f"a block, {tc_blocks} blocks an SM")
+    f32_occ = {nk: rw.chunk_f32_occupancy(nk) for nk in (16, 32, 64)}
+    for nk, (sa, ba, sc, bc) in f32_occ.items():
+        say(f"  wkv_scan chunk_f32 Nk<={nk}: chunk_state {sa} bytes, {ba} "
+            f"blocks an SM; chunk_out {sc} bytes, {bc} blocks an SM")
+    check(all(o[1] >= 1 and o[3] >= 1 for o in f32_occ.values()),
+          f"every chunk_f32 instance fits an SM: {f32_occ}")
     # the wide tensor-core flash kernel as compiled (both key tiles)
     if "flash_attention" in nvcc:
         for line in ptxas_entries(nvcc["flash_attention"][1],
@@ -4510,8 +4576,10 @@ def main(argv=None) -> int:
               f"serving {a} took the tensor-core prefill and the split-kv "
               f"decode: {r}")
     hy = family_routes["hymba-1.5b"]["wkv_scan"]
-    check(hy.get("step", 0) > 0 and not hy.get("tensor_core", 0),
-          f"serving hymba-1.5b ran its SSM on the WKV step route: {hy}")
+    check(hy.get("chunk_f32", 0) > 0 and hy.get("step", 0) > 0
+          and not hy.get("tensor_core", 0),
+          f"serving hymba-1.5b ran its SSM prefills on the WKV chunk_f32 "
+          f"route and its decode steps on step: {hy}")
     kernels = []
     for kname in KERNELS + LM_KERNELS:
         launches = by_path[main_path[kname]].get(kname, 0)
@@ -4620,6 +4688,38 @@ def main(argv=None) -> int:
                                    "decode_step": serving["hymba-1.5b"][
                                        "launches_per_decode_step"][kname]},
                                inclusive_rows=inclusive)
+    # the chunk_f32 kernels (csrc/wkv_chunk_f32.cuh, three device kernels
+    # a call): their main path is Hymba's serving, whose prefills take
+    # them in inclusive mode; numbers at phase 5's Hymba prefill row
+    row = ssm_main["hymba_inclusive_prefill"]
+    launches = hy.get("chunk_f32", 0)
+    check(launches > 0 and row["route"] == "chunk_f32",
+          f"wkv_scan chunk_f32 launched on its main path (serve "
+          f"hymba-1.5b): {hy}")
+    kernels.append({"name": "wkv_scan_chunk_f32", "route": "cuda",
+                    "source": CHUNK_F32_SOURCE,
+                    "replaces": REPLACES["wkv_scan"],
+                    "launches": launches,
+                    "launches_by_route_serving_hymba": hy,
+                    "launches_by_route_serving_rwkv6": wkv_routes,
+                    "mode": "inclusive",
+                    "max_abs_err": row["max_abs_err"],
+                    "mirror_max_abs_err": row["mirror_max_abs_err"],
+                    "same_bits": row["same_bits"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"], "library_ms": None,
+                    "device_ms": row["device_ms"],
+                    "device_kernels_per_call": row["device_kernels"],
+                    "kernel_bytes": row["kernel_bytes"],
+                    "occupancy": {f"nk<={nk}": {
+                        "chunk_state": {"smem_bytes": o[0],
+                                        "blocks_per_sm": o[1]},
+                        "chunk_out": {"smem_bytes": o[2],
+                                      "blocks_per_sm": o[3]}}
+                        for nk, o in f32_occ.items()},
+                    "checked_rwkv_cases": wkv_case_routes.get("chunk_f32",
+                                                              0)})
     # the backward kernels: launches on the train path (the full-width
     # Qwen2 step for flash; the reduced RWKV6 and Hymba steps of (c) for
     # WKV, whose full width is not on it), numbers at (a)'s rows of that

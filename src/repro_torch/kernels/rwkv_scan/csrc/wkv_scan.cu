@@ -17,11 +17,15 @@
 // u [h, Nk], s0 and sT [B, h, Nk, Nv] are fp32; out [B, T, h, Nv] has r's
 // dtype.
 //
-// Two routes (ops.route picks one by dtype and shape).  "tensor_core",
+// Three routes (ops.route picks one by dtype and shape).  "tensor_core",
 // for bf16 r, k, v at Nk = Nv = 64 and T >= 16, is the chunked form on
-// the tensor cores in wkv_chunk.cuh (wkv_forward_tc below).  "step", for
-// everything else (fp32 streams, decode's T = 1, other head widths), is
-// wkv_fwd here: the step form of linrec.recurrent_step.  One block per
+// the tensor cores in wkv_chunk.cuh (wkv_forward_tc below).  "chunk_f32",
+// for fp32 r, k, v at Nk <= 32, Nv <= 64 and T >= 16, is the
+// chunk-parallel fp32 form in wkv_chunk_f32.cuh (wkv_forward_chunk_f32
+// below), which also computes the recurrence's inclusive mode (Hymba's
+// SSM).  "step", for everything else (decode's T = 1, bf16 off the tensor
+// core shapes, wider heads), is wkv_fwd here: the step form of
+// linrec.recurrent_step.  One block per
 // (b, h); thread j owns state column S[:, j] in registers (NK fp32
 // values).  Time runs in a loop inside the block: r_t, k_t, exp(log_w_t)
 // and v_t of kTS steps at a time are staged in shared memory, each thread
@@ -38,6 +42,7 @@
 #include <stdint.h>
 
 #include "wkv_chunk.cuh"
+#include "wkv_chunk_f32.cuh"
 
 namespace {
 
@@ -159,7 +164,10 @@ template <typename T, typename TW>
 int dispatch(const void* r, const void* k, const void* v, const void* lw,
              const float* u, const float* s0, void* out, float* sT, int B,
              int T_len, int H, int nk, int nv, cudaStream_t stream) {
-  if (nk <= 32)
+  if (nk <= 16)
+    launch<T, TW, 16>(r, k, v, lw, u, s0, out, sT, B, T_len, H, nk, nv,
+                      stream);
+  else if (nk <= 32)
     launch<T, TW, 32>(r, k, v, lw, u, s0, out, sT, B, T_len, H, nk, nv,
                       stream);
   else if (nk <= 64)
@@ -219,6 +227,47 @@ int wkv_forward_tc(int w_dtype, const void* r, const void* k, const void* v,
                                 s);
   return wkvtc::launch<__nv_bfloat16>(r, k, v, log_w, u, s0, out, sT, B,
                                       T_len, H, s);
+}
+
+// The "chunk_f32" route: `args` points at a wkvf32::Args; inclusive 1
+// computes out_t = q_t^T S_t, 0 the rwkv form with u (null: no bonus).
+// Takes 1 <= nk <= 64, 1 <= nv <= 64 and at most 65,535 chunks (a grid
+// dimension), and 16-byte copies only where
+// args->vec says every base and stride allows them; anything else returns
+// cudaErrorInvalidValue unlaunched.  Launches three kernels on `stream`.
+int wkv_forward_chunk_f32(int inclusive, const void* args, void* stream) {
+  const wkvf32::Args& a = *static_cast<const wkvf32::Args*>(args);
+  if (a.nk < 1 || a.nk > 64 || a.nv < 1 || a.nv > wkvf32::kCols
+      || a.T < 1 || (a.T - 1) / wkvf32::kC >= 65535 || (inclusive && a.u))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.B == 0 || a.H == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (a.nk <= 16)
+    return inclusive ? wkvf32::launch<16, true>(a, s)
+                     : wkvf32::launch<16, false>(a, s);
+  if (a.nk <= 32)
+    return inclusive ? wkvf32::launch<32, true>(a, s)
+                     : wkvf32::launch<32, false>(a, s);
+  return inclusive ? wkvf32::launch<64, true>(a, s)
+                   : wkvf32::launch<64, false>(a, s);
+}
+
+int wkv_chunk_f32_args_size() {
+  return static_cast<int>(sizeof(wkvf32::Args));
+}
+
+// steps a chunk (the wrapper sizes the scratch by it)
+int wkv_chunk_f32_chunk() { return wkvf32::kC; }
+
+// out[0..3] = shared memory bytes and blocks an SM of (a) chunk_state and
+// (c) chunk_out at Nk = nk's instance (-1: a CUDA error)
+void wkv_chunk_f32_occupancy(int nk, int* out) {
+  if (nk <= 16)
+    wkvf32::occupancy<16>(out);
+  else if (nk <= 32)
+    wkvf32::occupancy<32>(out);
+  else
+    wkvf32::occupancy<64>(out);
 }
 
 // Shared memory a block of the tensor-core route takes (bytes), and how

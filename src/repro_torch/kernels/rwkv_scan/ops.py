@@ -2,11 +2,12 @@
 model layout.
 
 On a CUDA tensor :func:`wkv_scan` launches one of the hand-written Hopper
-kernels (``csrc/wkv_scan.cu`` with ``csrc/wkv_chunk.cuh``, built at first
-use by :mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it
-runs the plain chunked recurrence (:func:`repro_torch.models.linrec.
+kernels (``csrc/wkv_scan.cu`` with ``csrc/wkv_chunk.cuh`` and
+``csrc/wkv_chunk_f32.cuh``, built at first use by
+:mod:`repro_torch.kernels._build`) or raises; on a CPU tensor it runs the
+plain chunked recurrence (:func:`repro_torch.models.linrec.
 chunked_linear_recurrence`).  There is no fallback from the card to the
-CPU, and none from one route to the other.
+CPU, and none from one route to another.
 
 On the card :func:`route` picks the kernel by dtype and shape alone:
 
@@ -15,14 +16,22 @@ On the card :func:`route` picks the kernel by dtype and shape alone:
   sub-chunks of ``TC_SUB`` and then ``TC_LEAF`` steps so that the products
   between them are TF32 tensor-core products (fp32 accumulators); plain
   version :func:`.ref.wkv_subchunk_ref`.
-* ``step`` — everything else (fp32 streams, whose tolerance no TF32
-  product meets; decode's S = 1; other head widths): the state in
-  registers, time walked step by step.
+* ``chunk_f32`` — fp32 r, k, v, log_w with Nk <= ``CHUNK_ROUTE_MAX_NK``,
+  Nv <= ``CHUNK_MAX_N`` and S >= ``CHUNK_MIN_SEQ``: chunks of
+  ``CHUNK_F32`` steps in three kernels (each chunk's state, the scan over
+  chunks, the outputs), fp32 FMAs on the CUDA cores; plain version
+  :func:`.ref.wkv_chunk_f32_ref`.  :func:`inclusive_scan` runs the same
+  kernels in the recurrence's inclusive mode (Hymba's SSM) at Nk <=
+  ``CHUNK_MAX_N``.  At RWKV6's Nk 64 the step kernel is faster (one block
+  of these an SM; PERF.md), so fp32 at Nk 64 stays there.
+* ``step`` — everything else (decode's S = 1, bf16 off the tensor-core
+  shapes, fp32 at Nk 64, wider heads): the state in registers, time
+  walked step by step.
 
-Both read ``[B, S, h, N]`` in place and need no padding (the ragged last
-chunk is masked in the kernel); the JAX wrapper transposes to ``[B*h, S,
-N]`` and pads S for the Pallas grid.  ``chunk`` only sets the CPU plain
-version's chunk length.
+All read ``[B, S, h, N]`` in place and need no padding (the ragged last
+chunk is masked in the kernel; ``chunk_f32`` also reads strided views);
+the JAX wrapper transposes to ``[B*h, S, N]`` and pads S for the Pallas
+grid.  ``chunk`` only sets the CPU plain version's chunk length.
 
 Under autograd (grad mode on and r, k, v, log_w or u requiring a gradient)
 a card call goes through :class:`WkvScanFn`: its forward is the same
@@ -33,7 +42,8 @@ final state is not implemented: the first raises when the call is made,
 the second when the backward reaches it.  On a CPU tensor the plain version
 is differentiable through ordinary autograd.
 
-``LAUNCHES`` counts kernel launches (one per call, whichever route),
+``LAUNCHES`` counts kernel launches (one per call, whichever route;
+``chunk_f32``'s three kernels are one call),
 ``ROUTE_CALLS`` the same calls by route, and ``PLAIN_CALLS`` calls that
 took the plain version (CPU tensors); :func:`reset_launch_counts` zeroes
 all three.
@@ -53,7 +63,7 @@ from ...models.linrec import chunked_linear_recurrence
 
 LAUNCHES: Dict[str, int] = {"wkv_scan": 0}
 PLAIN_CALLS: Dict[str, int] = {"wkv_scan": 0}
-ROUTES = ("tensor_core", "step")
+ROUTES = ("tensor_core", "chunk_f32", "step")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
@@ -63,6 +73,11 @@ TC_MIN_SEQ = 16             # one sub-chunk (kMinT of csrc/wkv_chunk.cuh)
 TC_CHUNK = 32               # steps a chunk (kC)
 TC_SUB = 16                 # steps a sub-chunk (kL)
 TC_LEAF = 8                 # rows of the directly computed diagonal blocks
+CHUNK_F32 = 64              # steps a chunk of chunk_f32 (kC of
+                            # csrc/wkv_chunk_f32.cuh)
+CHUNK_MIN_SEQ = 16          # shortest sequence chunk_f32 takes (kMinT)
+CHUNK_MAX_N = 64            # widest Nk and Nv it takes
+CHUNK_ROUTE_MAX_NK = 32     # widest Nk wkv_scan routes to it
 
 
 def reset_launch_counts() -> None:
@@ -78,7 +93,20 @@ def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
     if (dtype == torch.bfloat16 and Nk == Nv == TC_WIDTH
             and S >= TC_MIN_SEQ):
         return "tensor_core"
+    if (dtype == torch.float32 and S >= CHUNK_MIN_SEQ
+            and Nk <= CHUNK_ROUTE_MAX_NK and Nv <= CHUNK_MAX_N):
+        return "chunk_f32"
     return "step"
+
+
+class _ChunkArgs(ctypes.Structure):
+    """``wkvf32::Args`` of csrc/wkv_chunk_f32.cuh, field by field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("q", "k", "v", "lw", "u", "s0", "out", "sT", "states",
+                  "decay")]
+                + [(n, ctypes.c_int64 * 3) for n in ("sq", "sk", "sv", "sw")]
+                + [(n, ctypes.c_int) for n in ("B", "T", "H", "nk", "nv",
+                                                "vec")])
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,8 +118,20 @@ def _library() -> ctypes.CDLL:
     lib.wkv_forward_tc.argtypes = [i32] + [p] * 8 + [i32] * 5 + [p]
     lib.wkv_forward_tc.restype = ctypes.c_int
     lib.wkv_tc_blocks_per_sm.argtypes = [i32]
-    for fn in (lib.wkv_tc_smem_bytes, lib.wkv_tc_blocks_per_sm):
+    lib.wkv_forward_chunk_f32.argtypes = [i32, p, p]
+    lib.wkv_chunk_f32_occupancy.argtypes = [i32, p]
+    lib.wkv_chunk_f32_occupancy.restype = None
+    for fn in (lib.wkv_tc_smem_bytes, lib.wkv_tc_blocks_per_sm,
+               lib.wkv_forward_chunk_f32, lib.wkv_chunk_f32_args_size,
+               lib.wkv_chunk_f32_chunk):
         fn.restype = ctypes.c_int
+    if (lib.wkv_chunk_f32_args_size() != ctypes.sizeof(_ChunkArgs)
+            or lib.wkv_chunk_f32_chunk() != CHUNK_F32):
+        raise RuntimeError(f"wkv_scan: the library's chunk_f32 Args "
+                           f"({lib.wkv_chunk_f32_args_size()} bytes) or "
+                           f"chunk ({lib.wkv_chunk_f32_chunk()}) differ "
+                           f"from ops.py's ({ctypes.sizeof(_ChunkArgs)}, "
+                           f"{CHUNK_F32})")
     return lib
 
 
@@ -108,6 +148,15 @@ def tc_occupancy() -> Tuple[int, int]:
     lib = _library()
     return lib.wkv_tc_smem_bytes(), lib.wkv_tc_blocks_per_sm(
         _DTYPES[torch.float32])
+
+
+def chunk_f32_occupancy(Nk: int) -> Tuple[int, int, int, int]:
+    """(shared memory bytes a block, blocks an SM) of chunk_f32's state
+    kernel, then of its output kernel, at Nk's instance, as the card's
+    runtime reports them."""
+    out = (ctypes.c_int * 4)()
+    _library().wkv_chunk_f32_occupancy(Nk, out)
+    return tuple(out)
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -139,6 +188,40 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             chunk=chunk, return_state=True)
         return out, sT
     return _card(r, k, v, log_w, u, initial_state)
+
+
+def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_w: torch.Tensor,
+                   initial_state: Optional[torch.Tensor] = None, *,
+                   chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The recurrence's inclusive mode, out_t = q_t^T S_t with S_t =
+    diag(exp log_w_t) S_{t-1} + k_t v_t^T (Hymba's SSM), in model layout:
+    q, k, log_w [B, S, h, Nk], v [B, S, h, Nv], initial_state [B, h, Nk,
+    Nv] (zeros if None).  Returns (out [B, S, h, Nv] in q's dtype, final
+    state [B, h, Nk, Nv] fp32).
+
+    On a CUDA tensor one call of the ``chunk_f32`` kernels in inclusive
+    mode (fp32 streams, Nk, Nv <= ``CHUNK_MAX_N``; no gradient: under
+    autograd it raises), else it raises; on a CPU tensor the plain chunked
+    recurrence (``chunk`` its chunk length)."""
+    B, S, h, Nk = q.shape
+    if k.shape != q.shape or log_w.shape != q.shape \
+            or v.shape[:3] != (B, S, h):
+        raise ValueError(f"inclusive_scan: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}, log_w "
+                         f"{tuple(log_w.shape)} do not fit [B, S, h, N]")
+    if q.device.type == "cpu":
+        PLAIN_CALLS["wkv_scan"] += 1
+        out, sT = chunked_linear_recurrence(
+            q, k, v, log_w, initial_state=initial_state, mode="inclusive",
+            chunk=chunk, return_state=True)
+        return out, sT
+    state = () if initial_state is None else (initial_state,)
+    if takes_function(q, k, v, log_w, *state):
+        raise NotImplementedError(
+            "inclusive_scan: no gradient on the card; take wkv_scan's "
+            "identity (models/ssm.py) under autograd")
+    return _launch_chunk(q, k, v, log_w, None, initial_state, True)
 
 
 def takes_function(*tensors: torch.Tensor) -> bool:
@@ -207,6 +290,8 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv_scan: Nk {Nk} > {MAX_NK} or Nv {Nv} > "
                          f"{MAX_NV} is not supported by the kernel")
     way = route(r.dtype, S, Nk, Nv)
+    if way == "chunk_f32":
+        return _launch_chunk(r, k, v, log_w, u, initial_state, False)
     if way == "tensor_core":
         r, k, v, log_w = (_aligned(x) for x in (r, k, v, log_w))
     else:
@@ -231,3 +316,76 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     LAUNCHES["wkv_scan"] += 1
     ROUTE_CALLS[way] += 1
     return out, sT
+
+
+def _launch_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: Optional[torch.Tensor],
+                  initial_state: Optional[torch.Tensor], inclusive: bool,
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``chunk_f32`` call on the card: mode 'inclusive', or mode 'rwkv'
+    with the bonus u.  q, k, v, log_w are read in place (any strides of
+    batch, time and head; the last dimension is copied only if it is not
+    contiguous)."""
+    B, S, h, Nk = q.shape
+    Nv = v.shape[-1]
+    tensors = (q, k, v, log_w) + tuple(x for x in (u, initial_state)
+                                       if x is not None)
+    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+        raise ValueError("wkv_scan: all tensors must share one CUDA device "
+                         "(or the CPU)")
+    if any(x.dtype != torch.float32 for x in (q, k, v, log_w)):
+        raise TypeError(f"wkv_scan chunk_f32: q (r), k, v and log_w must be "
+                        f"float32, got {q.dtype}, {k.dtype}, {v.dtype}, "
+                        f"{log_w.dtype}")
+    if Nk > CHUNK_MAX_N or Nv > CHUNK_MAX_N:
+        raise ValueError(f"wkv_scan chunk_f32: Nk {Nk} or Nv {Nv} > "
+                         f"{CHUNK_MAX_N}")
+    q, k, v, log_w = (x if x.stride(-1) == 1 else x.contiguous()
+                      for x in (q, k, v, log_w))
+    u32 = None if u is None else u.to(torch.float32).contiguous()
+    s0 = (None if initial_state is None
+          else initial_state.to(torch.float32).contiguous())
+    dev = q.device
+    out = torch.empty((B, S, h, Nv), dtype=torch.float32, device=dev)
+    if B * h == 0 or S == 0:
+        sT = (torch.zeros((B, h, Nk, Nv), dtype=torch.float32, device=dev)
+              if s0 is None else s0.clone())
+        return out, sT
+    sT = torch.empty((B, h, Nk, Nv), dtype=torch.float32, device=dev)
+    args, _scratch = chunk_f32_args(q, k, v, log_w, u32, s0, out, sT)
+    rc = _library().wkv_forward_chunk_f32(int(inclusive),
+                                          ctypes.addressof(args),
+                                          _build.stream_handle())
+    _build.check_launch(rc, "wkv_scan (chunk_f32)")
+    LAUNCHES["wkv_scan"] += 1
+    ROUTE_CALLS["chunk_f32"] += 1
+    return out, sT
+
+
+def chunk_f32_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_w: torch.Tensor, u: Optional[torch.Tensor],
+                   s0: Optional[torch.Tensor], out: torch.Tensor,
+                   sT: torch.Tensor, chunk: int = CHUNK_F32,
+                   ) -> Tuple[_ChunkArgs, Tuple[torch.Tensor, ...]]:
+    """The ``wkvf32::Args`` of one ``chunk_f32`` call (fp32 tensors on one
+    card; q, k, v, log_w with a contiguous last dimension, u, s0, out and
+    sT contiguous) and the scratch it allocates, ``chunk`` steps a chunk:
+    keep both alive until the launch has run."""
+    B, S, h, Nk = q.shape
+    Nv = v.shape[-1]
+    chunks = -(-S // chunk)
+    states = torch.empty(B * h * chunks * Nk * Nv, dtype=torch.float32,
+                         device=q.device)
+    decay = torch.empty(B * h * chunks * Nk, dtype=torch.float32,
+                        device=q.device)
+    streams = (q, k, v, log_w)
+    vec = (Nk % 4 == 0 and Nv % 4 == 0
+           and all(x.data_ptr() % 16 == 0
+                   and all(st % 4 == 0 for st in x.stride()[:3])
+                   for x in streams))
+    ptr = lambda x: None if x is None else x.data_ptr()
+    strides = [(ctypes.c_int64 * 3)(*x.stride()[:3]) for x in streams]
+    args = _ChunkArgs(*(ptr(x) for x in (q, k, v, log_w, u, s0, out, sT,
+                                         states, decay)),
+                      *strides, B, S, h, Nk, Nv, int(vec))
+    return args, (states, decay)

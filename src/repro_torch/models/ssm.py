@@ -12,15 +12,19 @@ q_t = C_t, k_t = dt_t * B_t, v_t = x_t, log_w = A * dt_t (A < 0).
 
 The scan (:func:`inclusive_scan`): on a CPU tensor the plain chunked
 recurrence of :mod:`.linrec` in mode 'inclusive', as the JAX package
-computes it; on a CUDA tensor the hand-written WKV kernel
-(:mod:`repro_torch.kernels.rwkv_scan`) through the identity
+computes it.  On a CUDA tensor the hand-written WKV kernels
+(:mod:`repro_torch.kernels.rwkv_scan`): a prefill (S >= 16, fp32 streams,
+no gradient) is one call of the ``chunk_f32`` kernels in inclusive mode
+(:func:`repro_torch.kernels.rwkv_scan.ops.inclusive_scan`); under autograd
+and for a decode step's S = 1 it goes through the identity
 
     q_t^T S_t = (q_t * exp(log_w_t))^T S_{t-1} + (q_t . k_t) v_t
 
-(:func:`wkv_inclusive`): the kernel with r = q * exp(log_w) and u = 0
-computes the first term and carries the state, the second is
-elementwise.  The streams are fp32 (``_selective_terms``), so the kernel
-takes its ``step`` route, and a decode step's S = 1 is the same call.
+(:func:`wkv_inclusive`): the WKV op with r = q * exp(log_w) and u = 0
+computes the first term and carries the state (its gradient is the WKV
+backward kernel's), the second is elementwise.  The streams are fp32
+(``_selective_terms``), so that op takes ``chunk_f32`` at S >= 16 and
+``step`` below.
 """
 from __future__ import annotations
 
@@ -113,12 +117,25 @@ def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """out_t = q_t^T S_t with S_t = diag(exp log_w_t) S_{t-1} + k_t v_t^T.
     Returns (out, final state).  CPU: the plain chunked recurrence
-    (``chunk`` its chunk length); CUDA: :func:`wkv_inclusive`."""
+    (``chunk`` its chunk length); CUDA: :func:`_card`."""
     if q.device.type == "cpu":
-        rw_ops.PLAIN_CALLS["wkv_scan"] += 1
-        return chunked_linear_recurrence(
-            q, k, v, log_w, initial_state=initial_state, mode="inclusive",
-            chunk=chunk, return_state=True)
+        return rw_ops.inclusive_scan(q, k, v, log_w, initial_state,
+                                     chunk=chunk)
+    return _card(q, k, v, log_w, initial_state, chunk=chunk)
+
+
+def _card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          log_w: torch.Tensor, initial_state: Optional[torch.Tensor], *,
+          chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A card call: the WKV op's inclusive mode (one ``chunk_f32`` call)
+    where that route takes the shape and no gradient is needed, else
+    :func:`wkv_inclusive` (a decode step's S = 1, autograd)."""
+    state = () if initial_state is None else (initial_state,)
+    if (rw_ops.route(q.dtype, q.shape[1], q.shape[3], v.shape[3])
+            == "chunk_f32"
+            and not rw_ops.takes_function(q, k, v, log_w, *state)):
+        return rw_ops.inclusive_scan(q, k, v, log_w, initial_state,
+                                     chunk=chunk)
     return wkv_inclusive(q, k, v, log_w, initial_state, chunk=chunk)
 
 

@@ -178,6 +178,14 @@ def test_mirror_rejects_blocks_that_do_not_nest():
     (torch.bfloat16, ops.TC_MIN_SEQ - 1, 64, 64, "step"),
     (torch.bfloat16, 1, 64, 64, "step"),               # a decode step
     (torch.float32, 2048, 64, 64, "step"),             # fp32 streams
+    (torch.float32, 2560, 16, 64, "chunk_f32"),        # Hymba's SSM prefill
+    (torch.float32, 2048, 32, 32, "chunk_f32"),
+    (torch.float32, ops.CHUNK_MIN_SEQ, 32, 64, "chunk_f32"),
+    (torch.float32, 100, 4, 8, "chunk_f32"),
+    (torch.float32, ops.CHUNK_MIN_SEQ - 1, 16, 64, "step"),
+    (torch.float32, 1, 16, 64, "step"),                # Hymba's decode step
+    (torch.float32, 2048, 128, 64, "step"),
+    (torch.float32, 2048, 64, 128, "step"),
     (torch.bfloat16, 2048, 32, 32, "step"),
     (torch.bfloat16, 2048, 16, 16, "step"),
     (torch.bfloat16, 2048, 64, 128, "step"),
