@@ -23,7 +23,8 @@ ranks on the one card (tensor parallelism); llama3-405b runs at
 ``reduced()`` (phase 7).  Training
 (phase 9): Qwen2-1.5B at full width in fp32 (AdamW, 8 x 2,048 tokens of
 the port's synthetic pipeline, two microbatches, remat), weights drawn on
-the card from ``--seed``; all ten archs at ``reduced()``.
+the card from ``--seed``; RWKV6-3B the same at full width, cut to 16 of
+its 32 layers (``TRAIN_RWKV_LAYERS``); all ten archs at ``reduced()``.
 
 Phases, one printed line each (plus detail lines):
 
@@ -38,8 +39,9 @@ Phases, one printed line each (plus detail lines):
               library call computes the same function (``xs.sum(0)``,
               ``torch.sub``, ``torch.bitwise_xor``) kernel and library are
               timed in turns (kernel, library, library, kernel); at the
-              main shapes both's device time per call (profiler; every
-              ``coded_decode`` row in float32 and bfloat16), taken after
+              main shapes and at one server's (phase 4c's) both's device
+              time per call (profiler; every main ``coded_decode`` row in
+              float32 and bfloat16), taken after
               phase 7 so that its profiler sessions come last.  The
               decode's ``ptxas`` lines are printed here again.
 3. shuffle  — ``hybrid_shuffle`` for r in {2, 3} x {unicast, coded} x
@@ -195,20 +197,30 @@ Phases, one printed line each (plus detail lines):
               2 kv heads, Whisper's encoder and its 416 x 1,500 cross
               attention, Hymba's 2,048 window, MLA's hd 576;
               ``TRAIN_WKV_CASES``: RWKV6-3B's [8, 2048, 40, 64] and
-              Hymba's SSM identity), the same gradients twice bit for
+              Hymba's SSM identity, and both at the [4, ...] microbatch
+              their train steps launch), the same gradients twice bit for
               bit, CUDA-event, plain and (flash) SDPA-backward times in
               turns, the bound (flash: the function's 10 * hd FLOPs a
-              visible pair), the route (``tf32x3`` / ``tf32``) and
-              TFLOP/s, and the device time at the kernels line's rows
-              (``BWD_PROFILED``; MLA's fp32 row where the profiler holds
-              records, ``BWD_TRY_PROFILED``).  (b) Qwen2-1.5B at full
+              visible pair), the route (flash ``tf32x3`` / ``tf32``, WKV
+              ``chunk``, timed in turns with the ``step`` kernels it
+              replaced at the same shape) and TFLOP/s, and the device
+              time at the kernels line's rows (``BWD_PROFILED``; MLA's
+              fp32 row where the profiler holds records,
+              ``BWD_TRY_PROFILED``).  (b) Qwen2-1.5B at full
               width, fp32 parameters and AdamW moments, 8 x 2,048 tokens
               of the port's ``SyntheticPipeline`` in two microbatches, remat,
               ``TRAIN_STEPS`` steps of ``make_train_step``: loss finite
               and falling; the first step's launches counted; step wall
               (median of the later steps), tokens/s, peak memory, and the
               idle share of one more, profiled step, with the flash
-              forward's (``mma_tf32``) share of its device time.  (c) one
+              forward's (``mma_tf32``) share of its device time.  (b')
+              RWKV6-3B the same, cut to 16 layers (12 if its peak passes
+              75 GB): the full-width path of the WKV backward; gates:
+              losses, ``wkv_scan`` 2 L x 2 launches on ``step`` (a forward
+              and a remat recompute a layer and microbatch),
+              ``wkv_scan_backward`` L x 2 on ``chunk``, no plain version;
+              the WKV backward's device ms and share of the profiled
+              step's busy time, the six largest kernels.  (c) one
               train step of all ten archs at ``reduced()`` (the MoE ones
               with both dispatches) on the card against the CPU: loss
               within 1e-5,
@@ -560,16 +572,16 @@ def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
     destination of the coded gradient reduce-scatter, 0/1 coefficients),
     and odd ones.  A row with a library call times the kernel and the
     library in turns (kernel, library, library, kernel).  The main rows'
-    device times per call come later (``profile_main_rows``): every
-    profiler session here would cost the later phases' profiles
-    records."""
+    and the ranks path's device times per call come later
+    (``profile_main_rows``): every profiler session here would cost the
+    later phases' profiles records."""
     dev = torch.device("cuda")
     odd = [(r, T, d) for r in (2, 3, 4) for T, d in
            ((1, 7), (257, 40), (300, 130))]
     rows, main, to_profile = [], {}, []
 
     def record(name, r, T, d, dtype, coeffs, err, tol, fn, plain, library,
-               is_main):
+               is_main, is_rank=False):
         n = T * d
         itemsize = torch.empty((), dtype=dtype).element_size()
         nbytes = (r + 1) * n * itemsize
@@ -606,8 +618,9 @@ def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
                 f"{turns[0]:.6f} {turns[1]:.6f} {turns[2]:.6f} "
                 f"{turns[3]:.6f} ms; kernel / library "
                 f"{row['ms'] / lib_ms:.4f}")
-        if is_main:
+        if is_main or is_rank:
             to_profile.append(row)
+        if is_main:
             main.setdefault(name, row)
 
     def err_of(a, b):
@@ -617,11 +630,12 @@ def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
     coeff_of = {"unit": lambda r: torch.ones(r, device=dev),
                 "1..r": lambda r: torch.arange(1.0, r + 1.0, device=dev),
                 "0/1": lambda r: torch.arange(r, device=dev) % 2 == 0}
-    cases = ([(s, "unit", True) for s in main_shapes]
-             + [(s, "unit", False) for s in rank_shapes]
-             + [(grad_shape, "0/1", False)]
-             + [(s, "1..r", False) for s in odd])
-    for (r, T, d), coeffs, is_main in cases:
+    cases = ([(s, "unit", "main") for s in main_shapes]
+             + [(s, "unit", "rank") for s in rank_shapes]
+             + [(grad_shape, "0/1", "odd")]
+             + [(s, "1..r", "odd") for s in odd])
+    for (r, T, d), coeffs, kind in cases:
+        is_main, is_rank = kind == "main", kind == "rank"
         unit = coeffs == "unit"           # the shuffle's coefficients
         for dtype in (torch.float32, torch.bfloat16):
             xs = torch.randn(r, T, d, generator=g, device=dev).to(dtype)
@@ -646,11 +660,12 @@ def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
             record("coded_encode", r, T, d, dtype, coeffs, err_of(f, f_ref),
                    _tol_text(enc_tol, enc_tol),
                    *combine_calls(torch, ops, ref, "coded_encode", xs, c, f,
-                                  unit), is_main and is_f32)
+                                  unit), is_main and is_f32,
+                   is_rank and is_f32)
             record("coded_decode", r, T, d, dtype, coeffs,
                    err_of(dec, dec_ref), _tol_text(*dec_tol),
                    *combine_calls(torch, ops, ref, "coded_decode", xs, c, f,
-                                  unit), is_main)
+                                  unit), is_main, is_rank and is_f32)
         # XOR takes no coefficients: the 0/1 gradient row is linear only
         for dtype in (torch.int32, torch.uint32) if coeffs != "0/1" else ():
             xs = torch.randint(0, 2 ** 30, (r, T, d), generator=g,
@@ -667,15 +682,17 @@ def kernel_phase(torch, ops, ref, main_shapes, rank_shapes, grad_shape,
             for name in ("xor_encode", "xor_decode"):
                 record(name, r, T, d, dtype, coeffs, 0.0, "exact",
                        *combine_calls(torch, ops, ref, name, xs, None, f,
-                                      True), is_main and is_int and r == 2)
+                                      True), is_main and is_int and r == 2,
+                       is_rank and is_int and r == 2)
         del xs
     torch.cuda.synchronize()
     return rows, main, to_profile
 
 
 def profile_main_rows(torch, ops, ref, to_profile, seed):
-    """Phase 2's main rows: the kernel's and the library call's device time
-    per call (profiler), into each row, on inputs drawn anew at the row's
+    """Phase 2's main rows and the ranks path's (one server's shapes): the
+    kernel's and the library call's device time per call (profiler), into
+    each row, on inputs drawn anew at the row's
     shape (a device time does not depend on the values; holding phase 2's
     inputs to the end would add some 1.2 GB to the serving phases' peak
     memory)."""
@@ -3160,11 +3177,13 @@ def tree_to(tree, device):
 # ---------------------------------------------------------------------------
 
 BWD_KERNELS = ("flash_attention_backward", "wkv_scan_backward")
+# (the WKV backward's main path takes its chunk route, included by
+# csrc/wkv_backward.cu, whose step kernels take the other shapes)
 BWD_SOURCES = {
     "flash_attention_backward":
         "src/repro_torch/kernels/flash_attention/csrc/flash_backward.cu",
     "wkv_scan_backward":
-        "src/repro_torch/kernels/rwkv_scan/csrc/wkv_backward.cu"}
+        "src/repro_torch/kernels/rwkv_scan/csrc/wkv_backward_chunk.cuh"}
 # no Pallas kernel: the jnp functions the JAX package's jax.value_and_grad
 # differentiates
 BWD_REPLACES = {"flash_attention_backward":
@@ -3189,15 +3208,19 @@ TRAIN_FLASH_CASES = [
     ("mla", 8, 2048, 2048, 16, 1, 576, True, None)]
 # (tag, B, S, h, Nk, Nv): RWKV6-3B's time-mix over 8 x 2,048 and Hymba's
 # SSM through the inclusive identity (r = q exp(log_w), u = 0) over
-# 8 x 2,560: state 16 x head 64, log_w = dt * A with A in [-16, -1]
+# 8 x 2,560: state 16 x head 64, log_w = dt * A with A in [-16, -1]; then
+# each at the microbatch of four sequences its train step launches
 TRAIN_WKV_CASES = [("rwkv6_train", 8, 2048, 40, 64, 64),
-                   ("hymba_ssm", 8, 2560, 25, 16, 64)]
+                   ("hymba_ssm", 8, 2560, 25, 16, 64),
+                   ("rwkv6_train_micro", 4, 2048, 40, 64, 64),
+                   ("hymba_ssm_micro", 4, 2560, 25, 16, 64)]
 TRAIN_STEPS = 4
 # the (a) rows the kernels line reports, fp32 and bf16, take the profiler's
 # device time; the others CUDA events alone: late in the script profiler
 # sessions lose records, and one of the 0.55 s hd-576 calls held none in
 # nine sessions
-BWD_PROFILED = ("qwen2_train", "rwkv6_train")
+BWD_PROFILED = ("qwen2_train", "rwkv6_train", "rwkv6_train_micro",
+                "hymba_ssm_micro")
 # rows whose fp32 device time is taken when the profiler holds records
 # (events alone where it does not)
 BWD_TRY_PROFILED = ("mla",)
@@ -3233,7 +3256,9 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
     """Phase 9 (a): both backward kernels against autograd through their
     plain versions on the card, fp32 and bf16, the same gradients twice bit
     for bit, CUDA-event, plain and (flash) SDPA-backward times in turns, the
-    bound, and at ``BWD_PROFILED``'s rows the card's own time per call."""
+    bound, and at ``BWD_PROFILED``'s rows the card's own time per call.  A
+    WKV row on the ``chunk`` route is timed in turns with the ``step``
+    kernels at its shape (what the route replaced)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 901)
     rows, main = [], {}
@@ -3330,7 +3355,7 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).replace("torch.", "")
             rnd = lambda *s: torch.randn(*s, generator=g, device=dev)
-            if tag == "hymba_ssm":
+            if tag.startswith("hymba_ssm"):
                 a = torch.linspace(1.0, 16.0, Nk, device=dev)
                 log_w = -torch.nn.functional.softplus(rnd(B, S, h, Nk)) * a
                 q, k = rnd(B, S, h, Nk), 0.5 * rnd(B, S, h, Nk)
@@ -3343,11 +3368,14 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
             r, k = r.to(dtype), k.to(dtype)
             v, dout = rnd(B, S, h, Nv).to(dtype), rnd(B, S, h, Nv).to(dtype)
             kernel = lambda: rwb.wkv_scan_backward(r, k, v, log_w, u, dout)
+            way = rwb.route(dtype, S, Nk, Nv)
             rwb.reset_launch_counts()
             got, again = kernel(), kernel()
             torch.cuda.synchronize()
-            check(rwb.LAUNCHES["wkv_scan_backward"] == 2,
-                  f"wkv backward {tag}: launches {rwb.LAUNCHES}")
+            check(rwb.LAUNCHES["wkv_scan_backward"] == 2
+                  and rwb.ROUTE_CALLS[way] == 2 and way == "chunk",
+                  f"wkv backward {tag}: launches {rwb.LAUNCHES}, routes "
+                  f"{rwb.ROUTE_CALLS}; want two on chunk")
             plain = lambda: rw_ref.wkv_backward_ref(r, k, v, log_w, u, dout)
             want = plain()
             errs = [_rel(a, b) for a, b in zip(got, want)]
@@ -3365,14 +3393,21 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
             nbytes = (size * (4 * r.numel() + 3 * v.numel())
                       + 4 * 2 * log_w.numel() + 4 * 2 * u.numel())
             b_ms, b_by = bound(peaks, nbytes)
-            turns = [cuda_ms(torch, kernel, 3, 3) for _ in range(2)]
+            # in turns with the step kernels: chunk, step, step, chunk
+            was = lambda: rwb._launch_step(r, k, v, log_w, u, dout)
+            turns = [cuda_ms(torch, fn, 3, 3)
+                     for fn in (kernel, was, was, kernel)]
             row = {"name": "wkv_scan_backward", "case": tag, "B": B, "S": S,
-                   "h": h, "Nk": Nk, "Nv": Nv, "dtype": dname,
+                   "h": h, "Nk": Nk, "Nv": Nv, "dtype": dname, "route": way,
                    "max_abs_err": err, "max_rel_err": max(errs),
                    "tolerance": f"{BWD_TOL[dname]} of max |grad|",
                    "bitwise_repeat": True, "bytes": nbytes,
-                   "bound_ms": b_ms, "bound_by": b_by, "ms_turns": turns,
-                   "ms": statistics.mean(turns), "library_ms": None,
+                   "bound_ms": b_ms, "bound_by": b_by,
+                   "ms_turns": [turns[0], turns[3]],
+                   "ms": statistics.mean([turns[0], turns[3]]),
+                   "step_ms_turns": [turns[1], turns[2]],
+                   "step_ms": statistics.mean([turns[1], turns[2]]),
+                   "library_ms": None,
                    "plain_ms": cuda_ms(torch, plain, 3, 1)}
             row["device_ms"] = row["device_kernels"] = None
             if tag in BWD_PROFILED:
@@ -3381,11 +3416,13 @@ def backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref, peaks, seed, smi):
             rows.append(row)
             main.setdefault((tag, dname), row)
             say(f"  backward wkv_scan_backward {tag} B={B} S={S} h={h} "
-                f"Nk={Nk} Nv={Nv} {dname}: kernel_ms={row['ms']:.6f} "
-                f"{_device_text(row)} plain_ms="
+                f"Nk={Nk} Nv={Nv} {dname} route={way}: kernel_ms="
+                f"{row['ms']:.6f} {_device_text(row)} was (step) "
+                f"{row['step_ms']:.6f} ms plain_ms="
                 f"{row['plain_ms']:.6f} bound_ms={b_ms:.6f} ({b_by}) "
                 f"max_rel_err={max(errs)!r} (limit {BWD_TOL[dname]}) "
-                f"bitwise repeat [{smi}]")
+                f"bitwise repeat; in turns {[round(t, 6) for t in turns]} "
+                f"[{smi}]")
             del r, k, v, dout, got, again
             torch.cuda.empty_cache()
     return rows, main
@@ -3398,12 +3435,13 @@ def _device_text(row) -> str:
             f"device kernels)")
 
 
-def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
-    """Phase 9 (b): Qwen2-1.5B at full width, fp32 parameters and AdamW
-    moments, a global batch of 8 x 2,048 tokens in two microbatches,
-    remat, TRAIN_STEPS steps of ``make_train_step``.  The first step's
-    launches are counted; the walls of the others are timed; one more
-    step is profiled for the card's idle share."""
+def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
+    """A full-width train run: fp32 parameters and AdamW moments, a global
+    batch of 8 x 2,048 tokens in two microbatches, remat, TRAIN_STEPS steps
+    of ``make_train_step``.  The first step's launches are counted; the
+    walls of the others are timed; one more step is profiled for the
+    card's idle share.  Returns (info, the first step's launches, its
+    plain-version calls, the profile)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3417,26 +3455,64 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     n_params = sum(p.numel() for p in opt.tree_leaves(state["params"]))
     pipe = pipeline.SyntheticPipeline(cfg, 8, 2048, seed=seed)
     step = tr.make_train_step(cfg, tc)
-    losses, walls, launches = [], [], None
+    losses, walls, launches, routes = [], [], None, None
     for i in range(TRAIN_STEPS):
         batch = pipe.batch_at(i)
         if i == 0:
             ((state, m), ms), launches, plain = counts(
                 lambda: wall(torch, lambda: step(state, batch)))
-            routes = counts.routes["flash_attention"]
+            routes = dict(counts.routes)
         else:
             (state, m), ms = wall(torch, lambda: step(state, batch))
         losses.append(float(m["loss"]))
         walls.append(ms)
-        say(f"  train qwen2-1.5b step {i + 1}: loss {losses[-1]!r} "
+        say(f"  train {cfg.name} step {i + 1}: loss {losses[-1]!r} "
             f"grad_norm {float(m['grad_norm'])!r} wall {ms:.1f} ms "
             f"[{smi}]")
-    L = cfg.n_layers
-    n_micro = tc.n_microbatches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    batch = pipe.batch_at(TRAIN_STEPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        (state, m), prof_ms = wall(torch, lambda: step(state, batch))
+    busy, by_kernel = device_time(prof)
+    step_ms = statistics.median(walls[1:])
+    tokens = 8 * 2048
+    info = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+            "dtype": "float32", "global_batch": [8, 2048],
+            "n_microbatches": tc.n_microbatches, "remat": True,
+            "optimizer": "adamw", "steps": TRAIN_STEPS, "losses": losses,
+            "step_walls_ms": walls, "step_ms_median": step_ms,
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "peak_memory_gb": peak_gb, "init_s": init_s,
+            "launches_first_step": launches, "routes_first_step": routes,
+            "profiled_step_ms": prof_ms, "device_busy_ms": busy,
+            "idle_share": 1.0 - busy / prof_ms, "by_kernel": by_kernel}
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{cfg.name} training: losses {losses}")
+    del state, m, batch
+    return info, launches, plain, prof
+
+
+def _profiled(prof, needle):
+    """(device ms, records) of the profile's device kernels whose name
+    holds ``needle``."""
+    evs = [ev for ev in prof.key_averages()
+           if str(getattr(ev, "device_type", "")).endswith("CUDA")
+           and needle in ev.key]
+    return sum(device_us(ev) for ev in evs) / 1e3, sum(ev.count for ev in evs)
+
+
+def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
+    """Phase 9 (b): Qwen2-1.5B at full width (``_train_run``), gated on its
+    flash launches: a forward and a remat recompute a layer and
+    microbatch on ``mma_tf32``, one backward."""
+    info, launches, plain, prof = _train_run(torch, tr, opt, pipeline,
+                                             counts, cfg, seed, smi)
+    routes = info["routes_first_step"] = info["routes_first_step"][
+        "flash_attention"]
+    L, n_micro = cfg.n_layers, info["n_microbatches"]
     want = {"flash_attention": 2 * L * n_micro,
             "flash_attention_backward": L * n_micro}
-    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-          f"qwen2-1.5b training: losses {losses}")
     check(all(launches[k] == n for k, n in want.items())
           and routes == {"tensor_core": 0, "tensor_core_wide": 0,
                          "split_kv": 0,
@@ -3445,12 +3521,6 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
           f"qwen2-1.5b train step launches {launches}, routes {routes}, "
           f"plain {plain}; want {want} on mma_tf32 (a forward and a remat "
           f"recompute a layer and microbatch, one backward)")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    batch = pipe.batch_at(TRAIN_STEPS)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        (state, m), prof_ms = wall(torch, lambda: step(state, batch))
-    busy, by_kernel = device_time(prof)
     # how much of the step the profile holds: its flash backward records
     # of the step's launches (the profiler drops records, and a dropped
     # record makes the card look idler than it was)
@@ -3460,42 +3530,112 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
           "record")
     # the flash forward's (mma_tf32) device time in the profiled step, and
     # how many of its launches the profile holds
-    fwd = [ev for ev in prof.key_averages()
-           if str(getattr(ev, "device_type", "")).endswith("CUDA")
-           and "flash_mma" in ev.key]
-    fwd_ms = sum(device_us(ev) for ev in fwd) / 1e3
-    fwd_records = sum(ev.count for ev in fwd)
-    step_ms = statistics.median(walls[1:])
-    tokens = 8 * 2048
-    info = {"arch": cfg.name, "params": n_params, "dtype": "float32",
-            "global_batch": [8, 2048], "n_microbatches": n_micro,
-            "remat": True, "optimizer": "adamw", "steps": TRAIN_STEPS,
-            "losses": losses, "step_walls_ms": walls,
-            "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_memory_gb": peak_gb, "init_s": init_s,
-            "launches_first_step": launches, "routes_first_step": routes,
-            "profiled_step_ms": prof_ms, "device_busy_ms": busy,
-            "profiled_flash_backward_records": [
-                records, want["flash_attention_backward"]],
-            "profiled_flash_forward_ms": fwd_ms,
-            "profiled_flash_forward_records": [
-                fwd_records, want["flash_attention"]],
-            "flash_forward_share": fwd_ms / busy,
-            "idle_share": 1.0 - busy / prof_ms, "by_kernel": by_kernel}
-    say(f"  train qwen2-1.5b full width ({n_params} fp32 parameters, "
+    fwd_ms, fwd_records = _profiled(prof, "flash_mma")
+    busy = info["device_busy_ms"]
+    info.update({"profiled_flash_backward_records": [
+                    records, want["flash_attention_backward"]],
+                 "profiled_flash_forward_ms": fwd_ms,
+                 "profiled_flash_forward_records": [
+                    fwd_records, want["flash_attention"]],
+                 "flash_forward_share": fwd_ms / busy})
+    say(f"  train qwen2-1.5b full width ({info['params']} fp32 parameters, "
         f"AdamW, 8 x 2048 tokens in 2 microbatches, remat): step "
-        f"{step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}), "
-        f"{info['tokens_per_s']:.1f} tokens/s, peak "
-        f"{peak_gb:.3f} GB allocated, losses {[round(x, 4) for x in losses]}"
-        f"; profiled step {prof_ms:.1f} ms, device busy {busy:.1f} ms, idle "
-        f"share {info['idle_share']:.3f} (the profile holds {records} of "
-        f"{want['flash_attention_backward']} flash backward records); the "
-        f"flash forward (mma_tf32) {fwd_ms:.1f} device ms, "
+        f"{info['step_ms_median']:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}), {info['tokens_per_s']:.1f} tokens/s, peak "
+        f"{info['peak_memory_gb']:.3f} GB allocated, losses "
+        f"{[round(x, 4) for x in info['losses']]}; profiled step "
+        f"{info['profiled_step_ms']:.1f} ms, device busy {busy:.1f} ms, "
+        f"idle share {info['idle_share']:.3f} (the profile holds {records} "
+        f"of {want['flash_attention_backward']} flash backward records); "
+        f"the flash forward (mma_tf32) {fwd_ms:.1f} device ms, "
         f"{info['flash_forward_share']:.4f} of the busy time ({fwd_records} "
         f"of {want['flash_attention']} records) [{smi}]")
-    for k in by_kernel[:6]:
+    for k in info["by_kernel"][:6]:
         say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
-    del state, m, batch, prof
+    del prof
+    torch.cuda.empty_cache()
+    return info, launches
+
+
+# RWKV6-3B's full-width train step is cut in depth: a layer holds about 86 M
+# parameters and the embedding and head 336 M, so 16 of its 32 layers come
+# to about 1.71 B, some 57 GB at the ~33 bytes a parameter Qwen2-1.5B's
+# step peaks at (fp32 weights, gradients, two AdamW moments, the functional
+# update's copies, activations); all 32 would be about 100 GB.  Past
+# TRAIN_RWKV_PEAK_GB it is cut again, to TRAIN_RWKV_LAYERS[1]
+TRAIN_RWKV_LAYERS = (16, 12)
+TRAIN_RWKV_PEAK_GB = 75.0
+
+
+def train_rwkv_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
+    """Phase 9 (b'): RWKV6-3B at full width, cut in depth
+    (``TRAIN_RWKV_LAYERS``), by ``_train_run``: the path that launches the
+    WKV backward at full width.  Gated on its WKV launches: a forward and a
+    remat recompute a layer and microbatch (``step``: fp32 at Nk 64), one
+    backward on the ``chunk`` route, no plain version."""
+    info = None
+    for layers in TRAIN_RWKV_LAYERS:
+        cut = dataclasses.replace(cfg, n_layers=layers)
+        try:
+            info, launches, plain, prof = _train_run(
+                torch, tr, opt, pipeline, counts, cut, seed, smi)
+        except torch.cuda.OutOfMemoryError:
+            say(f"  train rwkv6-3b at {layers} layers ran out of memory: "
+                f"cut further [{smi}]")
+            torch.cuda.empty_cache()
+            continue
+        if info["peak_memory_gb"] <= TRAIN_RWKV_PEAK_GB:
+            break
+        say(f"  train rwkv6-3b at {layers} layers peaked at "
+            f"{info['peak_memory_gb']:.3f} GB, past {TRAIN_RWKV_PEAK_GB} GB: "
+            f"cut further [{smi}]")
+        del prof
+        torch.cuda.empty_cache()
+    check(info is not None and info["peak_memory_gb"] <= TRAIN_RWKV_PEAK_GB,
+          f"rwkv6-3b training fits under {TRAIN_RWKV_PEAK_GB} GB at "
+          f"{TRAIN_RWKV_LAYERS[-1]} layers")
+    L, n_micro = layers, info["n_microbatches"]
+    info["cut"] = (f"{layers} of {cfg.n_layers} layers "
+                   f"(dataclasses.replace(cfg, n_layers={layers})): all "
+                   f"{cfg.n_layers} need about 100 GB of fp32 weights, "
+                   f"gradients, AdamW moments and activations; the peak "
+                   f"stays under {TRAIN_RWKV_PEAK_GB} GB")
+    routes = info["routes_first_step"]
+    want = {"wkv_scan": 2 * L * n_micro, "wkv_scan_backward": L * n_micro,
+            "flash_attention": 0, "flash_attention_backward": 0}
+    check(all(launches[k] == n for k, n in want.items())
+          and routes["wkv_scan"]["step"] == want["wkv_scan"]
+          and routes["wkv_scan_backward"] == {
+              "chunk": want["wkv_scan_backward"], "step": 0}
+          and not any(plain.values()),
+          f"rwkv6-3b train step launches {launches}, routes {routes}, plain "
+          f"{plain}; want {want}, wkv_scan on step (a forward and a remat "
+          f"recompute a layer and microbatch), wkv_scan_backward on chunk")
+    # the WKV backward's four device kernels (namespace wkvbc) in the
+    # profiled step, and how many of its launches the profile holds
+    bwd_ms, _ = _profiled(prof, "wkvbc::")
+    _, records = _profiled(prof, "wkvbc::chunk_grads")
+    check(records > 0, "the profiled rwkv6-3b step holds no WKV backward "
+          "record")
+    busy = info["device_busy_ms"]
+    info.update({"profiled_wkv_backward_ms": bwd_ms,
+                 "profiled_wkv_backward_records": [
+                     records, want["wkv_scan_backward"]],
+                 "wkv_backward_share": bwd_ms / busy})
+    say(f"  train rwkv6-3b full width, cut to {info['cut']} "
+        f"({info['params']} fp32 parameters, AdamW, 8 x 2048 tokens in 2 "
+        f"microbatches, remat): step {info['step_ms_median']:.1f} ms "
+        f"(median of steps 2-{TRAIN_STEPS}), {info['tokens_per_s']:.1f} "
+        f"tokens/s, peak {info['peak_memory_gb']:.3f} GB allocated, losses "
+        f"{[round(x, 4) for x in info['losses']]}; profiled step "
+        f"{info['profiled_step_ms']:.1f} ms, device busy {busy:.1f} ms, "
+        f"idle share {info['idle_share']:.3f}; the WKV backward (chunk) "
+        f"{bwd_ms:.2f} device ms, {info['wkv_backward_share']:.4f} of the "
+        f"busy time ({records} of {want['wkv_scan_backward']} records) "
+        f"[{smi}]")
+    for k in info["by_kernel"][:6]:
+        say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
+    del prof
     torch.cuda.empty_cache()
     return info, launches
 
@@ -4459,6 +4599,13 @@ def main(argv=None) -> int:
     say(f"phase train (b): Qwen2-1.5B trains at full width, loss "
         f"{full_info['losses'][0]!r} -> {full_info['losses'][-1]!r}; "
         f"launches a step {full_launches} [{smi}]")
+    rwkv_info, rwkv_launches = train_rwkv_phase(
+        torch, tr, opt, pipeline, train_counts, ARCHS["rwkv6-3b"],
+        args.seed, smi)
+    say(f"phase train (b'): RWKV6-3B trains at full width, cut to "
+        f"{rwkv_info['n_layers']} layers, loss {rwkv_info['losses'][0]!r} "
+        f"-> {rwkv_info['losses'][-1]!r}; launches a step {rwkv_launches}; "
+        f"routes {rwkv_info['routes_first_step']} [{smi}]")
     bwd_rows, bwd_main = backward_phase(torch, fa, fab, fa_ref, rwb, rw_ref,
                                         peaks, args.seed, smi)
     say(f"phase train (a): {len(bwd_rows)} backward kernel cases match "
@@ -4531,6 +4678,7 @@ def main(argv=None) -> int:
                **{f"serve {a}": r["launches"] for a, r in serving.items()},
                "card_vs_cpu": cmp_launches,
                "train qwen2-1.5b": full_launches,
+               "train rwkv6-3b": rwkv_launches,
                "train card_vs_cpu": train_cmp_launches,
                "train ranks": train_ranks_launches, "tp": tp_launches}
     # each kernel's main path: the fused engine for the linear pair, the
@@ -4720,15 +4868,15 @@ def main(argv=None) -> int:
                         for nk, o in f32_occ.items()},
                     "checked_rwkv_cases": wkv_case_routes.get("chunk_f32",
                                                               0)})
-    # the backward kernels: launches on the train path (the full-width
-    # Qwen2 step for flash; the reduced RWKV6 and Hymba steps of (c) for
-    # WKV, whose full width is not on it), numbers at (a)'s rows of that
-    # path (fp32, the training dtype)
+    # the backward kernels: launches on the full-width train paths (Qwen2's
+    # step for flash, RWKV6-3B's for WKV), numbers at (a)'s rows of that
+    # path's shape (fp32, the training dtype; WKV at the microbatch)
     bwd_path = {"flash_attention_backward": "train qwen2-1.5b",
-                "wkv_scan_backward": "train card_vs_cpu"}
+                "wkv_scan_backward": "train rwkv6-3b"}
     bwd_row = {"flash_attention_backward": bwd_main[("qwen2_train",
                                                      "float32")],
-               "wkv_scan_backward": bwd_main[("rwkv6_train", "float32")]}
+               "wkv_scan_backward": bwd_main[("rwkv6_train_micro",
+                                              "float32")]}
     for kname in BWD_KERNELS:
         launches = by_path[bwd_path[kname]].get(kname, 0)
         check(launches > 0, f"{kname} launched on its path "
@@ -4750,6 +4898,21 @@ def main(argv=None) -> int:
                         "shape_case": row["case"],
                         "note": "no Pallas counterpart: the JAX package "
                                 "differentiates its jnp formulation"})
+    # the WKV backward's route on its path, and what it replaced there
+    wkv_bwd = kernels[-1]
+    wkv_routes_train = rwkv_info["routes_first_step"]["wkv_scan_backward"]
+    check(wkv_routes_train == {"chunk": wkv_bwd["launches"], "step": 0},
+          f"the rwkv6-3b train step's WKV backward all on chunk: "
+          f"{wkv_routes_train}")
+    wkv_bwd.update(
+        launches_by_route=wkv_routes_train,
+        step_ms=bwd_row["wkv_scan_backward"]["step_ms"],
+        step_source="src/repro_torch/kernels/rwkv_scan/csrc/wkv_backward.cu",
+        train_step_share=rwkv_info["wkv_backward_share"],
+        rows={f"{r['case']} {r['dtype']}": {k: r[k] for k in (
+            "route", "ms", "step_ms", "device_ms", "bound_ms", "plain_ms",
+            "max_rel_err")} for r in bwd_rows
+            if r["name"] == "wkv_scan_backward"})
     # the wide tensor-core flash kernel (bf16 prefill at MLA's hd 576,
     # flash_attention's tensor_core_wide route): launches on DeepSeek-V2-
     # Lite's serving path, numbers at phase 5's row of the model's call
@@ -4848,6 +5011,7 @@ def main(argv=None) -> int:
         "lm_kernels": flash_rows + wkv_rows + ssm_rows, "serving": serving,
         "card_vs_cpu": cmp_rows, "launches": by_path,
         "train": {"backward": bwd_rows, "full_width": full_info,
+                  "rwkv6_full_width": rwkv_info,
                   "card_vs_cpu": train_cmp_rows, "restart": restart_info,
                   "coded_r2": train_ranks_info, "phase_s": train_s},
         "tp": tp_info,

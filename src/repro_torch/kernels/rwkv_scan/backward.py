@@ -11,9 +11,22 @@ recurrence).  The JAX package has no backward Pallas kernel
 port's own, and :mod:`.ops` pairs it with the forward kernels in a
 ``torch.autograd.Function``.
 
-``LAUNCHES`` counts wrapper calls that launched (three device kernels
-each), ``PLAIN_CALLS`` calls that took the plain version;
-:func:`reset_launch_counts` zeroes both.
+On the card :func:`route` picks the kernels by dtype and shape alone, with
+no fallback from one route to the other:
+
+* ``chunk`` — fp32 or bf16 r, k, v, dout at Nk <= ``CHUNK_MAX_N``, Nv <=
+  ``CHUNK_MAX_N`` and S >= ``CHUNK`` (RWKV6's heads, Hymba's SSM through
+  its WKV identity): ``csrc/wkv_backward_chunk.cuh``, chunks of ``CHUNK``
+  steps in parallel, cut into blocks of ``BLOCK`` whose products are split
+  TF32 tensor-core products; plain version
+  :func:`.ref.wkv_backward_chunk_ref`.
+* ``step`` — everything else: the sequential kernels of
+  ``csrc/wkv_backward.cu``, one block per (batch, head) walking time.
+
+``LAUNCHES`` counts wrapper calls that launched (four device kernels a
+``chunk`` call, three a ``step`` call), ``ROUTE_CALLS`` the same calls by
+route, ``PLAIN_CALLS`` calls that took the plain version;
+:func:`reset_launch_counts` zeroes all three.
 """
 from __future__ import annotations
 
@@ -29,8 +42,14 @@ from .. import _build
 
 LAUNCHES: Dict[str, int] = {"wkv_scan_backward": 0}
 PLAIN_CALLS: Dict[str, int] = {"wkv_scan_backward": 0}
+ROUTES = ("chunk", "step")
+ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
+CHUNK = 64                  # steps a chunk of the chunk route (kC of
+                            # csrc/wkv_backward_chunk.cuh)
+BLOCK = 16                  # steps a block (kL)
+CHUNK_MAX_N = 64            # widest Nk and Nv it takes
 
 
 class _Args(ctypes.Structure):
@@ -41,24 +60,55 @@ class _Args(ctypes.Structure):
                 + [(n, ctypes.c_int) for n in ("B", "T", "H", "nk", "nv")])
 
 
+class _ChunkArgs(ctypes.Structure):
+    """``wkvbc::Args`` of csrc/wkv_backward_chunk.cuh, field by field."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in
+                 ("r", "k", "v", "lw", "u", "dout", "dr", "dk", "dv", "dlw",
+                  "du", "states", "dstates", "decay", "qend", "du_part")]
+                + [(n, ctypes.c_int64 * 3) for n in ("sr", "sk", "sv", "sw",
+                                                      "sd")]
+                + [(n, ctypes.c_int) for n in ("B", "T", "H", "nk", "nv",
+                                                "vec")])
+
+
 def reset_launch_counts() -> None:
     LAUNCHES["wkv_scan_backward"] = 0
     PLAIN_CALLS["wkv_scan_backward"] = 0
+    for r in ROUTES:
+        ROUTE_CALLS[r] = 0
+
+
+def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
+    """The kernels a card call takes, by the dtype of r, k, v, dout and the
+    shape alone."""
+    if (dtype in _DTYPES and S >= CHUNK and Nk <= CHUNK_MAX_N
+            and Nv <= CHUNK_MAX_N):
+        return "chunk"
+    return "step"
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load_library("wkv_backward",
                               "rwkv_scan/csrc/wkv_backward.cu")
-    lib.wkv_backward.argtypes = [ctypes.c_int, ctypes.c_void_p,
-                                 ctypes.c_void_p]
+    for fn in (lib.wkv_backward, lib.wkv_backward_chunked):
+        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     for fn in (lib.wkv_backward, lib.wkv_backward_args_size,
-               lib.wkv_backward_chunk):
+               lib.wkv_backward_chunk, lib.wkv_backward_chunked,
+               lib.wkv_backward_chunked_args_size,
+               lib.wkv_backward_chunked_len,
+               lib.wkv_backward_chunked_block):
         fn.restype = ctypes.c_int
-    if lib.wkv_backward_args_size() != ctypes.sizeof(_Args):
-        raise RuntimeError(f"wkv_scan_backward: Args is "
-                           f"{lib.wkv_backward_args_size()} bytes in the "
-                           f"library, {ctypes.sizeof(_Args)} in its mirror")
+    sizes = ((lib.wkv_backward_args_size(), ctypes.sizeof(_Args)),
+             (lib.wkv_backward_chunked_args_size(),
+              ctypes.sizeof(_ChunkArgs)),
+             (lib.wkv_backward_chunked_len(), CHUNK),
+             (lib.wkv_backward_chunked_block(), BLOCK))
+    if any(a != b for a, b in sizes):
+        raise RuntimeError(f"wkv_scan_backward: the library's (Args bytes, "
+                           f"chunk Args bytes, chunk, block) "
+                           f"{[a for a, _ in sizes]} differ from the "
+                           f"wrapper's {[b for _, b in sizes]}")
     return lib
 
 
@@ -104,6 +154,18 @@ def wkv_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Nk > MAX_NK or Nv > MAX_NV:
         raise ValueError(f"wkv_scan_backward: Nk {Nk} > {MAX_NK} or Nv {Nv} "
                          f"> {MAX_NV} is not supported by the kernel")
+    if route(r.dtype, S, Nk, Nv) == "chunk":
+        return _launch_chunk(r, k, v, log_w, u, dout)
+    return _launch_step(r, k, v, log_w, u, dout)
+
+
+def _launch_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                 ) -> Tuple[torch.Tensor, ...]:
+    """One ``step`` call on the card (checked CUDA tensors of the kernels'
+    dtypes and widths; any sequence length)."""
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
     dev = r.device
     r, k, v, dout = (x.contiguous() for x in (r, k, v, dout))
     lw32 = log_w.to(torch.float32).contiguous()
@@ -126,6 +188,68 @@ def wkv_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     args = _Args(*ptrs, B, S, h, Nk, Nv)
     rc = lib.wkv_backward(_DTYPES[r.dtype], ctypes.addressof(args),
                           _build.stream_handle())
-    _build.check_launch(rc, "wkv_scan_backward")
+    _build.check_launch(rc, "wkv_scan_backward (step)")
     LAUNCHES["wkv_scan_backward"] += 1
+    ROUTE_CALLS["step"] += 1
+    return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)
+
+
+def chunk_args(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+               grads: Tuple[torch.Tensor, ...],
+               ) -> Tuple[_ChunkArgs, Tuple[torch.Tensor, ...]]:
+    """The ``wkvbc::Args`` of one ``chunk`` call (r, k, v, dout of one dtype
+    and log_w fp32, each with a contiguous last dimension; u fp32
+    contiguous; ``grads`` the contiguous dr, dk, dv, dlog_w, du) and the
+    scratch it allocates: keep both alive until the launch has run."""
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
+    chunks = -(-S // CHUNK)
+    mk = lambda *s: torch.empty(s, dtype=torch.float32, device=r.device)
+    scratch = (mk(B * h * chunks * Nk * Nv), mk(B * h * chunks * Nk * Nv),
+               mk(B * h * chunks * Nk), mk(B * h * chunks * Nk),
+               mk(B * h * chunks * Nk))
+    streams = (r, k, v, log_w, dout)
+    # 16-byte copies of the streams staged by cp.async (the fp32 ones)
+    copied = [x for x in streams if x.dtype == torch.float32]
+    vec = (Nk % 4 == 0 and Nv % 4 == 0
+           and all(x.data_ptr() % 16 == 0
+                   and all(st % 4 == 0 for st in x.stride()[:3])
+                   for x in copied))
+    strides = [(ctypes.c_int64 * 3)(*x.stride()[:3]) for x in streams]
+    args = _ChunkArgs(*(x.data_ptr() for x in (r, k, v, log_w, u, dout)),
+                      *(x.data_ptr() for x in grads),
+                      *(x.data_ptr() for x in scratch),
+                      *strides, B, S, h, Nk, Nv, int(vec))
+    return args, scratch
+
+
+def _launch_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_w: torch.Tensor, u: torch.Tensor, dout: torch.Tensor,
+                  ) -> Tuple[torch.Tensor, ...]:
+    """One ``chunk`` call on the card: r, k, v, dout and log_w read in
+    place (any strides of batch, time and head; the last dimension is
+    copied only if it is not contiguous)."""
+    B, S, h, Nk = r.shape
+    r, k, v, dout = (x if x.stride(-1) == 1 else x.contiguous()
+                     for x in (r, k, v, dout))
+    lw32 = log_w if log_w.dtype == torch.float32 else log_w.float()
+    lw32 = lw32 if lw32.stride(-1) == 1 else lw32.contiguous()
+    u32 = u.to(torch.float32).contiguous()
+    dev = r.device
+    grads = (torch.empty(r.shape, dtype=r.dtype, device=dev),
+             torch.empty(k.shape, dtype=k.dtype, device=dev),
+             torch.empty(v.shape, dtype=v.dtype, device=dev),
+             torch.empty(r.shape, dtype=torch.float32, device=dev),
+             torch.empty((h, Nk), dtype=torch.float32, device=dev))
+    if B * h == 0:
+        return tuple(x.zero_() for x in grads)
+    args, _scratch = chunk_args(r, k, v, lw32, u32, dout, grads)
+    rc = _library().wkv_backward_chunked(_DTYPES[r.dtype],
+                                         ctypes.addressof(args),
+                                         _build.stream_handle())
+    _build.check_launch(rc, "wkv_scan_backward (chunk)")
+    LAUNCHES["wkv_scan_backward"] += 1
+    ROUTE_CALLS["chunk"] += 1
+    dr, dk, dv, dlw, du = grads
     return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)

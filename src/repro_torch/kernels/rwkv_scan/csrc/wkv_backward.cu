@@ -1,4 +1,6 @@
-// Hopper (sm_90a) RWKV6 WKV scan backward: dr, dk, dv, dlog_w and du of
+// Hopper (sm_90a) RWKV6 WKV scan backward, route "step" (the chunk-parallel
+// route "chunk" is wkv_backward_chunk.cuh, included below and reached by
+// wkv_backward_chunked): dr, dk, dv, dlog_w and du of
 // the forward kernels' function (wkv_scan.cu, wkv_chunk.cuh) for a zero
 // initial state and an unused final state.  The JAX package has no
 // backward Pallas kernel (jax.value_and_grad differentiates its jnp
@@ -53,6 +55,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "wkv_backward_chunk.cuh"
 
 namespace wkv_bwd {
 
@@ -348,6 +352,27 @@ int wkv_backward(int dtype, const void* args, void* stream) {
   if (dtype == wkv_bwd::kF32) return wkv_bwd::dispatch<float>(a, s);
   if (dtype == wkv_bwd::kBF16)
     return wkv_bwd::dispatch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// sizeof(wkvbc::Args), so the wrapper can check its ctypes mirror
+int wkv_backward_chunked_args_size() { return (int)sizeof(wkvbc::Args); }
+
+// The chunk route's chunk and block lengths (the wrapper sizes its scratch
+// by the first and routes shorter sequences to "step").
+int wkv_backward_chunked_len() { return wkvbc::kC; }
+int wkv_backward_chunked_block() { return wkvbc::kL; }
+
+// The chunk route: returns a cudaError_t (0 = launched).  dtype as
+// wkv_backward's; 1 <= nk <= 64, 1 <= nv <= 64, T >= 1.
+int wkv_backward_chunked(int dtype, const void* args, void* stream) {
+  const wkvbc::Args& a = *static_cast<const wkvbc::Args*>(args);
+  if (a.nk < 1 || a.nk > 64 || a.nv < 1 || a.nv > wkvbc::kNV)
+    return (int)cudaErrorInvalidValue;
+  if (a.B == 0 || a.H == 0 || a.T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == wkv_bwd::kF32) return wkvbc::dispatch<float>(a, s);
+  if (dtype == wkv_bwd::kBF16) return wkvbc::dispatch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

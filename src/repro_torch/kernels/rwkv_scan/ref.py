@@ -4,7 +4,8 @@ Pallas kernel's layout (the port of ``repro/kernels/rwkv_scan/ref.py``),
 :func:`wkv_subchunk_ref`, the algorithm of the ``tensor_core`` route, and
 :func:`wkv_chunk_f32_ref`, that of the ``chunk_f32`` route, both in model
 layout; :func:`wkv_backward_ref`, autograd through the chunked
-recurrence, is the plain version of the backward kernel."""
+recurrence, is the plain version of the backward kernel, and
+:func:`wkv_backward_chunk_ref` the algorithm of its ``chunk`` route."""
 from __future__ import annotations
 
 from typing import Optional
@@ -264,3 +265,219 @@ def wkv_backward_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out, _ = chunked_linear_recurrence(*xs[:4], u=xs[4], mode="rwkv",
                                            chunk=chunk)
         return torch.autograd.grad(out, xs, dout)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, tf32: bool) -> torch.Tensor:
+    """a @ b; with ``tf32`` as the kernel's ``mma.sync`` takes it: each fp32
+    operand split into hi = tf32(x) and lo = tf32(x - hi), and the product
+    lo.hi + hi.lo + hi.hi (three TF32 products, fp32 sums)."""
+    if not tf32:
+        return a @ b
+    ah, bh = tf32_round(a), tf32_round(b)
+    al, bl = tf32_round(a - ah), tf32_round(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def wkv_backward_chunk_ref(r: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, log_w: torch.Tensor,
+                           u: torch.Tensor, dout: torch.Tensor, *,
+                           chunk: int = 64, sub: int = 16,
+                           tf32: bool = True):
+    """The plain version of the backward's ``chunk`` route
+    (``csrc/wkv_backward_chunk.cuh``: ``chunk=64, sub=16``): (dr, dk, dv,
+    dlog_w, du) of the WKV scan (zero initial state, final state unused)
+    in model layout, each in its input's dtype.
+
+    With w = log_w * log2(e), per chunk cut into blocks of ``sub`` steps,
+    and per block its in-block sums of w before each step (Pin), after it
+    (Xin) and over it (T); every gate is 2^(a sum of w over a run of
+    steps), the runs between blocks taken as sums of whole blocks' T:
+
+    * (a) each chunk's state (k 2^X)^T v and gradient state (r 2^P)^T dout
+      (X the chunk's sums after a step, P before it) and decay 2^(sum T);
+    * (b) the scans over chunks: each chunk's starting state S^c, its
+      ending gradient state dS^c (dS_{c-1} = decay_c dS_c + its own), and
+      Q^c = rowwise dS^c . S^{c+1};
+    * (c) per chunk, M' = dout v^T and the forward's gated M (between
+      blocks (r 2^Pin)(k 2^Xin 2^gap)^T, in the diagonal blocks gates as
+      running products of E = 2^w and the bonus r u k on the diagonal);
+      then per block dr' = 2^Pin (dout S^T 2^pre + sum over earlier
+      blocks M' (k 2^Xin) 2^gap) + its diagonal block's terms, dk' = 2^Xin
+      (v dS^T 2^post + sum over later blocks M'^T (r 2^Pin) 2^gap) + its
+      diagonal block's, dv = (k 2^Xin 2^post) dS + M^T dout; dr = dr' + u k
+      vd, dk = dk' + u r vd (vd = v . dout); dlog_w back through each
+      block (dlog_w_t = Q_t - k_t dk'_t, Q_{t-1} = dlog_w_t + r_t dr'_t)
+      from Q at its end: Q^c plus the later blocks' sums of r dr' - k dk'
+      (rounding runs over at most a chunk's additions); du the chunks'
+      sums of r k vd, added in (batch, chunk) order.
+
+    ``tf32=True`` takes every product between blocks (and of the states)
+    with split TF32 operands as the kernel's tensor cores do; the diagonal
+    blocks are fp32.  The ragged last chunk is padded with zeros (log_w = 0:
+    gates of 1, nothing added)."""
+    if chunk % sub:
+        raise ValueError(f"sub {sub} must divide chunk {chunk}")
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
+    f32 = torch.float32
+    L, NB = sub, chunk // sub
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    dev = r.device
+
+    def chunks(x):                          # [B, h, nc, chunk, N], fp32
+        x = F.pad(x.to(f32), (0, 0, 0, 0, 0, pad))
+        return x.reshape(B, nc, chunk, h, x.shape[-1]).permute(0, 3, 1, 2, 4)
+    rc, kc, vc, dc = map(chunks, (r, k, v, dout))
+    blocks = lambda x: x.reshape(B, h, nc, NB, L, x.shape[-1])
+    rb, kb, vb, db = map(blocks, (rc, kc, vc, dc))
+    wb = blocks(chunks(log_w) * LOG2E)
+    uf = u.to(f32)
+
+    # in-block sums in step order: Pin forward (T its total), Xin back
+    Pin, Xin = torch.zeros_like(wb), torch.zeros_like(wb)
+    acc = torch.zeros_like(wb[..., 0, :])
+    for l in range(L):
+        Pin[..., l, :] = acc
+        acc = acc + wb[..., l, :]
+    T = acc                                           # [B, h, nc, NB, Nk]
+    acc = torch.zeros_like(T)
+    for l in range(L - 1, -1, -1):
+        Xin[..., l, :] = acc
+        acc = acc + wb[..., l, :]
+    E, ePin, eXin = torch.exp2(wb), torch.exp2(Pin), torch.exp2(Xin)
+    rP, kX = rb * ePin, kb * eXin
+
+    def span(a, b):     # 2^(T of blocks a+1 .. b-1), [B, h, nc, 1, Nk]
+        s = torch.zeros_like(T[..., 0, :])
+        for j in range(a + 1, b):
+            s = s + T[..., j, :]
+        return torch.exp2(s)[..., None, :]
+    pre = [span(-1, t) for t in range(NB)]
+    post = [span(s, NB) for s in range(NB)]
+    tr = lambda x: x.transpose(-1, -2)
+
+    # (a) the chunks' states, gradient states and decays
+    kXp = torch.cat([kX[..., s, :, :] * post[s] for s in range(NB)], -2)
+    rPp = torch.cat([rP[..., t, :, :] * pre[t] for t in range(NB)], -2)
+    local = _mm(tr(kXp), vc, tf32)                    # [B, h, nc, Nk, Nv]
+    dlocal = _mm(tr(rPp), dc, tf32)
+    tot = torch.zeros_like(T[..., 0, :])
+    for j in range(NB):
+        tot = tot + T[..., j, :]
+    decay = torch.exp2(tot)[..., None]                # [B, h, nc, Nk, 1]
+
+    # (b) the scans: starting states forward, ending gradient states back
+    st = torch.zeros((B, h, Nk, Nv), dtype=f32, device=dev)
+    starts = []
+    for c in range(nc):
+        starts.append(st)
+        st = decay[:, :, c] * st + local[:, :, c]
+    nexts = starts[1:] + [st]
+    dst = torch.zeros_like(st)
+    ends, qend = [None] * nc, [None] * nc
+    for c in range(nc - 1, -1, -1):
+        ends[c] = dst
+        qend[c] = (dst * nexts[c]).sum(-1)
+        dst = decay[:, :, c] * dst + dlocal[:, :, c]
+    S0, dS = torch.stack(starts, 2), torch.stack(ends, 2)
+    Q = torch.stack(qend, 2)                          # [B, h, nc, Nk]
+
+    # (c) per chunk: M' and M ...
+    Mp = _mm(dc, tr(vc), tf32).reshape(B, h, nc, NB, L, NB, L)
+    M = torch.zeros_like(Mp)
+    for t in range(NB):
+        for s in range(t):
+            M[:, :, :, t, :, s] = _mm(rP[..., t, :, :],
+                                      tr(kX[..., s, :, :] * span(s, t)),
+                                      tf32)
+    # the diagonal blocks: from the block's last step back, the query's
+    # coefficients start at zero, the bonus takes the key s = t, then r_t,
+    # each key step multiplying them by its E
+    coef, bonus = torch.zeros_like(rb), rb * uf[None, :, None, None, None, :]
+    Md = torch.zeros((B, h, nc, NB, L, L), dtype=f32, device=dev)
+    rows = torch.arange(L, device=dev)[:, None]
+    for s_ in range(L - 1, -1, -1):
+        diag = rows == s_
+        Md[..., s_] = (torch.where(diag, bonus, coef)
+                       * kb[..., s_, None, :]).sum(-1)
+        coef = torch.where(diag, rb, coef * E[..., s_, None, :])
+    for b in range(NB):
+        M[:, :, :, b, :, b] = Md[:, :, :, b]
+
+    # ... then each block's gradients
+    def shift(x, d, down):      # x[t - d] (down) or x[t + d], zero outside
+        return (F.pad(x[..., :L - d, :], (0, 0, d, 0)) if down
+                else F.pad(x[..., d:, :], (0, 0, 0, d)))
+    drp, dkp, dv = [], [], []
+    for b in range(NB):
+        Mpd = Mp[:, :, :, b, :, b]                    # [B, h, nc, L, L]
+        # dr': the state before the chunk, the earlier blocks, the diagonal
+        acc = _mm(db[..., b, :, :], tr(S0), tf32) * pre[b]
+        for s in range(b):
+            acc = acc + _mm(Mp[:, :, :, b, :, s], kX[..., s, :, :],
+                            tf32) * span(s, b)
+        acc = acc * ePin[..., b, :, :]
+        gate = torch.ones_like(acc)
+        for d in range(1, L):           # key t - d of query t
+            m = F.pad(torch.diagonal(Mpd, -d, -2, -1), (d, 0))[..., None]
+            acc = acc + gate * shift(kb[..., b, :, :], d, True) * m
+            gate = gate * shift(E[..., b, :, :], d, True)
+        drp.append(acc)
+        # dk': the gradient state after the chunk, the later blocks, the
+        # diagonal
+        acc = _mm(vb[..., b, :, :], tr(dS), tf32) * post[b]
+        for t in range(b + 1, NB):
+            acc = acc + _mm(tr(Mp[:, :, :, t, :, b]), rP[..., t, :, :],
+                            tf32) * span(b, t)
+        acc = acc * eXin[..., b, :, :]
+        gate = torch.ones_like(acc)
+        for d in range(1, L):           # query s + d of key s
+            m = F.pad(torch.diagonal(Mpd, -d, -2, -1), (0, d))[..., None]
+            acc = acc + gate * shift(rb[..., b, :, :], d, False) * m
+            gate = gate * shift(E[..., b, :, :], d, False)
+        dkp.append(acc)
+        # dv: the gradient state after the chunk, then M^T dout
+        acc = _mm(kX[..., b, :, :] * post[b], dS, tf32)
+        for t in range(b, NB):
+            acc = acc + _mm(tr(M[:, :, :, t, :, b]), db[..., t, :, :], tf32)
+        dv.append(acc)
+    drp, dkp, dv = (torch.stack(x, 3).reshape(B, h, nc, chunk, -1)
+                    for x in (drp, dkp, dv))
+    vd = torch.diagonal(Mp.reshape(B, h, nc, chunk, chunk), 0, -2,
+                        -1)[..., None]
+    uk = uf[None, :, None, None, :]
+    dr = drp + uk * kc * vd
+    dk = dkp + uk * rc * vd
+    # dlog_w back through each block from Q^c plus the later blocks' sums
+    # of r dr' - k dk'
+    kd, rdr = blocks(kc * dkp), blocks(rc * drp)
+    ysum = torch.zeros_like(T)
+    for l in range(L - 1, -1, -1):
+        ysum = ysum + (rdr[..., l, :] - kd[..., l, :])
+    dlw = torch.zeros_like(kd)
+    for b in range(NB):
+        q = Q
+        for later in range(NB - 1, b, -1):
+            q = q + ysum[..., later, :]
+        for l in range(L - 1, -1, -1):
+            dlw[..., b, l, :] = q - kd[..., b, l, :]
+            q = dlw[..., b, l, :] + rdr[..., b, l, :]
+    dlw = dlw.reshape(B, h, nc, chunk, Nk)
+    rkv = blocks(rc * kc * vd)         # the chunk's r k vd, by blocks
+    part = torch.zeros_like(Q)                        # [B, h, nc, Nk]
+    for b in range(NB):
+        pb = torch.zeros_like(Q)
+        for l in range(L - 1, -1, -1):
+            pb = pb + rkv[..., b, l, :]
+        part = part + pb
+    du = torch.zeros_like(uf)
+    for b in range(B):
+        for c in range(nc):
+            du = du + part[b, :, c]
+
+    def unchunk(x, like):
+        x = x.permute(0, 2, 3, 1, 4).reshape(B, nc * chunk, h, x.shape[-1])
+        return x[:, :S].to(like.dtype)
+    return (unchunk(dr, r), unchunk(dk, k), unchunk(dv, v),
+            unchunk(dlw, log_w), du.to(u.dtype))
