@@ -267,7 +267,29 @@ Phases, one printed line each (plus detail lines):
               unsharded full-batch step's, each gathered gradient leaf
               within 1e-4 of its largest entry, the gathered parameters
               within 1e-6 of each leaf's largest of the unsharded AdamW
-              fed that gradient.
+              fed that gradient.  (d) ZeRO-3 composed with TP: Qwen2-1.5B
+              at full width and depth on (data 2, model 2) under
+              ``default_rules(False)`` (its FSDP overlay on 'data'), phase
+              9 (b)'s configuration (seed, 8 x 2,048 tokens in two
+              microbatches, remat, fp32 AdamW), three steps, the third on
+              a collective clock: steps 1-2 loss and clipping norm
+              within 1e-5 of phase 9 (b)'s; each rank's params, m and v
+              bytes equal to the specs of ``train_state_pspecs(fsdp=
+              True)``; flash by route (``mma_tf32`` forward, the
+              backward's dq_mma / dkdv_mma) and no plain version; the step
+              wall (the slowest rank's median of steps 2-3), tokens/s,
+              each rank's peak, and the share of a step in the 'data'
+              collectives (gathers, reduce-scatters, the replicated
+              leaves' psum; host clock).  (e) one ZeRO-3 step of every
+              arch at reduced() widened (no leaf of reduced() reaches the
+              overlay's 2^16 elements) on (data 2, model 1) (two such
+              meshes side by side under a 'pod' axis), the dense and VLM
+              archs also on (2, 2), AdamW, and Adafactor on qwen2-72b at
+              (2, 2): loss within 1e-5 of the unsharded step on the card,
+              each gathered gradient leaf within 1e-4 of its largest
+              entry, the gathered parameters within 1e-6 of the unsharded
+              optimizer fed that gradient; flash and WKV, forward and
+              backward, launched.
 8. kernels line — one JSON object with all eleven kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -320,8 +342,8 @@ reduced steps for WKV); the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
 (phase 4d) and ``scheduler`` path (phase 4e's coded/kernel conformance
 cells) must launch too, and the ``tp`` path (phase 10, summed over its
-ranks: the ``generate`` of (a) and (b) and the steps of (c)) launches
-flash forward and backward.
+ranks: the ``generate`` of (a) and (b) and the steps of (c), (d) and (e))
+launches flash and WKV, forward and backward.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -3455,7 +3477,7 @@ def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     n_params = sum(p.numel() for p in opt.tree_leaves(state["params"]))
     pipe = pipeline.SyntheticPipeline(cfg, 8, 2048, seed=seed)
     step = tr.make_train_step(cfg, tc)
-    losses, walls, launches, routes = [], [], None, None
+    losses, norms, walls, launches, routes = [], [], [], None, None
     for i in range(TRAIN_STEPS):
         batch = pipe.batch_at(i)
         if i == 0:
@@ -3465,6 +3487,7 @@ def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
         else:
             (state, m), ms = wall(torch, lambda: step(state, batch))
         losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
         walls.append(ms)
         say(f"  train {cfg.name} step {i + 1}: loss {losses[-1]!r} "
             f"grad_norm {float(m['grad_norm'])!r} wall {ms:.1f} ms "
@@ -3481,7 +3504,7 @@ def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
             "dtype": "float32", "global_batch": [8, 2048],
             "n_microbatches": tc.n_microbatches, "remat": True,
             "optimizer": "adamw", "steps": TRAIN_STEPS, "losses": losses,
-            "step_walls_ms": walls, "step_ms_median": step_ms,
+            "grad_norms": norms, "step_walls_ms": walls, "step_ms_median": step_ms,
             "tokens_per_s": tokens / step_ms * 1e3,
             "peak_memory_gb": peak_gb, "init_s": init_s,
             "launches_first_step": launches, "routes_first_step": routes,
@@ -3567,7 +3590,49 @@ TRAIN_RWKV_LAYERS = (16, 12)
 TRAIN_RWKV_PEAK_GB = 75.0
 
 
-def train_rwkv_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
+# the forward WKV call of (b')'s train microbatch, timed on its route
+TRAIN_WKV_FORWARD = (4, 2048, 40, 64, 64)
+
+
+def wkv_forward_row(torch, rw, peaks, seed, B, S, h, Nk, Nv):
+    """One fp32 ``wkv_scan`` call at [B, S, h, Nk/Nv] (phase 5's inputs:
+    gaussian streams, log_w = -exp of one): its route, its error against
+    the chunk-16 recurrence, its ms by events and the plain version's (the
+    chunk-64 recurrence), and its bound."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + 203)
+    rnd = lambda *s_: torch.randn(s_, generator=g, device=dev)
+    r, k, v = rnd(B, S, h, Nk), rnd(B, S, h, Nk), rnd(B, S, h, Nv)
+    log_w = -torch.exp(rnd(B, S, h, Nk))
+    u, s0 = 0.1 * rnd(h, Nk), 0.1 * rnd(B, h, Nk, Nv)
+    rw.reset_launch_counts()
+    out, sT = rw.wkv_scan(r, k, v, log_w, u, s0)
+    torch.cuda.synchronize()
+    route = [w for w, n in rw.ROUTE_CALLS.items() if n]
+    want, want_sT = rw.chunked_linear_recurrence(
+        r, k, v, log_w, u=u, initial_state=s0, mode="rwkv", chunk=16,
+        return_state=True)
+    torch.testing.assert_close(out, want, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(sT, want_sT, rtol=3e-4, atol=3e-4)
+    n_in = B * S * h
+    nbytes = (4 * n_in * (3 * Nk + 2 * Nv) + 4 * h * Nk
+              + 8 * B * h * Nk * Nv)
+    row = {"B": B, "S": S, "h": h, "Nk": Nk, "Nv": Nv, "dtype": "float32",
+           "route": route, "tolerance": "rtol=3e-4,atol=3e-4",
+           "max_abs_err": max(float((out - want).abs().max()),
+                              float((sT - want_sT).abs().max())),
+           "ms": cuda_ms(torch, lambda: rw.wkv_scan(r, k, v, log_w, u, s0)),
+           "plain_ms": cuda_ms(torch, lambda: rw.chunked_linear_recurrence(
+               r, k, v, log_w, u=u, initial_state=s0, mode="rwkv",
+               chunk=64, return_state=True), 3, 1), "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound(peaks, nbytes,
+                                             7.0 * n_in * Nk * Nv,
+                                             "float32")
+    return row
+
+
+def train_rwkv_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi,
+                     rw=None, peaks=None):
     """Phase 9 (b'): RWKV6-3B at full width, cut in depth
     (``TRAIN_RWKV_LAYERS``), by ``_train_run``: the path that launches the
     WKV backward at full width.  Gated on its WKV launches: a forward and a
@@ -3636,6 +3701,18 @@ def train_rwkv_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     for k in info["by_kernel"][:6]:
         say(f"    {k['ms']:.3f} ms x{k['count']} {k['name']}")
     del prof
+    torch.cuda.empty_cache()
+    # the step's forward WKV call, at its microbatch's shape, on its route
+    row = info["wkv_forward"] = wkv_forward_row(torch, rw, peaks, seed,
+                                                *TRAIN_WKV_FORWARD)
+    check(row["route"] == ["step"],
+          f"the train microbatch's forward WKV call took {row['route']}")
+    say(f"  kernel wkv_scan rwkv6_train_micro B={row['B']} S={row['S']} "
+        f"h={row['h']} Nk={row['Nk']} Nv={row['Nv']} float32 route=step "
+        f"(the step's {want['wkv_scan']} forward launches): kernel_ms="
+        f"{row['ms']:.6f} plain_ms={row['plain_ms']:.6f} library_ms=null "
+        f"bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) max_abs_err="
+        f"{row['max_abs_err']!r} tolerance={row['tolerance']} [{smi}]")
     torch.cuda.empty_cache()
     return info, launches
 
@@ -3939,6 +4016,32 @@ TP_TRAIN_BATCH = (8, 64)
 # unsharded AdamW fed the gathered gradient (the sharded clipping norm
 # sums in another order: an ulp of p)
 TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-5, 1e-4, 1e-6
+# (d): ZeRO-3 (default_rules' FSDP overlay on 'data') composed with TP on
+# (data 2, model 2): Qwen2-1.5B at full width and depth in phase 9 (b)'s
+# configuration (seed, SyntheticPipeline 8 x 2,048 tokens, two
+# microbatches, remat, fp32 AdamW); Z3_STEPS steps timed, the last on the
+# collective clock.  Steps 1 and 2 held to phase 9 (b)'s loss and
+# clipping norm within Z3_TOL relative.  Z3_LAYERS cuts the depth (None:
+# all 28 layers)
+Z3_ARCH = "qwen2-1.5b"
+Z3_MESH = (2, 2)
+Z3_STEPS = 3
+Z3_LAYERS = None
+Z3_TOL = 1e-5
+# (e): one step of every arch under ZeRO-3 on (data 2, model 1) (two such
+# meshes side by side: a 'pod' axis the rules leave alone), the dense and
+# VLM archs also on (data 2, model 2), AdamW, and Adafactor on qwen2-72b at
+# (2, 2), against the unsharded step on the card.  At reduced() no leaf
+# reaches the overlay's 2^16 elements, so every arch runs reduced() widened
+# (z3_config, as tests/test_torch_zero3.py does); a batch of 8 x 64
+Z3E_BATCH = (8, 64)
+Z3E_POD_MESH = (2, 2, 1)
+Z3E_TP_MESH = (2, 2)
+Z3E_ADAFACTOR = "qwen2-72b"
+# a gradient leaf below Z3E_FLOOR of its tree's largest (zero up to
+# rounding: Whisper's key biases) is held against Z3E_FLOOR of it, as
+# phase 9 (c) does
+Z3E_FLOOR = 1e-3
 
 
 def tp_config(get_arch, layers: int):
@@ -3954,6 +4057,34 @@ def tp_prompts(np, cfg, slots: int, length: int, seed: int):
 def tp_train_config(tr, opt):
     return tr.TrainConfig(n_microbatches=1, remat=True,
                           opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=2,
+                                                  decay_steps=50))
+
+
+def z3_config(cfg):
+    """``cfg.reduced()`` widened so that the FSDP overlay splits leaves:
+    vocabulary 2,048, d_ff 512, MoE experts of d_ff 128, Whisper's d_ff
+    32,768 (its FFN biases ``[2, 32768]`` split by whole layers)."""
+    cfg = cfg.reduced()
+    kw = dict(vocab_size=2048, d_ff=512)
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(cfg.moe, d_ff_expert=128)
+    if cfg.family == "encdec":
+        kw["d_ff"] = 32768
+    return dataclasses.replace(cfg, **kw)
+
+
+def z3e_cases(ARCHS):
+    """(arch, mesh shape, optimizer kind) of (e)."""
+    out = [(a, Z3E_POD_MESH, "adamw") for a in sorted(ARCHS)]
+    out += [(a, Z3E_TP_MESH, "adamw") for a in sorted(ARCHS)
+            if ARCHS[a].family in ("dense", "vlm")]
+    return out + [(Z3E_ADAFACTOR, Z3E_TP_MESH, "adafactor")]
+
+
+def z3e_train_config(tr, opt, kind: str):
+    return tr.TrainConfig(n_microbatches=1, remat=True, dense_moe=True,
+                          opt=opt.OptimizerConfig(kind=kind, lr=1e-3,
+                                                  warmup_steps=2,
                                                   decay_steps=50))
 
 
@@ -4059,15 +4190,163 @@ class _CollectiveClock:
         return timed
 
 
+class _AxisClock:
+    """Host seconds in the collectives over one mesh axis during the calls
+    run through :meth:`run`, beside those calls' walls: every outermost
+    collective over the axis (``psum_scatter`` calls ``all_to_all``) is
+    timed between two device synchronisations, as ``_CollectiveClock``
+    times the model axis."""
+
+    NAMES = ("all_gather", "psum", "psum_scatter", "all_to_all")
+
+    def __init__(self, torch, col, axis: str):
+        self.torch, self.col, self.axis = torch, col, axis
+        self.on, self.depth, self.wall = False, 0, 0.0
+        self.by_name = dict.fromkeys(self.NAMES, 0.0)
+        self.saved = [(n, getattr(col, n)) for n in self.NAMES]
+
+    def __enter__(self):
+        for name, fn in self.saved:
+            setattr(self.col, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved:
+            setattr(self.col, name, fn)
+
+    def run(self, fn):
+        self.torch.cuda.synchronize()
+        t0, self.on = time.perf_counter(), True
+        try:
+            return fn()
+        finally:
+            self.torch.cuda.synchronize()
+            self.wall += time.perf_counter() - t0
+            self.on = False
+
+    def share(self) -> float:
+        return sum(self.by_name.values()) / self.wall
+
+    def _timed(self, name, fn):
+        def timed(x, mesh, axis, *args, **kwargs):
+            if self.depth or not self.on or axis != self.axis:
+                return fn(x, mesh, axis, *args, **kwargs)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.depth += 1
+            try:
+                return fn(x, mesh, axis, *args, **kwargs)
+            finally:
+                self.depth -= 1
+                self.torch.cuda.synchronize()
+                self.by_name[name] += time.perf_counter() - t0
+        return timed
+
+
+def zero3_full_rank(torch, tr, opt, pipeline, sh, tpl, col, get_arch,
+                    counts, mesh, seed: int, dev):
+    """(d) in one rank: Qwen2-1.5B at full width under ZeRO-3 and TP on
+    ``mesh`` (data 2, model 2).  Returns CPU numbers."""
+    cfg = get_arch(Z3_ARCH)
+    if Z3_LAYERS is not None:
+        cfg = dataclasses.replace(cfg, n_layers=Z3_LAYERS)
+    pol = sh.ShardingPolicy(mesh, sh.default_rules(False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tc = tr.TrainConfig(n_microbatches=2, remat=True,
+                        opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                decay_steps=100))
+    t0 = time.perf_counter()
+    params = tpl.init_shard_params(seed, cfg, pol, device=dev)
+    state = {"params": params, "opt": opt.init_opt_state(params, tc.opt),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = tr.state_local_bytes(state, cfg, pol)
+    param_bytes = tpl.local_bytes(params)
+    del params
+    pipe = pipeline.SyntheticPipeline(cfg, 8, 2048, seed=seed, device=dev)
+    step = tr.make_train_step(cfg, tc)
+    losses, norms, walls = [], [], []
+    with sh.use_policy(pol), _AxisClock(torch, col, "data") as clock:
+        for i in range(Z3_STEPS):
+            batch = pipe.batch_at(i)
+            if i == 0:
+                ((state, m), ms), launches, plain = counts(
+                    lambda: wall(torch, lambda: step(state, batch)))
+                routes = dict(counts.routes["flash_attention"])
+            elif i == Z3_STEPS - 1:         # the last, on the clock
+                state, m = clock.run(lambda: step(state, batch))
+                ms = clock.wall * 1e3
+            else:
+                (state, m), ms = wall(torch, lambda: step(state, batch))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            walls.append(ms)
+    out = {"n_layers": cfg.n_layers, "losses": losses, "grad_norms": norms,
+           "step_walls_ms": walls, "init_s": init_s,
+           "state_bytes": state_bytes, "param_bytes": param_bytes,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "launches": launches, "plain": plain, "routes": routes,
+           "data_collective_s": dict(clock.by_name),
+           "data_collective_share": clock.share()}
+    del state, m, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero3_cases_rank(torch, tr, opt, pipeline, sh, tpl, get_arch, ARCHS,
+                     counts, seed: int, dev):
+    """(e) in one rank: each case of :func:`z3e_cases` under ZeRO-3; the
+    loss and norm, the gathered gradient and updated parameters, and the
+    launches."""
+    from repro_torch.distributed.meshes import make_process_mesh
+    meshes = {Z3E_POD_MESH: make_process_mesh(
+                  Z3E_POD_MESH, ("pod", "data", "model"), device=dev),
+              Z3E_TP_MESH: make_process_mesh(
+                  Z3E_TP_MESH, ("data", "model"), device=dev)}
+    out, total = {}, {}
+    for arch, shape, kind in z3e_cases(ARCHS):
+        cfg = z3_config(get_arch(arch))
+        tc = z3e_train_config(tr, opt, kind)
+        full = tr.init_train_state(seed, cfg, tc, device=dev)["params"]
+        batch = pipeline.SyntheticPipeline(cfg, *Z3E_BATCH, seed=seed,
+                                           device=dev).batch_at(0)
+        pol = sh.ShardingPolicy(meshes[shape], sh.default_rules(False))
+        local = opt.tree_map(lambda x: x.clone(),
+                             tpl.shard_params(full, cfg, pol))
+        state = {"params": local, "opt": opt.init_opt_state(local, tc.opt),
+                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        with sh.use_policy(pol):
+            (new, m), launches, plain = counts(
+                lambda: tr.make_train_step(cfg, tc)(state, batch))
+            grads, _ = tr._policy_grads(local, cfg, tc, batch, pol)
+            grads = tpl.gather_params(grads, cfg, pol)
+            params = tpl.gather_params(new["params"], cfg, pol)
+        out[(arch, shape, kind)] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": [x.cpu() for x in opt.tree_leaves(grads)],
+            "params": [x.cpu() for x in opt.tree_leaves(params)],
+            "plain": plain,
+            "zero3_leaves": sum(k != "rep"
+                                for k in tpl.layout(cfg, pol).zkinds)}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        del full, local, state, new, grads, params
+    return out, total
+
+
 def tp_rank(dev, seed: int, t_spawn: float):
     """What each of phase 10's ranks runs (module level: the ranks import
     it by name), on a ('data', 'model') process mesh over the four ranks:
-    (a) the fp32 check, (b) the timed bf16 serving, (c) the train steps.
-    Returns CPU tensors and numbers."""
+    (a) the fp32 check, (b) the timed bf16 serving, (c) the train steps,
+    (d) Qwen2-1.5B at full width under ZeRO-3 and TP, (e) every arch under
+    ZeRO-3.  Returns CPU tensors and numbers."""
     t_enter = time.time()
     import numpy as np
     import torch
-    from repro_torch.configs import get_arch
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data import pipeline
     from repro_torch.data.pipeline import SyntheticPipeline
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed import sharding as sh
@@ -4075,13 +4354,15 @@ def tp_rank(dev, seed: int, t_spawn: float):
     from repro_torch.distributed.meshes import make_process_mesh
     from repro_torch.kernels.flash_attention import backward as fab
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv_scan import backward as rwb
+    from repro_torch.kernels.rwkv_scan import ops as rw
     from repro_torch.models import lm
     from repro_torch.serve import engine as serve
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainer as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    counts = Counts(torch, (fa, fab))
+    counts = Counts(torch, (fa, fab, rw, rwb))
     mesh = make_process_mesh((1, TP_RANKS), ("data", "model"), device=dev)
     pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
     out = {"rank": mesh.rank, "spawn_to_rendezvous_s": t_enter - t_spawn,
@@ -4167,15 +4448,148 @@ def tp_rank(dev, seed: int, t_spawn: float):
             "params": [x.cpu() for x in opt.tree_leaves(params)],
             "routes": routes, "plain": plain}
         out["launches"][f"c {shape} seq_tp={seq}"] = launches
+    del full, local, state, new_state, grads, params
+    torch.cuda.empty_cache()
+
+    # (d) Qwen2-1.5B at full width under ZeRO-3 and TP
+    t0 = time.perf_counter()
+    dmesh = make_process_mesh(Z3_MESH, ("data", "model"), device=dev)
+    out["zero3_full"] = zero3_full_rank(torch, tr, opt, pipeline, sh, tpl,
+                                        col, get_arch, counts, dmesh, seed,
+                                        dev)
+    out["zero3_full"]["part_s"] = time.perf_counter() - t0
+    out["launches"]["d"] = out["zero3_full"]["launches"]
+
+    # (e) every arch under ZeRO-3
+    t0 = time.perf_counter()
+    out["zero3_cases"], out["launches"]["e"] = zero3_cases_rank(
+        torch, tr, opt, pipeline, sh, tpl, get_arch, ARCHS, counts, seed,
+        dev)
+    out["zero3_cases_s"] = time.perf_counter() - t0
+    return out
+
+
+def zero3_refs(torch, tr, opt, pipeline, get_arch, ARCHS, seed,
+               device="cuda"):
+    """(e)'s references: each (arch, optimizer) of :func:`z3e_cases`
+    unsharded on the card: the loss and norm of its step, its gradient,
+    and the parameters before it (on the CPU)."""
+    refs = {}
+    for arch, _, kind in z3e_cases(ARCHS):
+        if (arch, kind) in refs:
+            continue
+        cfg = z3_config(get_arch(arch))
+        tc = z3e_train_config(tr, opt, kind)
+        state = tr.init_train_state(seed, cfg, tc, device=device)
+        batch = pipeline.SyntheticPipeline(cfg, *Z3E_BATCH, seed=seed,
+                                           device=device).batch_at(0)
+        grads, _ = tr.accumulate_grads(state["params"], cfg, tc, batch)
+        before = [x.cpu() for x in opt.tree_leaves(state["params"])]
+        _, m = tr.make_train_step(cfg, tc)(state, batch)
+        refs[(arch, kind)] = {
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "grads": [x.cpu() for x in opt.tree_leaves(grads)],
+            "before": before, "tc": tc}
+        del state, grads, m
+    torch.cuda.empty_cache()
+    return refs
+
+
+def zero3_full_gates(res, ref9, smi):
+    """(d)'s gates on one rank's results against phase 9 (b)'s run."""
+    r, z = res["rank"], res["zero3_full"]
+    L = z["n_layers"]
+    for i in range(2):
+        for key in ("losses", "grad_norms"):
+            want, got = ref9[key][i], z[key][i]
+            check(abs(got - want) <= Z3_TOL * abs(want),
+                  f"tp (d) rank {r} step {i + 1}: {key[:-1]} {got!r}, "
+                  f"phase 9 (b) {want!r} (limit {Z3_TOL} relative)")
+    b = z["state_bytes"]
+    check(b["held"] == b["specs"] and b["duplicated"] == 0,
+          f"tp (d) rank {r}: state bytes {b} (params, m and v) against "
+          f"train_state_pspecs(fsdp=True)")
+    want = {"tensor_core": 0, "tensor_core_wide": 0, "split_kv": 0,
+            "mma_tf32": 2 * L * 2}
+    check(z["routes"] == want
+          and z["launches"]["flash_attention_backward"] == L * 2
+          and not any(z["plain"].values()),
+          f"tp (d) rank {r}: flash forward by route {z['routes']} (want "
+          f"{want}: a forward and a remat recompute a layer and "
+          f"microbatch), backward launches "
+          f"{z['launches']['flash_attention_backward']} (want {L * 2}, a "
+          f"dq_mma and a dkdv_mma each), plain {z['plain']}")
+def zero3_cases_gates(torch, opt, lm, get_arch, ARCHS, results, z3_refs,
+                      smi):
+    """(e)'s gates on every rank's results against :func:`zero3_refs`:
+    each case's loss, gathered gradient and updated parameters, and the
+    kernels launched.  Returns the rows, launches and part times."""
+    from repro_torch.train.optimizer import init_opt_state, optimizer_update
+    e_rows = []
+    for case in z3e_cases(ARCHS):
+        arch, shape, kind = case
+        ref = z3_refs[(arch, kind)]
+        loss, tree_top = ref["loss"], max(float(g.abs().max())
+                                          for g in ref["grads"])
+        worst_g = worst_p = 0.0
+        first = results[0]["zero3_cases"][case]
+        like = opt.tree_unflatten(
+            lm.init_params(0, z3_config(get_arch(arch)),
+                           device="meta"), ref["before"])
+        for res in results:
+            got = res["zero3_cases"][case]
+            g_err = max(_leaf_errs(got["grads"], ref["grads"],
+                                   Z3E_FLOOR * tree_top))
+            tree = lambda leaves: opt.tree_unflatten(like, leaves)
+            upd, _, _ = optimizer_update(
+                tree(got["grads"]), init_opt_state(like, ref["tc"].opt),
+                like, ref["tc"].opt)
+            p_err = max(_leaf_errs(got["params"], opt.tree_leaves(upd),
+                                   0.0))
+            worst_g, worst_p = max(worst_g, g_err), max(worst_p, p_err)
+            check(abs(got["loss"] - loss) <= Z3_TOL * abs(loss)
+                  and g_err <= TP_GRAD_TOL and p_err <= TP_PARAM_TOL
+                  and got["zero3_leaves"] > 0
+                  and not any(got["plain"].values())
+                  and all(torch.equal(a, b) for a, b in zip(
+                      got["params"], first["params"])),
+                  f"tp (e) {arch} {shape} {kind} rank {res['rank']}: "
+                  f"loss {got['loss']} vs {loss}, gradient {g_err}, "
+                  f"parameters {p_err}, {got['zero3_leaves']} ZeRO-3 "
+                  f"leaves, plain {got['plain']}")
+        e_rows.append({"arch": arch, "mesh": list(shape),
+                       "optimizer": kind,
+                       "zero3_leaves": first["zero3_leaves"],
+                       "worst_grad_rel_err": worst_g,
+                       "worst_param_rel_err": worst_p})
+    e_launches = {}
+    for res in results:
+        for k, v in res["launches"]["e"].items():
+            e_launches[k] = e_launches.get(k, 0) + v
+    check(all(e_launches.get(k, 0) > 0 for k in (
+              "flash_attention", "flash_attention_backward",
+              "wkv_scan", "wkv_scan_backward")),
+          f"tp (e): flash and WKV, forward and backward, launched under "
+          f"ZeRO-3: {e_launches}")
+    out = {"rows": e_rows, "launches": e_launches,
+           "part_s_by_rank": [res["zero3_cases_s"] for res in results]}
+    say(f"  tp (e): {len(e_rows)} ZeRO-3 steps (every arch at "
+        f"reduced() widened on (data 2, model 1), the dense and VLM "
+        f"archs on (2, 2), Adafactor on {Z3E_ADAFACTOR} at (2, 2)) "
+        f"equal the unsharded step on the card: loss within {Z3_TOL}, "
+        f"gradient within {max(r['worst_grad_rel_err'] for r in e_rows)!r}"
+        f" of each leaf's max (limit {TP_GRAD_TOL}), parameters within "
+        f"{max(r['worst_param_rel_err'] for r in e_rows)!r} (limit "
+        f"{TP_PARAM_TOL}); launches {e_launches} [{smi}]")
     return out
 
 
 def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
-             peaks, seed, smi):
+             peaks, seed, smi, ref9=None):
     """Phase 10: the unsharded references in this process, then one spawn
     of ``tp_rank`` on four ranks over gloo on the card; the gates and the
-    printed numbers.  Returns (info, launches summed over ranks and
-    parts)."""
+    printed numbers.  ``ref9``: phase 9 (b)'s run, which (d) is held to.
+    Returns (info, launches summed over ranks and parts)."""
     from repro_torch.distributed import sharding as sh
     from repro_torch.train.optimizer import adamw_update, init_opt_state
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -4213,6 +4627,10 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                                            device="cuda").batch_at(0)
         ref_grads, _ = tr.accumulate_grads(state["params"], rcfg, tc, batch)
         _, ref_m = tr.make_train_step(rcfg, tc)(state, batch)
+        # (e) references
+        from repro_torch.configs import ARCHS
+        z3_refs = zero3_refs(torch, tr, opt, pipeline, get_arch, ARCHS,
+                             seed)
         ref_s = time.perf_counter() - t_phase
         t_spawn = time.time()
         t0 = time.perf_counter()
@@ -4361,10 +4779,60 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                 f"(limit {TP_GRAD_TOL}), parameters within {worst_p!r} of "
                 f"the unsharded AdamW on it (limit {TP_PARAM_TOL}) [{smi}]")
         info["train"] = train_rows
+
+        # (d) gates and numbers: Qwen2-1.5B at full width under ZeRO-3
+        for res in results:
+            zero3_full_gates(res, ref9, smi)
+        zs = [res["zero3_full"] for res in results]
+        step_ms = max(statistics.median(z["step_walls_ms"][1:]) for z in zs)
+        z0 = zs[0]
+        d_info = {
+            "arch": Z3_ARCH, "mesh": list(Z3_MESH), "rules":
+            "default_rules(False): fsdp 'data'", "n_layers": z0["n_layers"],
+            "depth_cut": Z3_LAYERS is not None, "steps": Z3_STEPS,
+            "losses_by_rank": [z["losses"] for z in zs],
+            "grad_norms_by_rank": [z["grad_norms"] for z in zs],
+            "phase9b_losses": ref9["losses"][:Z3_STEPS],
+            "phase9b_grad_norms": ref9["grad_norms"][:Z3_STEPS],
+            "step_walls_ms_by_rank": [z["step_walls_ms"] for z in zs],
+            "step_ms": step_ms, "tokens_per_s": 8 * 2048 / step_ms * 1e3,
+            "peak_gb_by_rank": [z["peak_gb"] for z in zs],
+            "param_gb_per_rank": z0["param_bytes"] / 1e9,
+            "state_bytes_per_rank": z0["state_bytes"],
+            "init_s_by_rank": [z["init_s"] for z in zs],
+            "data_collective_share_by_rank": [z["data_collective_share"]
+                                              for z in zs],
+            "data_collective_s_by_rank": [z["data_collective_s"]
+                                          for z in zs],
+            "clocked_step": Z3_STEPS,
+            "routes_per_rank": z0["routes"],
+            "part_s_by_rank": [z["part_s"] for z in zs], "card": smi}
+        info["zero3_full"] = d_info
+        say(f"  tp (d): {Z3_ARCH} at full width, {z0['n_layers']} layers"
+            f"{' (depth cut)' if Z3_LAYERS is not None else ''}, fp32 "
+            f"AdamW under ZeRO-3 and TP on (data {Z3_MESH[0]}, model "
+            f"{Z3_MESH[1]}), 4 ranks over gloo on one card: steps 1-2 "
+            f"loss and norm within {Z3_TOL} of phase 9 (b)'s on every rank "
+            f"(losses {z0['losses']!r}, norms {z0['grad_norms']!r}); "
+            f"params {z0['param_bytes'] / 1e9!r} GB a rank, params + m + "
+            f"v {z0['state_bytes']['held'] / 1e9!r} GB == the specs'; step "
+            f"{step_ms!r} ms (slowest rank's median of steps 2-"
+            f"{Z3_STEPS}), {d_info['tokens_per_s']!r} tokens/s; peak GB by "
+            f"rank {d_info['peak_gb_by_rank']}; 'data' collectives "
+            f"{max(d_info['data_collective_share_by_rank'])!r} of step "
+            f"{Z3_STEPS} (the largest over ranks; host clock, a "
+            f"synchronisation around each); flash by route a rank {z0['routes']}, "
+            f"backward {z0['launches']['flash_attention_backward']}; part "
+            f"{max(d_info['part_s_by_rank']):.1f} s [{smi}]")
+
+        # (e) gates: each case's loss, gradient and parameters
+        info["zero3_cases"] = zero3_cases_gates(torch, opt, lm, get_arch,
+                                                ARCHS, results, z3_refs,
+                                                smi)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    launches = dict.fromkeys(("flash_attention",
-                              "flash_attention_backward"), 0)
+    launches = dict.fromkeys(("flash_attention", "flash_attention_backward",
+                              "wkv_scan", "wkv_scan_backward"), 0)
     for res in results:
         for part in res["launches"].values():
             add_counts(launches, part)
@@ -4601,7 +5069,7 @@ def main(argv=None) -> int:
         f"launches a step {full_launches} [{smi}]")
     rwkv_info, rwkv_launches = train_rwkv_phase(
         torch, tr, opt, pipeline, train_counts, ARCHS["rwkv6-3b"],
-        args.seed, smi)
+        args.seed, smi, rw, peaks)
     say(f"phase train (b'): RWKV6-3B trains at full width, cut to "
         f"{rwkv_info['n_layers']} layers, loss {rwkv_info['losses'][0]!r} "
         f"-> {rwkv_info['losses'][-1]!r}; launches a step {rwkv_launches}; "
@@ -4665,7 +5133,7 @@ def main(argv=None) -> int:
     # ---- 10. tensor parallelism: qwen2-72b at full width on 4 ranks -----
     tp_info, tp_launches = tp_phase(torch, np, lm, serve, tr, opt, pipeline,
                                     run_ranks, get_arch, peaks, args.seed,
-                                    smi)
+                                    smi, full_info)
     say(f"phase tp: {TP_ARCH} at full width on {TP_RANKS} ranks (gloo, one "
         f"card): the fp32 check and the training gate hold; launches "
         f"{tp_launches}; {tp_info['phase_s']:.1f} s [{smi}]")

@@ -26,7 +26,11 @@ What differs from the JAX package:
   dicts (``group0/3/attn/wq``): a leaf under ``group<i>/<j>/`` or
   ``encoder/<j>/`` gets the spec of the JAX package's stacked leaf
   ``[L, ...]`` without its leading ``layers`` entry, the spec that
-  :mod:`repro_torch.models.convert` carries across.  Caches likewise.
+  :mod:`repro_torch.models.convert` carries across.  That entry is kept on
+  the spec (a :class:`LayerSpec`): where the FSDP overlay puts a mesh axis
+  on the stacked ``layers`` dim, the device at coordinate k on that axis
+  holds layers ``[k L/n, (k+1) L/n)`` whole and no other, and
+  :func:`local_shape` counts layer j so.  Caches keep the plain spec.
 * GSPMD's activation hints (``shard_acts``, ``sp_gather``, ``sp_scatter``)
   have no counterpart here: the port runs tensor parallelism as explicit
   collectives (:mod:`.tensor_parallel`), at the points where the JAX model
@@ -65,6 +69,35 @@ class PartitionSpec(tuple):
 
 
 P = PartitionSpec
+
+
+def _layer_spec(layers, pos: int, stack: int, entries: tuple):
+    return LayerSpec(layers, pos, stack, *entries)
+
+
+class LayerSpec(PartitionSpec):
+    """The spec of layer ``pos`` of a stack of ``stack`` layers: the
+    stacked leaf's spec without its leading entry, which is kept as
+    ``layers`` (None, or the mesh axis that splits the stack by whole
+    layers).  It compares as the tuple of the remaining entries."""
+
+    def __new__(cls, layers, pos: int, stack: int, *entries):
+        self = super().__new__(cls, *entries)
+        self.layers = PartitionSpec(layers)[0]
+        self.pos, self.stack = pos, stack
+        return self
+
+    def __reduce__(self):
+        return _layer_spec, (self.layers, self.pos, self.stack, tuple(self))
+
+    def __repr__(self) -> str:
+        return (f"LayerSpec(layers={self.layers!r}, {self.pos}/"
+                f"{self.stack}, {tuple.__repr__(self)})")
+
+    def owner(self, n: int) -> int:
+        """The coordinate, on an axis of ``n`` devices that splits the
+        stack by whole layers, of the device that holds this layer."""
+        return self.pos // (self.stack // n)
 
 
 # ---------------------------------------------------------------------------
@@ -317,14 +350,15 @@ def param_pspecs(params: Any, policy: ShardingPolicy,
     fsdp=True additionally shards each large parameter's largest replicated
     dim over the 'fsdp' rule axis (ZeRO-3 parameter/optimizer sharding).
     A per-layer leaf gets the stacked ``[L, ...]`` leaf's spec (the overlay
-    too sees the stacked shape) without its leading entry."""
+    too sees the stacked shape) as a :class:`LayerSpec`: the entries after
+    the leading one, which it keeps as ``layers``."""
     def spec(path, leaf, stack):
         axes = _rule_axes(_rule_path(path), leaf.ndim)
         if stack is None:
             return P(*_resolve(axes, tuple(leaf.shape), policy, fsdp))
         full = _resolve(("layers",) + axes, (stack,) + tuple(leaf.shape),
                         policy, fsdp)
-        return P(*full[1:])
+        return LayerSpec(full[0], int(path.split("/")[1]), stack, *full[1:])
     return map_with_path(spec, params)
 
 
@@ -387,18 +421,41 @@ def spec_leaves(tree) -> list:
     return [tree]
 
 
-def local_shape(shape: Sequence[int], spec: PartitionSpec,
-                mesh) -> Tuple[int, ...]:
+def _axes_coord(mesh, m, coords: Optional[Dict[str, int]] = None) -> int:
+    """A device's coordinate on mesh axis ``m`` (a name or a tuple of
+    names, row-major): from ``coords`` (axis -> index), else the mesh's own
+    rank's where it has one, else 0."""
+    axes = m if isinstance(m, tuple) else (m,)
+    at = lambda a: (coords[a] if coords is not None
+                    else mesh.axis_index(a) if hasattr(mesh, "axis_index")
+                    else 0)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + at(a)
+    return idx
+
+
+def local_shape(shape: Sequence[int], spec: PartitionSpec, mesh,
+                coords: Optional[Dict[str, int]] = None) -> Tuple[int, ...]:
     """The shape of one device's block of a leaf of ``shape`` under
-    ``spec``."""
-    return tuple(d // axes_size(mesh, m) for d, m in zip(shape, spec))
+    ``spec``: for a layer that its stack's split leaves to another device
+    (:class:`LayerSpec`), an empty block (leading dim 0).  The device is
+    the one at ``coords`` (see :func:`_axes_coord`)."""
+    out = tuple(d // axes_size(mesh, m) for d, m in zip(shape, spec))
+    lay = getattr(spec, "layers", None)
+    if lay is not None and (_axes_coord(mesh, lay, coords)
+                            != spec.owner(axes_size(mesh, lay))):
+        out = (0,) + out[1:]
+    return out
 
 
-def tree_local_bytes(tree: Any, spec_tree: Any, mesh) -> int:
+def tree_local_bytes(tree: Any, spec_tree: Any, mesh,
+                     coords: Optional[Dict[str, int]] = None) -> int:
     """Per-device bytes of a sharded tree of tensors (exact, from the
-    specs): the dry run's ``tree_local_bytes``."""
+    specs): the dry run's ``tree_local_bytes``, for the device at
+    ``coords`` (see :func:`_axes_coord`; the same on every device)."""
     from ..train.optimizer import tree_leaves
-    return sum(prod(local_shape(leaf.shape, spec, mesh))
+    return sum(prod(local_shape(leaf.shape, spec, mesh, coords))
                * leaf.element_size()
                for leaf, spec in zip(tree_leaves(tree),
                                      spec_leaves(spec_tree)))

@@ -42,16 +42,23 @@ difference of layout.  Norms stay replicated; under sequence TP their
 weights enter through :func:`copy_to_model`, whose backward sums the
 per-shard gradients.
 
-Execution covers the spec entries ``None`` and ``'model'``.  ZeRO-3 (the
-FSDP overlay's gather-before-use) is specs only; 2D serving weights
-(``serve_tp2d_rules``), sequence sharding over ``data`` and the other
-families under a model axis raise ``NotImplementedError`` (``ROADMAP.md``
-queues them).
+Execution covers the spec entries ``None`` and ``'model'``, and the
+FSDP overlay's ``'data'`` (ZeRO-3, :mod:`.fsdp`): :class:`TensorParallel`
+is the whole parameter layout of a policy, the model-axis cut here (at
+model 1, none) and then the overlay's cut of :class:`.fsdp.Zero3`, for
+every family at model 1 and for the dense and VLM families above it.
+:meth:`TensorParallel.sum_squares` and :meth:`TensorParallel.full_mean`
+give the optimizers sums and means of the unsharded leaves.  2D serving
+weights (``serve_tp2d_rules``), sequence sharding over ``data`` and the
+other families under a model axis raise ``NotImplementedError``
+(``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
+import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -68,9 +75,10 @@ TP_FAMILIES = ("dense", "vlm")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 
 
-def _todo(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} under a model axis > 1 is not "
-                               f"ported yet (see ROADMAP.md, queue 1)")
+def _todo(what: str, where: str = " under a model axis > 1"
+          ) -> NotImplementedError:
+    return NotImplementedError(f"{what}{where} is not ported yet (see "
+                               f"ROADMAP.md, queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -217,20 +225,25 @@ def _template(cfg: ArchConfig) -> Dict:
 
 class TensorParallel:
     """How ``cfg``'s parameters split over the model axis of
-    ``policy.mesh``, and the collectives the model runs there.  ``mesh``
-    may be a shape-only mesh (shapes and specs); running needs a
-    :class:`ProcessMesh`.  ``model_rank`` picks the rank whose shards
-    :meth:`shard` cuts (default: this process's coordinate)."""
+    ``policy.mesh`` and, where the policy's FSDP axis splits anything,
+    over that axis too (``zero3``, a :class:`.fsdp.Zero3`, else None), and
+    the collectives the model runs on the model axis.  ``mesh`` may be a
+    shape-only mesh (shapes and specs); running needs a
+    :class:`ProcessMesh`.  ``model_rank`` and ``data_rank`` pick the rank
+    whose shards :meth:`shard_leaf` cuts (default: this process's
+    coordinates)."""
 
     def __init__(self, cfg: ArchConfig, policy: ShardingPolicy):
+        from .fsdp import Zero3, active_axis
         self.mesh = policy.mesh
         self.size = self.mesh.shape.get(MODEL, 1)
-        if cfg.family not in TP_FAMILIES or cfg.mla or cfg.moe:
-            raise _todo(f"{cfg.name} ({cfg.family} family)")
         rules = policy.rules
         if rules.get("seq") is not None:
             raise _todo("sequence sharding over "
-                        f"{rules['seq']!r} (sequence_parallel_rules)")
+                        f"{rules['seq']!r} (sequence_parallel_rules)", "")
+        if self.size > 1 and (cfg.family not in TP_FAMILIES or cfg.mla
+                              or cfg.moe):
+            raise _todo(f"{cfg.name} ({cfg.family} family)")
         if rules.get("seq_tp") not in (None, MODEL):
             raise _todo(f"seq_tp on {rules['seq_tp']!r}")
         batch = rules.get("batch")
@@ -251,18 +264,34 @@ class TensorParallel:
         # head, shared by kv_rep ranks) or 'rep' (whole on every rank)
         self.plan: Dict[str, Tuple[str, Optional[int]]] = {}
         map_with_path(self._plan_leaf, self.template)
+        if self.size == 1:                      # no model-axis cut
+            self.plan = dict.fromkeys(self.plan, ("rep", None))
         self.vocab = self.plan["embed"][0] == "model"
+        self.zero3 = (Zero3(self.template, policy)
+                      if active_axis(policy) is not None else None)
+        if self.zero3 is not None:
+            for path, (kind, dim) in self.zero3.plan.items():
+                if kind == "dim" and self.plan[path][1] == dim:
+                    raise _todo(f"{path}: the FSDP overlay on the dim the "
+                                f"model axis splits", "")
         from ..train.optimizer import tree_leaves
-        # each leaf's kind in tree_leaves order (sorted dict keys)
+        # each leaf's kinds in tree_leaves order (sorted dict keys)
         self.kinds = tree_leaves(map_with_path(
             lambda path, leaf, stack: self.plan[path][0], self.template))
+        self.zkinds = tree_leaves(map_with_path(
+            lambda path, leaf, stack: (
+                "rep" if self.zero3 is None
+                else self.zero3.plan[path][0]), self.template))
+        self.ndim = {}
+        map_with_path(lambda path, leaf, stack: self.ndim.__setitem__(
+            path, leaf.ndim), self.template)
 
     def _plan_leaf(self, path: str, leaf, stack) -> None:
         spec = self._spec_at(path)
         for m in spec:
             if m not in (None, MODEL):
-                raise _todo(f"the spec {spec} of {path} (only 'model' "
-                            f"runs; ZeRO-3 and 2D weights are specs only)")
+                raise _todo(f"the spec {spec} of {path} (a weight split "
+                            f"over {m!r}: 2D weights are specs only)", "")
         name = path.rsplit("/", 1)[-1]
         if "/attn/" in f"/{path}" and name in _KV_LEAVES \
                 and self.kv_rep > 1:
@@ -292,17 +321,21 @@ class TensorParallel:
         return self.mesh.axis_index(MODEL)
 
     def shard_leaf(self, path: str, x: torch.Tensor,
-                   model_rank: Optional[int] = None) -> torch.Tensor:
-        """This rank's block of the full leaf ``x`` at ``path``."""
+                   model_rank: Optional[int] = None,
+                   data_rank: Optional[int] = None) -> torch.Tensor:
+        """This rank's block of the full leaf ``x`` at ``path``: its
+        model-axis block, then its block of that over the FSDP axis."""
         kind, dim = self.plan[path]
-        if kind == "rep":
-            return x
-        r = self.rank(model_rank)
-        if kind == "dup":
-            j = r // self.kv_rep
-            return x.narrow(dim, j * self.hd, self.hd)
-        n = x.shape[dim] // self.size
-        return x.narrow(dim, r * n, n)
+        if kind != "rep":
+            r = self.rank(model_rank)
+            if kind == "dup":
+                x = x.narrow(dim, (r // self.kv_rep) * self.hd, self.hd)
+            else:
+                n = x.shape[dim] // self.size
+                x = x.narrow(dim, r * n, n)
+        if self.zero3 is not None:
+            x = self.zero3.shard_leaf(path, x, data_rank)
+        return x
 
     # -- the model's collectives (a ProcessMesh) ------------------------
     def at_length(self, S: Optional[int]) -> "TensorParallel":
@@ -387,23 +420,87 @@ class TensorParallel:
 
     def sum_squares(self, tree) -> torch.Tensor:
         """Sum of squares of a tree of local shards of the parameters'
-        shape (gradients): split leaves summed over ``model``, replicated
-        and duplicated leaves counted once; the same on every rank."""
+        shape (gradients), each element of the unsharded tree counted
+        once: the FSDP-split leaves (by a dim or by layers) summed over
+        the FSDP axis, then the model-split leaves over ``model``, a
+        duplicated kv head once a head, replicated leaves once; the same
+        on every rank."""
         from ..train.optimizer import tree_leaves
         leaves = tree_leaves(tree)
-        kinds = self.kinds
-        if len(leaves) != len(kinds):
+        if len(leaves) != len(self.kinds):
             raise ValueError(f"{len(leaves)} leaves for a layout of "
-                             f"{len(kinds)}")
-        sq = {k: torch.zeros((), dtype=torch.float32,
-                             device=leaves[0].device)
-              for k in ("rep", "model", "dup")}
-        for x, kind in zip(leaves, kinds):
-            sq[kind] = sq[kind] + torch.sum(torch.square(x.float()))
-        parts = col.all_gather(torch.stack([sq["model"], sq["dup"]])[None],
+                             f"{len(self.kinds)}")
+        kinds = ("rep", "model", "dup")
+        sq = {(k, z): torch.zeros((), dtype=torch.float32,
+                                  device=leaves[0].device)
+              for k in kinds for z in (False, True)}
+        for x, kind, zk in zip(leaves, self.kinds, self.zkinds):
+            key = (kind, zk != "rep")
+            sq[key] = sq[key] + torch.sum(torch.square(x.float()))
+        by_kind = {k: sq[(k, False)] for k in kinds}
+        if self.zero3 is not None:
+            z = self.zero3
+            parts = col.all_gather(torch.stack(
+                [sq[(k, True)] for k in kinds])[None], z.mesh, z.axis)
+            summed = _ordered_sum(parts)
+            by_kind = {k: by_kind[k] + summed[i]
+                       for i, k in enumerate(kinds)}
+        if self.size == 1:
+            return by_kind["rep"]
+        parts = col.all_gather(torch.stack([by_kind["model"],
+                                            by_kind["dup"]])[None],
                                self.mesh, MODEL)
-        return (sq["rep"] + _ordered_sum(parts[:, 0])
+        return (by_kind["rep"] + _ordered_sum(parts[:, 0])
                 + _ordered_sum(parts[::self.kv_rep, 1]))
+
+    # -- sums over the unsharded leaf (Adafactor) --------------------------
+    def tags(self, path: str) -> Tuple[Optional[str], ...]:
+        """Per dim of the local leaf at ``path``: None, 'model' (split over
+        the model axis), 'dup' (one kv head, duplicated over kv_rep ranks)
+        or 'data' (split over the FSDP axis)."""
+        out = [None] * self.ndim[path]
+        kind, dim = self.plan[path]
+        if kind != "rep":
+            out[dim] = kind
+        if self.zero3 is not None:
+            zk, zd = self.zero3.plan[path]
+            if zk == "dim":
+                out[zd] = "data"
+        return tuple(out)
+
+    def stacked_tags(self, stack: str, inner: str
+                     ) -> Tuple[Optional[str], ...]:
+        """:meth:`tags` of a stack's leaf stacked ``[L, ...]`` (the
+        layers this rank holds, where the stack is split by layers)."""
+        path = f"{stack}/0/{inner}"
+        lead = (self.zero3 is not None
+                and self.zero3.plan[path][0] == "layers")
+        return ("data" if lead else None,) + self.tags(path)
+
+    def full_mean(self, x: torch.Tensor, tags: Tuple[Optional[str], ...],
+                  dims: Optional[Tuple[int, ...]] = None) -> torch.Tensor:
+        """The mean over ``dims`` (default: all) of the unsharded tensor
+        whose local block ``x`` is split as ``tags`` say: this rank's
+        block of the result, the same bits on every rank that holds it."""
+        dims = tuple(sorted(d % x.dim() for d in (
+            range(x.dim()) if dims is None else dims)))
+        s = x.sum(dim=dims)
+        count = 1
+        for d in dims:
+            count *= x.shape[d] * {None: 1, "model": self.size,
+                                   "dup": self.size // self.kv_rep,
+                                   "data": getattr(self.zero3, "size", 1)
+                                   }[tags[d]]
+        split = {tags[d] for d in dims}
+        if "data" in split:
+            s = _ordered_sum(col.all_gather(s[None], self.zero3.mesh,
+                                            self.zero3.axis))
+        if "model" in split:
+            s = _ordered_sum(col.all_gather(s[None], self.mesh, MODEL))
+        if "dup" in split:
+            s = _ordered_sum(col.all_gather(s[None], self.mesh,
+                                            MODEL)[::self.kv_rep])
+        return s / count
 
 
 @functools.lru_cache(maxsize=32)
@@ -414,6 +511,18 @@ def _layout(cfg: ArchConfig, mesh, rules: Tuple) -> TensorParallel:
 def layout(cfg: ArchConfig, policy: ShardingPolicy) -> TensorParallel:
     """The (cached) :class:`TensorParallel` of ``cfg`` under ``policy``."""
     return _layout(cfg, policy.mesh, tuple(sorted(policy.rules.items())))
+
+
+def for_update(cfg: ArchConfig) -> Optional[TensorParallel]:
+    """The layout an optimizer step under the active policy runs on:
+    None where the policy shards nothing (no policy, model 1 and no FSDP
+    axis above size 1)."""
+    from .fsdp import active_axis
+    pol = active_policy()
+    if pol is None or (pol.mesh.shape.get(MODEL, 1) == 1
+                       and active_axis(pol) is None):
+        return None
+    return layout(cfg, pol)
 
 
 def for_call(cfg: ArchConfig, S: Optional[int] = None
@@ -436,20 +545,25 @@ def for_call(cfg: ArchConfig, S: Optional[int] = None
 # ---------------------------------------------------------------------------
 
 def shard_params(params: Dict, cfg: ArchConfig, policy: ShardingPolicy, *,
-                 model_rank: Optional[int] = None) -> Dict:
-    """This rank's shards of the full parameter tree (views of it)."""
+                 model_rank: Optional[int] = None,
+                 data_rank: Optional[int] = None) -> Dict:
+    """This rank's shards of the full parameter tree (views of it): the
+    model-axis cut, then the FSDP overlay's (ZeRO-3)."""
     tp = layout(cfg, policy)
     return map_with_path(
-        lambda path, x, stack: tp.shard_leaf(path, x, model_rank), params)
+        lambda path, x, stack: tp.shard_leaf(path, x, model_rank,
+                                             data_rank), params)
 
 
 def gather_params(local: Dict, cfg: ArchConfig,
                   policy: ShardingPolicy) -> Dict:
     """The full parameter tree from every rank's shards (collective over
-    ``model``: every rank of the axis calls it); inverse of
-    :func:`shard_params`, bit for bit."""
+    ``model`` and the FSDP axis: every rank of the mesh calls it); inverse
+    of :func:`shard_params`, bit for bit."""
     tp = layout(cfg, policy)
     mesh = policy.mesh
+    if tp.zero3 is not None:
+        local = tp.zero3.gather_tree(local)
 
     def gather(path, x, stack):
         kind, dim = tp.plan[path]
@@ -464,7 +578,8 @@ def gather_params(local: Dict, cfg: ArchConfig,
 
 def init_shard_params(seed: int, cfg: ArchConfig, policy: ShardingPolicy,
                       dtype=torch.float32, *, device: DeviceLike = None,
-                      model_rank: Optional[int] = None) -> Dict:
+                      model_rank: Optional[int] = None,
+                      data_rank: Optional[int] = None) -> Dict:
     """This rank's shards of ``lm.init_params(seed, cfg, dtype)``, bit for
     bit: ``init_params`` cuts each leaf as it draws it, so one full leaf
     is alive at a time."""
@@ -472,7 +587,7 @@ def init_shard_params(seed: int, cfg: ArchConfig, policy: ShardingPolicy,
     tp = layout(cfg, policy)
 
     def cut(path, leaf):
-        part = tp.shard_leaf(path, leaf, model_rank)
+        part = tp.shard_leaf(path, leaf, model_rank, data_rank)
         return leaf if part is leaf else part.clone()   # free the full leaf
     return lm.init_params(seed, cfg, dtype, device=device, cut=cut)
 
@@ -519,6 +634,56 @@ def gather_rows(policy: ShardingPolicy, x: torch.Tensor,
     return x
 
 
+_ROWS = threading.local()
+
+
+class _PsumAxis(torch.autograd.Function):
+    """``psum`` over one axis, forward and backward (its transpose)."""
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return col.psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return col.psum(g, ctx.mesh, ctx.axis), None, None
+
+
+@contextlib.contextmanager
+def split_rows(policy: ShardingPolicy, n_rows: int):
+    """Within the block, the model runs on this rank's rows of a global
+    batch of ``n_rows`` (:func:`local_rows`): a statistic over the batch
+    (the MoE load-balance loss) sums its parts over the batch axes
+    (:func:`psum_rows` of :func:`rows_policy`), as the JAX package's one
+    program over the global batch computes it.  The setting is this
+    thread's: a layer stack reads it once, in the forward, and hands it to
+    its layers (a remat recompute may run on autograd's device thread)."""
+    n, _ = batch_split(policy, n_rows)
+    prev = getattr(_ROWS, "policy", None)
+    _ROWS.policy = policy if n > 1 else None
+    try:
+        yield
+    finally:
+        _ROWS.policy = prev
+
+
+def rows_policy() -> Optional[ShardingPolicy]:
+    """The policy whose batch axes split this call's rows (inside
+    :func:`split_rows`), else None."""
+    return getattr(_ROWS, "policy", None)
+
+
+def psum_rows(x: torch.Tensor, pol: Optional[ShardingPolicy]
+              ) -> torch.Tensor:
+    """``x`` summed over the batch axes of ``pol`` (a
+    :func:`rows_policy`; None: ``x``), its gradient summed back."""
+    if pol is None:
+        return x
+    for a in _batch_axes(pol):
+        x = _PsumAxis.apply(x, pol.mesh, a)
+    return x
+
+
 def mean_over_batch(policy: ShardingPolicy, x: torch.Tensor,
                     n_rows: int) -> torch.Tensor:
     """The mean over the ranks that split a batch of ``n_rows``."""
@@ -536,8 +701,10 @@ def local_bytes(params: Dict) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(params))
 
 
-__all__ = ["TensorParallel", "layout", "for_call", "shard_params",
+__all__ = ["TensorParallel", "layout", "for_call", "for_update",
+           "shard_params",
            "gather_params", "init_shard_params", "copy_to_model",
            "reduce_from_model", "sp_gather", "sp_scatter",
            "gather_from_model", "split_to_model", "local_rows",
-           "gather_rows", "mean_over_batch", "batch_split", "local_bytes"]
+           "gather_rows", "mean_over_batch", "batch_split", "local_bytes",
+           "split_rows", "rows_policy", "psum_rows"]

@@ -17,19 +17,23 @@ checkpoint written before it survives, and the same command resumes).
 every batch, and rank 0 prints the steps.
 
 ``--mesh D,M`` (for example ``--mesh 2,2``; dp_mode ``dp``) spawns D x M
-ranks on a ('data', 'model') process mesh under ``default_rules`` (its
-FSDP overlay is specs only): each holds its shards of the same weights and
-moments, takes its rows of every batch, and checkpoints its shards under
-``--ckpt-dir``/rank<k>.  The dense family (and the VLM's dense trunk)
-runs so, with AdamW; the others raise.  ``--backend`` defaults to gloo on
-one card or the CPU and to nccl when there are as many cards as ranks.
+ranks on a ('data', 'model') process mesh under ``default_rules``, whose
+FSDP overlay puts 'data' on each large leaf: ZeRO-3 (each rank holds its
+block of every weight and of its moments, the ``train_state_pspecs``
+layout, and gathers a weight before its use).  Each takes its rows of
+every batch, checkpoints its shards under ``--ckpt-dir``/rank<k>, and
+rank 0 prints a rank's state bytes beside the specs'.  Every family runs
+at model 1 and the dense family (and the VLM's dense trunk) above it,
+with AdamW or Adafactor; the others raise.  ``--backend`` defaults to
+gloo on one card or the CPU and to nccl when there are as many cards as
+ranks.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,7 +48,8 @@ from ..train.checkpoint import (latest_step, restore_checkpoint,
 from ..train.fault import PreemptionSimulator
 from ..train.optimizer import OptimizerConfig, init_opt_state
 from ..train.trainer import (TrainConfig, init_train_state,
-                             make_coded_batch_r2, make_train_step)
+                             make_coded_batch_r2, make_train_step,
+                             state_local_bytes)
 from .mesh import parse_mesh
 
 
@@ -79,10 +84,12 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def _train(args: argparse.Namespace, device: torch.device, mesh=None,
-           log: bool = True, policy=None) -> List[float]:
-    """The training loop of one process (or one rank); the losses.  Under
-    ``policy`` (active in the caller) the state holds this rank's
-    shards."""
+           log: bool = True, policy=None
+           ) -> Tuple[List[float], Optional[Dict]]:
+    """The training loop of one process (or one rank): the losses and,
+    under ``policy`` (active in the caller; the state holds this rank's
+    shards), its state bytes beside the specs' (``state_local_bytes``, at
+    the start)."""
     cfg = get_arch(args.arch)
     if not args.full:
         cfg = cfg.reduced()
@@ -102,6 +109,14 @@ def _train(args: argparse.Namespace, device: torch.device, mesh=None,
                                        device=device)
         state = {"params": params, "opt": init_opt_state(params, tc.opt),
                  "step": torch.zeros((), dtype=torch.int32, device=device)}
+    state_bytes = None
+    if policy is not None:
+        state_bytes = state_local_bytes(state, cfg, policy)
+        if log:
+            print(f"state bytes a rank {state_bytes['held']} (params and "
+                  f"optimizer state; the specs' {state_bytes['specs']}), "
+                  f"and {state_bytes['duplicated']} of kv heads duplicated "
+                  f"over the model axis")
     start = 0
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, start = restore_checkpoint(state, args.ckpt_dir)
@@ -129,26 +144,28 @@ def _train(args: argparse.Namespace, device: torch.device, mesh=None,
                   f"lr {float(metrics['lr']):.2e}  "
                   f"{(time.time() - t0) / max(i - start + 1, 1):.2f}s/step",
                   flush=True)
-    return losses
+    return losses, state_bytes
 
 
-def _mesh_rank(dev: torch.device, arg_dict: Dict,
-               shape: tuple) -> List[float]:
-    """One rank of a ``--mesh`` run."""
+def _mesh_rank(dev: torch.device, arg_dict: Dict, shape: tuple) -> Dict:
+    """One rank of a ``--mesh`` run: its losses and its state bytes beside
+    the specs'."""
     args = argparse.Namespace(**arg_dict)
     mesh = make_process_mesh(shape, ("data", "model"), device=dev)
     if args.ckpt_dir:
         args.ckpt_dir = os.path.join(args.ckpt_dir, f"rank{mesh.rank}")
     policy = sh.ShardingPolicy(mesh, sh.default_rules(False))
     with sh.use_policy(policy):
-        return _train(args, dev, log=mesh.rank == 0, policy=policy)
+        losses, state_bytes = _train(args, dev, log=mesh.rank == 0,
+                                     policy=policy)
+    return {"losses": losses, "state_bytes": state_bytes}
 
 
 def _coded_rank(dev: torch.device, arg_dict: Dict) -> List[float]:
     """One rack of a coded_r2 run (a rank of run_ranks)."""
     args = argparse.Namespace(**arg_dict)
     mesh = make_process_mesh((args.pods,), ("rack",), device=dev)
-    return _train(args, dev, mesh=mesh, log=mesh.rank == 0)
+    return _train(args, dev, mesh=mesh, log=mesh.rank == 0)[0]
 
 
 def main(argv=None) -> None:

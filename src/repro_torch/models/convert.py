@@ -52,10 +52,13 @@ def params_from_jax(np_params: Mapping[str, Any], cfg: ArchConfig,
                     policy=None) -> Dict:
     """The port's parameters from a JAX parameter tree of numpy arrays, on
     ``device`` (default: the CUDA card; raises without one) in ``dtype``
-    (``FP32_LEAVES`` in float32).  Under a sharding ``policy`` whose model
-    axis is larger than 1, this rank's shards of them
+    (``FP32_LEAVES`` in float32).  Under a sharding ``policy`` that splits
+    anything (a model axis larger than 1, or an FSDP axis: ZeRO-3), this
+    rank's shards of them
     (:func:`repro_torch.distributed.tensor_parallel.shard_params`)."""
-    if policy is not None and policy.mesh.shape.get("model", 1) > 1:
+    from ..distributed.fsdp import active_axis
+    if policy is not None and (policy.mesh.shape.get("model", 1) > 1
+                               or active_axis(policy) is not None):
         from ..distributed.tensor_parallel import shard_params
         full = params_from_jax(np_params, cfg, "cpu", dtype)
         local = shard_params(full, cfg, policy)

@@ -28,8 +28,16 @@ batch is this rank's rows.  :func:`forward`, :func:`prefill` and
 :func:`decode_step` return logits gathered over the model axis (the same
 on every rank); :func:`lm_loss` runs a vocab-parallel cross-entropy.  The
 dense family (and the VLM's dense trunk) runs so; the others raise
-``NotImplementedError`` under a model axis.  With no policy, or a model
-axis of size 1, every function is the unsharded code.
+``NotImplementedError`` under a model axis.
+
+ZeRO-3: where the policy's FSDP axis (``'data'``) splits the parameters
+(:mod:`repro_torch.distributed.fsdp`, every family), each layer gathers
+its split leaves inside its own (checkpointed) function, so a remat
+recompute gathers them again and no gathered weight outlives its layer;
+a leaf split by whole layers is gathered once a stack; the embedding, the
+head and the top-level norms are gathered at each use.  Their gradients
+come back reduce-scattered over the axis.  With no policy, or a policy
+that splits nothing, every function is the unsharded code.
 
 Frontends are stubs, as in the JAX package (:mod:`.frontends`): a VLM
 takes ``prefix_embeds [B, n_front, D]`` prepended to the token embeddings
@@ -66,6 +74,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpl
 from ..distributed.meshes import DeviceLike, resolve_device
 from ..distributed.sharding import map_with_path
@@ -334,14 +343,16 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None,
                 mixer_chunk: int = 64, dense_moe: bool = False,
                 moe_groups: int = 1, with_aux: bool = True,
-                tp: Optional[tpl.TensorParallel] = None,
+                tp: Optional[tpl.TensorParallel] = None, rows=None,
                 ) -> Tuple[torch.Tensor, Optional[Dict],
                            Optional[torch.Tensor]]:
     """One block. Returns (x, new_cache, moe_aux_loss): the aux loss is
     None for a layer without MoE, or when ``with_aux`` is false.  Under
     ``tp`` (dense blocks only) each block's input is made whole on every
     rank and its partial output summed over the model axis (the JAX
-    package's ``sp_gather`` / ``sp_scatter`` points)."""
+    package's ``sp_gather`` / ``sp_scatter`` points).  ``rows``: the policy
+    whose batch axes split the rows (``tensor_parallel.rows_policy``),
+    over which the MoE load-balance statistics are summed."""
     eps = cfg.norm_eps
     if kind in ("attn_mlp", "attn_moe"):
         h = _block_input(x, p["ln1"], eps, tp)
@@ -358,7 +369,8 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
             return x + _block_output(swiglu(h, **p["mlp"]), tp), cache, None
         aux = (aux_load_balance_loss(p["moe"]["router"],
                                      h.reshape(-1, h.shape[-1]),
-                                     cfg.moe.top_k) if with_aux else None)
+                                     cfg.moe.top_k, rows)
+               if with_aux else None)
         x = x + moe_ffn(p["moe"], cfg.moe, h, dense_dispatch=dense_moe,
                         n_groups=moe_groups)
         return x, cache, aux
@@ -488,19 +500,27 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
 # Forward pass
 # ---------------------------------------------------------------------------
 
+def _top(params: Dict, name: str, z: Optional[fsdp.Zero3]):
+    """The top-level entry ``name`` of ``params``, its split leaves
+    gathered under ZeRO-3."""
+    return params[name] if z is None else z.tree(name, params[name])
+
+
 def encode(params: Dict, cfg: ArchConfig, enc_frames: torch.Tensor, *,
            remat: bool = False, remat_blocks: int = 1) -> torch.Tensor:
     """Whisper encoder: frame embeddings [B, S_enc, D] -> enc_out.  The
     frames are cast to the weights' dtype first (JAX would promote the
     weights instead; the same where the dtypes agree)."""
+    z = fsdp.for_call(cfg)
     x = enc_frames.to(params["embed"].dtype)
     Senc = x.shape[1]
     x = x + sinusoidal_positions(Senc, cfg.d_model, x.device).to(x.dtype)
     pos = torch.arange(Senc, device=x.device)
     x, _ = _apply_stack(params["encoder"], "enc", cfg, x, pos,
-                        remat=remat, remat_blocks=remat_blocks)
-    return layer_norm(x, params["enc_norm"]["w"], params["enc_norm"]["b"],
-                      cfg.norm_eps)
+                        remat=remat, remat_blocks=remat_blocks,
+                        name="encoder", z=z)
+    norm = _top(params, "enc_norm", z)
+    return layer_norm(x, norm["w"], norm["b"], cfg.norm_eps)
 
 
 def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
@@ -512,19 +532,27 @@ def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
                  moe_groups: int = 1, with_aux: bool = False,
                  remat: bool = False, remat_blocks: int = 1,
                  tp: Optional[tpl.TensorParallel] = None,
+                 name: str = "", z: Optional[fsdp.Zero3] = None,
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One homogeneous stack of layers: (x, the MoE aux loss summed over
     its layers, or None).  ``remat`` checkpoints each layer (no cache);
     with ``remat_blocks`` > 1 dividing the layer count, each block of
     layers is checkpointed around its checkpointed layers, the JAX
-    package's two-level remat (``lm.py``'s outer scan over layer blocks)."""
+    package's two-level remat (``lm.py``'s outer scan over layer blocks).
+    Under ZeRO-3 (``z``) the stack is ``params[name]``: each layer gathers
+    its split leaves inside its function."""
+    blocks = None if z is None else z.stack_blocks(name, layers)
+    rows = tpl.rows_policy()        # read here: a recompute runs elsewhere
+
     def layer(li: int, x: torch.Tensor):
-        x, _, a = apply_layer(kind, layers[li], cfg, x, positions,
+        p = layers[li] if z is None else z.layer(name, li, layers[li],
+                                                 blocks)
+        x, _, a = apply_layer(kind, p, cfg, x, positions,
                               cache=caches[li] if caches else None,
                               cache_index=cache_index, enc_out=enc_out,
                               mixer_chunk=mixer_chunk, dense_moe=dense_moe,
                               moe_groups=moe_groups, with_aux=with_aux,
-                              tp=tp)
+                              tp=tp, rows=rows)
         return x, a
 
     def run(lis, x):
@@ -558,25 +586,27 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
            dense_moe: bool = False, moe_groups: int = 1,
            with_aux: bool = False, remat: bool = False,
            remat_blocks: int = 1, tp: Optional[tpl.TensorParallel] = None,
+           z: Optional[fsdp.Zero3] = None,
            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Embedding (after the prefix, if any), every layer and the final
     norm: [B, S] -> ([B, n_front + S, D], the MoE aux loss summed over
     layers, 0 unless ``with_aux``).  Under sequence TP the output is this
     rank's block of the sequence."""
+    embed = _top(params, "embed", z)
     if tp is None:
-        x = params["embed"][tokens]
+        x = embed[tokens]
         if prefix_embeds is not None:
             x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     else:
-        x = tp.embed(params["embed"], tokens, prefix_embeds)
+        x = tp.embed(embed, tokens, prefix_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     S = tokens.shape[1] + (0 if prefix_embeds is None
                            else prefix_embeds.shape[1])
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if cfg.family == "ssm":
-        x = layer_norm(x, params["in_norm"]["w"], params["in_norm"]["b"],
-                       cfg.norm_eps)
+        norm = _top(params, "in_norm", z)
+        x = layer_norm(x, norm["w"], norm["b"], cfg.norm_eps)
     if cfg.family == "encdec":
         x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
     for gi, g in enumerate(layer_groups(cfg)):
@@ -586,10 +616,11 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                             cache_index=cache_index, enc_out=enc_out,
                             mixer_chunk=mixer_chunk, dense_moe=dense_moe,
                             moe_groups=moe_groups, with_aux=with_aux,
-                            remat=remat, remat_blocks=remat_blocks, tp=tp)
+                            remat=remat, remat_blocks=remat_blocks, tp=tp,
+                            name=f"group{gi}", z=z)
         if a is not None:
             aux = aux + a
-    fn = params["final_norm"]
+    fn = _top(params, "final_norm", z)
     if isinstance(fn, dict):
         return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps), aux
     return rms_norm(x, fn if tp is None else tp.norm_weight(fn),
@@ -598,10 +629,14 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
 
 def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
           logits_f32: bool = False,
-          tp: Optional[tpl.TensorParallel] = None) -> torch.Tensor:
+          tp: Optional[tpl.TensorParallel] = None,
+          z: Optional[fsdp.Zero3] = None) -> torch.Tensor:
     """Logits of the final norm's output; under ``tp`` this rank's block of
-    the vocabulary (column-parallel head) when the vocabulary is split."""
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    the vocabulary (column-parallel head) when the vocabulary is split.
+    Under ZeRO-3 the head gathers its weight (a tied embedding's second
+    gather)."""
+    head = (_top(params, "embed", z).T if cfg.tie_embeddings
+            else _top(params, "lm_head", z))
     if tp is not None:
         x = tp.head_input(x)
     if logits_f32:
@@ -653,7 +688,7 @@ def _forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
              ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """:func:`forward` with this rank's block of the vocabulary under
     ``tp``."""
-    enc_out = None
+    enc_out, z = None, fsdp.for_call(cfg)
     if cfg.family == "encdec" and cache is None:
         _need_frames(cfg, enc_frames)
         enc_out = encode(params, cfg, enc_frames, remat=remat,
@@ -662,8 +697,8 @@ def _forward(params: Dict, cfg: ArchConfig, tokens: torch.Tensor, *,
                     mixer_chunk, prefix_embeds=prefix_embeds,
                     enc_out=enc_out, dense_moe=dense_moe,
                     moe_groups=moe_groups, with_aux=True, remat=remat,
-                    remat_blocks=remat_blocks, tp=tp)
-    return _head(params, cfg, x, logits_f32, tp), cache, aux
+                    remat_blocks=remat_blocks, tp=tp, z=z)
+    return _head(params, cfg, x, logits_f32, tp, z), cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -761,22 +796,27 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     the cache; for enc-dec, encode the frames once and store every decoder
     layer's cross keys.  Returns (last-position logits [B, V], cache); the
     head runs on the last position only."""
+    z = fsdp.for_call(cfg)
     if cfg.family == "encdec":
         _need_frames(cfg, enc_frames)
         enc_out = encode(params, cfg, enc_frames)
-        for layer_p, layer_c in zip(params["group0"], cache["group0"]):
-            layer_c["cross"] = encode_cross_kv(layer_p["xattn"], cfg, enc_out)
+        dec = params["group0"]
+        blocks = None if z is None else z.stack_blocks("group0", dec)
+        for li, layer_c in enumerate(cache["group0"]):
+            p = dec[li] if z is None else z.layer("group0", li, dec[li],
+                                                  blocks)
+            layer_c["cross"] = encode_cross_kv(p["xattn"], cfg, enc_out)
     n_front = prefix_embeds.shape[1] if prefix_embeds is not None else 0
     S = tokens.shape[1] + n_front
     positions = torch.arange(S, device=tokens.device)
     tp = tpl.for_call(cfg, S)
     x, _ = _trunk(params, cfg, tokens, positions, cache, 0, mixer_chunk,
                   prefix_embeds=prefix_embeds, dense_moe=dense_moe,
-                  moe_groups=moe_groups, tp=tp)
+                  moe_groups=moe_groups, tp=tp, z=z)
     if tp is None:
-        return _head(params, cfg, x[:, -1]), cache
+        return _head(params, cfg, x[:, -1], z=z), cache
     return tp.gather_logits(_head(params, cfg, tp.last_position(x),
-                                  tp=tp.at_length(None))), cache
+                                  tp=tp.at_length(None), z=z)), cache
 
 
 def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
@@ -786,8 +826,8 @@ def decode_step(params: Dict, cfg: ArchConfig, token: torch.Tensor,
     0-d tensor; counts a VLM's prefix).  Returns (logits [B, V], cache)."""
     pos = int(pos)
     positions = torch.arange(pos, pos + 1, device=token.device)
-    tp = tpl.for_call(cfg, 1)
+    tp, z = tpl.for_call(cfg, 1), fsdp.for_call(cfg)
     x, _ = _trunk(params, cfg, token[:, None], positions, cache, pos,
-                  mixer_chunk=1, dense_moe=dense_moe, tp=tp)
-    logits = _head(params, cfg, x[:, 0], tp=tp)
+                  mixer_chunk=1, dense_moe=dense_moe, tp=tp, z=z)
+    logits = _head(params, cfg, x[:, 0], tp=tp, z=z)
     return (logits if tp is None else tp.gather_logits(logits)), cache

@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig, MoEConfig
+from ..distributed import tensor_parallel as tpl
 from .layers import dense_init, normal
 
 # ---------------------------------------------------------------------------
@@ -84,9 +85,12 @@ def route(router_w: torch.Tensor, x: torch.Tensor, top_k: int,
 
 
 def aux_load_balance_loss(router_w: torch.Tensor, x: torch.Tensor,
-                          top_k: int) -> torch.Tensor:
+                          top_k: int, rows=None) -> torch.Tensor:
     """Switch-style load-balancing auxiliary loss (mean over experts of
-    fraction_tokens * fraction_prob * E)."""
+    fraction_tokens * fraction_prob * E).  On a rank's rows of a batch
+    split by ``rows`` (``tensor_parallel.rows_policy``) the fractions are
+    the whole batch's: counts and probability sums are summed over its
+    batch axes."""
     probs = _router_probs(router_w, x)
     E = probs.shape[-1]
     ids = torch.topk(probs, top_k, dim=-1).indices
@@ -94,8 +98,13 @@ def aux_load_balance_loss(router_w: torch.Tensor, x: torch.Tensor,
     counts = torch.zeros((E,), dtype=torch.float32, device=x.device)
     counts.scatter_add_(0, ids.reshape(-1),
                         torch.ones(ids.numel(), device=x.device))
+    counts = tpl.psum_rows(counts, rows)
     f = counts / torch.clamp(counts.sum(), min=1.0)
-    return E * torch.sum(f * probs.mean(dim=0))
+    if rows is None:
+        return E * torch.sum(f * probs.mean(dim=0))
+    n_tok = tpl.psum_rows(torch.full((), float(probs.shape[0]),
+                                     device=x.device), rows)
+    return E * torch.sum(f * tpl.psum_rows(probs.sum(dim=0), rows) / n_tok)
 
 
 # ---------------------------------------------------------------------------

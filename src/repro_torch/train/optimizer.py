@@ -9,13 +9,17 @@ torch.bfloat16`` keeps AdamW's m and v in bf16 (half the optimizer memory)
 while the arithmetic stays fp32.  Global-norm clipping is fused into the
 update.
 
-Under tensor parallelism (``tp``, a
-:class:`repro_torch.distributed.tensor_parallel.TensorParallel`) the trees
-hold this rank's shards: AdamW is elementwise, so it runs on them as they
-are, and the global norm sums the split leaves over the model axis and
-counts replicated and duplicated leaves once, so clipping is the unsharded
-step's.  Adafactor's factored means span split dims: under a model axis it
-raises.
+Under a sharded layout (``tp``, a
+:class:`repro_torch.distributed.tensor_parallel.TensorParallel`: the model
+axis, ZeRO-3's FSDP axis, or both) the trees hold this rank's shards.
+AdamW is elementwise, so it runs on them as they are, and the global norm
+counts each element of the unsharded model once
+(``TensorParallel.sum_squares``), so clipping is the unsharded step's.
+Adafactor's state is the factored state of the local shards; its row and
+column means, the mean of its row statistic and its update-clip RMS are
+means over the unsharded leaf (``TensorParallel.full_mean``: partial sums
+summed over the axis that splits the averaged dim, over the full size),
+so its update is the unsharded one.
 """
 from __future__ import annotations
 
@@ -152,10 +156,31 @@ def adamw_update(grads: Any, opt_state: Dict, params: Any,
 # leaves, so it equals the JAX package's.
 # ---------------------------------------------------------------------------
 
+def _held(xs) -> list:
+    """The per-layer leaves of one leaf of a stack that this rank holds:
+    all of them, or, where ZeRO-3 splits the stack by whole layers, the
+    non-empty ones (the others have a leading dim of 0)."""
+    if all(x.shape == xs[0].shape for x in xs):
+        return list(xs)
+    return [x for x in xs if x.numel()]
+
+
 def _stack(layers: list):
     """A list of same-structure per-layer trees as one tree of [L, ...]
-    tensors."""
-    return tree_map(lambda *xs: torch.stack(xs), layers[0], *layers[1:])
+    tensors (of the layers this rank holds, see :func:`_held`)."""
+    return tree_map(lambda *xs: torch.stack(_held(xs)), layers[0],
+                    *layers[1:])
+
+
+def _unstack(stacked, layers: list) -> list:
+    """The inverse of :func:`_stack`: the per-layer trees of ``stacked``
+    (a layer held elsewhere keeps its empty leaf from ``layers``)."""
+    def split(s, *xs):
+        rows = iter(s)
+        return tuple(next(rows) if x.numel() or len(_held(xs)) == len(xs)
+                     else x for x in xs)
+    parts = tree_map(split, stacked, *layers)
+    return [tree_map(lambda t: t[i], parts) for i in range(len(layers))]
 
 
 def _factored_state(shape: tuple, device) -> Dict:
@@ -172,7 +197,7 @@ def _init_factored(tree):
         return {k: _init_factored(v) for k, v in tree.items()}
     if isinstance(tree, list):          # a layer stack: stacked state
         return tree_map(lambda *xs: _factored_state(
-            (len(xs),) + tuple(xs[0].shape), xs[0].device),
+            (len(_held(xs)),) + tuple(_held(xs)[0].shape), xs[0].device),
             tree[0], *tree[1:])
     return _factored_state(tuple(tree.shape), tree.device)
 
@@ -186,27 +211,30 @@ def init_adafactor_state(params: Any) -> Dict:
 def adafactor_update(grads: Any, opt_state: Dict, params: Any,
                      cfg: OptimizerConfig, tp=None,
                      ) -> Tuple[Any, Dict, Dict[str, torch.Tensor]]:
-    if tp is not None and tp.size > 1:
-        raise NotImplementedError(
-            "adafactor under a model axis > 1 is not ported yet: its "
-            "factored means span split dims (see ROADMAP.md, queue 1)")
     count = opt_state["count"] + 1
     lr = lr_at(cfg, count).to(count.device)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, tp)
     scale = _clip_scale(cfg, gnorm)
     c = count.to(torch.float32)
     b2 = 1.0 - c ** -0.8                      # Adafactor's decay schedule
     eps = 1e-30
 
-    def upd(p, g, st):
+    def mean(x, tags, dim=None):
+        """The mean over ``dim`` (default: all) of the unsharded tensor
+        of which ``x`` is this rank's block (split as ``tags`` say)."""
+        if tp is None:
+            return torch.mean(x) if dim is None else x.mean(dim=dim)
+        return tp.full_mean(x, tags, None if dim is None else (dim,))
+
+    def upd(p, g, st, tags):
         g = g.float() * scale
         g2 = g * g + eps
         if p.ndim >= 2:
-            vr = b2 * st["vr"] + (1 - b2) * g2.mean(dim=-1)
-            vc = b2 * st["vc"] + (1 - b2) * g2.mean(dim=-2)
+            vr = b2 * st["vr"] + (1 - b2) * mean(g2, tags, -1)
+            vc = b2 * st["vc"] + (1 - b2) * mean(g2, tags, -2)
+            row = mean(vr, None if tags is None else tags[:-1], -1)
             denom = (vr[..., None] * vc[..., None, :]
-                     / torch.clamp(vr.mean(dim=-1)[..., None, None],
-                                   min=eps))
+                     / torch.clamp(row[..., None, None], min=eps))
             u = g * torch.rsqrt(denom + eps)
             new_st = {"vr": vr, "vc": vc}
         else:
@@ -214,28 +242,31 @@ def adafactor_update(grads: Any, opt_state: Dict, params: Any,
             u = g * torch.rsqrt(v + eps)
             new_st = {"v": v}
         # update clipping (RMS <= 1) + decoupled weight decay
-        rms = torch.sqrt(torch.mean(u * u) + eps)
+        rms = torch.sqrt(mean(u * u, tags) + eps)
         u = u / torch.clamp(rms, min=1.0)
         newp = p.float() * (1 - lr * cfg.weight_decay) - lr * u
         return newp.to(p.dtype), new_st
 
-    def walk(p, g, st):
-        """(new params, new state) of a subtree; a layer stack is updated
-        as its stacked leaves and split again."""
+    def walk(p, g, st, path, stack=None):
+        """(new params, new state) of a subtree at ``path`` (inside layer
+        stack ``stack``: the path below it); a layer stack is updated as
+        its stacked leaves and split again."""
+        join = (lambda k: f"{path}/{k}") if path else str
         if isinstance(p, dict):
-            out = {k: walk(p[k], g[k], st[k]) for k in p}
+            out = {k: walk(p[k], g[k], st[k], join(k), stack) for k in p}
             return ({k: v[0] for k, v in out.items()},
                     {k: v[1] for k, v in out.items()})
         if isinstance(p, list):
-            newp, new_st = walk(_stack(p), _stack(g), st)
-            return ([tree_map(lambda x: x[i], newp) for i in range(len(p))],
-                    new_st)
+            newp, new_st = walk(_stack(p), _stack(g), st, "", path)
+            return _unstack(newp, p), new_st
         if isinstance(st, dict) and ("vr" in st or "v" in st):
-            return upd(p, g, st)
+            tags = (None if tp is None else tp.tags(path) if stack is None
+                    else tp.stacked_tags(stack, path))
+            return upd(p, g, st, tags)
         raise ValueError(f"adafactor: state {type(st)} does not fit a "
                          f"parameter leaf")
 
-    new_params, new_m = walk(params, grads, opt_state["m"])
+    new_params, new_m = walk(params, grads, opt_state["m"], "")
     return (new_params, {"m": new_m, "count": count},
             {"grad_norm": gnorm, "lr": lr})
 

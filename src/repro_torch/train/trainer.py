@@ -29,13 +29,20 @@ The microbatch loop is a Python loop with a ``grad_dtype`` accumulator;
 
 Under an active sharding policy on a ('data', 'model') process mesh
 (:func:`repro_torch.distributed.sharding.use_policy`), the state holds
-this rank's shards (``tensor_parallel.shard_params``): the step takes
-this rank's rows of the batch as ``batch_pspecs`` splits them, runs the
-tensor-parallel forward and backward, takes the mean of the gradients over
-the batch axes (``psum``), and runs AdamW on the local shards with the
-global norm of the whole model.  :func:`train_state_pspecs` gives the
-specs of the JAX package's ``train_step_shardings``; their FSDP overlay
-(ZeRO-3) is specs only here.
+this rank's shards (``tensor_parallel.shard_params``): the model-axis
+cut, then, where the policy names an FSDP axis (``default_rules``' 'data'),
+the overlay's ZeRO-3 cut of ``param_pspecs(..., fsdp=True)``, the JAX
+trainer's own test (``_grad_constraint``).  The step takes this rank's
+rows of the batch as ``batch_pspecs`` splits them and runs the forward
+and backward, which gather each ZeRO-3 leaf before its use and hand its
+gradient back reduce-scattered (summed) over the FSDP axis
+(:mod:`repro_torch.distributed.fsdp`).  Those gradients are divided by
+the axis's size; the replicated leaves' gradients take the mean over the
+batch axes (``psum``); no leaf is summed twice.  AdamW runs on the local
+shards and Adafactor on the local shards of its factored state, both with
+the sums of the whole model (the global norm, Adafactor's means and
+update RMS).  :func:`train_state_pspecs` gives the specs of the JAX
+package's ``train_step_shardings``, which the state's local bytes meet.
 """
 from __future__ import annotations
 
@@ -49,11 +56,13 @@ from ..configs.base import ArchConfig
 from ..core.gradient_sync import (batch_pspec, chunk_index_table,
                                   coded_reduce_scatter_r2,
                                   hierarchical_allreduce)
+from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpl
 from ..distributed.collectives import all_gather, psum
 from ..distributed.meshes import DeviceLike, ProcessMesh
 from ..distributed.sharding import (P, ShardingPolicy, active_policy,
-                                    batch_pspecs, param_pspecs)
+                                    batch_pspecs, local_shape, param_pspecs,
+                                    spec_leaves)
 from ..models import lm
 from .optimizer import (OptimizerConfig, init_opt_state, optimizer_update,
                         tree_leaves, tree_unflatten)
@@ -247,16 +256,31 @@ def _mesh_grads(params, cfg: ArchConfig, tc: TrainConfig, batch: Dict,
 def _policy_grads(params, cfg: ArchConfig, tc: TrainConfig, batch: Dict,
                   policy: ShardingPolicy) -> Tuple[Any, torch.Tensor]:
     """Under a sharding policy: this rank's rows of the batch through the
-    tensor-parallel model, then the mean over the ranks that split it."""
+    sharded model, then the mean over the ranks that split it: a ZeRO-3
+    leaf's gradient arrives summed over the FSDP axis and is divided by
+    its size, a replicated leaf's is summed over the batch axes."""
     B = next(iter(batch.values())).shape[0]
-    grads, loss = accumulate_grads(params, cfg, tc,
-                                   tpl.local_rows(policy, batch))
+    with tpl.split_rows(policy, B):
+        grads, loss = accumulate_grads(params, cfg, tc,
+                                       tpl.local_rows(policy, batch))
+    z = fsdp.for_call(cfg)
+    leaves = tree_leaves(grads)
+    zero3 = ([False] * len(leaves) if z is None
+             else [k != "rep" for k in tpl.layout(cfg, policy).zkinds])
+    out = [g / z.size if split else g for g, split in zip(leaves, zero3)]
     if tpl.batch_split(policy, B)[0] > 1:
-        vec = _flat(tree_leaves(grads), tc.grad_dtype, 0)
-        grads = _unflat(tpl.mean_over_batch(policy, vec, B), params,
-                        tc.grad_dtype)
+        rep = [i for i, split in enumerate(zero3) if not split]
+        if rep:
+            vec = tpl.mean_over_batch(
+                policy, _flat([leaves[i] for i in rep], tc.grad_dtype, 0), B)
+            off = 0
+            for i in rep:
+                n = leaves[i].numel()
+                out[i] = vec[off:off + n].reshape(leaves[i].shape).to(
+                    tc.grad_dtype)
+                off += n
         loss = tpl.mean_over_batch(policy, loss, B)
-    return grads, loss
+    return tree_unflatten(params, out), loss
 
 
 def train_state_pspecs(state: Dict, policy: ShardingPolicy,
@@ -273,6 +297,48 @@ def train_state_pspecs(state: Dict, policy: ShardingPolicy,
                       "step": P()},
             "batch": None if batch is None else batch_pspecs(policy, batch),
             "metrics": {"loss": P(), "grad_norm": P(), "lr": P()}}
+
+
+def state_local_bytes(state: Dict, cfg: ArchConfig,
+                      policy: ShardingPolicy) -> Dict[str, Optional[int]]:
+    """This rank's bytes of a sharded train state beside its specs':
+    ``held``, the bytes of its parameters and optimizer state; ``specs``,
+    those :func:`train_state_pspecs` gives a rank (AdamW's m and v; None
+    for Adafactor, whose state the JAX shardings do not name); both
+    without the kv heads duplicated over the model axis (the layout's one
+    difference from the specs, see ``tensor_parallel``), whose bytes are
+    ``duplicated``."""
+    from .optimizer import tree_map
+    kinds = tpl.layout(cfg, policy).kinds
+    opt = state["opt"]
+    trees = ["params", "m", "v"] if "v" in opt else ["params"]
+    held = dup = 0
+    for name in trees:
+        tree = state["params"] if name == "params" else opt[name]
+        for x, kind in zip(tree_leaves(tree), kinds):
+            n = x.numel() * x.element_size()
+            held, dup = (held, dup + n) if kind == "dup" else (held + n, dup)
+    if "v" not in opt:                        # Adafactor's factored state
+        held += sum(x.numel() * x.element_size()
+                    for x in tree_leaves(opt["m"]))
+        return {"held": held, "specs": None, "duplicated": dup}
+    meta = {"params": lm.init_params(0, cfg, device="meta")}
+    for k in ("m", "v"):
+        dtype = tree_leaves(opt[k])[0].dtype
+        meta[k] = tree_map(lambda x: x.to(dtype), meta["params"])
+    meta["params"] = tree_map(
+        lambda x: x.to(tree_leaves(state["params"])[0].dtype),
+        meta["params"])
+    spec = param_pspecs(meta["params"], policy,
+                        fsdp=policy.rules.get("fsdp") is not None)
+    want = 0
+    for name in trees:
+        for x, s_, kind in zip(tree_leaves(meta[name]), spec_leaves(spec),
+                               kinds):
+            if kind != "dup":
+                want += (int(np.prod(local_shape(x.shape, s_, policy.mesh)))
+                         * x.element_size())
+    return {"held": held, "specs": want, "duplicated": dup}
 
 
 # ---------------------------------------------------------------------------
@@ -306,7 +372,7 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
         if policy is not None:
             grads, loss = _policy_grads(state["params"], cfg, tc, batch,
                                         policy)
-            tp = tpl.for_call(cfg)
+            tp = tpl.for_update(cfg)
         elif tc.dp_mode == "coded_r2":
             grads, loss = coded_grads_r2(state["params"], cfg, tc, batch,
                                          mesh)
@@ -327,4 +393,4 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig,
 __all__ = ["TrainConfig", "TRAIN_DP_MODES", "init_train_state",
            "accumulate_grads", "value_and_grad", "chunk_layout_r2",
            "make_coded_batch_r2", "coded_grads_r2", "make_train_step",
-           "train_state_pspecs"]
+           "train_state_pspecs", "state_local_bytes"]

@@ -144,6 +144,30 @@ def _rank(dev, shape, data):
                 grads = tpl.gather_params(grads, cfg, pol)
             out[(arch, "step")] = (_leaves(params), float(m["loss"]),
                                    float(m["grad_norm"]), _leaves(grads))
+    if shape == (1, 4):
+        # Adafactor under TP: two steps on qwen2-72b's shards of one
+        # gradient (kv heads duplicated at model 4), and the unsharded
+        # update
+        np_params, toks, pe = data["qwen2-72b"]
+        cfg = get_arch("qwen2-72b").reduced()
+        pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
+        full = params_from_jax(np_params, cfg, "cpu")
+        g, _ = tr.accumulate_grads(full, cfg, TC, _batch(cfg, toks, pe))
+        ocfg = opt.OptimizerConfig(kind="adafactor", lr=1e-3,
+                                   warmup_steps=2, decay_steps=50)
+        runs = {}
+        for name, p, grads, lay in (
+                ("tp", tpl.shard_params(full, cfg, pol),
+                 tpl.shard_params(g, cfg, pol), tpl.layout(cfg, pol)),
+                ("full", full, g, None)):
+            st = opt.init_opt_state(p, ocfg)
+            with sh.use_policy(pol):
+                for _ in range(2):
+                    p, st, _ = opt.adafactor_update(grads, st, p, ocfg, lay)
+                if lay is not None:
+                    p = tpl.gather_params(p, cfg, pol)
+            runs[name] = _leaves(p)
+        out["adafactor"] = runs
     if shape == (2, 4):
         # tests/multidevice/driver_trainer.py::test_sequence_tp_loss_
         # unchanged: granite-3-2b, batch 2 x 16, with_sequence_tp(
@@ -363,16 +387,16 @@ def test_families_without_tp_raise(arch):
         tpl.shard_params(params, cfg, pol, model_rank=0)
 
 
-def test_adafactor_under_tp_raises():
-    cfg = get_arch("qwen2-72b").reduced()
-    pol = sh.ShardingPolicy(MeshShape(("data", "model"), (1, 4)),
-                            sh.default_rules(False))
-    params = lm.init_params(0, cfg, device="cpu")
-    ocfg = opt.OptimizerConfig(kind="adafactor")
-    state = opt.init_opt_state(params, ocfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        opt.optimizer_update(params, state, params, ocfg,
-                             tpl.layout(cfg, pol))
+def test_adafactor_under_tp_raises(ranks):
+    """Adafactor under a model axis no longer raises: two steps on
+    qwen2-72b's shards at (data 1, model 4) (kv heads duplicated) equal
+    the unsharded update on the same gradient, within 1e-6 of each leaf's
+    largest entry (its factored means and update RMS are the unsharded
+    leaf's: ``TensorParallel.full_mean``)."""
+    for res in ranks[(1, 4)]:
+        runs = res["adafactor"]
+        assert _worst([x.numpy() for x in runs["tp"]],
+                      [x.numpy() for x in runs["full"]]) <= PARAM_TOL
 
 
 def test_a_shape_only_mesh_does_not_run():
