@@ -157,9 +157,11 @@ Phases, one printed line each (plus detail lines):
               prefill and ring decode,
               Whisper's encoder (one query head per kv head, 1,500 keys off
               the 64-key tile), cross prefill and cross decode, LLaVA's
-              prefill.  Phase 10's local heads (``TP_TAGS``: G = 8, the
-              bf16 4 x 1,024 prefill, its last decode step over 1,056
-              slots and the fp32 2 x 256 check, each dtype on the route
+              prefill.  Phase 10's local heads (``TP_TAGS``: qwen2-72b's
+              G = 8, the bf16 4 x 1,024 prefill, its last decode step
+              over 1,056 slots and the fp32 2 x 256 check; DeepSeek-V2-
+              Lite's G = 4 on the hd-576 latent head at the same shapes,
+              v = k, and the prefill at G = 8, each dtype on the route
               ``TP_ROUTE`` names).  Hymba's SSM scan (``ssm_scan_phase``):
               its prefill on the WKV ``chunk_f32`` kernels in inclusive
               mode (also against their plain version ``wkv_chunk_f32_ref``,
@@ -249,7 +251,7 @@ Phases, one printed line each (plus detail lines):
               each rank's weight bytes equal to the local bytes of
               ``param_pspecs``, and each rank's flash launches by route
               (fp32 prefill on ``mma_tf32``, decode on ``split_kv``).
-              (b) the same at 8 of 80 layers in bf16, 4 slots x
+              (b) the same at 4 of 80 layers in bf16, 4 slots x
               1,024-token prompts + 32 new tokens: time to first token,
               decode ms a step, tokens/s (the slowest rank's host walls),
               each rank's peak memory, spawn to rendezvous, the device
@@ -261,35 +263,58 @@ Phases, one printed line each (plus detail lines):
               ``tensor_core`` at 8 query heads a kv head, decode on
               ``split_kv``); greedy agreement with the unsharded bf16 run
               printed, not gated.  Gloo on one card, not NCCL.  (c)
-              reduced qwen2-72b (kv heads duplicated at model 4), one
-              AdamW step on (data 2, model 2) and on (data 1, model 4)
-              with sequence TP: loss and clipping norm within 1e-5 of the
-              unsharded full-batch step's, each gathered gradient leaf
+              reduced qwen2-72b (kv heads duplicated at model 4),
+              DeepSeek-V2-Lite (MLA, experts split) and Grok-1 (kv heads
+              duplicated, experts split), one AdamW step each (the
+              capacity-less MoE dispatch) on (data 2, model 2) and on
+              (data 1, model 4) with sequence TP: loss and clipping norm
+              within 1e-5 of the unsharded full-batch step's, each
+              gathered gradient leaf
               within 1e-4 of its largest entry, the gathered parameters
               within 1e-6 of each leaf's largest of the unsharded AdamW
               fed that gradient.  (d) ZeRO-3 composed with TP: Qwen2-1.5B
               at full width and depth on (data 2, model 2) under
               ``default_rules(False)`` (its FSDP overlay on 'data'), phase
               9 (b)'s configuration (seed, 8 x 2,048 tokens in two
-              microbatches, remat, fp32 AdamW), three steps, the third on
+              microbatches, remat, fp32 AdamW), two steps, the second on
               a collective clock: steps 1-2 loss and clipping norm
               within 1e-5 of phase 9 (b)'s; each rank's params, m and v
               bytes equal to the specs of ``train_state_pspecs(fsdp=
               True)``; flash by route (``mma_tf32`` forward, the
               backward's dq_mma / dkdv_mma) and no plain version; the step
-              wall (the slowest rank's median of steps 2-3), tokens/s,
+              wall (the slowest rank's step 2, on the clock), tokens/s,
               each rank's peak, and the share of a step in the 'data'
               collectives (gathers, reduce-scatters, the replicated
               leaves' psum; host clock).  (e) one ZeRO-3 step of every
               arch at reduced() widened (no leaf of reduced() reaches the
               overlay's 2^16 elements) on (data 2, model 1) (two such
-              meshes side by side under a 'pod' axis), the dense and VLM
-              archs also on (2, 2), AdamW, and Adafactor on qwen2-72b at
+              meshes side by side under a 'pod' axis), the dense, VLM and
+              MoE archs also on (2, 2), AdamW, and Adafactor on qwen2-72b at
               (2, 2): loss within 1e-5 of the unsharded step on the card,
               each gathered gradient leaf within 1e-4 of its largest
               entry, the gathered parameters within 1e-6 of the unsharded
               optimizer fed that gradient; flash and WKV, forward and
-              backward, launched.
+              backward, launched.  (f) the MoE family under a model axis:
+              DeepSeek-V2-Lite at full width on (data 1, model 4), 16 of
+              the 64 routed experts and 4 of the 16 MLA heads a rank
+              (G = 4 on the one hd-576 latent head), the latent and its
+              cache whole on every rank.  (f1) fp32, 2 of 27 layers (the
+              dense first layer and one MoE layer), 2 slots x 256-token
+              prompts, ``prefill`` and 8 greedy ``decode_step``s under
+              the sorted dispatch and under ``dense_moe``: logits within
+              1e-4 of the largest |logit| of the unsharded run on the card,
+              the same greedy tokens on every rank and as that run, each
+              rank's weight bytes equal to the specs' local bytes, flash
+              by route (``mma_tf32`` prefill, ``split_kv`` decode).  (f2)
+              bf16 at full depth, (b)'s shape (4 slots x 1,024-token
+              prompts + 32 new): TTFT, decode ms a step, tokens/s (the
+              slowest rank's host walls), each rank's peak, the device
+              bounds of the prefill and a decode step, the model-axis
+              collectives' shares, flash by route (``tensor_core_wide``
+              prefill, ``split_kv`` decode, 27 a forward a rank, no plain
+              version), the same tokens on every rank, and greedy
+              agreement with the unsharded bf16 model (phase 6's weights)
+              at that shape, printed, not gated.
 8. kernels line — one JSON object with all eleven kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -342,8 +367,8 @@ reduced steps for WKV); the combine
 kernels' ``ranks`` path (phase 4c), and the linear pair's ``placed`` path
 (phase 4d) and ``scheduler`` path (phase 4e's coded/kernel conformance
 cells) must launch too, and the ``tp`` path (phase 10, summed over its
-ranks: the ``generate`` of (a) and (b) and the steps of (c), (d) and (e))
-launches flash and WKV, forward and backward.
+ranks: the ``generate`` of (a) and (b), the steps of (c), (d) and (e) and
+the serving of (f)) launches flash and WKV, forward and backward.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 raises and the script exits non-zero; without a CUDA card it exits 1 and
@@ -2337,14 +2362,25 @@ FLASH_CASES = [
     # into a 264-long cache
     ("tp_prefill", 4, 1024, 1056, 16, 2, 128, True, 0, 1024, None),
     ("tp_decode", 4, 1, 1056, 16, 2, 128, True, 1054, 1055, None),
-    ("tp_check", 2, 256, 264, 16, 2, 128, True, 0, 256, None)]
+    ("tp_check", 2, 256, 264, 16, 2, 128, True, 0, 256, None),
+    # phase 10 (f)'s local heads (DeepSeek-V2-Lite at model 4: 4 of its 16
+    # heads on the one hd-576 latent head, G = 4; at model 2, G = 8): (f2)'s
+    # 4 x 1,024 prefill into its 1,056-long latent cache (v = k, the
+    # model's call) and its last decode step, (f1)'s fp32 2 x 256 prefill
+    # into a 264-long cache
+    ("tp_mla_prefill", 4, 1024, 1056, 4, 1, 576, True, 0, 1024, None),
+    ("tp_mla_prefill_g8", 4, 1024, 1056, 8, 1, 576, True, 0, 1024, None),
+    ("tp_mla_decode", 4, 1, 1056, 4, 1, 576, True, 1054, 1055, None),
+    ("tp_mla_check", 2, 256, 264, 4, 1, 576, True, 0, 256, None)]
 FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
                "whisper_cross_prefill", "whisper_cross_decode",
                "llava_prefill")
 FLASH_TIMED = ("prefill", "decode", "decode_2111", "mla_prefill",
-               "mla_prefill_shared", "mla_decode") + FAMILY_TAGS
+               "mla_prefill_shared", "mla_decode", "tp_mla_prefill"
+               ) + FAMILY_TAGS
 # the cases whose v is k (one tensor passed as both)
-SHARED_KV_TAGS = ("mla_prefill_shared",)
+SHARED_KV_TAGS = ("mla_prefill_shared", "tp_mla_prefill",
+                  "tp_mla_prefill_g8", "tp_mla_decode", "tp_mla_check")
 # the fp32 prefills (route mma_tf32) also timed in turns with fp32 SDPA and
 # profiled: Qwen2's, MLA's with v apart and v = k, phase 10's fp32 check
 MMA_TIMED = ("prefill", "mla_prefill", "mla_prefill_shared", "tp_check")
@@ -2356,13 +2392,21 @@ FAMILY_ROUTE = {"hymba_prefill": "tensor_core",
                 "whisper_cross_decode": "split_kv",
                 "llava_prefill": "tensor_core"}
 # the routes of phase 10's shapes, by dtype
-TP_TAGS = ("tp_prefill", "tp_decode", "tp_check")
+TP_TAGS = ("tp_prefill", "tp_decode", "tp_check", "tp_mla_prefill",
+           "tp_mla_prefill_g8", "tp_mla_decode", "tp_mla_check")
 TP_ROUTE = {("tp_prefill", "bfloat16"): "tensor_core",
             ("tp_prefill", "float32"): "mma_tf32",
             ("tp_decode", "bfloat16"): "split_kv",
             ("tp_decode", "float32"): "split_kv",
             ("tp_check", "bfloat16"): "tensor_core",
-            ("tp_check", "float32"): "mma_tf32"}
+            ("tp_check", "float32"): "mma_tf32",
+            **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16"
+                           else "mma_tf32")
+               for tag in ("tp_mla_prefill", "tp_mla_prefill_g8",
+                           "tp_mla_check")
+               for dt in ("bfloat16", "float32")},
+            **{("tp_mla_decode", dt): "split_kv"
+               for dt in ("bfloat16", "float32")}}
 # the route a head dim over 128 takes, by dtype: a bf16 prefill at hd 576
 # on the wide tensor cores, fp32 and hd 192 on the TF32 mma route, decode
 # split-kv
@@ -2373,7 +2417,9 @@ LARGE_HD_ROUTE = {
     **{(tag, dt): "split_kv" for tag in ("mla_decode", "mla_decode_per_batch")
        for dt in ("bfloat16", "float32")},
     ("odd_hd192", "bfloat16"): "mma_tf32",
-    ("odd_hd192", "float32"): "mma_tf32"}
+    ("odd_hd192", "float32"): "mma_tf32",
+    **{key: route for key, route in TP_ROUTE.items()
+       if key[0].startswith("tp_mla")}}
 # split-kv against the plain split-kv algorithm, which also computes in fp32
 # and rounds once: about one bf16 ulp of the output
 FLASH_SPLIT_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-2, 1e-3)}
@@ -4003,7 +4049,7 @@ TP_RANKS = 4
 TP_ARCH = "qwen2-72b"
 # (layers of 80, dtype, slots, prompt tokens, new tokens)
 TP_CHECK = (2, "float32", 2, 256, 8)
-TP_TIMED = (8, "bfloat16", 4, 1024, 32)
+TP_TIMED = (4, "bfloat16", 4, 1024, 32)
 # fp32 logits against the unsharded run, of the largest |logit|: the
 # row-split products (wo, w2, the head) sum in rank order
 TP_LOGIT_TOL = 1e-4
@@ -4016,24 +4062,30 @@ TP_TRAIN_BATCH = (8, 64)
 # unsharded AdamW fed the gathered gradient (the sharded clipping norm
 # sums in another order: an ulp of p)
 TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-5, 1e-4, 1e-6
+# (c)'s archs, each reduced(): qwen2-72b (kv heads duplicated at model 4),
+# DeepSeek-V2-Lite (MLA, experts split by model), Grok-1 (kv heads
+# duplicated, experts split by model); the capacity-less MoE dispatch, so
+# that a data-split step's groups do not move its drops
+TP_TRAIN_ARCHS = (TP_ARCH, "deepseek-v2-lite-16b", "grok-1-314b")
 # (d): ZeRO-3 (default_rules' FSDP overlay on 'data') composed with TP on
 # (data 2, model 2): Qwen2-1.5B at full width and depth in phase 9 (b)'s
 # configuration (seed, SyntheticPipeline 8 x 2,048 tokens, two
 # microbatches, remat, fp32 AdamW); Z3_STEPS steps timed, the last on the
-# collective clock.  Steps 1 and 2 held to phase 9 (b)'s loss and
-# clipping norm within Z3_TOL relative.  Z3_LAYERS cuts the depth (None:
-# all 28 layers)
+# collective clock (its wall is the step wall).  Steps 1 and 2 held to
+# phase 9 (b)'s loss and clipping norm within Z3_TOL relative.
+# Z3_LAYERS cuts the depth (None: all 28 layers)
 Z3_ARCH = "qwen2-1.5b"
 Z3_MESH = (2, 2)
-Z3_STEPS = 3
+Z3_STEPS = 2
 Z3_LAYERS = None
 Z3_TOL = 1e-5
 # (e): one step of every arch under ZeRO-3 on (data 2, model 1) (two such
-# meshes side by side: a 'pod' axis the rules leave alone), the dense and
-# VLM archs also on (data 2, model 2), AdamW, and Adafactor on qwen2-72b at
-# (2, 2), against the unsharded step on the card.  At reduced() no leaf
-# reaches the overlay's 2^16 elements, so every arch runs reduced() widened
-# (z3_config, as tests/test_torch_zero3.py does); a batch of 8 x 64
+# meshes side by side: a 'pod' axis the rules leave alone), the dense, VLM
+# and MoE archs also on (data 2, model 2), AdamW, and Adafactor on
+# qwen2-72b at (2, 2), against the unsharded step on the card.  At
+# reduced() no leaf reaches the overlay's 2^16 elements, so every arch runs
+# reduced() widened (z3_config, as tests/test_torch_zero3.py does); a batch
+# of 8 x 64
 Z3E_BATCH = (8, 64)
 Z3E_POD_MESH = (2, 2, 1)
 Z3E_TP_MESH = (2, 2)
@@ -4042,11 +4094,28 @@ Z3E_ADAFACTOR = "qwen2-72b"
 # rounding: Whisper's key biases) is held against Z3E_FLOOR of it, as
 # phase 9 (c) does
 Z3E_FLOOR = 1e-3
+# (f): DeepSeek-V2-Lite at full width on (data 1, model 4): 16 of the 64
+# routed experts a rank, MLA's 16 heads 4 a rank on the one hd-576 latent
+# head (G = 4).  (layers of 27: None all of them, dtype, slots, prompt
+# tokens, new tokens): (f1) the fp32 check, cut to the dense first layer
+# and one MoE layer, under the sorted dispatch and under dense_moe; (f2)
+# timed, (b)'s shape at full depth
+MOE_ARCH = "deepseek-v2-lite-16b"
+MOE_CHECK = (2, "float32", 2, 256, 8)
+MOE_TIMED = (None, "bfloat16", 4, 1024, 32)
 
 
 def tp_config(get_arch, layers: int):
     """qwen2-72b at full width, cut to ``layers`` of its 80."""
     return dataclasses.replace(get_arch(TP_ARCH), n_layers=layers)
+
+
+def moe_config(get_arch, layers: Optional[int]):
+    """DeepSeek-V2-Lite at full width, cut to ``layers`` of its 27 (None:
+    all of them)."""
+    cfg = get_arch(MOE_ARCH)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
 
 
 def tp_prompts(np, cfg, slots: int, length: int, seed: int):
@@ -4055,7 +4124,7 @@ def tp_prompts(np, cfg, slots: int, length: int, seed: int):
 
 
 def tp_train_config(tr, opt):
-    return tr.TrainConfig(n_microbatches=1, remat=True,
+    return tr.TrainConfig(n_microbatches=1, remat=True, dense_moe=True,
                           opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=2,
                                                   decay_steps=50))
 
@@ -4077,7 +4146,7 @@ def z3e_cases(ARCHS):
     """(arch, mesh shape, optimizer kind) of (e)."""
     out = [(a, Z3E_POD_MESH, "adamw") for a in sorted(ARCHS)]
     out += [(a, Z3E_TP_MESH, "adamw") for a in sorted(ARCHS)
-            if ARCHS[a].family in ("dense", "vlm")]
+            if ARCHS[a].family in ("dense", "vlm", "moe")]
     return out + [(Z3E_ADAFACTOR, Z3E_TP_MESH, "adafactor")]
 
 
@@ -4116,17 +4185,53 @@ def tp_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
     return pre, step
 
 
-def tp_greedy(torch, lm, params, cfg, prompts, new: int, dtype, dev):
+def moe_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
+    """(f2)'s least device time (ms, and "bytes" or "operations") of the
+    bf16 prefill and of its mean decode step on the one card that holds
+    all four ranks: the bytes the formulation must move (every weight and
+    the head read once: the sorted dispatch runs every expert on its slots,
+    as the JAX formulation does; the embedding rows looked up; the latent
+    cache read and written) over the HBM rate, or its FLOPs (a token's
+    active 2-D weights, its top-k experts' of the 3-D expert leaves, the
+    head on the last position at prefill, MLA's absorbed attention at
+    2 (R + rope) + 2 R a visible pair and head) over the bf16 tensor-core
+    rate, whichever is larger."""
+    meta = lm.init_params(0, cfg, torch.bfloat16, device="meta")
+    trunk = [x for name in meta if name.startswith("group")
+             for x in lm.leaves(meta[name])] + [meta["final_norm"]]
+    head = meta["embed" if cfg.tie_embeddings else "lm_head"].numel()
+    w_bytes = 2 * (sum(x.numel() for x in trunk) + head)
+    m, mla = cfg.moe, cfg.mla
+    active = 2 * (sum(x.numel() for x in trunk if x.dim() == 2)
+                  + sum(x.numel() for x in trunk if x.dim() == 3)
+                  * m.top_k // m.n_routed)
+    R, lat = mla.kv_lora_rank, mla.kv_lora_rank + mla.rope_head_dim
+    pair = (2 * lat + 2 * R) * cfg.n_heads * cfg.n_layers
+    lat_tok = 2 * lat * cfg.n_layers                  # bf16 latent bytes
+    d, tokens = cfg.d_model, slots * plen
+    pre = bound(peaks, w_bytes + tokens * (2 * d + lat_tok),
+                active * tokens + 2 * head * slots
+                + pair * slots * plen * (plen + 1) / 2, "bfloat16")
+    keys = plen + new / 2
+    step = bound(peaks, w_bytes + slots * (2 * d + lat_tok * (keys + 1)),
+                 (active + 2 * head) * slots + pair * slots * keys,
+                 "bfloat16")
+    return pre, step
+
+
+def tp_greedy(torch, lm, params, cfg, prompts, new: int, dtype, dev,
+              dense_moe: bool = False):
     """``prefill`` then ``new`` greedy ``decode_step``s: the logits of each
     (fp32, on the CPU, [new + 1, B, V]) and the tokens [new + 1, B]."""
     with torch.inference_mode():
         B, L = prompts.shape
         cache = lm.init_cache(cfg, B, L + new, dtype, device=dev)
         lg, cache = lm.prefill(params, cfg, torch.as_tensor(
-            prompts, device=dev).long(), cache)
+            prompts, device=dev).long(), cache, dense_moe=dense_moe)
         steps, toks = [lg.float().cpu()], [lg.argmax(-1)]
         for i in range(new):
-            lg, cache = lm.decode_step(params, cfg, toks[-1], cache, L + i)
+            lg, cache = lm.decode_step(params, cfg, toks[-1], cache, L + i,
+                                       dense_moe=dense_moe)
             steps.append(lg.float().cpu())
             toks.append(lg.argmax(-1))
         return torch.stack(steps), torch.stack(toks).cpu()
@@ -4336,12 +4441,70 @@ def zero3_cases_rank(torch, tr, opt, pipeline, sh, tpl, get_arch, ARCHS,
     return out, total
 
 
+def moe_rank(torch, np, lm, serve, sh, tpl, col, get_arch, counts, pol,
+             mesh, seed: int, dev):
+    """(f) in one rank, on (data 1, model 4): (f1) the fp32 check under
+    each dispatch, (f2) the timed bf16 serving at full depth.  Returns CPU
+    tensors and numbers."""
+    out = {}
+    layers, _, slots, plen, new = MOE_CHECK
+    cfg = moe_config(get_arch, layers)
+    prompts = tp_prompts(np, cfg, slots, plen, seed)
+    params = tpl.init_shard_params(seed, cfg, pol, torch.float32,
+                                   device=dev)
+    meta = lm.init_params(0, cfg, torch.float32, device="meta")
+    out["weight_bytes"] = tpl.local_bytes(params)
+    out["spec_bytes"] = sh.tree_local_bytes(
+        meta, sh.param_pspecs(meta, pol), mesh)
+    with sh.use_policy(pol):
+        for name, dense in (("sorted", False), ("dense_moe", True)):
+            (steps, toks), launches, plain = counts(lambda: tp_greedy(
+                torch, lm, params, cfg, prompts, new, torch.float32, dev,
+                dense_moe=dense))
+            out[f"check {name}"] = {
+                "logits": steps, "tokens": toks, "plain": plain,
+                "routes": dict(counts.routes["flash_attention"])}
+            out[f"launches f1 {name}"] = launches
+    del params
+    torch.cuda.empty_cache()
+
+    layers, _, slots, plen, new = MOE_TIMED
+    cfg = moe_config(get_arch, layers)
+    prompts = tp_prompts(np, cfg, slots, plen, seed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = tpl.init_shard_params(seed, cfg, pol, torch.bfloat16,
+                                   device=dev)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["timed_weight_bytes"] = tpl.local_bytes(params)
+    with sh.use_policy(pol):
+        eng = serve.ServeEngine(cfg, params, slots, plen + new,
+                                torch.bfloat16, device=dev)
+        eng.generate(prompts, 2)                          # warm-up
+        _, out["ttft_ms"] = wall(torch, lambda: eng.generate(prompts, 1))
+        (gen, out["generate_ms"]), launches, plain = counts(
+            lambda: wall(torch, lambda: eng.generate(prompts, new)))
+        out["timed_routes"] = dict(counts.routes["flash_attention"])
+        out["timed_plain"] = plain
+        with _CollectiveClock(torch, col, lm) as clock:
+            eng.generate(prompts, 8)
+    out.update(timed_tokens=gen,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               collective_share={c: clock.share(c) for c in clock.CALLS})
+    out["launches f2"] = launches
+    del params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
 def tp_rank(dev, seed: int, t_spawn: float):
     """What each of phase 10's ranks runs (module level: the ranks import
     it by name), on a ('data', 'model') process mesh over the four ranks:
     (a) the fp32 check, (b) the timed bf16 serving, (c) the train steps,
     (d) Qwen2-1.5B at full width under ZeRO-3 and TP, (e) every arch under
-    ZeRO-3.  Returns CPU tensors and numbers."""
+    ZeRO-3, (f) DeepSeek-V2-Lite serving at full width.  Returns CPU
+    tensors and numbers."""
     t_enter = time.time()
     import numpy as np
     import torch
@@ -4393,7 +4556,7 @@ def tp_rank(dev, seed: int, t_spawn: float):
     del params, eng
     torch.cuda.empty_cache()
 
-    # (b) timed bf16 serving at 8 layers
+    # (b) timed bf16 serving at 4 layers
     layers, dtype, slots, plen, new = TP_TIMED
     cfg = tp_config(get_arch, layers)
     prompts = tp_prompts(np, cfg, slots, plen, seed)
@@ -4419,36 +4582,41 @@ def tp_rank(dev, seed: int, t_spawn: float):
     del params, eng
     torch.cuda.empty_cache()
 
-    # (c) one AdamW step of reduced qwen2-72b per mesh
-    cfg = get_arch(TP_ARCH).reduced()
+    # (c) one AdamW step of each reduced arch of TP_TRAIN_ARCHS per mesh
     tc = tp_train_config(tr, opt)
-    full = tr.init_train_state(seed, cfg, tc, device=dev)["params"]
-    batch = SyntheticPipeline(cfg, *TP_TRAIN_BATCH, seed=seed,
-                              device=dev).batch_at(0)
     out["train"] = {}
-    for shape, seq in TP_TRAIN:
-        tmesh = make_process_mesh(shape, ("data", "model"), device=dev)
-        rules = sh.default_rules(False, fsdp=False)
-        tpol = sh.ShardingPolicy(tmesh, sh.with_sequence_tp(rules)
-                                 if seq else rules)
-        local = opt.tree_map(lambda x: x.clone(),
-                             tpl.shard_params(full, cfg, tpol))
-        state = {"params": local, "opt": opt.init_opt_state(local, tc.opt),
-                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
-        with sh.use_policy(tpol):
-            (new_state, m), launches, plain = counts(
-                lambda: tr.make_train_step(cfg, tc)(state, batch))
-            routes = dict(counts.routes["flash_attention"])
-            grads, _ = tr._policy_grads(local, cfg, tc, batch, tpol)
-            grads = tpl.gather_params(grads, cfg, tpol)
-            params = tpl.gather_params(new_state["params"], cfg, tpol)
-        out["train"][(shape, seq)] = {
-            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "grads": [x.cpu() for x in opt.tree_leaves(grads)],
-            "params": [x.cpu() for x in opt.tree_leaves(params)],
-            "routes": routes, "plain": plain}
-        out["launches"][f"c {shape} seq_tp={seq}"] = launches
-    del full, local, state, new_state, grads, params
+    tmeshes = {shape: make_process_mesh(shape, ("data", "model"),
+                                        device=dev)
+               for shape in {shape for shape, _ in TP_TRAIN}}
+    for arch in TP_TRAIN_ARCHS:
+        cfg = get_arch(arch).reduced()
+        full = tr.init_train_state(seed, cfg, tc, device=dev)["params"]
+        batch = SyntheticPipeline(cfg, *TP_TRAIN_BATCH, seed=seed,
+                                  device=dev).batch_at(0)
+        for shape, seq in TP_TRAIN:
+            rules = sh.default_rules(False, fsdp=False)
+            tpol = sh.ShardingPolicy(tmeshes[shape], sh.with_sequence_tp(
+                rules) if seq else rules)
+            local = opt.tree_map(lambda x: x.clone(),
+                                 tpl.shard_params(full, cfg, tpol))
+            state = {"params": local,
+                     "opt": opt.init_opt_state(local, tc.opt),
+                     "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            with sh.use_policy(tpol):
+                (new_state, m), launches, plain = counts(
+                    lambda: tr.make_train_step(cfg, tc)(state, batch))
+                routes = dict(counts.routes["flash_attention"])
+                grads, _ = tr._policy_grads(local, cfg, tc, batch, tpol)
+                grads = tpl.gather_params(grads, cfg, tpol)
+                params = tpl.gather_params(new_state["params"], cfg, tpol)
+            out["train"][(arch, shape, seq)] = {
+                "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "grads": [x.cpu() for x in opt.tree_leaves(grads)],
+                "params": [x.cpu() for x in opt.tree_leaves(params)],
+                "routes": routes, "plain": plain}
+            out["launches"][f"c {arch} {shape} seq_tp={seq}"] = launches
+        del full, local, state, new_state, grads, params
     torch.cuda.empty_cache()
 
     # (d) Qwen2-1.5B at full width under ZeRO-3 and TP
@@ -4466,6 +4634,14 @@ def tp_rank(dev, seed: int, t_spawn: float):
         torch, tr, opt, pipeline, sh, tpl, get_arch, ARCHS, counts, seed,
         dev)
     out["zero3_cases_s"] = time.perf_counter() - t0
+
+    # (f) DeepSeek-V2-Lite at full width: experts and heads over 'model'
+    t0 = time.perf_counter()
+    out["moe"] = moe_rank(torch, np, lm, serve, sh, tpl, col, get_arch,
+                          counts, pol, mesh, seed, dev)
+    out["moe"]["part_s"] = time.perf_counter() - t0
+    for key in ("f1 sorted", "f1 dense_moe", "f2"):
+        out["launches"][key] = out["moe"].pop(f"launches {key}")
     return out
 
 
@@ -4584,6 +4760,110 @@ def zero3_cases_gates(torch, opt, lm, get_arch, ARCHS, results, z3_refs,
     return out
 
 
+def moe_gates(torch, np, lm, get_arch, results, moe_ref, peaks, smi):
+    """(f)'s gates on every rank's results against the unsharded runs of
+    this process, and (f2)'s numbers (the slowest rank's walls)."""
+    L1, _, slots1, plen1, new1 = MOE_CHECK
+    worst = {}
+    for res in results:
+        r, f = res["rank"], res["moe"]
+        for name in ("sorted", "dense_moe"):
+            ref_steps, ref_toks = moe_ref[name]
+            got = f[f"check {name}"]
+            scale = float(ref_steps.abs().max())
+            err = float((got["logits"] - ref_steps).abs().max()) / scale
+            worst[name] = max(worst.get(name, 0.0), err)
+            check(err <= TP_LOGIT_TOL,
+                  f"tp (f1) {name} rank {r}: logits {err!r} of max |logit| "
+                  f"from the unsharded run (limit {TP_LOGIT_TOL})")
+            check(torch.equal(got["tokens"],
+                              results[0]["moe"][f"check {name}"]["tokens"])
+                  and torch.equal(got["tokens"], ref_toks),
+                  f"tp (f1) {name} rank {r}: greedy tokens differ between "
+                  f"ranks or from the unsharded run")
+            want = {"tensor_core": 0, "tensor_core_wide": 0,
+                    "split_kv": L1 * new1, "mma_tf32": L1}
+            check(got["routes"] == want and not any(got["plain"].values()),
+                  f"tp (f1) {name} rank {r}: flash launches by route "
+                  f"{got['routes']} (want {want}), plain {got['plain']}")
+        check(f["weight_bytes"] == f["spec_bytes"],
+              f"tp (f1) rank {r}: {f['weight_bytes']} weight bytes, the "
+              f"specs give {f['spec_bytes']}")
+        L = get_arch(MOE_ARCH).n_layers
+        new = MOE_TIMED[4]
+        want = {"tensor_core": 0, "tensor_core_wide": L,
+                "split_kv": L * (new - 1), "mma_tf32": 0}
+        check(f["timed_routes"] == want
+              and not any(f["timed_plain"].values()),
+              f"tp (f2) rank {r}: flash launches by route "
+              f"{f['timed_routes']} (want {want}), plain "
+              f"{f['timed_plain']}")
+        check(np.array_equal(f["timed_tokens"],
+                             results[0]["moe"]["timed_tokens"]),
+              f"tp (f2) rank {r}: tokens differ from rank 0's")
+    fs = [res["moe"] for res in results]
+    f0 = fs[0]
+    say(f"  tp (f1): {MOE_ARCH} at full width, {L1} of 27 layers (the "
+        f"dense first layer and one MoE layer), fp32, (data 1, model "
+        f"{TP_RANKS}): 16 experts and 4 of 16 heads a rank; prefill and "
+        f"{new1} decode logits within {worst['sorted']!r} (sorted) and "
+        f"{worst['dense_moe']!r} (dense_moe) of max |logit| of the "
+        f"unsharded run (limit {TP_LOGIT_TOL}); greedy tokens identical "
+        f"on every rank and to the unsharded run; weight bytes a rank "
+        f"{f0['weight_bytes']} == the specs' local bytes; flash a rank by "
+        f"route {f0['check sorted']['routes']} [{smi}]")
+    _, _, slots, plen, new = MOE_TIMED
+    cfg = moe_config(get_arch, MOE_TIMED[0])
+    ttft = max(f["ttft_ms"] for f in fs)
+    gen_ms = max(f["generate_ms"] for f in fs)
+    step_ms = (gen_ms - ttft) / (new - 1)
+    (pre_bound, pre_by), (step_bound, step_by) = moe_bounds(
+        torch, lm, cfg, slots, plen, new, peaks)
+    agree = float(np.mean(f0["timed_tokens"] == moe_ref["timed"]))
+    info = {"arch": MOE_ARCH, "ranks": TP_RANKS, "backend": "gloo",
+            "card": smi, "check": {
+                "layers": L1, "dtype": MOE_CHECK[1], "slots": slots1,
+                "prompt": plen1, "new": new1,
+                "worst_logit_rel_err": worst,
+                "weight_bytes_per_rank": f0["weight_bytes"],
+                "routes_per_rank": f0["check sorted"]["routes"]},
+            "timed": {
+                "layers": cfg.n_layers, "dtype": MOE_TIMED[1],
+                "slots": slots, "prompt": plen, "new": new,
+                "ttft_ms": ttft, "generate_ms": gen_ms,
+                "decode_ms_per_step": step_ms,
+                "prefill_bound_ms": pre_bound, "prefill_bound_by": pre_by,
+                "decode_step_bound_ms": step_bound,
+                "decode_step_bound_by": step_by,
+                "tokens_per_s": slots * new / (gen_ms / 1e3),
+                "peak_gb_by_rank": [f["peak_gb"] for f in fs],
+                "weight_gb_per_rank": f0["timed_weight_bytes"] / 1e9,
+                "init_s_by_rank": [f["init_s"] for f in fs],
+                "collective_share_prefill": max(
+                    f["collective_share"]["prefill"] for f in fs),
+                "collective_share_decode": max(
+                    f["collective_share"]["decode_step"] for f in fs),
+                "greedy_agreement_with_unsharded_bf16": agree,
+                "routes_per_rank": f0["timed_routes"]},
+            "part_s_by_rank": [f["part_s"] for f in fs]}
+    t = info["timed"]
+    say(f"  tp (f2): {MOE_ARCH} at full width and depth ({cfg.n_layers} "
+        f"layers), bf16, {slots} slots x {plen}-token prompts + {new} new, "
+        f"(data 1, model {TP_RANKS}), 4 ranks over gloo on one card: TTFT "
+        f"{ttft!r} ms (the prefill's device bound {pre_bound!r} ms, "
+        f"{pre_by}), decode {step_ms!r} ms a step (bound {step_bound!r} "
+        f"ms, {step_by}), {t['tokens_per_s']!r} tokens/s; weights "
+        f"{t['weight_gb_per_rank']!r} GB a rank, peak GB by rank "
+        f"{t['peak_gb_by_rank']}; model-axis collectives "
+        f"{t['collective_share_prefill']!r} of a prefill and "
+        f"{t['collective_share_decode']!r} of a decode step (host clock, a "
+        f"synchronisation around each); flash a rank by route "
+        f"{f0['timed_routes']}; greedy agreement with the unsharded bf16 "
+        f"run {agree!r} (not gated); part "
+        f"{max(info['part_s_by_rank']):.1f} s [{smi}]")
+    return info
+
+
 def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
              peaks, seed, smi, ref9=None):
     """Phase 10: the unsharded references in this process, then one spawn
@@ -4608,25 +4888,50 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                                     ).generate(prompts, new)
         del params
         torch.cuda.empty_cache()
-        # (b) reference tokens: unsharded bf16, 8 layers
+        # (b) reference tokens: unsharded bf16, 4 layers
         layers, _, slots, plen, new = TP_TIMED
-        cfg8 = tp_config(get_arch, layers)
-        params = lm.init_params(seed, cfg8, torch.bfloat16, device="cuda")
-        ref_timed = serve.ServeEngine(cfg8, params, slots, plen + new,
+        cfg_b = tp_config(get_arch, layers)
+        params = lm.init_params(seed, cfg_b, torch.bfloat16, device="cuda")
+        ref_timed = serve.ServeEngine(cfg_b, params, slots, plen + new,
                                       torch.bfloat16, device="cuda"
                                       ).generate(
-            tp_prompts(np, cfg8, slots, plen, seed), new)
+            tp_prompts(np, cfg_b, slots, plen, seed), new)
         del params
         torch.cuda.empty_cache()
-        # (c) reference: the unsharded full-batch step
-        rcfg = get_arch(TP_ARCH).reduced()
+        # (c) references: each arch's unsharded full-batch step
         tc = tp_train_config(tr, opt)
-        state = tr.init_train_state(seed, rcfg, tc, device="cuda")
-        batch = pipeline.SyntheticPipeline(rcfg, *TP_TRAIN_BATCH,
-                                           seed=seed,
-                                           device="cuda").batch_at(0)
-        ref_grads, _ = tr.accumulate_grads(state["params"], rcfg, tc, batch)
-        _, ref_m = tr.make_train_step(rcfg, tc)(state, batch)
+        train_refs = {}
+        for arch in TP_TRAIN_ARCHS:
+            rcfg = get_arch(arch).reduced()
+            state = tr.init_train_state(seed, rcfg, tc, device="cuda")
+            batch = pipeline.SyntheticPipeline(rcfg, *TP_TRAIN_BATCH,
+                                               seed=seed,
+                                               device="cuda").batch_at(0)
+            ref_grads, _ = tr.accumulate_grads(state["params"], rcfg, tc,
+                                               batch)
+            _, ref_m = tr.make_train_step(rcfg, tc)(state, batch)
+            train_refs[arch] = (state["params"], ref_grads, ref_m)
+        del state, batch, ref_grads, ref_m
+        # (f) references: the unsharded fp32 check under each dispatch,
+        # and the unsharded bf16 model (phase 6's weights) at (f2)'s shape
+        layers, _, slots, plen, new = MOE_CHECK
+        mcfg = moe_config(get_arch, layers)
+        params = lm.init_params(seed, mcfg, torch.float32, device="cuda")
+        moe_ref = {name: tp_greedy(torch, lm, params, mcfg, tp_prompts(
+            np, mcfg, slots, plen, seed), new, torch.float32, "cuda",
+            dense_moe=dense)
+            for name, dense in (("sorted", False), ("dense_moe", True))}
+        del params
+        torch.cuda.empty_cache()
+        layers, _, slots, plen, new = MOE_TIMED
+        mcfg = moe_config(get_arch, layers)
+        params = lm.init_params(seed, mcfg, torch.bfloat16, device="cuda")
+        moe_ref["timed"] = serve.ServeEngine(
+            mcfg, params, slots, plen + new, torch.bfloat16,
+            device="cuda").generate(tp_prompts(np, mcfg, slots, plen, seed),
+                                    new)
+        del params
+        torch.cuda.empty_cache()
         # (e) references
         from repro_torch.configs import ARCHS
         z3_refs = zero3_refs(torch, tr, opt, pipeline, get_arch, ARCHS,
@@ -4667,9 +4972,9 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                   f"{res['check_routes']} (want {want}), plain "
                   f"{res['check_plain']}")
             # (b) routes: tensor-core prefill at G = 8, split-kv decode
-            L8, new8 = TP_TIMED[0], TP_TIMED[4]
-            want = {"tensor_core": L8, "tensor_core_wide": 0,
-                    "split_kv": L8 * (new8 - 1), "mma_tf32": 0}
+            L_b, new_b = TP_TIMED[0], TP_TIMED[4]
+            want = {"tensor_core": L_b, "tensor_core_wide": 0,
+                    "split_kv": L_b * (new_b - 1), "mma_tf32": 0}
             check(res["timed_routes"] == want
                   and not any(res["timed_plain"].values()),
                   f"tp (b) rank {r}: flash launches by route "
@@ -4694,7 +4999,7 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
         slots, new = TP_TIMED[2], TP_TIMED[4]
         step_ms = (gen_ms - ttft) / (new - 1)
         (pre_bound, pre_by), (step_bound, step_by) = tp_bounds(
-            torch, lm, cfg8, slots, TP_TIMED[3], new, peaks)
+            torch, lm, cfg_b, slots, TP_TIMED[3], new, peaks)
         agree = float(np.mean(first["timed_tokens"] == ref_timed))
         info = {"arch": TP_ARCH, "ranks": TP_RANKS, "backend": "gloo",
                 "card": smi, "check": {
@@ -4741,19 +5046,20 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
             f"with the unsharded bf16 run {agree!r} (not gated) [{smi}]")
 
         # (c) gates: each rank's loss, gathered gradient and parameters
-        want_grads = [g for g in opt.tree_leaves(ref_grads)]
-        loss, gnorm = float(ref_m["loss"]), float(ref_m["grad_norm"])
         train_rows = []
-        for shape, seq in TP_TRAIN:
+        for arch, (shape, seq) in ((a, m) for a in TP_TRAIN_ARCHS
+                                   for m in TP_TRAIN):
+            before, ref_grads, ref_m = train_refs[arch]
+            want_grads = [g for g in opt.tree_leaves(ref_grads)]
+            loss, gnorm = float(ref_m["loss"]), float(ref_m["grad_norm"])
             worst_g = worst_p = 0.0
             for res in results:
-                got = res["train"][(shape, seq)]
+                got = res["train"][(arch, shape, seq)]
                 grads = [g.cuda() for g in got["grads"]]
                 g_err = max(_rel(a, b) for a, b in zip(grads, want_grads))
                 upd, _, _ = adamw_update(
-                    opt.tree_unflatten(state["params"], grads),
-                    init_opt_state(state["params"], tc.opt),
-                    state["params"], tc.opt)
+                    opt.tree_unflatten(before, grads),
+                    init_opt_state(before, tc.opt), before, tc.opt)
                 p_err = max(_rel(a.cuda(), b) for a, b in zip(
                     got["params"], opt.tree_leaves(upd)))
                 worst_g, worst_p = max(worst_g, g_err), max(worst_p, p_err)
@@ -4763,16 +5069,18 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                       and g_err <= TP_GRAD_TOL and p_err <= TP_PARAM_TOL
                       and got["routes"].get("mma_tf32", 0) > 0
                       and not any(got["plain"].values()),
-                      f"tp (c) {shape} seq_tp={seq} rank {res['rank']}: "
+                      f"tp (c) {arch} {shape} seq_tp={seq} rank "
+                      f"{res['rank']}: "
                       f"loss {got['loss']} vs {loss}, norm "
                       f"{got['grad_norm']} vs {gnorm}, gradient {g_err}, "
                       f"parameters {p_err}, routes {got['routes']}, plain "
                       f"{got['plain']}")
-            train_rows.append({"mesh": list(shape), "seq_tp": seq,
+            train_rows.append({"arch": arch, "mesh": list(shape),
+                               "seq_tp": seq,
                                "worst_grad_rel_err": worst_g,
                                "worst_param_rel_err": worst_p})
-            say(f"  tp (c): reduced {TP_ARCH} (8 query heads on 2 kv "
-                f"heads), (data {shape[0]}, model {shape[1]})"
+            say(f"  tp (c): reduced {arch}, (data {shape[0]}, model "
+                f"{shape[1]})"
                 f"{' with sequence TP' if seq else ''}: one AdamW step's "
                 f"loss and norm within {TP_LOSS_TOL} of the unsharded "
                 f"step's, gradient within {worst_g!r} of each leaf's max "
@@ -4816,8 +5124,9 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
             f"(losses {z0['losses']!r}, norms {z0['grad_norms']!r}); "
             f"params {z0['param_bytes'] / 1e9!r} GB a rank, params + m + "
             f"v {z0['state_bytes']['held'] / 1e9!r} GB == the specs'; step "
-            f"{step_ms!r} ms (slowest rank's median of steps 2-"
-            f"{Z3_STEPS}), {d_info['tokens_per_s']!r} tokens/s; peak GB by "
+            f"{step_ms!r} ms (the slowest rank's median of steps 2-"
+            f"{Z3_STEPS}, step {Z3_STEPS} on the collective clock), "
+            f"{d_info['tokens_per_s']!r} tokens/s; peak GB by "
             f"rank {d_info['peak_gb_by_rank']}; 'data' collectives "
             f"{max(d_info['data_collective_share_by_rank'])!r} of step "
             f"{Z3_STEPS} (the largest over ranks; host clock, a "
@@ -4829,6 +5138,9 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
         info["zero3_cases"] = zero3_cases_gates(torch, opt, lm, get_arch,
                                                 ARCHS, results, z3_refs,
                                                 smi)
+        # (f) gates and numbers: DeepSeek-V2-Lite under a model axis
+        info["moe"] = moe_gates(torch, np, lm, get_arch, results, moe_ref,
+                                peaks, smi)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     launches = dict.fromkeys(("flash_attention", "flash_attention_backward",
@@ -5130,12 +5442,14 @@ def main(argv=None) -> int:
         f"annealer stream identical on the card and the CPU; launches "
         f"{sched_launches}; {sched_info['phase_s']:.1f} s [{smi}]")
 
-    # ---- 10. tensor parallelism: qwen2-72b at full width on 4 ranks -----
+    # ---- 10. tensor parallelism: qwen2-72b and DeepSeek-V2-Lite at full
+    # width on 4 ranks ---------------------------------------------------
     tp_info, tp_launches = tp_phase(torch, np, lm, serve, tr, opt, pipeline,
                                     run_ranks, get_arch, peaks, args.seed,
                                     smi, full_info)
-    say(f"phase tp: {TP_ARCH} at full width on {TP_RANKS} ranks (gloo, one "
-        f"card): the fp32 check and the training gate hold; launches "
+    say(f"phase tp: {TP_ARCH} and {MOE_ARCH} at full width on {TP_RANKS} "
+        f"ranks (gloo, one card): the fp32 checks and the training gates "
+        f"hold; launches "
         f"{tp_launches}; {tp_info['phase_s']:.1f} s [{smi}]")
 
     # ---- 8. kernels line -------------------------------------------------
@@ -5269,6 +5583,10 @@ def main(argv=None) -> int:
                                    "check": tp_info["check"][
                                        "routes_per_rank"],
                                    "timed": tp_info["timed"][
+                                       "routes_per_rank"],
+                                   "moe check": tp_info["moe"]["check"][
+                                       "routes_per_rank"],
+                                   "moe timed": tp_info["moe"]["timed"][
                                        "routes_per_rank"]},
                                family_launches_per_forward={
                                    a: {"prefill": serving[a][
@@ -5398,6 +5716,10 @@ def main(argv=None) -> int:
           and sum(wide_by_path.values()) == mla_routes["tensor_core_wide"],
           f"only DeepSeek-V2-Lite's serving launched the wide kernel: "
           f"{wide_by_path}")
+    # phase 10 (f2): DeepSeek-V2-Lite at model 4, G = 4 (not a serving
+    # path of one process: beside the main path, per rank)
+    wide_by_path["tp (f2), per rank"] = tp_info["moe"]["timed"][
+        "routes_per_rank"]["tensor_core_wide"]
     kernels.append({"name": "flash_attention_wide", "route": "cuda",
                     "source": WIDE_SOURCE,
                     "replaces": REPLACES["flash_attention"],
@@ -5416,6 +5738,15 @@ def main(argv=None) -> int:
                         "max_abs_err", "mirror_max_abs_err", "ms",
                         "plain_ms", "bound_ms", "library_ms", "device_ms",
                         "library_device_ms")},
+                    # phase 10 (f2)'s local heads: G = 4 at [4, 1024, 4,
+                    # 576] into 1,056 keys, v = k
+                    "tp_g4_row": {k: flash_main["tp_mla_prefill"][k]
+                                  for k in ("max_abs_err",
+                                            "mirror_max_abs_err", "ms",
+                                            "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms",
+                                            "device_ms",
+                                            "library_device_ms")},
                     "note": "flash_attention's tensor_core_wide route; its "
                             "launches are also in flash_attention's"})
     # the TF32 tensor-core flash kernel (flash_attention's mma_tf32 route:
@@ -5433,6 +5764,8 @@ def main(argv=None) -> int:
     mma_by_path["train qwen2-1.5b"] = full_info["routes_first_step"][
         "mma_tf32"]
     mma_by_path["tp check, per rank"] = tp_info["check"][
+        "routes_per_rank"].get("mma_tf32", 0)
+    mma_by_path["tp (f1) check, per rank"] = tp_info["moe"]["check"][
         "routes_per_rank"].get("mma_tf32", 0)
     mma = mma_rows["prefill"]
     check(mma_by_path["train qwen2-1.5b"] > 0,

@@ -1,5 +1,5 @@
-"""Tensor parallelism of the dense LM family on a process mesh: the
-collective side of the port's sharding layer.
+"""Tensor parallelism of the LM on a process mesh: the collective side of
+the port's sharding layer.
 
 The JAX package gives its sharding rules to GSPMD and marks activations
 with ``shard_acts``; the compiler inserts the collectives.  The port's
@@ -11,7 +11,7 @@ axis holds the same bits):
 
 * the Megatron pair :func:`copy_to_model` (identity forward, ``psum``
   backward) and :func:`reduce_from_model` (``psum`` forward, identity
-  backward) around each attention and MLP block;
+  backward) around each attention, MLP and MoE block;
 * the sequence-TP pair :func:`sp_gather` (all-gather on the sequence
   forward, ``psum_scatter`` backward) and :func:`sp_scatter`
   (``psum_scatter`` forward, all-gather backward), the counterparts of the
@@ -42,16 +42,34 @@ difference of layout.  Norms stay replicated; under sequence TP their
 weights enter through :func:`copy_to_model`, whose backward sums the
 per-shard gradients.
 
+The MoE family (DeepSeek-V2-Lite, Grok-1) runs as GSPMD partitions the
+JAX program.  The tokens entering a MoE block are whole on every rank of
+``model`` (the block input is gathered as any other's), so there is no
+expert all-to-all: every rank routes and places the whole group alike,
+runs its block of experts ``[r E/tp, (r+1) E/tp)`` on their slots (or,
+where tp does not divide E, every expert on its block of the expert FFN
+dim, as the spec resolver falls through to ``ffn``), the shared experts
+on its FFN block, and its partial output is summed over ``model``.  MLA
+splits ``wq``, ``w_uk`` and ``w_uv`` by whole heads and ``wo`` by rows;
+its latent (``w_dkv``, ``kv_norm``) is computed whole on every rank and
+its cache holds the whole latent (:mod:`repro_torch.models.mla`).  A
+replicated weight that feeds a model-split computation (the router, MLA's
+``w_dkv`` and ``kv_norm``) enters through :meth:`TensorParallel.
+shared_weight`, whose backward sums its partial gradients over
+``model``; the load-balance loss, computed whole and alike on every rank,
+reads the block input through :meth:`TensorParallel.replicated`, so its
+gradient is counted once.
+
 Execution covers the spec entries ``None`` and ``'model'``, and the
 FSDP overlay's ``'data'`` (ZeRO-3, :mod:`.fsdp`): :class:`TensorParallel`
 is the whole parameter layout of a policy, the model-axis cut here (at
 model 1, none) and then the overlay's cut of :class:`.fsdp.Zero3`, for
-every family at model 1 and for the dense and VLM families above it.
+every family at model 1 and for the dense, VLM and MoE families above it.
 :meth:`TensorParallel.sum_squares` and :meth:`TensorParallel.full_mean`
 give the optimizers sums and means of the unsharded leaves.  2D serving
 weights (``serve_tp2d_rules``), sequence sharding over ``data`` and the
-other families under a model axis raise ``NotImplementedError``
-(``ROADMAP.md`` queues them).
+RWKV, Hymba and enc-dec families under a model axis raise
+``NotImplementedError`` (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
@@ -71,8 +89,11 @@ from .sharding import (ShardingPolicy, active_policy, axes_size,
                        map_with_path, param_pspecs)
 
 MODEL = "model"
-TP_FAMILIES = ("dense", "vlm")
+TP_FAMILIES = ("dense", "vlm", "moe")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
+# leaves whose spec must split over a model axis above 1
+_SPLIT_LEAVES = ("wq", "wo", "bq", "w1", "w2", "w3", "w_uk", "w_uv",
+                 "shared_w1", "shared_w2", "shared_w3") + _KV_LEAVES
 
 
 def _todo(what: str, where: str = " under a model axis > 1"
@@ -175,6 +196,23 @@ class _SharedKV(torch.autograd.Function):
         return _ordered_sum(parts[j * ctx.rep:(j + 1) * ctx.rep]), None, None
 
 
+class _Replicated(torch.autograd.Function):
+    """``h`` forward (a whole block input, the same on every rank);
+    backward hands its cotangent, the same on every rank, to ``local``, the
+    block input before its gather (its block of the sequence under
+    sequence TP), with no sum over ``model``."""
+    @staticmethod
+    def forward(ctx, h, local, mesh, seq):
+        ctx.mesh, ctx.seq = mesh, seq
+        return h.view_as(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.seq:
+            g = _block(g, ctx.mesh, 1).contiguous()
+        return None, g, None, None
+
+
 def _ordered_sum(parts) -> torch.Tensor:
     acc = parts[0].clone()
     for part in parts[1:]:
@@ -241,8 +279,7 @@ class TensorParallel:
         if rules.get("seq") is not None:
             raise _todo("sequence sharding over "
                         f"{rules['seq']!r} (sequence_parallel_rules)", "")
-        if self.size > 1 and (cfg.family not in TP_FAMILIES or cfg.mla
-                              or cfg.moe):
+        if self.size > 1 and cfg.family not in TP_FAMILIES:
             raise _todo(f"{cfg.name} ({cfg.family} family)")
         if rules.get("seq_tp") not in (None, MODEL):
             raise _todo(f"seq_tp on {rules['seq_tp']!r}")
@@ -250,6 +287,8 @@ class TensorParallel:
         if MODEL in ((batch,) if isinstance(batch, str) else batch or ()):
             raise _todo("a batch split over 'model'")
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if cfg.mla:         # one latent head, whole on every rank
+            KV = H
         if H % self.size or (KV % self.size and self.size % KV):
             raise _todo(f"{H} query / {KV} kv heads at model {self.size} "
                         f"(heads that do not split whole)")
@@ -267,6 +306,9 @@ class TensorParallel:
         if self.size == 1:                      # no model-axis cut
             self.plan = dict.fromkeys(self.plan, ("rep", None))
         self.vocab = self.plan["embed"][0] == "model"
+        # expert parallelism: the routed experts split by whole experts
+        self.experts = any(path.endswith("moe/w1") and kd == ("model", 0)
+                           for path, kd in self.plan.items())
         self.zero3 = (Zero3(self.template, policy)
                       if active_axis(policy) is not None else None)
         if self.zero3 is not None:
@@ -300,7 +342,7 @@ class TensorParallel:
         if MODEL in spec:
             self.plan[path] = ("model", spec.index(MODEL))
             return
-        if name in ("wq", "wo", "bq", "w1", "w2", "w3") + _KV_LEAVES:
+        if name in _SPLIT_LEAVES:
             raise _todo(f"{path} {tuple(leaf.shape)} unsplit at model "
                         f"{self.size}")
         self.plan[path] = ("rep", None)
@@ -379,6 +421,26 @@ class TensorParallel:
         """A block's partial output summed over ``model``."""
         return (sp_scatter(a, self.mesh) if self.seq
                 else reduce_from_model(a, self.mesh))
+
+    def shared_weight(self, w: torch.Tensor) -> torch.Tensor:
+        """A replicated weight that feeds a model-split computation (the
+        router, MLA's latent projection): its partial gradients are summed
+        over ``model``."""
+        return copy_to_model(w, self.mesh)
+
+    def replicated(self, h: torch.Tensor, local: torch.Tensor
+                   ) -> torch.Tensor:
+        """``h``, :meth:`enter` of ``local``, for a term that every rank of
+        ``model`` computes whole and alike (the MoE load-balance loss):
+        its cotangent, the same on every rank, reaches ``local`` once, not
+        through :meth:`enter`'s sum over ``model``."""
+        return _Replicated.apply(h.detach(), local, self.mesh, self.seq)
+
+    def first_expert(self, n_local: int) -> int:
+        """The first of this rank's ``n_local`` routed experts (0 where the
+        experts are whole on every rank: unsplit, or split by their FFN
+        dim)."""
+        return self.mesh.axis_index(MODEL) * n_local if self.experts else 0
 
     def kv_weight(self, w: torch.Tensor) -> torch.Tensor:
         return (_SharedKV.apply(w, self.mesh, self.kv_rep)

@@ -27,7 +27,8 @@ come from the weights' widths, a cache holds the local kv heads, and the
 batch is this rank's rows.  :func:`forward`, :func:`prefill` and
 :func:`decode_step` return logits gathered over the model axis (the same
 on every rank); :func:`lm_loss` runs a vocab-parallel cross-entropy.  The
-dense family (and the VLM's dense trunk) runs so; the others raise
+dense family, the VLM's dense trunk and the MoE family (expert
+parallelism, MLA's head split) run so; the others raise
 ``NotImplementedError`` under a model axis.
 
 ZeRO-3: where the policy's FSDP axis (``'data'``) splits the parameters
@@ -348,31 +349,40 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
                            Optional[torch.Tensor]]:
     """One block. Returns (x, new_cache, moe_aux_loss): the aux loss is
     None for a layer without MoE, or when ``with_aux`` is false.  Under
-    ``tp`` (dense blocks only) each block's input is made whole on every
-    rank and its partial output summed over the model axis (the JAX
-    package's ``sp_gather`` / ``sp_scatter`` points).  ``rows``: the policy
-    whose batch axes split the rows (``tensor_parallel.rows_policy``),
-    over which the MoE load-balance statistics are summed."""
+    ``tp`` (attention, MLA, MLP and MoE blocks) each block's input is made
+    whole on every rank and its partial output summed over the model axis
+    (the JAX package's ``sp_gather`` / ``sp_scatter`` points).  ``rows``:
+    the policy whose batch axes split the rows
+    (``tensor_parallel.rows_policy``), over which the MoE load-balance
+    statistics are summed."""
     eps = cfg.norm_eps
     if kind in ("attn_mlp", "attn_moe"):
         h = _block_input(x, p["ln1"], eps, tp)
         if cfg.mla:
             a, cache = mla_attention(p["attn"], cfg, h, positions,
-                                     cache=cache, cache_index=cache_index)
+                                     cache=cache, cache_index=cache_index,
+                                     tp=tp)
         else:
             a, cache = attn_forward(p["attn"], cfg, h, positions,
                                     cache=cache, cache_index=cache_index,
                                     window=cfg.sliding_window, tp=tp)
         x = x + _block_output(a, tp)
-        h = _block_input(x, p["ln2"], eps, tp)
         if kind == "attn_mlp":
+            h = _block_input(x, p["ln2"], eps, tp)
             return x + _block_output(swiglu(h, **p["mlp"]), tp), cache, None
+        hn = rms_norm(x, p["ln2"] if tp is None else tp.norm_weight(p["ln2"]),
+                      eps)
+        h = hn if tp is None else tp.enter(hn)
+        # the balance loss is whole and alike on every rank of 'model': its
+        # gradient reaches the block input once (tp.replicated)
+        hb = h if tp is None else tp.replicated(h, hn)
         aux = (aux_load_balance_loss(p["moe"]["router"],
-                                     h.reshape(-1, h.shape[-1]),
+                                     hb.reshape(-1, hb.shape[-1]),
                                      cfg.moe.top_k, rows)
                if with_aux else None)
-        x = x + moe_ffn(p["moe"], cfg.moe, h, dense_dispatch=dense_moe,
-                        n_groups=moe_groups)
+        x = x + _block_output(moe_ffn(p["moe"], cfg.moe, h,
+                                      dense_dispatch=dense_moe,
+                                      n_groups=moe_groups, tp=tp), tp)
         return x, cache, aux
     if kind == "rwkv":
         h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)

@@ -22,6 +22,19 @@ The cache is one ``[B, Smax, kv_lora + rope_dim]`` tensor, ``latent``;
 ``c_kv`` and ``k_rope`` are views of its two column ranges (the JAX
 package's two cache entries), so attention reads the cache in place as
 both keys and values, with no concatenation a step.
+
+Under a model axis (``tp``): ``wq``, ``w_uk`` and ``w_uv`` are split by
+whole heads and ``wo`` by rows, so each rank projects and attends with its
+H/tp heads on the one latent head, and its output is a partial sum that
+the block sums over ``model``.  The latent (``w_dkv``, ``kv_norm``) is
+computed whole on every rank; those two weights enter through
+``tp.shared_weight``, whose backward sums their partial gradients (each
+rank's heads read all of the latent).  The cache holds the whole latent
+on every rank.  The JAX package's ``cache_pspecs`` splits the latent's
+last dim over ``model`` instead (``c_kv``'s 512 and ``k_rope``'s 64
+columns into 128 and 16 at model 4): the port keeps it whole, tp times
+the spec's cache bytes a rank, a deliberate difference of layout (every
+head attends over every latent column).
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ArchConfig
+from ..distributed import tensor_parallel as tpl
 from .attention import blockwise_attention
 from .layers import apply_rope, dense_init, rms_norm
 
@@ -57,22 +71,27 @@ def init_mla_params(gen, cfg: ArchConfig, dtype, device) -> Dict:
 def _project_q(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """-> q_nope [B,S,H,nope], q_rope [B,S,H,rope] (rope applied)."""
-    m, H = cfg.mla, cfg.n_heads
+    """-> q_nope [B,S,H,nope], q_rope [B,S,H,rope] (rope applied; H the
+    heads of ``wq``: this rank's under a model axis)."""
+    m = cfg.mla
     B, S, _ = x.shape
-    q = (x @ p["wq"]).reshape(B, S, H, m.nope_head_dim + m.rope_head_dim)
+    q = (x @ p["wq"]).reshape(B, S, -1, m.nope_head_dim + m.rope_head_dim)
     q_nope, q_rope = q.split([m.nope_head_dim, m.rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
 def _project_kv_latent(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                        positions: torch.Tensor,
+                       tp: Optional[tpl.TensorParallel] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> c_kv [B,S,R] (normed latent), k_rope [B,S,1,rope] (shared head)."""
     m = cfg.mla
-    c_kv, k_rope = (x @ p["w_dkv"]).split([m.kv_lora_rank, m.rope_head_dim],
-                                          dim=-1)
-    c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    w_dkv, kv_norm = p["w_dkv"], p["kv_norm"]
+    if tp is not None:
+        w_dkv, kv_norm = tp.shared_weight(w_dkv), tp.shared_weight(kv_norm)
+    c_kv, k_rope = (x @ w_dkv).split([m.kv_lora_rank, m.rope_head_dim],
+                                     dim=-1)
+    c_kv = rms_norm(c_kv, kv_norm, cfg.norm_eps)
     return c_kv, apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
 
 
@@ -81,19 +100,22 @@ def mla_attention(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                   cache: Optional[Dict] = None,
                   cache_index: Optional[int] = None,
                   unroll: bool = False,
+                  tp: Optional[tpl.TensorParallel] = None,
                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """MLA block.  x: [B, S, D].
 
     cache (decode): :func:`init_mla_cache`'s dict, written in place at
     ``[cache_index, cache_index + S)``; keys at and after
     ``cache_index + S`` are masked.  Returns (out [B,S,D], cache).
-    ``unroll`` is accepted for the JAX signature and has no effect.
+    ``unroll`` is accepted for the JAX signature and has no effect.  Under
+    ``tp`` the heads are this rank's and ``out`` is its partial sum.
     """
-    m, H = cfg.mla, cfg.n_heads
+    m = cfg.mla
     B, S, _ = x.shape
     R = m.kv_lora_rank
     q_nope, q_rope = _project_q(p, cfg, x, positions)
-    c_new, kr_new = _project_kv_latent(p, cfg, x, positions)
+    H = q_nope.shape[2]
+    c_new, kr_new = _project_kv_latent(p, cfg, x, positions, tp)
 
     if cache is None:
         latent = torch.cat([c_new, kr_new[:, :, 0]], dim=-1)

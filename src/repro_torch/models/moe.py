@@ -22,6 +22,17 @@ exactly.  It moves rows with gathers only, never an atomic add: each kept
 token-choice owns one slot, so the dispatch gathers each slot's token, and
 the combine gathers each token's k rows and sums them in a fixed order, so
 the result on the card is bitwise repeatable.
+
+Under a model axis (``tp``, expert parallelism as GSPMD partitions the JAX
+program): the tokens are whole on every rank, so every rank routes them and
+places every choice of the whole group alike, gathers and runs only the
+slots of its block of experts (the experts' weights are that block), and
+combines only their choices; where the axis does not divide the experts,
+every rank runs every expert on its block of the expert FFN dim.  The
+shared experts run on the rank's FFN block.  The output is the rank's
+partial sum, which the block sums over ``model``.  The router enters
+through ``tp.shared_weight``: each rank's combine holds only its experts'
+choices, so its gradient is partial and is summed over ``model``.
 """
 from __future__ import annotations
 
@@ -117,14 +128,18 @@ def _expert_swiglu(w1, w3, w2, xe: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, w2)
 
 
-def moe_ffn_dense(p: Dict, m: MoEConfig, x: torch.Tensor) -> torch.Tensor:
+def moe_ffn_dense(p: Dict, m: MoEConfig, x: torch.Tensor,
+                  first_expert: int = 0) -> torch.Tensor:
     """Exact (capacity-less) MoE: every token through every expert, gated by
-    its renormalised top-k weights.  [T, D] -> [T, D]."""
+    its renormalised top-k weights.  [T, D] -> [T, D].  The experts are
+    ``p``'s, from ``first_expert`` on (all of them unsharded)."""
     T, D = x.shape
+    El = p["w1"].shape[0]
     w, ids = route(p["router"], x, m.top_k)
     onehot = F.one_hot(ids, m.n_routed).to(x.dtype)              # [T, k, E]
     gate = torch.einsum("tk,tke->te", w.to(x.dtype), onehot)      # [T, E]
-    xe = x[None].expand(m.n_routed, T, D)
+    gate = gate[:, first_expert:first_expert + El]
+    xe = x[None].expand(El, T, D)
     ye = _expert_swiglu(p["w1"], p["w3"], p["w2"], xe)            # [E, T, D]
     out = torch.einsum("etd,te->td", ye, gate)
     return out + _shared(p, x)
@@ -163,7 +178,8 @@ def moe_ffn_capacity(p: Dict, m: MoEConfig, x: torch.Tensor,
 
 
 def sorted_dispatch(ids: torch.Tensor, n_experts: int, n_groups: int,
-                    capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    capacity: int, experts: Optional[Tuple[int, int]] = None,
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The sorted path's placement of every token-choice.
 
     ids: [T, k] expert ids.  Within each of ``n_groups`` groups of T / G
@@ -183,15 +199,18 @@ def sorted_dispatch(ids: torch.Tensor, n_experts: int, n_groups: int,
     rank = torch.arange(Tg * k, device=ids.device) - first       # in expert
     # back to token order: rank_tok[g, order[g, i]] = rank[g, i]
     rank_tok = torch.empty_like(rank).scatter_(1, order, rank)
-    keep = rank_tok < C
+    lo, count = experts or (0, n_experts)
+    e_local = e_flat - lo
+    keep = (rank_tok < C) & (e_local >= 0) & (e_local < count)
     g = torch.arange(G, device=ids.device)[:, None]
-    slot = torch.where(keep, (g * n_experts + e_flat) * C + rank_tok, 0)
+    slot = torch.where(keep, (g * count + e_local) * C + rank_tok, 0)
     return slot.reshape(T, k), keep.reshape(T, k)
 
 
 def moe_ffn_sorted(p: Dict, m: MoEConfig, x: torch.Tensor,
                    n_groups: int = 1,
-                   capacity: Optional[int] = None) -> torch.Tensor:
+                   capacity: Optional[int] = None,
+                   first_expert: int = 0) -> torch.Tensor:
     """Production dispatch: per-group sort-based routing (GShard-style).
 
     x: [T, D].  Tokens are split into ``n_groups`` groups; each expert
@@ -199,10 +218,16 @@ def moe_ffn_sorted(p: Dict, m: MoEConfig, x: torch.Tensor,
     arrival order (default capacity Tg * k * capacity_factor / E).  No
     [T, E, C] one-hot tensor is built: a [G, E, C, D] buffer is gathered
     by slot, and the experts run on its [E, G * C, D] transpose (a view
-    for one group).
+    for one group).  The experts run are ``p``'s, from ``first_expert`` on
+    (all of them unsharded): a rank's block under expert parallelism.
+
+    The groups and the capacity are the caller's data shard's, whatever the
+    model axis: a group cut per model rank would drop other choices than
+    the unsharded program does.
     """
     T, D = x.shape
     E, k = m.n_routed, m.top_k
+    El = p["w1"].shape[0]                      # this rank's experts
     if T % n_groups:
         raise ValueError(f"moe_ffn_sorted: {T} tokens do not split into "
                          f"{n_groups} groups")
@@ -210,10 +235,10 @@ def moe_ffn_sorted(p: Dict, m: MoEConfig, x: torch.Tensor,
     if capacity is None:
         capacity = max(int(Tg * k * m.capacity_factor / E), 1)
     C = min(capacity, Tg * k)
-    n_slots = E * n_groups * C
+    n_slots = El * n_groups * C
 
     w, ids = route(p["router"], x, k)
-    slot, keep = sorted_dispatch(ids, E, n_groups, C)
+    slot, keep = sorted_dispatch(ids, E, n_groups, C, (first_expert, El))
     at = torch.where(keep, slot, n_slots)     # a dropped choice: row n_slots
     # dispatch: each slot gathers its token's row (an empty slot row T,
     # the zero row appended to x)
@@ -221,10 +246,10 @@ def moe_ffn_sorted(p: Dict, m: MoEConfig, x: torch.Tensor,
     src = torch.full((n_slots + 1,), T, dtype=torch.long, device=x.device)
     src[at.reshape(-1)] = tok.reshape(-1)
     x_ext = torch.cat([x, x.new_zeros((1, D))])
-    xe = x_ext[src[:n_slots]].reshape(n_groups, E, C, D)
+    xe = x_ext[src[:n_slots]].reshape(n_groups, El, C, D)
     ye = _expert_swiglu(p["w1"], p["w3"], p["w2"],
-                        xe.transpose(0, 1).reshape(E, n_groups * C, D))
-    ye = ye.reshape(E, n_groups, C, D).transpose(0, 1).reshape(n_slots, D)
+                        xe.transpose(0, 1).reshape(El, n_groups * C, D))
+    ye = ye.reshape(El, n_groups, C, D).transpose(0, 1).reshape(n_slots, D)
 
     # combine: each token gathers its k rows (a dropped choice the zero
     # row) and sums them, weighted, in a fixed order
@@ -243,12 +268,19 @@ def _shared(p: Dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def moe_ffn(p: Dict, m: MoEConfig, x: torch.Tensor, *,
-            dense_dispatch: bool = False, n_groups: int = 1) -> torch.Tensor:
-    """[.., D] -> [.., D]; flattens leading dims to a token axis."""
+            dense_dispatch: bool = False, n_groups: int = 1,
+            tp: Optional[tpl.TensorParallel] = None) -> torch.Tensor:
+    """[.., D] -> [.., D]; flattens leading dims to a token axis.  Under
+    ``tp`` the weights are this rank's and the output its partial sum."""
     lead = x.shape[:-1]
     xt = x.reshape(-1, x.shape[-1])
+    first = 0
+    if tp is not None:
+        p = dict(p, router=tp.shared_weight(p["router"]))
+        first = tp.first_expert(p["w1"].shape[0])
     if dense_dispatch:
-        out = moe_ffn_dense(p, m, xt)
+        out = moe_ffn_dense(p, m, xt, first)
     else:
-        out = moe_ffn_sorted(p, m, xt, n_groups=n_groups)
+        out = moe_ffn_sorted(p, m, xt, n_groups=n_groups,
+                             first_expert=first)
     return out.reshape(*lead, x.shape[-1])

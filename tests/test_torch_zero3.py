@@ -13,7 +13,8 @@ references.  One gloo world a mesh shape, (data, model) = (2, 1), (1, 2),
 
 * one AdamW step, one microbatch of the whole batch (each data rank its
   rows): every arch on (2, 1), the dense and VLM archs on (2, 2) and
-  (2, 4); loss within 1e-5 relative of the JAX ``value_and_grad`` loss;
+  (2, 4), the MoE archs on (2, 2) (experts split over 'model', the
+  overlay's 'data' on another dim); loss within 1e-5 relative of the JAX ``value_and_grad`` loss;
   each gathered gradient leaf within 1e-5 of that leaf's largest entry
   (a leaf below 1e-3 of the tree's largest gradient, zero up to rounding
   as Whisper's key biases are, against 1e-3 of the tree's largest;
@@ -69,8 +70,10 @@ from repro_torch.train import trainer as tr
 ARCHS = tuple(sorted(ALL_ARCHS))
 DENSE = tuple(a for a in ARCHS if ALL_ARCHS[a].family in ("dense", "vlm"))
 SHAPES = ((2, 1), (1, 2), (2, 2), (2, 4))
+MOE = tuple(a for a in ARCHS if ALL_ARCHS[a].family == "moe")
 STEP_CASES = ([(a, (2, 1)) for a in ARCHS]
-              + [(a, s) for s in ((2, 2), (2, 4)) for a in DENSE])
+              + [(a, s) for s in ((2, 2), (2, 4)) for a in DENSE]
+              + [(a, (2, 2)) for a in MOE])
 SERVE_ARCHS = ("qwen2-1.5b", "whisper-large-v3")
 ADAFACTOR_CASES = [("qwen2-72b", s) for s in ((1, 2), (2, 1), (2, 2))] + \
     [("whisper-large-v3", (2, 1))]

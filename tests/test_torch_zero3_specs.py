@@ -13,8 +13,8 @@ full width (the JAX tree by ``jax.eval_shape``, the port's on the
 * The shards ``shard_params`` cuts have the JAX blocks' shapes, a stack
   split by layers as the non-empty per-layer leaves stacked (layers
   ``[k L/n, (k+1) L/n)`` at data coordinate k), on (data, model) = (2, 1)
-  and (4, 1) for every arch and (2, 2) and (2, 4) for the dense and VLM
-  families (the others raise under a model axis).  The one documented
+  and (4, 1) for every arch and (2, 2) and (2, 4) for the dense, VLM and
+  MoE families (the others raise under a model axis).  The one documented
   exception: a kv head duplicated over the model axis (KV < model) keeps
   its whole head_dim where the spec splits it.
 
@@ -38,7 +38,7 @@ from repro_torch.models import lm
 LAYERED = ("group", "encoder")
 SPEC_MESHES = ((2, 1), (4, 1), (8, 1), (16, 1), (2, 2), (2, 4), (16, 16))
 SHARD_MESHES = ((2, 1), (4, 1), (2, 2), (2, 4))
-TP_FAMILIES = ("dense", "vlm")
+TP_FAMILIES = ("dense", "vlm", "moe")
 
 
 @functools.lru_cache(maxsize=None)
