@@ -60,16 +60,29 @@ shared_weight`, whose backward sums its partial gradients over
 reads the block input through :meth:`TensorParallel.replicated`, so its
 gradient is counted once.
 
+RWKV (:mod:`repro_torch.models.rwkv`) splits its time-mix by whole WKV
+heads (the state a rank holds is its heads; the JAX ``cache_pspecs``
+splits the head dim instead) and its channel-mix FFN by columns and rows;
+its DDLerp, decay LoRA and GroupNorm stay whole and enter through
+:meth:`TensorParallel.shared_weight` or, read at this rank's columns,
+:func:`split_to_model` (its backward all-gathers the blocks' gradients).
+The channel-mix value is a partial sum that multiplies the receptance, so
+it is reduce-scattered to this rank's columns and the product all-gathered
+(:meth:`TensorParallel.scatter_columns`,
+:meth:`TensorParallel.gather_columns`).  The enc-dec family splits the
+encoder's and both attentions' heads and the GELU MLP; its encoder output
+is whole on every rank and its cross cache holds this rank's heads.
+
 Execution covers the spec entries ``None`` and ``'model'``, and the
 FSDP overlay's ``'data'`` (ZeRO-3, :mod:`.fsdp`): :class:`TensorParallel`
 is the whole parameter layout of a policy, the model-axis cut here (at
 model 1, none) and then the overlay's cut of :class:`.fsdp.Zero3`, for
-every family at model 1 and for the dense, VLM and MoE families above it.
-:meth:`TensorParallel.sum_squares` and :meth:`TensorParallel.full_mean`
-give the optimizers sums and means of the unsharded leaves.  2D serving
-weights (``serve_tp2d_rules``), sequence sharding over ``data`` and the
-RWKV, Hymba and enc-dec families under a model axis raise
-``NotImplementedError`` (``ROADMAP.md`` queues them).
+every family at model 1 and for the families of ``TP_FAMILIES`` above
+it.  :meth:`TensorParallel.sum_squares` and
+:meth:`TensorParallel.full_mean` give the optimizers sums and means of
+the unsharded leaves.  2D serving weights (``serve_tp2d_rules``),
+sequence sharding over ``data`` and the Hymba family under a model axis
+raise ``NotImplementedError`` (``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
@@ -89,11 +102,13 @@ from .sharding import (ShardingPolicy, active_policy, axes_size,
                        map_with_path, param_pspecs)
 
 MODEL = "model"
-TP_FAMILIES = ("dense", "vlm", "moe")
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
-# leaves whose spec must split over a model axis above 1
+# leaves whose spec must split over a model axis above 1 (attention, MLP,
+# MoE; RWKV's projections, receptances and bonus; the GELU MLP's b1)
 _SPLIT_LEAVES = ("wq", "wo", "bq", "w1", "w2", "w3", "w_uk", "w_uv",
-                 "shared_w1", "shared_w2", "shared_w3") + _KV_LEAVES
+                 "shared_w1", "shared_w2", "shared_w3", "wr", "wg", "u",
+                 "b1") + _KV_LEAVES
 
 
 def _todo(what: str, where: str = " under a model axis > 1"
@@ -129,24 +144,24 @@ class _ReduceFromModel(torch.autograd.Function):
 
 class _SpGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return col.all_gather(x, mesh, MODEL, 1)
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return col.all_gather(x, mesh, MODEL, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return col.psum_scatter(g, ctx.mesh, MODEL, 1), None
+        return col.psum_scatter(g, ctx.mesh, MODEL, ctx.dim), None, None
 
 
 class _SpScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return col.psum_scatter(x, mesh, MODEL, 1)
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return col.psum_scatter(x, mesh, MODEL, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return col.all_gather(g, ctx.mesh, MODEL, 1), None
+        return col.all_gather(g, ctx.mesh, MODEL, ctx.dim), None, None
 
 
 def _block(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
@@ -230,16 +245,19 @@ def reduce_from_model(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
     return _ReduceFromModel.apply(x, mesh)
 
 
-def sp_gather(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+def sp_gather(x: torch.Tensor, mesh: ProcessMesh,
+              dim: int = 1) -> torch.Tensor:
     """Boundary [B, S/tp, ...] -> full sequence for the sublayer's math;
     the cotangent is reduce-scattered back."""
-    return _SpGather.apply(x, mesh)
+    return _SpGather.apply(x, mesh, dim)
 
 
-def sp_scatter(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+def sp_scatter(x: torch.Tensor, mesh: ProcessMesh,
+               dim: int = 1) -> torch.Tensor:
     """Sublayer partial output [B, S, ...] -> boundary, reduce-scattered
-    over ``model``; the cotangent is all-gathered once."""
-    return _SpScatter.apply(x, mesh)
+    over ``model`` (along ``dim``: this rank's block of the sum); the
+    cotangent is all-gathered once."""
+    return _SpScatter.apply(x, mesh, dim)
 
 
 def gather_from_model(x: torch.Tensor, mesh: ProcessMesh,
@@ -408,9 +426,16 @@ class TensorParallel:
         return split_to_model(x, self.mesh, 1) if self.seq else x
 
     def norm_weight(self, w: torch.Tensor) -> torch.Tensor:
-        """A norm weight applied to a sequence shard sums its gradient
-        over ``model``."""
+        """A replicated weight applied to the residual stream (a norm's
+        weight or bias, the GELU MLP's output bias): applied to a sequence
+        shard, it sums its gradient over ``model``."""
         return copy_to_model(w, self.mesh) if self.seq else w
+
+    def seq_block(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's block along ``dim`` of an input that is whole on
+        every rank and takes no gradient (the sinusoidal positions,
+        Whisper's frames), under sequence TP."""
+        return _block(x, self.mesh, dim) if self.seq else x
 
     def enter(self, h: torch.Tensor) -> torch.Tensor:
         """A block's input, on every rank whole."""
@@ -422,10 +447,26 @@ class TensorParallel:
         return (sp_scatter(a, self.mesh) if self.seq
                 else reduce_from_model(a, self.mesh))
 
+    def scatter_columns(self, a: torch.Tensor) -> torch.Tensor:
+        """A partial sum [..., D] reduce-scattered over ``model`` along its
+        last dim: this rank's columns of the sum (RWKV's channel-mix
+        value, multiplied by this rank's columns of its receptance)."""
+        return sp_scatter(a, self.mesh, a.dim() - 1)
+
+    def gather_columns(self, y: torch.Tensor) -> torch.Tensor:
+        """A block's output held as this rank's columns [B, S, D/tp],
+        all-gathered into the whole output on every rank (under sequence
+        TP, this rank's block of the sequence): the residual's cotangent
+        is the same on every rank, so the backward keeps this rank's
+        columns."""
+        y = gather_from_model(y, self.mesh, y.dim() - 1)
+        return split_to_model(y, self.mesh, 1) if self.seq else y
+
     def shared_weight(self, w: torch.Tensor) -> torch.Tensor:
-        """A replicated weight that feeds a model-split computation (the
-        router, MLA's latent projection): its partial gradients are summed
-        over ``model``."""
+        """A replicated weight that feeds a model-split computation whole
+        (the router, MLA's latent projection, RWKV's DDLerp, its decay
+        LoRA's input projection and its channel-mix lerps): its partial
+        gradients are summed over ``model``."""
         return copy_to_model(w, self.mesh)
 
     def replicated(self, h: torch.Tensor, local: torch.Tensor

@@ -23,8 +23,8 @@ block of every weight and of its moments, the ``train_state_pspecs``
 layout, and gathers a weight before its use).  Each takes its rows of
 every batch, checkpoints its shards under ``--ckpt-dir``/rank<k>, and
 rank 0 prints a rank's state bytes beside the specs'.  Every family runs
-at model 1 and the dense family (and the VLM's dense trunk) above it,
-with AdamW or Adafactor; the others raise.  ``--backend`` defaults to
+at model 1 and every family but Hymba above it, with AdamW or Adafactor
+(a config whose heads the model axis does not split raises).  ``--backend`` defaults to
 gloo on one card or the CPU and to nccl when there are as many cards as
 ranks.
 """

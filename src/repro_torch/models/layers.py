@@ -63,11 +63,17 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 def gelu_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+             w2: torch.Tensor, b2: torch.Tensor, tp=None) -> torch.Tensor:
     """Whisper-style MLP: gelu(x W1 + b1) W2 + b2, with the tanh GELU the
     JAX package uses (``approximate=True``; the exact one differs by about
-    1e-3)."""
-    return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+    1e-3).  Under ``tp`` (a ``tensor_parallel.TensorParallel``) ``w1``,
+    ``b1`` and ``w2`` are this rank's FFN block: the partial product is
+    summed over the model axis (``tp.exit``) and ``b2``, whole, is added
+    once after the sum."""
+    y = F.gelu(x @ w1 + b1, approximate="tanh") @ w2
+    if tp is None:
+        return y + b2
+    return tp.exit(y) + tp.norm_weight(b2)
 
 
 # ---------------------------------------------------------------------------

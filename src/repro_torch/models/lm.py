@@ -27,8 +27,11 @@ come from the weights' widths, a cache holds the local kv heads, and the
 batch is this rank's rows.  :func:`forward`, :func:`prefill` and
 :func:`decode_step` return logits gathered over the model axis (the same
 on every rank); :func:`lm_loss` runs a vocab-parallel cross-entropy.  The
-dense family, the VLM's dense trunk and the MoE family (expert
-parallelism, MLA's head split) run so; the others raise
+dense family, the VLM's dense trunk, the MoE family (expert parallelism,
+MLA's head split), RWKV (its heads split, the channel-mix product on
+reduced columns: :mod:`.rwkv`) and the enc-dec family (the encoder's and
+both attentions' heads split, the cross cache of this rank's heads, the
+GELU MLP's output bias added after the sum) run so; Hymba raises
 ``NotImplementedError`` under a model axis.
 
 ZeRO-3: where the policy's FSDP axis (``'data'``) splits the parameters
@@ -232,9 +235,11 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 def cross_attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                        kv_cache: Dict) -> torch.Tensor:
     """Cross-attention reading precomputed (k, v) of the encoder output:
-    bidirectional, every query at position 0."""
+    bidirectional, every query at position 0.  The heads are the weights'
+    (under a model axis this rank's, the output its partial sum)."""
     B, S, D = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    H = p["wq"].shape[1] // hd
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
@@ -245,8 +250,12 @@ def cross_attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
 
 
 def encode_cross_kv(p: Dict, cfg: ArchConfig, enc_out: torch.Tensor) -> Dict:
+    """The cross keys and values of the encoder output, of the weights'
+    kv heads (under a model axis this rank's: ``enc_out`` is whole on
+    every rank)."""
     B, Sk = enc_out.shape[:2]
-    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    KV = p["wk"].shape[1] // hd
     k = enc_out @ p["wk"]
     v = enc_out @ p["wv"]
     if "bk" in p:
@@ -326,11 +335,21 @@ def init_layer_params(gen, kind: str, cfg: ArchConfig, dtype,
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
-def _block_input(x: torch.Tensor, w: torch.Tensor, eps: float,
+def _norm(x: torch.Tensor, w, eps: float,
+          tp: Optional[tpl.TensorParallel]) -> torch.Tensor:
+    """RMS norm of a weight, or layer norm of a ``{"w", "b"}`` dict (RWKV,
+    enc-dec); under sequence TP the weights sum their gradients over
+    ``model``."""
+    nw = (lambda t: t) if tp is None else tp.norm_weight
+    if isinstance(w, dict):
+        return layer_norm(x, nw(w["w"]), nw(w["b"]), eps)
+    return rms_norm(x, nw(w), eps)
+
+
+def _block_input(x: torch.Tensor, w, eps: float,
                  tp: Optional[tpl.TensorParallel]) -> torch.Tensor:
-    if tp is None:
-        return rms_norm(x, w, eps)
-    return tp.enter(rms_norm(x, tp.norm_weight(w), eps))
+    h = _norm(x, w, eps, tp)
+    return h if tp is None else tp.enter(h)
 
 
 def _block_output(a: torch.Tensor,
@@ -370,8 +389,7 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
         if kind == "attn_mlp":
             h = _block_input(x, p["ln2"], eps, tp)
             return x + _block_output(swiglu(h, **p["mlp"]), tp), cache, None
-        hn = rms_norm(x, p["ln2"] if tp is None else tp.norm_weight(p["ln2"]),
-                      eps)
+        hn = _norm(x, p["ln2"], eps, tp)
         h = hn if tp is None else tp.enter(hn)
         # the balance loss is whole and alike on every rank of 'model': its
         # gradient reaches the block input once (tp.replicated)
@@ -385,15 +403,17 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
                                       n_groups=moe_groups, tp=tp), tp)
         return x, cache, aux
     if kind == "rwkv":
-        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)
+        # under sequence TP the block input is gathered after its norm, so
+        # the token shift and the scan see whole rows
+        h = _block_input(x, p["ln1"], eps, tp)
         t_state = cache["tmix"] if cache is not None else None
         a, t_new = tmix_forward(p["tmix"], cfg, h, t_state,
-                                chunk=mixer_chunk)
-        x = x + a
-        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"], eps)
+                                chunk=mixer_chunk, tp=tp)
+        x = x + _block_output(a, tp)
+        h = _block_input(x, p["ln2"], eps, tp)
         c_prev = cache["cmix_shift"] if cache is not None else None
-        c, c_shift = cmix_forward(p["cmix"], h, c_prev)
-        x = x + c
+        c, c_shift = cmix_forward(p["cmix"], h, c_prev, tp=tp)
+        x = x + c                   # whole (or this rank's block) already
         if cache is not None:
             cache["tmix"], cache["cmix_shift"] = t_new, c_shift
         return x, cache, None
@@ -416,25 +436,27 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
             cache["ssm"] = s_new
         return x, cache, None
     if kind == "enc":
-        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)
+        h = _block_input(x, p["ln1"], eps, tp)
         a, _ = attn_forward(p["attn"], cfg, h, positions, causal=False,
-                            rope=False)
-        x = x + a
-        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"], eps)
-        return x + gelu_mlp(h, **p["mlp"]), None, None
+                            rope=False, tp=tp)
+        x = x + _block_output(a, tp)
+        h = _block_input(x, p["ln2"], eps, tp)
+        return x + gelu_mlp(h, **p["mlp"], tp=tp), None, None
     if kind == "dec":
-        h = layer_norm(x, p["ln1"]["w"], p["ln1"]["b"], eps)
+        h = _block_input(x, p["ln1"], eps, tp)
         a, _ = attn_forward(p["attn"], cfg, h, positions, rope=False,
                             cache=cache["self"] if cache is not None
                             else None,
-                            cache_index=cache_index)
-        x = x + a
-        h = layer_norm(x, p["ln2"]["w"], p["ln2"]["b"], eps)
+                            cache_index=cache_index, tp=tp)
+        x = x + _block_output(a, tp)
+        h = _block_input(x, p["ln2"], eps, tp)
+        # enc_out is whole on every rank (encode's last step)
         xkv = (cache["cross"] if cache is not None
                else encode_cross_kv(p["xattn"], cfg, enc_out))
-        x = x + cross_attn_forward(p["xattn"], cfg, h, xkv)
-        h = layer_norm(x, p["ln3"]["w"], p["ln3"]["b"], eps)
-        return x + gelu_mlp(h, **p["mlp"]), cache, None
+        x = x + _block_output(cross_attn_forward(p["xattn"], cfg, h, xkv),
+                              tp)
+        h = _block_input(x, p["ln3"], eps, tp)
+        return x + gelu_mlp(h, **p["mlp"], tp=tp), cache, None
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -520,17 +542,25 @@ def encode(params: Dict, cfg: ArchConfig, enc_frames: torch.Tensor, *,
            remat: bool = False, remat_blocks: int = 1) -> torch.Tensor:
     """Whisper encoder: frame embeddings [B, S_enc, D] -> enc_out.  The
     frames are cast to the weights' dtype first (JAX would promote the
-    weights instead; the same where the dtypes agree)."""
+    weights instead; the same where the dtypes agree).  Under a model
+    axis the frames are whole on every rank (under sequence TP the
+    encoder's residual is split over the frames, as the decoder's over
+    its tokens), and so is ``enc_out``: every decoder layer's cross keys
+    read it at this rank's heads, and its gradient is summed over the
+    axis once."""
     z = fsdp.for_call(cfg)
     x = enc_frames.to(params["embed"].dtype)
     Senc = x.shape[1]
+    tp = tpl.for_call(cfg, Senc)
     x = x + sinusoidal_positions(Senc, cfg.d_model, x.device).to(x.dtype)
+    if tp is not None:
+        x = tp.seq_block(x, 1)
     pos = torch.arange(Senc, device=x.device)
     x, _ = _apply_stack(params["encoder"], "enc", cfg, x, pos,
-                        remat=remat, remat_blocks=remat_blocks,
+                        remat=remat, remat_blocks=remat_blocks, tp=tp,
                         name="encoder", z=z)
-    norm = _top(params, "enc_norm", z)
-    return layer_norm(x, norm["w"], norm["b"], cfg.norm_eps)
+    x = _norm(x, _top(params, "enc_norm", z), cfg.norm_eps, tp)
+    return x if tp is None else tp.enter(x)
 
 
 def _apply_stack(layers: List[Dict], kind: str, cfg: ArchConfig,
@@ -615,10 +645,10 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
     if positions is None:
         positions = torch.arange(S, device=x.device)
     if cfg.family == "ssm":
-        norm = _top(params, "in_norm", z)
-        x = layer_norm(x, norm["w"], norm["b"], cfg.norm_eps)
+        x = _norm(x, _top(params, "in_norm", z), cfg.norm_eps, tp)
     if cfg.family == "encdec":
-        x = x + sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+        pe = sinusoidal_at(positions, cfg.d_model).to(x.dtype)
+        x = x + (pe if tp is None else tp.seq_block(pe))
     for gi, g in enumerate(layer_groups(cfg)):
         x, a = _apply_stack(params[f"group{gi}"], g.kind, cfg, x, positions,
                             caches=(cache[f"group{gi}"] if cache is not None
@@ -630,11 +660,7 @@ def _trunk(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
                             name=f"group{gi}", z=z)
         if a is not None:
             aux = aux + a
-    fn = _top(params, "final_norm", z)
-    if isinstance(fn, dict):
-        return layer_norm(x, fn["w"], fn["b"], cfg.norm_eps), aux
-    return rms_norm(x, fn if tp is None else tp.norm_weight(fn),
-                    cfg.norm_eps), aux
+    return _norm(x, _top(params, "final_norm", z), cfg.norm_eps, tp), aux
 
 
 def _head(params: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -758,8 +784,10 @@ def lm_loss(params: Dict, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
-                      dtype, device, kv_heads: Optional[int] = None) -> Dict:
-    KV, hd = kv_heads or cfg.n_kv_heads, cfg.head_dim
+                      dtype, device,
+                      tp: Optional[tpl.TensorParallel] = None) -> Dict:
+    KV = cfg.n_kv_heads if tp is None else tp.local_kv_heads
+    hd = cfg.head_dim
     kv = lambda n: {"k": torch.zeros((batch, n, KV, hd), dtype=dtype,
                                      device=device),
                     "v": torch.zeros((batch, n, KV, hd), dtype=dtype,
@@ -769,7 +797,7 @@ def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
             return init_mla_cache(cfg, batch, max_seq, dtype, device)
         return kv(max_seq)
     if kind == "rwkv":
-        return {"tmix": init_tmix_state(cfg, batch, dtype, device),
+        return {"tmix": init_tmix_state(cfg, batch, dtype, device, tp),
                 "cmix_shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                           device=device)}
     if kind == "hymba":
@@ -790,9 +818,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_seq: int, dtype, *,
     (under a model axis, of this rank's kv heads)."""
     dev = resolve_device(device)
     tp = tpl.for_call(cfg)
-    kv = None if tp is None else tp.local_kv_heads
     return {f"group{gi}": [_init_layer_cache(g.kind, cfg, batch, max_seq,
-                                             dtype, dev, kv)
+                                             dtype, dev, tp)
                            for _ in range(g.count)]
             for gi, g in enumerate(layer_groups(cfg))}
 

@@ -9,6 +9,23 @@
     chunked recurrence of :mod:`.linrec`, as the JAX package computes it.
   * Per-head GroupNorm (eps 64e-5) on the WKV output, SiLU(g) output gate.
   * Channel-mix: shifted lerp, squared-ReLU key MLP, sigmoid receptance.
+
+Under a model axis (``tp``, a
+:class:`~repro_torch.distributed.tensor_parallel.TensorParallel`) the input
+is whole on every rank and the projections are this rank's: ``wr``, ``wk``,
+``wv``, ``wg`` its columns (h/tp whole heads), ``wo`` its rows, ``u`` its
+heads, and the WKV state its heads ``[B, h/tp, hd, hd]``; the time-mix
+output is this rank's partial sum.  The replicated leaves enter through
+the layout: the DDLerp (``mu_x``, ``mu``, ``maa_w1``, ``maa_w2``), the
+decay LoRA's input projection and the channel-mix lerps feed the split
+projections whole (``shared_weight``: their gradients summed over
+``model``); the decay base ``w0``, the LoRA output ``w_lora_b`` and the
+GroupNorm are read at this rank's columns only (``split_to_model``: the
+blocks' gradients all-gathered).  The channel-mix value ``k @ wv`` is a
+partial sum that multiplies the receptance: it is reduce-scattered to this
+rank's columns, multiplied by this rank's receptance columns and the
+product all-gathered (``scatter_columns``, ``gather_columns``), so its
+output is whole.
 """
 from __future__ import annotations
 
@@ -18,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed.tensor_parallel import split_to_model
 from ..kernels.rwkv_scan import ops as rw_ops
 from .layers import dense_init, normal
 from .linrec import recurrent_step
@@ -72,6 +90,19 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.cat([pad, x[:, :-1]], dim=1)
 
 
+def _tmix_weights(p: Dict, tp) -> Dict:
+    """``p`` as a rank's time-mix reads it: under ``tp`` the replicated
+    leaves wrapped so that their gradients sum over the model axis."""
+    if tp is None:
+        return p
+    q = dict(p)
+    for name in ("mu_x", "mu", "maa_w1", "maa_w2", "w_lora_a"):
+        q[name] = tp.shared_weight(p[name])
+    for name in ("w0", "w_lora_b", "gn_w", "gn_b"):
+        q[name] = split_to_model(p[name], tp.mesh, p[name].dim() - 1)
+    return q
+
+
 def _ddlerp(p: Dict, x: torch.Tensor,
             xprev: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Data-dependent lerp for the 5 streams; returns (xr, xk, xv, xw, xg)."""
@@ -105,7 +136,7 @@ def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, h: int,
 
 
 def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-                 state: Optional[Dict] = None, *, chunk: int = 64,
+                 state: Optional[Dict] = None, *, chunk: int = 64, tp=None,
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """RWKV6 time-mix. x: [B,S,D].
 
@@ -114,10 +145,13 @@ def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     the plain version's chunk length; on the card the WKV kernel's route
     (``rwkv_scan.ops.route``) sets its own: a bf16 prefill at head width 64
     runs the chunked tensor-core kernel, anything else (fp32, a decode
-    step's S = 1) the step kernel.
+    step's S = 1) the step kernel.  Under ``tp`` the heads (and the state's
+    ``wkv``) are this rank's and ``out`` is its partial sum.
     """
     B, S, D = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h = p["wr"].shape[1] // hd                    # this rank's heads
+    p = _tmix_weights(p, tp)
     keep_state = state is not None
     prev = state["shift"] if keep_state else None
     s0 = state["wkv"] if keep_state else None
@@ -129,18 +163,21 @@ def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     g = xg @ p["wg"]
     log_w = _decay_log_w(p, xw).reshape(B, S, h, hd)
     out, s_new = rw_ops.wkv_scan(r, k, v, log_w, p["u"], s0, chunk=chunk)
-    out = _group_norm(out.reshape(B, S, D), p["gn_w"], p["gn_b"], h)
+    out = _group_norm(out.reshape(B, S, h * hd), p["gn_w"], p["gn_b"], h)
     out = (out * F.silu(g)) @ p["wo"]
     new_state = {"shift": x[:, -1], "wkv": s_new} if keep_state else None
     return out, new_state
 
 
 def tmix_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
-              ) -> Tuple[torch.Tensor, Dict]:
+              tp=None) -> Tuple[torch.Tensor, Dict]:
     """Single-token step in plain PyTorch. x: [B,D];
-    state {'shift':[B,D],'wkv':[B,h,hd,hd]}."""
+    state {'shift':[B,D],'wkv':[B,h,hd,hd]} (under ``tp`` this rank's
+    heads, and ``out`` its partial sum)."""
     B, D = x.shape
-    h, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
+    h = p["wr"].shape[1] // hd
+    p = _tmix_weights(p, tp)
     xr, xk, xv, xw, xg = _ddlerp(p, x[:, None, :],
                                  state["shift"][:, None, :])
     r = (xr @ p["wr"]).reshape(B, h, hd)
@@ -150,24 +187,35 @@ def tmix_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
     log_w = _decay_log_w(p, xw).reshape(B, h, hd)
     out, wkv = recurrent_step(r, k, v, log_w, state["wkv"], u=p["u"],
                               mode="rwkv")
-    out = _group_norm(out.reshape(B, D), p["gn_w"], p["gn_b"], h)
+    out = _group_norm(out.reshape(B, h * hd), p["gn_w"], p["gn_b"], h)
     out = (out * F.silu(g)) @ p["wo"]
     return out, {"shift": x, "wkv": wkv}
 
 
 def cmix_forward(p: Dict, x: torch.Tensor,
-                 prev: Optional[torch.Tensor] = None,
+                 prev: Optional[torch.Tensor] = None, *, tp=None,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """RWKV6 channel-mix. x: [B,S,D] -> ([B,S,D], last-token shift state)."""
+    """RWKV6 channel-mix. x: [B,S,D] -> ([B,S,D], last-token shift state).
+    Under ``tp`` the output is whole on every rank (this rank's block of
+    the sequence under sequence TP): see the module docstring."""
+    mu_k, mu_r = ((p["mu_k"], p["mu_r"]) if tp is None else
+                  (tp.shared_weight(p["mu_k"]), tp.shared_weight(p["mu_r"])))
     dx = _shift(x, prev) - x
-    xk = x + dx * p["mu_k"]
-    xr = x + dx * p["mu_r"]
+    xk = x + dx * mu_k
+    xr = x + dx * mu_r
     k = torch.square(F.relu(xk @ p["wk"]))
-    return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+    if tp is None:
+        return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+    # a product of sums is not a sum of products: reduce k @ wv first
+    kv = tp.scatter_columns(k @ p["wv"])
+    return tp.gather_columns(torch.sigmoid(xr @ p["wr"]) * kv), x[:, -1]
 
 
-def init_tmix_state(cfg: ArchConfig, batch: int, dtype, device) -> Dict:
-    h, hd = cfg.n_heads, cfg.head_dim
+def init_tmix_state(cfg: ArchConfig, batch: int, dtype, device,
+                    tp=None) -> Dict:
+    """A zero time-mix state (under ``tp``, of this rank's heads; the
+    shift is whole)."""
+    h, hd = cfg.n_heads // (1 if tp is None else tp.size), cfg.head_dim
     return {"shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                  device=device),
             "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,

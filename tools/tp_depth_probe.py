@@ -5,23 +5,29 @@ For each dtype, the unsharded port (this process) and the same weights
 cut over four gloo ranks on (data 1, model 4) of the one card
 (``tensor_parallel.init_shard_params``, the same ``--seed``) run
 ``chip_smoke.py``'s ``tp_greedy``: ``prefill`` of SLOTS x PROMPT tokens
-and NEW greedy ``decode_step``s.  Prints, a line each, the unsharded
-run's top-2 logit margins of the first token and its largest |logit|,
-then every rank's largest |logit - unsharded| of the first token and of
-all steps, against that largest |logit|, and the share of greedy tokens
-equal to the unsharded run's.  Needs the card:
+(and, for Whisper, of its 1,500 stub frames) and NEW greedy
+``decode_step``s.  Prints, a line each, the unsharded run's top-2 logit
+margins of the first token, its largest |logit| and its wall (in fp32
+also the same run with its embedding moved by PERTURB relative, about an
+ulp: how far the model itself carries a rounding), then every
+rank's largest |logit - unsharded| of the first token and of all steps,
+against that largest |logit|, the share of greedy tokens equal to the
+unsharded run's, and the rank's wall (host ms, the card synchronised on
+both sides; the first call of a process, so it holds the kernels' first
+launches).  Needs the card:
 
     python tools/tp_depth_probe.py [--arch deepseek-v2-lite-16b]
         [--layers N] [--dtypes float32,bfloat16] [--seed 0]
 
-``--layers`` cuts the depth (default: all the arch's layers).  At
-DeepSeek-V2-Lite's full depth the unsharded fp32 weights take 62.8 GB of
-the card and are freed before the ranks draw theirs.
+``--arch`` also takes rwkv6-3b and whisper-large-v3 (phase 10 (g) and
+(h) at full depth).  ``--layers`` cuts the depth (default: all the arch's
+layers; Whisper's encoder and decoder each).  At DeepSeek-V2-Lite's full
+depth the unsharded fp32 weights take 62.8 GB of the card and are freed
+before the ranks draw theirs.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import pathlib
 import sys
 import time
@@ -33,12 +39,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke as cs  # noqa: E402
 
 SLOTS, PROMPT, NEW, RANKS = 2, 256, 8, 4
-
-
-def _config(get_arch, arch: str, layers):
-    cfg = get_arch(arch)
-    return cfg if layers is None else dataclasses.replace(cfg,
-                                                          n_layers=layers)
+PERTURB = 1e-7
 
 
 def rank(dev, arch: str, layers, seed: int, dtype_name: str):
@@ -54,13 +55,15 @@ def rank(dev, arch: str, layers, seed: int, dtype_name: str):
     dtype = getattr(torch, dtype_name)
     mesh = make_process_mesh((1, RANKS), ("data", "model"), device=dev)
     pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
-    cfg = _config(get_arch, arch, layers)
+    cfg = cs.family_config(get_arch, arch, layers)
     prompts = cs.tp_prompts(np, cfg, SLOTS, PROMPT, seed)
+    frames = cs.family_frames(torch, np, cfg, SLOTS, seed, dev)
     params = tpl.init_shard_params(seed, cfg, pol, dtype, device=dev)
     with sh.use_policy(pol):
-        steps, toks = cs.tp_greedy(torch, lm, params, cfg, prompts, NEW,
-                                   dtype, dev)
-    return {"steps": steps, "tokens": toks}
+        (steps, toks), ms = cs.wall(torch, lambda: cs.tp_greedy(
+            torch, lm, params, cfg, prompts, NEW, dtype, dev,
+            enc_frames=frames))
+    return {"steps": steps, "tokens": toks, "ms": ms}
 
 
 def main(argv=None) -> int:
@@ -77,21 +80,35 @@ def main(argv=None) -> int:
     from repro_torch.distributed.launch import run_ranks
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = _config(get_arch, args.arch, args.layers)
+    cfg = cs.family_config(get_arch, args.arch, args.layers)
     prompts = cs.tp_prompts(np, cfg, SLOTS, PROMPT, args.seed)
+    frames = cs.family_frames(torch, np, cfg, SLOTS, args.seed, "cuda")
     for name in args.dtypes.split(","):
         t0 = time.perf_counter()
         dtype = getattr(torch, name)
         params = lm.init_params(args.seed, cfg, dtype, device="cuda")
-        steps, toks = cs.tp_greedy(torch, lm, params, cfg, prompts, NEW,
-                                   dtype, "cuda")
-        del params
-        torch.cuda.empty_cache()
+        run = lambda: cs.tp_greedy(torch, lm, params, cfg, prompts, NEW,
+                                   dtype, "cuda", enc_frames=frames)
+        (steps, toks), ms = cs.wall(torch, run)
         scale = float(steps.abs().max())
         top2 = steps[0].topk(2, -1).values
         print(f"{cfg.name} {cfg.n_layers} layers {name} unsharded: first "
               f"token's top-2 margins {(top2[:, 0] - top2[:, 1]).tolist()}"
-              f", max |logit| {scale!r}", flush=True)
+              f", max |logit| {scale!r}, wall {ms!r} ms", flush=True)
+        if dtype == torch.float32:
+            # the model's own sensitivity to rounding: the unsharded run
+            # again with its embedding moved by about an ulp (1e-7
+            # relative)
+            gen = torch.Generator(device="cuda").manual_seed(args.seed)
+            params["embed"].mul_(1 + PERTURB * torch.randn(
+                params["embed"].shape, generator=gen, device="cuda"))
+            moved, _ = run()
+            print(f"{cfg.name} {cfg.n_layers} layers {name} unsharded, "
+                  f"embedding moved by {PERTURB} relative: all steps "
+                  f"{float((moved - steps).abs().max()) / scale!r} of max "
+                  f"|logit|", flush=True)
+        del params
+        torch.cuda.empty_cache()
         res = run_ranks(rank, RANKS, backend="gloo", device="cuda",
                         args=(args.arch, args.layers, args.seed, name),
                         timeout_s=900.0)
@@ -103,7 +120,7 @@ def main(argv=None) -> int:
                   f"(data 1, model {RANKS}): first token's logits "
                   f"{first / scale!r}, all steps {every / scale!r} of max "
                   f"|logit|; greedy tokens equal to the unsharded run's "
-                  f"{agree!r}", flush=True)
+                  f"{agree!r}; wall {out['ms']!r} ms", flush=True)
         print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
     return 0
 

@@ -1,0 +1,80 @@
+"""Time the flash and WKV kernels at the local-head shapes of
+``chip_smoke.py``'s phase 10 in turns with one library call, as phase 5
+times its main rows (the same code: ``flash_phase`` and ``wkv_phase`` on
+phase 5's own cases of the tags below, each held against its plain
+version and route-gated there as in phase 5).
+
+Flash, each row in bf16 and fp32, against the plain version and (where
+timed) one ``scaled_dot_product_attention`` call in turns (kernel, SDPA,
+SDPA, kernel), with the profiler's device ms of each:
+
+* (h2)'s Whisper-large-v3 at model 4: the encoder's bidirectional
+  self-attention ``[4, 1500, 5, 64]`` and the cross prefill of the 1,024
+  prompt tokens over the 1,500 encoder keys;
+* (f)'s DeepSeek-V2-Lite rows that phase 5 leaves untimed: the G = 4
+  hd-576 decode step over 1,055 keys (bf16), the (f1) fp32 check ``[2,
+  256, 4, 576]`` and the G = 8 bf16 prefill (model 2).
+
+WKV, (g2)'s RWKV6-3B at model 4, ``[4, 1024, 10, 64]`` (the bf16 prefill
+on ``tensor_core``) and one decode step ``[4, 1, 10, 64]`` (``step``),
+each in bf16 and fp32, with the plain chunked recurrence (no library call
+computes it).  Needs the card:
+
+    python tools/tp_kernel_rows.py [--seed 0]
+
+prints each row as phase 5 does and one ``RESULT`` line of JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "src"))
+
+import chip_smoke as cs  # noqa: E402
+
+# phase 5's cases timed here: (h2)'s Whisper rows, then the MLA rows that
+# phase 5 holds but leaves untimed; (g2)'s WKV rows
+WHISPER = ("tp_whisper_encoder", "tp_whisper_cross_prefill")
+MLA = ("tp_mla_decode", "tp_mla_check", "tp_mla_prefill_g8")
+WKV = ("tp_prefill", "tp_decode")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv_scan import ops as rw
+    from repro_torch.kernels.rwkv_scan import ref as rw_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "--id=0"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip()
+    print(smi, flush=True)
+    peaks = cs.PEAKS[smi.split(",")[0].strip()]
+    fa.build()
+    rw.build()
+    flash_rows, _ = cs.flash_phase(
+        torch, fa, fa_ref, peaks, args.seed,
+        cases=[c for c in cs.FLASH_CASES if c[0] in MLA + WHISPER],
+        timed=MLA + WHISPER, mma_timed=("tp_mla_check",))
+    wkv_rows, _ = cs.wkv_phase(
+        torch, rw, rw_ref, peaks, args.seed,
+        cases=[c for c in cs.WKV_CASES if c[0] in WKV], timed=WKV)
+    print("RESULT " + json.dumps({"card": smi, "flash": flash_rows,
+                                  "wkv": wkv_rows}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
