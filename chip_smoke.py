@@ -164,7 +164,11 @@ Phases, one printed line each (plus detail lines):
               v = k, and the prefill at G = 8; Whisper-large-v3's 5
               heads: the encoder over 1,500 frames, the decoder's and the
               cross prefill of 4 x 1,024, their decode steps and the fp32
-              2 x 256 checks; each dtype on the route ``TP_ROUTE`` names).
+              2 x 256 checks; Hymba-1.5B's 7 query heads at G = 1 with the
+              2,048 window: the 4 x 1,024 prefill, its last decode step
+              over the 1,056-slot ring, the 2 x 2,560 check past the
+              window and a decode step over the full ring; each dtype on
+              the route ``TP_ROUTE`` names).
               WKV at phase 10's local heads (RWKV6-3B's 10: the 4 x 1,024
               prefill, a decode step and the 2 x 256 check, each dtype on
               the route ``WKV_TP_ROUTE`` names).  Hymba's SSM scan (``ssm_scan_phase``):
@@ -172,7 +176,10 @@ Phases, one printed line each (plus detail lines):
               mode (also against their plain version ``wkv_chunk_f32_ref``,
               twice for the same bits, with the device kernels per call)
               and its decode step on the identity through the ``step``
-              kernel, each against the plain inclusive recurrence.
+              kernel, each against the plain inclusive recurrence; and
+              phase 10 (i)'s sub-heads (25 of 16 columns on the state of
+              16: the 4 x 1,024 prefill and the 2 x 2,560 check on
+              ``chunk_f32``, a decode step on ``step``).
 6. serve    — per arch of ``SERVE_CASES``: ``generate`` (after a warm-up
               call, 1 new token three times for the time to first token,
               32 new tokens twice: greedy output identical; medians of the
@@ -256,7 +263,8 @@ Phases, one printed line each (plus detail lines):
               each rank's weight bytes equal to the local bytes of
               ``param_pspecs``, and each rank's flash launches by route
               (fp32 prefill on ``mma_tf32``, decode on ``split_kv``).
-              (b) the same at 4 of 80 layers in bf16, 4 slots x
+              (b) the same at 2 of 80 layers in bf16 (cut for the
+              script's time), 4 slots x
               1,024-token prompts + 32 new tokens: time to first token,
               decode ms a step, tokens/s (the slowest rank's host walls),
               each rank's peak memory, spawn to rendezvous, the device
@@ -270,8 +278,10 @@ Phases, one printed line each (plus detail lines):
               printed, not gated.  Gloo on one card, not NCCL.  (c)
               reduced qwen2-72b (kv heads duplicated at model 4),
               DeepSeek-V2-Lite (MLA, experts split), Grok-1 (kv heads
-              duplicated, experts split), RWKV6-3B (WKV heads split) and
-              Whisper-large-v3 (widened to 8 heads), one AdamW step each
+              duplicated, experts split), RWKV6-3B (WKV heads split),
+              Whisper-large-v3 (widened to 8 heads) and Hymba-1.5B
+              (widened to 15 heads on 3 kv heads of 16, its heads split
+              inside), one AdamW step each
               (the
               capacity-less MoE dispatch) on (data 2, model 2) and on
               (data 1, model 4) with sequence TP: loss and clipping norm
@@ -295,9 +305,9 @@ Phases, one printed line each (plus detail lines):
               leaves' psum; host clock).  (e) one ZeRO-3 step of every
               arch at reduced() widened (no leaf of reduced() reaches the
               overlay's 2^16 elements) on (data 2, model 1) (two such
-              meshes side by side under a 'pod' axis), the dense, VLM,
-              MoE, RWKV and enc-dec archs also on (2, 2) (Whisper widened
-              to 8 heads), AdamW, and Adafactor on qwen2-72b at
+              meshes side by side under a 'pod' axis), every arch also on
+              (2, 2) (Whisper widened to 8 heads), AdamW, and Adafactor on
+              qwen2-72b at
               (2, 2): loss within 1e-5 of the unsharded step on the card,
               each gathered gradient leaf within 1e-4 of its largest
               entry, the gathered parameters within 1e-6 of the unsharded
@@ -314,7 +324,9 @@ Phases, one printed line each (plus detail lines):
               the same greedy tokens on every rank and as that run, each
               rank's weight bytes equal to the specs' local bytes, flash
               by route (``mma_tf32`` prefill, ``split_kv`` decode).  (f2)
-              bf16 at full depth, (b)'s shape (4 slots x 1,024-token
+              bf16 at 9 of 27 layers (the dense first layer and 8 MoE
+              layers, cut for the script's time; ``tools/tp_depth_probe
+              .py`` runs all 27), (b)'s shape (4 slots x 1,024-token
               prompts + 32 new): TTFT, decode ms a step, tokens/s (the
               slowest rank's host walls), each rank's peak, the device
               bounds of the prefill and a decode step, the model-axis
@@ -333,9 +345,22 @@ Phases, one printed line each (plus detail lines):
               ``decode_step``s: (f1)'s gates, each rank's decode state a
               layer, and launches by route (WKV on ``step``; flash fp32
               prefills on ``mma_tf32``, decode on ``split_kv``).
-              (g2)/(h2) bf16 at 8 layers (Whisper 8 + 8), (b)'s shape:
+              (g2)/(h2) bf16 at 4 layers (Whisper 4 + 4; cut for the
+              script's time), (b)'s shape:
               (f2)'s numbers and gates, WKV prefill on ``tensor_core``,
-              flash prefills on ``tensor_core``.
+              flash prefills on ``tensor_core``.  (i) Hymba-1.5B at full
+              width on (data 1, model 4), its heads split inside as its
+              specs cut the columns (400 of 1,600 a rank, q, k and v
+              all-gathered along the feature dim, attention over the 7
+              query heads those columns touch with k and v expanded to
+              them, the SSM on 25 sub-heads of 16).  (i1) fp32 at 2
+              layers, 2 slots x 2,560-token prompts (past the 2,048
+              window: the ring wraps) + 8 greedy steps: (g1)'s gates, the
+              ring, conv carry and SSM state a rank, launches by route
+              (flash ``mma_tf32`` prefill and ``split_kv`` decode, WKV
+              ``chunk_f32`` prefill and ``step`` decode).  (i2) bf16 at 4
+              of 32 layers, (b)'s shape: (g2)'s numbers and gates (flash
+              ``tensor_core`` prefill).
 8. kernels line — one JSON object with all eleven kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -2408,6 +2433,17 @@ FLASH_CASES = [
      None),
     ("tp_whisper_check", 2, 256, 264, 5, 5, 64, True, 0, 256, None),
     ("tp_whisper_cross_check", 2, 256, 1500, 5, 5, 64, False, 0, None,
+     None),
+    # phase 10 (i)'s local heads (Hymba-1.5B at model 4: the 7 query heads
+    # a rank's 400 inner columns touch, each with its kv head expanded to
+    # it, G = 1, hd 64, window 2,048): (i2)'s 4 x 1,024 prefill and its
+    # last decode step over the 1,056-slot ring, (i1)'s fp32 2 x 2,560
+    # prefill past the window and a decode step over the full 2,048-slot
+    # ring
+    ("tp_hymba_prefill", 4, 1024, 1024, 7, 7, 64, True, 0, None, 2048),
+    ("tp_hymba_decode", 4, 1, 1056, 7, 7, 64, False, 0, 1055, None),
+    ("tp_hymba_check", 2, 2560, 2560, 7, 7, 64, True, 0, None, 2048),
+    ("tp_hymba_check_decode", 2, 1, 2048, 7, 7, 64, False, 0, 2048,
      None)]
 FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
                "whisper_cross_prefill", "whisper_cross_decode",
@@ -2433,16 +2469,19 @@ TP_TAGS = ("tp_prefill", "tp_decode", "tp_check", "tp_mla_prefill",
            "tp_mla_prefill_g8", "tp_mla_decode", "tp_mla_check",
            "tp_whisper_encoder", "tp_whisper_prefill", "tp_whisper_decode",
            "tp_whisper_cross_prefill", "tp_whisper_cross_decode",
-           "tp_whisper_check", "tp_whisper_cross_check")
+           "tp_whisper_check", "tp_whisper_cross_check", "tp_hymba_prefill",
+           "tp_hymba_decode", "tp_hymba_check", "tp_hymba_check_decode")
 TP_ROUTE = {**{(tag, dt): ("tensor_core" if dt == "bfloat16"
                            else "mma_tf32")
                for tag in ("tp_prefill", "tp_check", "tp_whisper_encoder",
                            "tp_whisper_prefill", "tp_whisper_cross_prefill",
-                           "tp_whisper_check", "tp_whisper_cross_check")
+                           "tp_whisper_check", "tp_whisper_cross_check",
+                           "tp_hymba_prefill", "tp_hymba_check")
                for dt in ("bfloat16", "float32")},
             **{(tag, dt): "split_kv"
                for tag in ("tp_decode", "tp_whisper_decode",
-                           "tp_whisper_cross_decode")
+                           "tp_whisper_cross_decode", "tp_hymba_decode",
+                           "tp_hymba_check_decode")
                for dt in ("bfloat16", "float32")},
             **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16"
                            else "mma_tf32")
@@ -2783,14 +2822,23 @@ def wkv_phase(torch, rw, rw_ref, peaks, seed, cases=WKV_CASES,
 
 # Hymba's SSM scan: its prefill over 8 x 2,560 tokens on the inclusive
 # chunk_f32 kernels and one decode step on the WKV identity's step kernel;
-# 25 heads, state 16, head 64, fp32 streams
+# 25 heads, state 16, head 64, fp32 streams; then phase 10 (i)'s local
+# sub-heads (at model 4 a rank scans its 400 columns as 25 sub-heads of 16
+# on the state of 16): (i2)'s 4 x 1,024 prefill and a decode step, (i1)'s
+# 2 x 2,560 prefill (not profiled)
 SSM_CASES = [("hymba_inclusive_prefill", 8, 2560, 25, 16, 64, "chunk_f32"),
-             ("hymba_inclusive_decode", 8, 1, 25, 16, 64, "step")]
+             ("hymba_inclusive_decode", 8, 1, 25, 16, 64, "step"),
+             ("tp_hymba_inclusive_prefill", 4, 1024, 25, 16, 16,
+              "chunk_f32"),
+             ("tp_hymba_inclusive_decode", 4, 1, 25, 16, 16, "step"),
+             ("tp_hymba_inclusive_check", 2, 2560, 25, 16, 16,
+              "chunk_f32")]
 # the fp32 tolerance of WKV_CASES
 SSM_TOL = 3e-4
 
 
-def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed):
+def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed,
+                   cases=SSM_CASES):
     """``ssm.inclusive_scan`` on the card (one WKV call: the prefill on
     ``chunk_f32`` in inclusive mode, the decode step through the identity
     r = q * exp(log_w), u = 0, plus (q . k) v, on ``step``) against the
@@ -2803,7 +2851,7 @@ def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed + 404)
     rows, main = [], {}
-    for tag, B, S, h, Nk, Nv, route in SSM_CASES:
+    for tag, B, S, h, Nk, Nv, route in cases:
         rnd = lambda *s: torch.randn(s, generator=g, device=dev)
         q = rnd(B, S, h, Nk)
         dt = torch.nn.functional.softplus(rnd(B, S, h))
@@ -2869,8 +2917,13 @@ def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed):
                                                  "float32")
         row["ms"] = cuda_ms(torch, call, 5, 5)
         row["plain_ms"] = cuda_ms(torch, plain, 3, 1)
-        row["device_ms"], row["device_kernels"] = device_per_call(torch,
-                                                                  call)
+        row["device_ms"] = row["device_kernels"] = None
+        profiled = ""
+        if not tag.startswith("tp_"):
+            row["device_ms"], row["device_kernels"] = device_per_call(
+                torch, call)
+            profiled = (f" device_ms={row['device_ms']:.6f} in "
+                        f"{row['device_kernels']:g} device kernels")
         rows.append(row)
         main[tag] = row
         mirror = ("" if mirror_err is None else
@@ -2880,9 +2933,7 @@ def ssm_scan_phase(torch, rw, rw_ref, ssm, linrec, peaks, seed):
             f"Nk={Nk} Nv={Nv} float32 route={route}: ms={row['ms']:.6f} "
             f"plain_ms={row['plain_ms']:.6f} library_ms=null bound_ms="
             f"{row['bound_ms']:.6f} ({row['bound_by']}) max_abs_err={err!r} "
-            f"tolerance={row['tolerance']}{mirror} device_ms="
-            f"{row['device_ms']:.6f} in {row['device_kernels']:g} device "
-            f"kernels")
+            f"tolerance={row['tolerance']}{mirror}{profiled}")
         del q, k, v, log_w, out
     return rows, main
 
@@ -4114,9 +4165,10 @@ def train_ranks_phase(torch, tr, opt, pipeline, run_ranks, get_arch, seed,
 
 TP_RANKS = 4
 TP_ARCH = "qwen2-72b"
-# (layers of 80, dtype, slots, prompt tokens, new tokens)
+# (layers of 80, dtype, slots, prompt tokens, new tokens); the timed run
+# cut to 2 layers, as the check, for the script's time
 TP_CHECK = (2, "float32", 2, 256, 8)
-TP_TIMED = (4, "bfloat16", 4, 1024, 32)
+TP_TIMED = (2, "bfloat16", 4, 1024, 32)
 # fp32 logits against the unsharded run, of the largest |logit|: the
 # row-split products (wo, w2, the head) sum in rank order
 TP_LOGIT_TOL = 1e-4
@@ -4132,10 +4184,11 @@ TP_LOSS_TOL, TP_GRAD_TOL, TP_PARAM_TOL = 1e-5, 1e-4, 1e-6
 # (c)'s archs, each reduced(): qwen2-72b (kv heads duplicated at model 4),
 # DeepSeek-V2-Lite (MLA, experts split by model), Grok-1 (kv heads
 # duplicated, experts split by model), RWKV6-3B (its 4 WKV heads split),
-# Whisper-large-v3 (widened: tp_train_arch_config); the capacity-less MoE
-# dispatch, so that a data-split step's groups do not move its drops
+# Whisper-large-v3 and Hymba-1.5B (widened: tp_train_arch_config); the
+# capacity-less MoE dispatch, so that a data-split step's groups do not
+# move its drops
 TP_TRAIN_ARCHS = (TP_ARCH, "deepseek-v2-lite-16b", "grok-1-314b",
-                  "rwkv6-3b", "whisper-large-v3")
+                  "rwkv6-3b", "whisper-large-v3", "hymba-1.5b")
 # (d): ZeRO-3 (default_rules' FSDP overlay on 'data') composed with TP on
 # (data 2, model 2): Qwen2-1.5B at full width and depth in phase 9 (b)'s
 # configuration (seed, SyntheticPipeline 8 x 2,048 tokens, two
@@ -4168,10 +4221,11 @@ Z3E_FLOOR = 1e-3
 # head (G = 4).  (layers of 27: None all of them, dtype, slots, prompt
 # tokens, new tokens): (f1) the fp32 check, cut to the dense first layer
 # and one MoE layer, under the sorted dispatch and under dense_moe; (f2)
-# timed, (b)'s shape at full depth
+# timed, (b)'s shape, cut to 9 layers (the dense first and 8 MoE layers)
+# for the script's time (tools/tp_depth_probe.py runs all 27)
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_CHECK = (2, "float32", 2, 256, 8)
-MOE_TIMED = (None, "bfloat16", 4, 1024, 32)
+MOE_TIMED = (9, "bfloat16", 4, 1024, 32)
 # (g) RWKV6-3B and (h) Whisper-large-v3 at full width on (data 1, model
 # 4): 10 of RWKV6's 40 WKV heads a rank and 2,240 of its 8,960 channel-mix
 # columns; 5 of Whisper's 20 heads a rank in its encoder and both
@@ -4180,10 +4234,23 @@ MOE_TIMED = (None, "bfloat16", 4, 1024, 32)
 # tokens, new tokens), a Whisper layer count its encoder's and its
 # decoder's each: (g1)/(h1) the fp32 check, (g2)/(h2) timed at (b)'s
 # shape, the depth cut to fit the script's time (tools/tp_depth_probe.py
-# runs them at full depth)
-FAMILY_ARCHS = {"g": "rwkv6-3b", "h": "whisper-large-v3"}
+# runs them at full depth).  (i) Hymba-1.5B at full width on (data 1,
+# model 4), its heads split inside as its specs cut the columns: 400 of
+# the 1,600 inner columns a rank, the 7 query heads they touch (G = 1
+# after the kv expansion), SSM sub-heads of 16 (25 a rank), its vocabulary
+# of 32,001 whole; (i1)'s prompts of 2,560 tokens run past the 2,048
+# window, so the ring wraps at full width
+FAMILY_ARCHS = {"g": "rwkv6-3b", "h": "whisper-large-v3",
+                "i": "hymba-1.5b"}
 FAMILY_CHECK = (2, "float32", 2, 256, 8)
-FAMILY_TIMED = (8, "bfloat16", 4, 1024, 32)
+FAMILY_TIMED = (4, "bfloat16", 4, 1024, 32)
+FAMILY_CHECK_OF = {"hymba-1.5b": (2, "float32", 2, 2560, 8)}
+
+
+def family_check(arch: str):
+    """(layers, dtype, slots, prompt tokens, new tokens) of ``arch``'s fp32
+    check."""
+    return FAMILY_CHECK_OF.get(arch, FAMILY_CHECK)
 
 
 def tp_config(get_arch, layers: int):
@@ -4225,8 +4292,13 @@ def tp_train_arch_config(get_arch, arch: str):
     """(c)'s config of ``arch``: reduced(), and widened to 8 query and 8 kv
     heads where the reduced heads do not split over TP_RANKS (Whisper's
     5), the same on both sides, as tests/test_torch_tensor_parallel_encdec
-    .py widens it."""
+    .py widens it; Hymba to 15 query heads on 3 kv heads of 16, a window
+    of 12 and a vocabulary of 514, as tests/test_torch_tensor_parallel_
+    hybrid.py widens it (its heads split inside at model 2 and 4)."""
     cfg = get_arch(arch).reduced()
+    if cfg.family == "hybrid":
+        return dataclasses.replace(cfg, n_heads=15, n_kv_heads=3,
+                                   sliding_window=12, vocab_size=514)
     if cfg.n_heads % TP_RANKS:
         cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=8)
     return cfg
@@ -4260,8 +4332,7 @@ def z3_config(cfg):
 def z3e_cases(ARCHS):
     """(arch, mesh shape, optimizer kind) of (e)."""
     out = [(a, Z3E_POD_MESH, "adamw") for a in sorted(ARCHS)]
-    out += [(a, Z3E_TP_MESH, "adamw") for a in sorted(ARCHS)
-            if ARCHS[a].family in ("dense", "vlm", "moe", "ssm", "encdec")]
+    out += [(a, Z3E_TP_MESH, "adamw") for a in sorted(ARCHS)]
     return out + [(Z3E_ADAFACTOR, Z3E_TP_MESH, "adafactor")]
 
 
@@ -4335,7 +4406,7 @@ def moe_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
 
 
 def family_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
-    """(g2)/(h2)'s least device time (ms, and "bytes" or "operations") of
+    """(g2)/(h2)/(i2)'s least device time (ms, and "bytes" or "operations") of
     the bf16 prefill and of its mean decode step on the one card that
     holds all four ranks: the bytes the formulation must move (each weight
     and the head read once, the encoder's at prefill; the embedding rows
@@ -4371,6 +4442,27 @@ def family_bounds(torch, lm, cfg, slots: int, plen: int, new: int, peaks):
                      + slots * (2 * d + kv_tok * (keys + 1 + Se)),
                      2 * (mat(dec) - xkv + head) * slots
                      + 4 * hd * H * L * slots * (keys + Se), "bfloat16")
+        return pre, step
+    if cfg.family == "hybrid":
+        # the ring of the last min(S, W) keys (bf16 k and v of the kv
+        # heads), the SSM's fp32 state [state, hd] a head and its
+        # recurrence, attention over the visible pairs in the window
+        N, W = cfg.ssm.state_dim, cfg.sliding_window
+        kv_tok = 2 * 2 * cfg.n_kv_heads * hd * L
+        state = 4 * L * H * N * hd
+        rec = 7 * L * H * N * hd
+        seen = min(plen, W)
+        pairs = seen * (seen + 1) / 2 + (plen - seen) * W
+        w_bytes = 2 * (size(dec) + head)
+        pre = bound(peaks, w_bytes + tokens * 2 * d
+                    + slots * (seen * kv_tok + state),
+                    (2 * mat(dec) + rec) * tokens + 2 * head * slots
+                    + 4 * hd * H * L * slots * pairs, "bfloat16")
+        ring = min(keys, W)
+        step = bound(peaks, w_bytes + slots * (2 * d + kv_tok * (ring + 1)
+                                               + 2 * state),
+                     (2 * (mat(dec) + head) + rec) * slots
+                     + 4 * hd * H * L * slots * ring, "bfloat16")
         return pre, step
     state = 4 * L * H * hd * hd                 # a slot's fp32 WKV state
     rec = 7 * L * H * hd * hd                   # its recurrence, a token
@@ -4611,8 +4703,8 @@ def zero3_cases_rank(torch, tr, opt, pipeline, sh, tpl, get_arch, ARCHS,
 def moe_rank(torch, np, lm, serve, sh, tpl, col, get_arch, counts, pol,
              mesh, seed: int, dev):
     """(f) in one rank, on (data 1, model 4): (f1) the fp32 check under
-    each dispatch, (f2) the timed bf16 serving at full depth.  Returns CPU
-    tensors and numbers."""
+    each dispatch, (f2) the timed bf16 serving at MOE_TIMED's depth.
+    Returns CPU tensors and numbers."""
     out = {}
     layers, _, slots, plen, new = MOE_CHECK
     cfg = moe_config(get_arch, layers)
@@ -4667,11 +4759,11 @@ def moe_rank(torch, np, lm, serve, sh, tpl, col, get_arch, counts, pol,
 
 def family_rank(torch, np, lm, serve, sh, tpl, col, get_arch, counts, pol,
                 mesh, seed: int, dev, arch: str):
-    """(g) or (h) in one rank, on (data 1, model 4): the fp32 check at
-    FAMILY_CHECK's depth, the timed bf16 serving at FAMILY_TIMED's.
-    Returns CPU tensors and numbers."""
+    """(g), (h) or (i) in one rank, on (data 1, model 4): the fp32 check
+    at :func:`family_check`'s depth, the timed bf16 serving at
+    FAMILY_TIMED's.  Returns CPU tensors and numbers."""
     out = {}
-    layers, _, slots, plen, new = FAMILY_CHECK
+    layers, _, slots, plen, new = family_check(arch)
     cfg = family_config(get_arch, arch, layers)
     prompts = tp_prompts(np, cfg, slots, plen, seed)
     frames = family_frames(torch, np, cfg, slots, seed, dev)
@@ -4733,8 +4825,9 @@ def tp_rank(dev, seed: int, t_spawn: float):
     it by name), on a ('data', 'model') process mesh over the four ranks:
     (a) the fp32 check, (b) the timed bf16 serving, (c) the train steps,
     (d) Qwen2-1.5B at full width under ZeRO-3 and TP, (e) every arch under
-    ZeRO-3, (f) DeepSeek-V2-Lite, (g) RWKV6-3B and (h) Whisper-large-v3
-    serving at full width.  Returns CPU tensors and numbers."""
+    ZeRO-3, (f) DeepSeek-V2-Lite, (g) RWKV6-3B, (h) Whisper-large-v3 and
+    (i) Hymba-1.5B serving at full width.  Returns CPU tensors and
+    numbers."""
     t_enter = time.time()
     import numpy as np
     import torch
@@ -4786,7 +4879,7 @@ def tp_rank(dev, seed: int, t_spawn: float):
     del params, eng
     torch.cuda.empty_cache()
 
-    # (b) timed bf16 serving at 4 layers
+    # (b) timed bf16 serving at TP_TIMED's depth
     layers, dtype, slots, plen, new = TP_TIMED
     cfg = tp_config(get_arch, layers)
     prompts = tp_prompts(np, cfg, slots, plen, seed)
@@ -4873,8 +4966,8 @@ def tp_rank(dev, seed: int, t_spawn: float):
     for key in ("f1 sorted", "f1 dense_moe", "f2"):
         out["launches"][key] = out["moe"].pop(f"launches {key}")
 
-    # (g) RWKV6-3B and (h) Whisper-large-v3 at full width: heads over
-    # 'model'
+    # (g) RWKV6-3B, (h) Whisper-large-v3 and (i) Hymba-1.5B at full
+    # width: heads over 'model' (Hymba's split inside)
     out["families"] = {}
     for part, arch in FAMILY_ARCHS.items():
         t0 = time.perf_counter()
@@ -4992,8 +5085,8 @@ def zero3_cases_gates(torch, opt, lm, get_arch, ARCHS, results, z3_refs,
     out = {"rows": e_rows, "launches": e_launches,
            "part_s_by_rank": [res["zero3_cases_s"] for res in results]}
     say(f"  tp (e): {len(e_rows)} ZeRO-3 steps (every arch at "
-        f"reduced() widened on (data 2, model 1), every arch but Hymba "
-        f"on (2, 2), Adafactor on {Z3E_ADAFACTOR} at (2, 2)) "
+        f"reduced() widened on (data 2, model 1) and on (2, 2), "
+        f"Adafactor on {Z3E_ADAFACTOR} at (2, 2)) "
         f"equal the unsharded step on the card: loss within {Z3_TOL}, "
         f"gradient within {max(r['worst_grad_rel_err'] for r in e_rows)!r}"
         f" of each leaf's max (limit {TP_GRAD_TOL}), parameters within "
@@ -5031,7 +5124,7 @@ def moe_gates(torch, np, lm, get_arch, results, moe_ref, peaks, smi):
         check(f["weight_bytes"] == f["spec_bytes"],
               f"tp (f1) rank {r}: {f['weight_bytes']} weight bytes, the "
               f"specs give {f['spec_bytes']}")
-        L = get_arch(MOE_ARCH).n_layers
+        L = moe_config(get_arch, MOE_TIMED[0]).n_layers
         new = MOE_TIMED[4]
         want = {"tensor_core": 0, "tensor_core_wide": L,
                 "split_kv": L * (new - 1), "mma_tf32": 0}
@@ -5089,8 +5182,8 @@ def moe_gates(torch, np, lm, get_arch, results, moe_ref, peaks, smi):
                 "routes_per_rank": f0["timed_routes"]},
             "part_s_by_rank": [f["part_s"] for f in fs]}
     t = info["timed"]
-    say(f"  tp (f2): {MOE_ARCH} at full width and depth ({cfg.n_layers} "
-        f"layers), bf16, {slots} slots x {plen}-token prompts + {new} new, "
+    say(f"  tp (f2): {MOE_ARCH} at full width, {cfg.n_layers} of "
+        f"{get_arch(MOE_ARCH).n_layers} layers, bf16, {slots} slots x {plen}-token prompts + {new} new, "
         f"(data 1, model {TP_RANKS}), 4 ranks over gloo on one card: TTFT "
         f"{ttft!r} ms (the prefill's device bound {pre_bound!r} ms, "
         f"{pre_by}), decode {step_ms!r} ms a step (bound {step_bound!r} "
@@ -5108,12 +5201,12 @@ def moe_gates(torch, np, lm, get_arch, results, moe_ref, peaks, smi):
 
 def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
                  smi):
-    """(g)'s or (h)'s gates on every rank's results against the unsharded
-    runs of this process, and its timed numbers (the slowest rank's
-    walls)."""
+    """(g)'s, (h)'s or (i)'s gates on every rank's results against the
+    unsharded runs of this process, and its timed numbers (the slowest
+    rank's walls)."""
     arch = FAMILY_ARCHS[part]
     (ref_steps, ref_toks), ref_timed = ref
-    L1, _, slots1, plen1, new1 = FAMILY_CHECK
+    L1, _, slots1, plen1, new1 = family_check(arch)
     L2, _, slots, plen, new = FAMILY_TIMED
     cfg = family_config(get_arch, arch, L2)
     hl, hd = cfg.n_heads // TP_RANKS, cfg.head_dim
@@ -5132,6 +5225,36 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
         state = {"tmix": {"shift": (slots1, cfg.d_model),
                           "wkv": (slots1, hl, hd, hd)},
                  "cmix_shift": (slots1, cfg.d_model)}
+    elif cfg.family == "hybrid":
+        # a flash and an SSM scan a layer at prefill (the fp32 check's on
+        # mma_tf32 and chunk_f32, the timed bf16 one's on tensor_core and
+        # chunk_f32) and at each decode step (split_kv over the ring, the
+        # WKV step kernel)
+        fa, wk = none["flash_attention"], none["wkv_scan"]
+        want_check = {"flash_attention": {**fa, "mma_tf32": L1,
+                                          "split_kv": L1 * new1},
+                      "wkv_scan": {**wk, "chunk_f32": L1,
+                                   "step": L1 * new1}}
+        want_timed = {"flash_attention": {**fa, "tensor_core": L2,
+                                          "split_kv": L2 * (new - 1)},
+                      "wkv_scan": {**wk, "chunk_f32": L2,
+                                   "step": L2 * (new - 1)}}
+        # the ring of k and v at the 7 query heads a rank's 400 columns
+        # touch, the conv carry of its columns, the SSM state of its 25
+        # sub-heads of 16
+        cols = cfg.n_heads * hd // TP_RANKS
+        g, N = math.gcd(hd, cols), cfg.ssm.state_dim
+        Wc = min(plen1 + new1, cfg.sliding_window)
+
+        def state_of(r):
+            n = -(-(r + 1) * cols // hd) - r * cols // hd
+            kv = (slots1, Wc, n, hd)
+            return {"attn": {"k": kv, "v": kv, "kpos": (Wc,)},
+                    "ssm": {"conv": (slots1, cfg.ssm.conv_width - 1, cols),
+                            "ssm": (slots1, cols // g, N, g)}}
+        split = (f"{cols} of the {cfg.n_heads * hd} inner columns a rank "
+                 f"({state_of(0)['attn']['k'][2]} query heads at G = 1, "
+                 f"{cols // g} SSM sub-heads of {g})")
     else:
         # the encoder's attention a layer, the decoder's self and cross
         # attention a layer at prefill and at each decode step
@@ -5142,6 +5265,9 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
             **fa, "tensor_core": 3 * L2, "split_kv": 2 * L2 * (new - 1)}}
         kv = lambda n: {"k": (slots1, n, hl, hd), "v": (slots1, n, hl, hd)}
         state = {"self": kv(plen1 + new1), "cross": kv(cfg.encoder_seq)}
+    if cfg.family != "hybrid":
+        state_of = lambda r: state
+        split = f"{hl} heads a rank"
     scale, worst = float(ref_steps.abs().max()), 0.0
     first = results[0]["families"][part]
     for res in results:
@@ -5159,9 +5285,9 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
         check(f["weight_bytes"] == f["spec_bytes"],
               f"tp ({part}1) {arch} rank {r}: {f['weight_bytes']} weight "
               f"bytes, the specs give {f['spec_bytes']}")
-        check(f["cache"] == state,
+        check(f["cache"] == state_of(r),
               f"tp ({part}1) {arch} rank {r}: a layer's decode state "
-              f"{f['cache']} (want {state}: this rank's heads)")
+              f"{f['cache']} (want {state_of(r)}: this rank's heads)")
         for key, want, routes, plain in (
                 ("1", want_check, got["routes"], got["plain"]),
                 ("2", want_timed, f["timed_routes"], f["timed_plain"])):
@@ -5182,7 +5308,7 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
     routes = {k: first["timed_routes"][k] for k in want_timed}
     info = {"arch": arch, "ranks": TP_RANKS, "backend": "gloo",
             "card": smi, "check": {
-                "layers": L1, "dtype": FAMILY_CHECK[1], "slots": slots1,
+                "layers": L1, "dtype": "float32", "slots": slots1,
                 "prompt": plen1, "new": new1, "worst_logit_rel_err": worst,
                 "weight_bytes_per_rank": first["weight_bytes"],
                 "decode_state_per_layer": first["cache"],
@@ -5209,11 +5335,18 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
     layers, layout = ((f"{L1} encoder and {L1} decoder layers",
                        "the self and cross caches of this rank's heads")
                       if cfg.family == "encdec" else
+                      (f"{L1} layers, {plen1}-token prompts past the "
+                       f"{cfg.sliding_window} window", "the ring of k and v "
+                       "at the query heads this rank's columns touch, the "
+                       "conv carry of its columns, the SSM state of its "
+                       "sub-heads, where the JAX cache_pspecs split the "
+                       "head dim")
+                      if cfg.family == "hybrid" else
                       (f"{L1} layers", "the WKV state by whole heads, where "
                        "the JAX cache_pspecs split its head dim; the shifts "
                        "whole"))
     say(f"  tp ({part}1): {arch} at full width, {layers}, fp32, (data 1, "
-        f"model {TP_RANKS}): {hl} heads a rank; prefill and {new1} decode "
+        f"model {TP_RANKS}): {split}; prefill and {new1} decode "
         f"logits within {worst!r} of max |logit| of the unsharded run "
         f"(limit {TP_LOGIT_TOL}); greedy tokens identical on every rank "
         f"and to the unsharded run; weight bytes a rank "
@@ -5307,11 +5440,11 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                                     new)
         del params
         torch.cuda.empty_cache()
-        # (g), (h) references: the unsharded fp32 check, and the
+        # (g), (h), (i) references: the unsharded fp32 check, and the
         # unsharded bf16 run's tokens at the timed shape
         fam_ref = {}
         for part, arch in FAMILY_ARCHS.items():
-            layers, _, slots, plen, new = FAMILY_CHECK
+            layers, _, slots, plen, new = family_check(arch)
             fcfg = family_config(get_arch, arch, layers)
             params = lm.init_params(seed, fcfg, torch.float32, device="cuda")
             check_ref = tp_greedy(
@@ -5477,8 +5610,9 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
                       <= TP_LOSS_TOL * abs(gnorm)
                       and g_err <= TP_GRAD_TOL and p_err <= TP_PARAM_TOL
                       and (got["routes"].get("mma_tf32", 0) > 0
-                           if arch != "rwkv6-3b" else
-                           got["launches"]["wkv_scan_backward"] > 0)
+                           or arch == "rwkv6-3b")
+                      and (got["launches"]["wkv_scan_backward"] > 0
+                           or arch not in ("rwkv6-3b", "hymba-1.5b"))
                       and not any(got["plain"].values()),
                       f"tp (c) {arch} {shape} seq_tp={seq} rank "
                       f"{res['rank']}: "
@@ -5552,7 +5686,8 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
         # (f) gates and numbers: DeepSeek-V2-Lite under a model axis
         info["moe"] = moe_gates(torch, np, lm, get_arch, results, moe_ref,
                                 peaks, smi)
-        # (g), (h) gates and numbers: RWKV6-3B and Whisper-large-v3
+        # (g), (h), (i) gates and numbers: RWKV6-3B, Whisper-large-v3 and
+        # Hymba-1.5B
         info["families"] = {
             part: family_gates(torch, np, lm, get_arch, results, part,
                                fam_ref[part], peaks, smi)
@@ -5858,13 +5993,14 @@ def main(argv=None) -> int:
         f"annealer stream identical on the card and the CPU; launches "
         f"{sched_launches}; {sched_info['phase_s']:.1f} s [{smi}]")
 
-    # ---- 10. tensor parallelism: qwen2-72b, DeepSeek-V2-Lite, RWKV6-3B
-    # and Whisper-large-v3 at full width on 4 ranks ----------------------
+    # ---- 10. tensor parallelism: qwen2-72b, DeepSeek-V2-Lite, RWKV6-3B,
+    # Whisper-large-v3 and Hymba-1.5B at full width on 4 ranks -----------
     tp_info, tp_launches = tp_phase(torch, np, lm, serve, tr, opt, pipeline,
                                     run_ranks, get_arch, peaks, args.seed,
                                     smi, full_info)
-    say(f"phase tp: {TP_ARCH}, {MOE_ARCH}, "
-        f"{' and '.join(FAMILY_ARCHS.values())} at full width on {TP_RANKS} "
+    *rest, last = FAMILY_ARCHS.values()
+    say(f"phase tp: {', '.join((TP_ARCH, MOE_ARCH, *rest))} and {last} "
+        f"at full width on {TP_RANKS} "
         f"ranks (gloo, one card): the fp32 checks and the training gates "
         f"hold; launches "
         f"{tp_launches}; {tp_info['phase_s']:.1f} s [{smi}]")
@@ -6004,7 +6140,10 @@ def main(argv=None) -> int:
                                    "moe check": tp_info["moe"]["check"][
                                        "routes_per_rank"],
                                    "moe timed": tp_info["moe"]["timed"][
-                                       "routes_per_rank"]},
+                                       "routes_per_rank"],
+                                   **{f"hymba {key}": tp_info["families"][
+                                       "i"][key]["routes_per_rank"][kname]
+                                      for key in ("check", "timed")}},
                                family_launches_per_forward={
                                    a: {"prefill": serving[a][
                                        "launches_per_prefill"][kname],
@@ -6039,6 +6178,10 @@ def main(argv=None) -> int:
                                    "decode_step": serving["hymba-1.5b"][
                                        "launches_per_decode_step"][kname]},
                                inclusive_rows=inclusive,
+                               tp_hymba_launches_by_route_per_rank={
+                                   key: tp_info["families"]["i"][key][
+                                       "routes_per_rank"][kname]
+                                   for key in ("check", "timed")},
                                tp_rows=[{k: r[k] for k in (
                                    "case", "B", "S", "h", "Nk", "Nv",
                                    "dtype", "route", "max_abs_err",

@@ -60,6 +60,22 @@ shared_weight`, whose backward sums its partial gradients over
 reads the block input through :meth:`TensorParallel.replicated`, so its
 gradient is counted once.
 
+Hymba (the ``hybrid`` family) splits inside its heads, as GSPMD
+partitions the JAX specs: 25 query heads on 5 kv heads of 64 do not split
+whole over 4 ranks, but the specs cut ``wq``, ``wk``, ``wv`` and the SSM's
+``w_in``, ``w_gate`` and ``conv`` by columns and ``wo``, ``w_B``, ``w_C``,
+``w_dt`` and ``w_out`` by rows all the same.  A rank holds columns
+[c0, c1) of the inner width (:class:`HeadBlock`); it all-gathers q, k and
+v along the feature dim (:meth:`TensorParallel.gather_heads`, a
+``psum_scatter`` backward, so the two ranks that share a boundary head sum
+its gradient), runs attention over the query heads its columns touch with
+each kv head expanded to its query heads (G = 1), keeps its columns of the
+output and multiplies them by its rows of ``wo``.  The SSM runs on its
+columns in sub-heads of g = gcd(hd, inner/tp) columns: the recurrence is
+independent along v's columns once q, k and the decay are whole, and those
+come from the row-split ``w_B``, ``w_C`` and ``w_dt`` summed over
+``model`` forward and backward (:meth:`TensorParallel.sum_partials`).
+
 RWKV (:mod:`repro_torch.models.rwkv`) splits its time-mix by whole WKV
 heads (the state a rank holds is its heads; the JAX ``cache_pspecs``
 splits the head dim instead) and its channel-mix FFN by columns and rows;
@@ -77,18 +93,21 @@ Execution covers the spec entries ``None`` and ``'model'``, and the
 FSDP overlay's ``'data'`` (ZeRO-3, :mod:`.fsdp`): :class:`TensorParallel`
 is the whole parameter layout of a policy, the model-axis cut here (at
 model 1, none) and then the overlay's cut of :class:`.fsdp.Zero3`, for
-every family at model 1 and for the families of ``TP_FAMILIES`` above
-it.  :meth:`TensorParallel.sum_squares` and
+every family at model 1 and for the families of ``TP_FAMILIES`` (all of
+them) above it.  :meth:`TensorParallel.sum_squares` and
 :meth:`TensorParallel.full_mean` give the optimizers sums and means of
 the unsharded leaves.  2D serving weights (``serve_tp2d_rules``),
-sequence sharding over ``data`` and the Hymba family under a model axis
-raise ``NotImplementedError`` (``ROADMAP.md`` queues them).
+sequence sharding over ``data`` and a Hymba geometry whose inner or kv
+width the model axis does not divide raise ``NotImplementedError``
+(``ROADMAP.md`` queues them).
 """
 from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
+import math
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -102,13 +121,15 @@ from .sharding import (ShardingPolicy, active_policy, axes_size,
                        map_with_path, param_pspecs)
 
 MODEL = "model"
-TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec")
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "encdec", "hybrid")
 _KV_LEAVES = ("wk", "wv", "bk", "bv")
 # leaves whose spec must split over a model axis above 1 (attention, MLP,
-# MoE; RWKV's projections, receptances and bonus; the GELU MLP's b1)
+# MoE; RWKV's projections, receptances and bonus; the GELU MLP's b1;
+# Hymba's SSM projections, conv and output)
 _SPLIT_LEAVES = ("wq", "wo", "bq", "w1", "w2", "w3", "w_uk", "w_uv",
                  "shared_w1", "shared_w2", "shared_w3", "wr", "wg", "u",
-                 "b1") + _KV_LEAVES
+                 "b1", "w_in", "w_gate", "conv", "conv_b", "w_B", "w_C",
+                 "w_dt", "w_out") + _KV_LEAVES
 
 
 def _todo(what: str, where: str = " under a model axis > 1"
@@ -228,6 +249,20 @@ class _Replicated(torch.autograd.Function):
         return None, g, None, None
 
 
+class _SumPartials(torch.autograd.Function):
+    """``psum`` over ``model`` forward and backward: a partial sum that
+    every rank reads at different entries, so each rank's cotangent is a
+    part of the sum's."""
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return col.psum(x, mesh, MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return col.psum(g, ctx.mesh, MODEL), None
+
+
 def _ordered_sum(parts) -> torch.Tensor:
     acc = parts[0].clone()
     for part in parts[1:]:
@@ -274,6 +309,41 @@ def split_to_model(x: torch.Tensor, mesh: ProcessMesh,
 # The layout of one config under one policy
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class HeadBlock:
+    """One rank's block of a layer whose heads split inside (Hymba):
+    columns [c0, c1) of the inner width (q's and the SSM stream's), the
+    query heads [h0, h1) those columns touch (a boundary head is computed
+    on both ranks that share it), the kv heads [kv0, kv1) those heads read,
+    and the SSM's sub-heads of ``g`` columns."""
+    c0: int
+    c1: int
+    h0: int
+    h1: int
+    kv0: int
+    kv1: int
+    g: int
+    hd: int
+    group: int          # query heads a kv head
+
+    @property
+    def n_heads(self) -> int:
+        return self.h1 - self.h0
+
+    @property
+    def n_sub(self) -> int:
+        return (self.c1 - self.c0) // self.g
+
+    def kv_of_heads(self) -> Tuple[int, ...]:
+        """The kv head each of the block's query heads reads."""
+        return tuple(h // self.group for h in range(self.h0, self.h1))
+
+    def sub_heads(self) -> Tuple[int, ...]:
+        """The head each of the block's SSM sub-heads lies in."""
+        return tuple((self.c0 + j * self.g) // self.hd
+                     for j in range(self.n_sub))
+
+
 def _template(cfg: ArchConfig) -> Dict:
     from ..models import lm
     return lm.init_params(0, cfg, device="meta")
@@ -307,12 +377,22 @@ class TensorParallel:
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         if cfg.mla:         # one latent head, whole on every rank
             KV = H
-        if H % self.size or (KV % self.size and self.size % KV):
+        # Hymba splits inside its heads, as its specs cut the columns
+        self.inside = cfg.family == "hybrid" and self.size > 1
+        if self.inside:
+            if (H * hd) % self.size or (KV * hd) % self.size:
+                raise _todo(f"{H * hd} query / {KV * hd} kv columns at "
+                            f"model {self.size} (columns the specs do not "
+                            f"split)")
+        elif H % self.size or (KV % self.size and self.size % KV):
             raise _todo(f"{H} query / {KV} kv heads at model {self.size} "
                         f"(heads that do not split whole)")
-        self.kv_rep = self.size // KV if self.size > KV else 1
+        self.kv_rep = (self.size // KV if self.size > KV and not self.inside
+                       else 1)
         self.local_kv_heads = KV // self.size if self.kv_rep == 1 else 1
         self.hd = hd
+        self.cfg = cfg
+        self._index: Dict[Tuple, torch.Tensor] = {}  # block_index's
         self.seq_rule = rules.get("seq_tp") == MODEL
         self.seq = False        # this call's residual split over the seq
         self.template = _template(cfg)
@@ -482,6 +562,62 @@ class TensorParallel:
         experts are whole on every rank: unsplit, or split by their FFN
         dim)."""
         return self.mesh.axis_index(MODEL) * n_local if self.experts else 0
+
+    def head_block(self, model_rank: Optional[int] = None) -> HeadBlock:
+        """This rank's :class:`HeadBlock` (a layout that splits inside
+        heads): the inner H hd columns cut in ``size`` equal blocks."""
+        H, hd = self.cfg.n_heads, self.hd
+        n = H * hd // self.size
+        c0 = self.rank(model_rank) * n
+        h0, h1 = c0 // hd, -(-(c0 + n) // hd)
+        group = H // self.cfg.n_kv_heads
+        return HeadBlock(c0, c0 + n, h0, h1, h0 // group,
+                         (h1 - 1) // group + 1, math.gcd(hd, n), hd, group)
+
+    def block_index(self, which: str, device) -> torch.Tensor:
+        """This rank's :class:`HeadBlock` ``kv_of_heads`` or ``sub_heads``
+        as an index tensor on ``device``, made once (a host-to-card copy
+        a call would stall the stream), outside inference mode so that a
+        later training call may save it for its backward."""
+        key = (which, str(device), self.rank())
+        if key not in self._index:
+            with torch.inference_mode(False):
+                self._index[key] = torch.tensor(
+                    getattr(self.head_block(), which)(), device=device)
+        return self._index[key]
+
+    def gather_heads(self, q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """This rank's columns of q, k and v ``[B, S, n]`` -> the query
+        heads its columns touch ``[B, S, h1 - h0, hd]``, and k and v at the
+        kv head each of them reads (G = 1).  One all-gather of the three
+        along the feature dim; its backward reduce-scatters, so a head two
+        ranks compute gets the sum of both ranks' gradients."""
+        blk, hd = self.head_block(), self.hd
+        B, S, nq = q.shape
+        nk = k.shape[-1]
+        full = sp_gather(torch.cat([q, k, v], -1), self.mesh, -1)
+        full = full.reshape(B, S, self.size, nq + 2 * nk)
+        heads = lambda lo, hi, n: full[..., lo:hi].reshape(B, S, n, hd)
+        H, KV = self.cfg.n_heads, self.cfg.n_kv_heads
+        idx = self.block_index("kv_of_heads", q.device)
+        return (heads(0, nq, H)[:, :, blk.h0:blk.h1],
+                heads(nq, nq + nk, KV).index_select(2, idx),
+                heads(nq + nk, nq + 2 * nk, KV).index_select(2, idx))
+
+    def keep_columns(self, out: torch.Tensor) -> torch.Tensor:
+        """Attention's output over the block's heads ``[B, S, (h1 - h0)
+        hd]`` -> this rank's columns [c0, c1), ready for its rows of
+        ``wo``."""
+        blk = self.head_block()
+        return out.narrow(-1, blk.c0 - blk.h0 * self.hd, blk.c1 - blk.c0)
+
+    def sum_partials(self, x: torch.Tensor) -> torch.Tensor:
+        """A row-split product's partial sum, summed over ``model``, that
+        every rank reads at its own entries (Hymba's B, C and dt at its
+        sub-heads): its cotangent is summed over ``model`` too."""
+        return _SumPartials.apply(x, self.mesh)
 
     def kv_weight(self, w: torch.Tensor) -> torch.Tensor:
         return (_SharedKV.apply(w, self.mesh, self.kv_rep)
@@ -804,8 +940,8 @@ def local_bytes(params: Dict) -> int:
     return sum(x.numel() * x.element_size() for x in tree_leaves(params))
 
 
-__all__ = ["TensorParallel", "layout", "for_call", "for_update",
-           "shard_params",
+__all__ = ["TensorParallel", "HeadBlock", "layout", "for_call",
+           "for_update", "shard_params",
            "gather_params", "init_shard_params", "copy_to_model",
            "reduce_from_model", "sp_gather", "sp_scatter",
            "gather_from_model", "split_to_model", "local_rows",

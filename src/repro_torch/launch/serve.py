@@ -18,11 +18,12 @@ carry, so its requests run in waves of ``--slots`` prompts of
 ``repro_torch.distributed.launch.run_ranks`` on a ('data', 'model')
 process mesh: each draws its shards of the same weights
 (``tensor_parallel.init_shard_params``) and serves under
-``default_rules(fsdp=False)``; every family but Hymba runs so (a config
-whose heads the model axis does not split, as reduced Whisper's 5,
-raises).  ``--backend`` defaults to gloo on one
-card or the CPU and to nccl when there are as many cards as ranks.  Rank 0
-prints.
+``default_rules(fsdp=False)``; every family runs so, Hymba with its heads
+split inside as its specs cut the columns (a config whose heads the
+model axis does not split, as reduced Whisper's 5, raises, and so does a
+Hymba config whose inner or kv width it does not divide).
+``--backend`` defaults to gloo on one card or the CPU and to nccl when
+there are as many cards as ranks.  Rank 0 prints.
 """
 from __future__ import annotations
 

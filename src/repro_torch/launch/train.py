@@ -23,10 +23,11 @@ block of every weight and of its moments, the ``train_state_pspecs``
 layout, and gathers a weight before its use).  Each takes its rows of
 every batch, checkpoints its shards under ``--ckpt-dir``/rank<k>, and
 rank 0 prints a rank's state bytes beside the specs'.  Every family runs
-at model 1 and every family but Hymba above it, with AdamW or Adafactor
-(a config whose heads the model axis does not split raises).  ``--backend`` defaults to
-gloo on one card or the CPU and to nccl when there are as many cards as
-ranks.
+at model 1 and above it (Hymba with its heads split inside), with AdamW
+or Adafactor (a config whose heads the model axis does not split raises,
+as does a Hymba config whose inner or kv width it does not divide).
+``--backend`` defaults to gloo on one card or the CPU and to nccl when
+there are as many cards as ranks.
 """
 from __future__ import annotations
 

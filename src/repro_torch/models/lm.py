@@ -31,8 +31,10 @@ dense family, the VLM's dense trunk, the MoE family (expert parallelism,
 MLA's head split), RWKV (its heads split, the channel-mix product on
 reduced columns: :mod:`.rwkv`) and the enc-dec family (the encoder's and
 both attentions' heads split, the cross cache of this rank's heads, the
-GELU MLP's output bias added after the sum) run so; Hymba raises
-``NotImplementedError`` under a model axis.
+GELU MLP's output bias added after the sum) and Hymba (its attention and
+SSM split inside heads as its specs cut the columns: q, k and v gathered
+along the feature dim, the SSM in sub-heads of this rank's columns,
+:mod:`.ssm`) run so.
 
 ZeRO-3: where the policy's FSDP axis (``'data'``) splits the parameters
 (:mod:`repro_torch.distributed.fsdp`, every family), each layer gathers
@@ -175,6 +177,8 @@ def _qkv(p: Dict, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor,
     v = xkv @ kvw(p["wv"])
     if "bq" in p:
         q, k, v = q + p["bq"], k + kvw(p["bk"]), v + kvw(p["bv"])
+    if tp is not None and tp.inside:      # this rank's columns -> its heads
+        return tp.gather_heads(q, k, v)
     B, Sq = xq.shape[:2]
     Sk = xkv.shape[1]
     return (q.reshape(B, Sq, H, hd), k.reshape(B, Sk, KV, hd),
@@ -194,9 +198,13 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     to slots ``position % Wc``; a prefill (S > 1) attends over its own
     windowed sequence, a decode step over the ring.  Under ``tp`` the
     weights, heads and cache are this rank's and the output is its
-    partial sum."""
+    partial sum (where heads split inside, the output's columns this rank
+    holds times its rows of ``wo``)."""
     B, S, D = x.shape
     q, k, v = _qkv(p, cfg, x, x, tp)
+    wo = ((lambda o: o.reshape(B, S, -1) @ p["wo"])
+          if tp is None or not tp.inside else
+          (lambda o: tp.keep_columns(o.reshape(B, S, -1)) @ p["wo"]))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -219,7 +227,7 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
             out = ring_cache_attention(q, cache["k"], cache["v"],
                                        cache["kpos"], positions,
                                        window=window)
-        return out.reshape(B, S, -1) @ p["wo"], cache
+        return wo(out), cache
     if cache is not None:
         i = int(cache_index)
         cache["k"][:, i:i + S] = k.to(cache["k"].dtype)
@@ -229,7 +237,7 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     out = blockwise_attention(q, k, v, positions, kv_valid_len=valid,
                               causal=causal, window=window,
                               kv_block=min(512, max(k.shape[1], 1)))
-    return out.reshape(B, S, -1) @ p["wo"], cache
+    return wo(out), cache
 
 
 def cross_attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -418,20 +426,22 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
             cache["tmix"], cache["cmix_shift"] = t_new, c_shift
         return x, cache, None
     if kind == "hymba":
-        h = rms_norm(x, p["ln1"], eps)
+        # each branch's partial output is summed over the model axis
+        # before its norm reads it (under sequence TP, this rank's block)
+        h = _block_input(x, p["ln1"], eps, tp)
         a, _ = attn_forward(p["attn"], cfg, h, positions,
                             cache=cache["attn"] if cache is not None
                             else None,
                             cache_index=cache_index,
-                            window=cfg.sliding_window)
+                            window=cfg.sliding_window, tp=tp)
         s, s_new = ssm_forward(p["ssm"], cfg, h,
                                cache["ssm"] if cache is not None else None,
-                               chunk=mixer_chunk)
-        a = rms_norm(a, p["bn_a"], eps)
-        s = rms_norm(s, p["bn_s"], eps)
+                               chunk=mixer_chunk, tp=tp)
+        a = _norm(_block_output(a, tp), p["bn_a"], eps, tp)
+        s = _norm(_block_output(s, tp), p["bn_s"], eps, tp)
         x = x + 0.5 * (a + s)
-        h = rms_norm(x, p["ln2"], eps)
-        x = x + swiglu(h, **p["mlp"])
+        h = _block_input(x, p["ln2"], eps, tp)
+        x = x + _block_output(swiglu(h, **p["mlp"]), tp)
         if cache is not None:
             cache["ssm"] = s_new
         return x, cache, None
@@ -787,6 +797,11 @@ def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                       dtype, device,
                       tp: Optional[tpl.TensorParallel] = None) -> Dict:
     KV = cfg.n_kv_heads if tp is None else tp.local_kv_heads
+    if kind == "hymba" and tp is not None and tp.inside:
+        # Hymba's ring holds k and v expanded to the query heads this
+        # rank's columns touch (G = 1, as its attention reads them), not
+        # the kv heads those read: one flash launch a decode step
+        KV = tp.head_block().n_heads
     hd = cfg.head_dim
     kv = lambda n: {"k": torch.zeros((batch, n, KV, hd), dtype=dtype,
                                      device=device),
@@ -806,7 +821,7 @@ def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
         ring["kpos"] = torch.full((Wc,), -1, dtype=torch.int32,
                                   device=device)
         return {"attn": ring, "ssm": init_ssm_state(cfg, batch, dtype,
-                                                    device)}
+                                                    device, tp)}
     if kind == "dec":
         return {"self": kv(max_seq), "cross": kv(cfg.encoder_seq)}
     raise ValueError(f"unknown layer kind {kind!r}")

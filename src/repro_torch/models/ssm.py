@@ -25,6 +25,23 @@ computes the first term and carries the state (its gradient is the WKV
 backward kernel's), the second is elementwise.  The streams are fp32
 (``_selective_terms``), so that op takes ``chunk_f32`` at S >= 16 and
 ``step`` below.
+
+Under a model axis (``tp``, a :class:`~repro_torch.distributed.
+tensor_parallel.TensorParallel` that splits inside heads) a rank holds
+columns [c0, c1) of the inner width: its columns of ``w_in``, ``w_gate``,
+``conv`` and ``conv_b`` and its rows of ``w_B``, ``w_C``, ``w_dt`` and
+``w_out``.  The stream, the gate and the depthwise conv run on its
+columns; B, C and dt are partial sums over all heads, summed over
+``model`` (their cotangents too: each rank reads other heads of them).
+The recurrence is independent along v's columns, so the rank scans its
+columns as sub-heads of ``g`` columns (``HeadBlock``: g = gcd(hd,
+inner/tp)), each with the q, k and decay of the head it lies in: ``[B, S,
+inner/(tp g), N]`` and ``[B, S, inner/(tp g), g]``, 25 sub-heads of 16 for
+Hymba-1.5B at model 4.  ``dt_bias``, ``log_a`` and ``d_skip`` are read at
+those heads: whole (the model axis does not divide the heads) through
+``TensorParallel.shared_weight``, else this rank's heads.  The output is
+the partial product with its rows of ``w_out``; the state a rank holds is
+``[B, inner/(tp g), N, g]`` and its conv carry ``[B, W-1, inner/tp]``.
 """
 from __future__ import annotations
 
@@ -34,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
+from ..distributed import tensor_parallel as tpl
 from ..kernels.rwkv_scan import ops as rw_ops
 from .layers import dense_init, normal
 from .linrec import chunked_linear_recurrence, recurrent_step
@@ -80,20 +98,55 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), (xp[:, -(W - 1):] if W > 1 else pad)
 
 
-def _selective_terms(p: Dict, cfg: ArchConfig, u: torch.Tensor):
+def _at_sub_heads(w: torch.Tensor, cfg: ArchConfig,
+                  tp: tpl.TensorParallel) -> torch.Tensor:
+    """A per-head leaf (``dt_bias``, ``log_a``, ``d_skip``) at this rank's
+    sub-heads: whole, through ``shared_weight`` (its gradient summed over
+    'model'), or this rank's heads where the model axis splits them."""
+    idx = tp.block_index("sub_heads", w.device)
+    if w.shape[0] == cfg.n_heads:
+        return tp.shared_weight(w).index_select(0, idx)
+    return w.index_select(0, idx - tp.head_block().h0)
+
+
+def _selective_terms(p: Dict, cfg: ArchConfig, u: torch.Tensor,
+                     tp: Optional[tpl.TensorParallel] = None):
     """u: [..., inner] post-conv stream -> (q, k, v, log_w) per head; q, k
-    and log_w fp32, v in u's dtype."""
+    and log_w fp32, v in u's dtype.  Under ``tp`` u is this rank's columns
+    and the heads are its sub-heads (see the module docstring)."""
     s = cfg.ssm
-    h, hd = cfg.n_heads, cfg.head_dim
+    h, hd, N = cfg.n_heads, cfg.head_dim, s.state_dim
     lead = u.shape[:-1]
-    B_t = (u @ p["w_B"]).reshape(*lead, h, s.state_dim)
-    C_t = (u @ p["w_C"]).reshape(*lead, h, s.state_dim)
-    dt = F.softplus((u @ p["w_dt"]).float() + p["dt_bias"].float())
-    A = -torch.exp(p["log_a"].float())                        # [h, state]
-    log_w = dt[..., None] * A                                 # [..., h, state]
+    if tp is None:
+        B_t = (u @ p["w_B"]).reshape(*lead, h, N)
+        C_t = (u @ p["w_C"]).reshape(*lead, h, N)
+        dt = F.softplus((u @ p["w_dt"]).float() + p["dt_bias"].float())
+        A = -torch.exp(p["log_a"].float())                    # [h, state]
+        log_w = dt[..., None] * A                             # [..., h, state]
+        k = B_t.float() * dt[..., None]
+        v = u.reshape(*lead, h, hd)
+        return C_t.float(), k, v, log_w
+    blk = tp.head_block()
+    idx = tp.block_index("sub_heads", u.device)
+    parts = tp.sum_partials(torch.cat(
+        [u @ p["w_B"], u @ p["w_C"], u @ p["w_dt"]], -1))
+    B_t, C_t, dt = parts.split([h * N, h * N, h], -1)
+    B_t = B_t.reshape(*lead, h, N).index_select(-2, idx)
+    C_t = C_t.reshape(*lead, h, N).index_select(-2, idx)
+    dt = F.softplus(dt.index_select(-1, idx).float()
+                    + _at_sub_heads(p["dt_bias"], cfg, tp).float())
+    A = -torch.exp(_at_sub_heads(p["log_a"], cfg, tp).float())
+    log_w = dt[..., None] * A
     k = B_t.float() * dt[..., None]
-    v = u.reshape(*lead, h, hd)
+    v = u.reshape(*lead, blk.n_sub, blk.g)
     return C_t.float(), k, v, log_w
+
+
+def _skip(p: Dict, cfg: ArchConfig,
+          tp: Optional[tpl.TensorParallel]) -> torch.Tensor:
+    """``d_skip`` [heads, 1], at this rank's sub-heads under ``tp``."""
+    return (p["d_skip"] if tp is None
+            else _at_sub_heads(p["d_skip"], cfg, tp))
 
 
 def wkv_inclusive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -141,50 +194,59 @@ def _card(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ssm_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                 state: Optional[Dict] = None, *, chunk: int = 64,
+                tp: Optional[tpl.TensorParallel] = None,
                 ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """x: [B,S,D] -> [B,S,D].  state: {'conv': [B,W-1,inner],
     'ssm': [B,h,state,hd]} for streaming/decode; the new state is returned
-    (None when stateless)."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    (None when stateless).  Under ``tp`` x is whole on every rank, the
+    state this rank's (see the module docstring) and the output its
+    partial sum."""
     keep_state = state is not None
     u = x @ p["w_in"]
     gate = F.silu(x @ p["w_gate"])
     u, conv_carry = _causal_conv(u, p["conv"], p["conv_b"],
                                  state["conv"] if keep_state else None)
-    q, k, v, log_w = _selective_terms(p, cfg, u)
+    q, k, v, log_w = _selective_terms(p, cfg, u, tp)
     out, s_new = inclusive_scan(q, k, v.float(), log_w,
                                 state["ssm"] if keep_state else None,
                                 chunk=chunk)
-    out = out + v * p["d_skip"].to(v.dtype)[None, None]
-    out = out.reshape(*x.shape[:-1], h * hd).to(x.dtype)
+    out = out + v * _skip(p, cfg, tp).to(v.dtype)[None, None]
+    out = out.reshape(u.shape).to(x.dtype)
     out = (out * gate) @ p["w_out"]
     new_state = {"conv": conv_carry, "ssm": s_new} if keep_state else None
     return out, new_state
 
 
 def ssm_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
+             tp: Optional[tpl.TensorParallel] = None,
              ) -> Tuple[torch.Tensor, Dict]:
-    """Single-token decode in plain PyTorch. x: [B,D]."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    """Single-token decode in plain PyTorch. x: [B,D].  Under ``tp`` as
+    :func:`ssm_forward`: this rank's state, its partial output."""
     u = x @ p["w_in"]                                         # [B, inner]
     gate = F.silu(x @ p["w_gate"])
     window = torch.cat([state["conv"].to(u.dtype), u[:, None]], dim=1)
     y = torch.einsum("bwc,wc->bc", window, p["conv"]) + p["conv_b"]
     u = F.silu(y)
-    q, k, v, log_w = _selective_terms(p, cfg, u)
+    q, k, v, log_w = _selective_terms(p, cfg, u, tp)
     out, ssm_new = recurrent_step(q, k, v.float(), log_w, state["ssm"],
                                   mode="inclusive")
-    out = out + v * p["d_skip"].to(v.dtype)[None]
-    out = out.reshape(x.shape[0], h * hd).to(x.dtype)
+    out = out + v * _skip(p, cfg, tp).to(v.dtype)[None]
+    out = out.reshape(u.shape).to(x.dtype)
     out = (out * gate) @ p["w_out"]
     return out, {"conv": window[:, 1:], "ssm": ssm_new}
 
 
-def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device) -> Dict:
+def init_ssm_state(cfg: ArchConfig, batch: int, dtype, device,
+                   tp: Optional[tpl.TensorParallel] = None) -> Dict:
+    """Zero state: ``conv`` [B, W-1, inner] and ``ssm`` [B, h, state, hd]
+    fp32; under ``tp`` this rank's columns, ``[B, W-1, inner/tp]`` and
+    ``[B, inner/(tp g), state, g]``."""
     s = cfg.ssm
-    inner = cfg.n_heads * cfg.head_dim
+    inner, h, hd = cfg.n_heads * cfg.head_dim, cfg.n_heads, cfg.head_dim
+    if tp is not None and tp.inside:
+        blk = tp.head_block()
+        inner, h, hd = blk.c1 - blk.c0, blk.n_sub, blk.g
     return {"conv": torch.zeros((batch, s.conv_width - 1, inner),
                                 dtype=dtype, device=device),
-            "ssm": torch.zeros((batch, cfg.n_heads, s.state_dim,
-                                cfg.head_dim), dtype=torch.float32,
-                               device=device)}
+            "ssm": torch.zeros((batch, h, s.state_dim, hd),
+                               dtype=torch.float32, device=device)}

@@ -372,19 +372,26 @@ def test_sequence_tp_loss_unchanged(ranks, port_side, jax_side):
         assert abs(res["seq_tp_granite"] - want) <= LOSS_TOL * abs(want)
 
 
-@pytest.mark.parametrize("arch,heads,error", [
-    ("hymba-1.5b", None, "hybrid family"),
+@pytest.mark.parametrize("arch,geometry,error", [
+    ("hymba-1.5b", None, None),
+    pytest.param("hymba-1.5b",
+                 {"n_heads": 3, "n_kv_heads": 3, "head_dim": 6},
+                 "columns the specs do not split",
+                 id="hymba-1.5b-3x6-columns the specs do not split"),
     ("rwkv6-3b", None, None),
     ("whisper-large-v3", None, "heads that do not split whole"),
-    ("whisper-large-v3", 8, None)])
-def test_families_without_tp_raise(arch, heads, error):
-    """Hymba's family raises under a model axis; RWKV's and the enc-dec
-    family's no longer do: reduced rwkv6-3b (4 heads) and reduced Whisper
-    widened to 8 heads split at model 4, while reduced Whisper's own 5
-    heads raise the head-split error, not the family gate."""
+    pytest.param("whisper-large-v3", {"n_heads": 8, "n_kv_heads": 8}, None,
+                 id="whisper-large-v3-8-None")])
+def test_families_without_tp_raise(arch, geometry, error):
+    """No family raises under a model axis any more: reduced hymba-1.5b (4
+    heads on 1 kv head of 16, split inside the kv head), reduced rwkv6-3b
+    (4 heads) and reduced Whisper widened to 8 heads split at model 4;
+    reduced Whisper's own 5 heads raise the head-split error, and a Hymba
+    geometry whose inner width (3 x 6) model 4 does not divide raises,
+    since its specs leave those columns whole."""
     cfg = get_arch(arch).reduced()
-    if heads is not None:
-        cfg = dataclasses.replace(cfg, n_heads=heads, n_kv_heads=heads)
+    if geometry is not None:
+        cfg = dataclasses.replace(cfg, **geometry)
     pol = sh.ShardingPolicy(MeshShape(("data", "model"), (1, 4)),
                             sh.default_rules(False))
     params = lm.init_params(0, cfg, device="meta")

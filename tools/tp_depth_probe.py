@@ -19,11 +19,14 @@ launches).  Needs the card:
     python tools/tp_depth_probe.py [--arch deepseek-v2-lite-16b]
         [--layers N] [--dtypes float32,bfloat16] [--seed 0]
 
-``--arch`` also takes rwkv6-3b and whisper-large-v3 (phase 10 (g) and
-(h) at full depth).  ``--layers`` cuts the depth (default: all the arch's
-layers; Whisper's encoder and decoder each).  At DeepSeek-V2-Lite's full
-depth the unsharded fp32 weights take 62.8 GB of the card and are freed
-before the ranks draw theirs.
+``--arch`` also takes rwkv6-3b, whisper-large-v3 and hymba-1.5b (phase
+10 (g), (h) and (i) at full depth).  ``--layers`` cuts the depth
+(default: all the arch's layers; Whisper's encoder and decoder each).
+The prompt length is that of the arch's fp32 check in phase 10
+(``chip_smoke.family_check``: 2,560 for Hymba, past its 2,048 window,
+else 256).  At
+DeepSeek-V2-Lite's full depth the unsharded fp32 weights take 62.8 GB of
+the card and are freed before the ranks draw theirs.
 """
 from __future__ import annotations
 
@@ -38,11 +41,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke as cs  # noqa: E402
 
-SLOTS, PROMPT, NEW, RANKS = 2, 256, 8, 4
+SLOTS, NEW, RANKS = 2, 8, 4
 PERTURB = 1e-7
 
 
-def rank(dev, arch: str, layers, seed: int, dtype_name: str):
+def rank(dev, arch: str, layers, prompt: int, seed: int, dtype_name: str):
     """One rank's logits and tokens (CPU tensors)."""
     import numpy as np
     import torch
@@ -56,7 +59,7 @@ def rank(dev, arch: str, layers, seed: int, dtype_name: str):
     mesh = make_process_mesh((1, RANKS), ("data", "model"), device=dev)
     pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
     cfg = cs.family_config(get_arch, arch, layers)
-    prompts = cs.tp_prompts(np, cfg, SLOTS, PROMPT, seed)
+    prompts = cs.tp_prompts(np, cfg, SLOTS, prompt, seed)
     frames = cs.family_frames(torch, np, cfg, SLOTS, seed, dev)
     params = tpl.init_shard_params(seed, cfg, pol, dtype, device=dev)
     with sh.use_policy(pol):
@@ -81,7 +84,8 @@ def main(argv=None) -> int:
     from repro_torch.models import lm
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = cs.family_config(get_arch, args.arch, args.layers)
-    prompts = cs.tp_prompts(np, cfg, SLOTS, PROMPT, args.seed)
+    prompt = cs.family_check(args.arch)[3]
+    prompts = cs.tp_prompts(np, cfg, SLOTS, prompt, args.seed)
     frames = cs.family_frames(torch, np, cfg, SLOTS, args.seed, "cuda")
     for name in args.dtypes.split(","):
         t0 = time.perf_counter()
@@ -92,7 +96,8 @@ def main(argv=None) -> int:
         (steps, toks), ms = cs.wall(torch, run)
         scale = float(steps.abs().max())
         top2 = steps[0].topk(2, -1).values
-        print(f"{cfg.name} {cfg.n_layers} layers {name} unsharded: first "
+        print(f"{cfg.name} {cfg.n_layers} layers {name} {SLOTS} x {prompt} "
+              f"tokens unsharded: first "
               f"token's top-2 margins {(top2[:, 0] - top2[:, 1]).tolist()}"
               f", max |logit| {scale!r}, wall {ms!r} ms", flush=True)
         if dtype == torch.float32:
@@ -110,7 +115,8 @@ def main(argv=None) -> int:
         del params
         torch.cuda.empty_cache()
         res = run_ranks(rank, RANKS, backend="gloo", device="cuda",
-                        args=(args.arch, args.layers, args.seed, name),
+                        args=(args.arch, args.layers, prompt, args.seed,
+                              name),
                         timeout_s=900.0)
         for r, out in enumerate(res):
             first = float((out["steps"][0] - steps[0]).abs().max())

@@ -13,12 +13,19 @@ SDPA, kernel), with the profiler's device ms of each:
   prompt tokens over the 1,500 encoder keys;
 * (f)'s DeepSeek-V2-Lite rows that phase 5 leaves untimed: the G = 4
   hd-576 decode step over 1,055 keys (bf16), the (f1) fp32 check ``[2,
-  256, 4, 576]`` and the G = 8 bf16 prefill (model 2).
+  256, 4, 576]`` and the G = 8 bf16 prefill (model 2);
+* (i)'s Hymba-1.5B at model 4 (7 query heads at G = 1, window 2,048):
+  (i2)'s prefill ``[4, 1024, 7, 64]`` and its last decode step over the
+  1,056-slot ring, (i1)'s prefill ``[2, 2560, 7, 64]`` past the window
+  and a decode step over the full 2,048-slot ring.
 
 WKV, (g2)'s RWKV6-3B at model 4, ``[4, 1024, 10, 64]`` (the bf16 prefill
 on ``tensor_core``) and one decode step ``[4, 1, 10, 64]`` (``step``),
 each in bf16 and fp32, with the plain chunked recurrence (no library call
-computes it).  Needs the card:
+computes it); and (i)'s Hymba SSM scan on a rank's 25 sub-heads of 16
+(``ssm_scan_phase``: the inclusive prefills ``[4, 1024]`` and ``[2,
+2560]`` on ``chunk_f32`` and a decode step on ``step``, fp32, against the
+plain inclusive recurrence).  Needs the card:
 
     python tools/tp_kernel_rows.py [--seed 0]
 
@@ -43,6 +50,10 @@ import chip_smoke as cs  # noqa: E402
 WHISPER = ("tp_whisper_encoder", "tp_whisper_cross_prefill")
 MLA = ("tp_mla_decode", "tp_mla_check", "tp_mla_prefill_g8")
 WKV = ("tp_prefill", "tp_decode")
+HYMBA = ("tp_hymba_prefill", "tp_hymba_decode", "tp_hymba_check",
+         "tp_hymba_check_decode")
+SSM = ("tp_hymba_inclusive_prefill", "tp_hymba_inclusive_decode",
+       "tp_hymba_inclusive_check")
 
 
 def main(argv=None) -> int:
@@ -55,6 +66,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv_scan import ops as rw
     from repro_torch.kernels.rwkv_scan import ref as rw_ref
+    from repro_torch.models import linrec, ssm
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "--id=0"],
@@ -66,13 +78,18 @@ def main(argv=None) -> int:
     rw.build()
     flash_rows, _ = cs.flash_phase(
         torch, fa, fa_ref, peaks, args.seed,
-        cases=[c for c in cs.FLASH_CASES if c[0] in MLA + WHISPER],
-        timed=MLA + WHISPER, mma_timed=("tp_mla_check",))
+        cases=[c for c in cs.FLASH_CASES if c[0] in MLA + WHISPER + HYMBA],
+        timed=MLA + WHISPER + HYMBA,
+        mma_timed=("tp_mla_check", "tp_hymba_check"))
     wkv_rows, _ = cs.wkv_phase(
         torch, rw, rw_ref, peaks, args.seed,
         cases=[c for c in cs.WKV_CASES if c[0] in WKV], timed=WKV)
+    ssm_rows, _ = cs.ssm_scan_phase(
+        torch, rw, rw_ref, ssm, linrec, peaks, args.seed,
+        cases=[c for c in cs.SSM_CASES if c[0] in SSM])
     print("RESULT " + json.dumps({"card": smi, "flash": flash_rows,
-                                  "wkv": wkv_rows}), flush=True)
+                                  "wkv": wkv_rows, "ssm": ssm_rows}),
+          flush=True)
     return 0
 
 
