@@ -23,7 +23,7 @@ ranks on the one card (tensor parallelism); llama3-405b runs at
 ``reduced()`` (phase 7).  Training
 (phase 9): Qwen2-1.5B at full width in fp32 (AdamW, 8 x 2,048 tokens of
 the port's synthetic pipeline, two microbatches, remat), weights drawn on
-the card from ``--seed``; RWKV6-3B the same at full width, cut to 16 of
+the card from ``--seed``; RWKV6-3B the same at full width, cut to 8 of
 its 32 layers (``TRAIN_RWKV_LAYERS``); all ten archs at ``reduced()``.
 
 Phases, one printed line each (plus detail lines):
@@ -228,7 +228,7 @@ Phases, one printed line each (plus detail lines):
               (median of the later steps), tokens/s, peak memory, and the
               idle share of one more, profiled step, with the flash
               forward's (``mma_tf32``) share of its device time.  (b')
-              RWKV6-3B the same, cut to 16 layers (12 if its peak passes
+              RWKV6-3B the same, cut to 8 layers (6 if its peak passes
               75 GB): the full-width path of the WKV backward; gates:
               losses, ``wkv_scan`` 2 L x 2 launches on ``step`` (a forward
               and a remat recompute a layer and microbatch),
@@ -324,14 +324,15 @@ Phases, one printed line each (plus detail lines):
               the same greedy tokens on every rank and as that run, each
               rank's weight bytes equal to the specs' local bytes, flash
               by route (``mma_tf32`` prefill, ``split_kv`` decode).  (f2)
-              bf16 at 9 of 27 layers (the dense first layer and 8 MoE
+              bf16 at 3 of 27 layers (the dense first layer and 2 MoE
               layers, cut for the script's time; ``tools/tp_depth_probe
               .py`` runs all 27), (b)'s shape (4 slots x 1,024-token
               prompts + 32 new): TTFT, decode ms a step, tokens/s (the
               slowest rank's host walls), each rank's peak, the device
               bounds of the prefill and a decode step, the model-axis
               collectives' shares, flash by route (``tensor_core_wide``
-              prefill, ``split_kv`` decode, 27 a forward a rank, no plain
+              prefill, ``split_kv`` decode, one a layer and forward a
+              rank, no plain
               version), the same tokens on every rank, and greedy
               agreement with the unsharded bf16 model (phase 6's weights)
               at that shape, printed, not gated.  (g) RWKV6-3B and (h)
@@ -345,7 +346,7 @@ Phases, one printed line each (plus detail lines):
               ``decode_step``s: (f1)'s gates, each rank's decode state a
               layer, and launches by route (WKV on ``step``; flash fp32
               prefills on ``mma_tf32``, decode on ``split_kv``).
-              (g2)/(h2) bf16 at 4 layers (Whisper 4 + 4; cut for the
+              (g2)/(h2) bf16 at 2 layers (Whisper 2 + 2; cut for the
               script's time), (b)'s shape:
               (f2)'s numbers and gates, WKV prefill on ``tensor_core``,
               flash prefills on ``tensor_core``.  (i) Hymba-1.5B at full
@@ -358,9 +359,24 @@ Phases, one printed line each (plus detail lines):
               window: the ring wraps) + 8 greedy steps: (g1)'s gates, the
               ring, conv carry and SSM state a rank, launches by route
               (flash ``mma_tf32`` prefill and ``split_kv`` decode, WKV
-              ``chunk_f32`` prefill and ``step`` decode).  (i2) bf16 at 4
+              ``chunk_f32`` prefill and ``step`` decode).  (i2) bf16 at 2
               of 32 layers, (b)'s shape: (g2)'s numbers and gates (flash
               ``tensor_core`` prefill).
+11. dryrun  — after phase 9, before 4d: the dry run
+              (``repro_torch.launch.dryrun``: the step on ``meta`` tensors,
+              each kernel op's shape-only route) against the card.  (a) A
+              full-width Qwen2-1.5B bf16 prefill of 8 x 2,048 tokens on
+              the card under ``FlopCounterMode`` and the kernels' work
+              recorder, after ``reset_peak_memory_stats``: its
+              ``ROUTE_CALLS`` equal the dry run's ``DRY_CALLS``, its FLOPs
+              (ATen's plus the kernels' reports) equal the dry run's
+              exactly, the dry run's peak within 5 % of
+              ``max_memory_allocated``.  (b) The dry run of phase 9 (b)'s
+              train step against that step's routes, flash backward
+              launches and peak, under the same gates; the predicted FLOPs
+              beside the measured step wall.  (c) The dry run of the
+              production cell qwen2-72b x decode_32k x single (256 fake
+              ranks on this host), its summary line printed.
 8. kernels line — one JSON object with all eleven kernels: launches on
               the main path and per path, and numbers at the main path's
               largest shape (library times in turns, device times per
@@ -458,14 +474,24 @@ REPLACES = {"coded_encode": "src/repro/kernels/coded_combine/kernel.py:58",
                 "src/repro/kernels/flash_attention/kernel.py:74",
             "wkv_scan": "src/repro/kernels/rwkv_scan/kernel.py:77"}
 
-# published peaks by the name nvidia-smi gives the card, at its full power
-# limit (NVIDIA's data sheet, dense): HBM bytes/s, and the tensor cores'
-# FLOP/s for each input dtype of the LM kernels (float32 inputs: the TF32
-# rate, the fastest the card multiplies them).  "H100 80GB HBM3" is the SXM
-# part.  The combine kernels do no multiply worth bounding (r - 1 adds or
-# XORs per element read): their bound is bytes alone.
-PEAKS = {"NVIDIA H100 80GB HBM3": {"hbm": 3.35e12, "bfloat16": 989e12,
-                                   "float32": 495e12}}
+
+
+def card_peaks(name: str):
+    """The published peaks of the card nvidia-smi names ``name``, from the
+    port's one table (``repro_torch.launch.hlo_analysis.HW``: NVIDIA's data
+    sheet, dense, at the full power limit): HBM bytes/s, and the tensor
+    cores' FLOP/s for each input dtype of the LM kernels (float32 inputs:
+    the TF32 rate, the fastest the card multiplies them).  "H100 80GB HBM3"
+    is the SXM part.  The combine kernels do no multiply worth bounding
+    (r - 1 adds or XORs per element read): their bound is bytes alone.
+    Raises for a card the table does not hold."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.hlo_analysis import HW
+    check(name == HW["name"], f"no published peaks for the card {name!r}; "
+          f"known: {HW['name']!r}")
+    return {"hbm": HW["hbm_bw"], "bfloat16": HW["peak_flops_bf16"],
+            "float32": HW["peak_flops_tf32"]}
+
 KERNELS = ("coded_encode", "coded_decode", "xor_encode", "xor_decode")
 LM_KERNELS = ("flash_attention", "wkv_scan")
 
@@ -3631,6 +3657,7 @@ def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
     tc = tr.TrainConfig(n_microbatches=2, remat=True,
                         opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
                                                 decay_steps=100))
@@ -3670,7 +3697,8 @@ def _train_run(torch, tr, opt, pipeline, counts, cfg, seed, smi):
             "optimizer": "adamw", "steps": TRAIN_STEPS, "losses": losses,
             "grad_norms": norms, "step_walls_ms": walls, "step_ms_median": step_ms,
             "tokens_per_s": tokens / step_ms * 1e3,
-            "peak_memory_gb": peak_gb, "init_s": init_s,
+            "peak_memory_gb": peak_gb, "base_memory_gb": base_gb,
+            "init_s": init_s,
             "launches_first_step": launches, "routes_first_step": routes,
             "profiled_step_ms": prof_ms, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / prof_ms, "by_kernel": by_kernel}
@@ -3748,9 +3776,10 @@ def train_full_phase(torch, tr, opt, pipeline, counts, cfg, seed, smi):
 # parameters and the embedding and head 336 M, so 16 of its 32 layers come
 # to about 1.71 B, some 57 GB at the ~33 bytes a parameter Qwen2-1.5B's
 # step peaks at (fp32 weights, gradients, two AdamW moments, the functional
-# update's copies, activations); all 32 would be about 100 GB.  Past
+# update's copies, activations); all 32 would be about 100 GB.  It runs 8
+# (about 1.03 B), cut from 16 for the script's time.  Past
 # TRAIN_RWKV_PEAK_GB it is cut again, to TRAIN_RWKV_LAYERS[1]
-TRAIN_RWKV_LAYERS = (16, 12)
+TRAIN_RWKV_LAYERS = (8, 6)
 TRAIN_RWKV_PEAK_GB = 75.0
 
 
@@ -4160,6 +4189,184 @@ def train_ranks_phase(torch, tr, opt, pipeline, run_ranks, get_arch, seed,
 
 
 # ---------------------------------------------------------------------------
+# Phase 11: the dry run against the card
+# ---------------------------------------------------------------------------
+
+# the card's prefill the dry run predicts: Qwen2-1.5B at full width, bf16,
+# 8 slots x 2,048-token prompts into a 2,048-long cache
+DRY_ARCH = "qwen2-1.5b"
+DRY_PREFILL = (8, 2048)
+# the predicted peak against max_memory_allocated
+DRY_PEAK_TOL = 0.05
+# the production cell whose JAX-style summary line is printed
+DRY_CELL = ("qwen2-72b", "decode_32k", "single")
+
+
+def _nonzero(routes) -> Dict[str, int]:
+    return {k: v for k, v in routes.items() if v}
+
+
+def _peak_gate(what: str, predicted: float, measured: float, smi) -> float:
+    rel = abs(predicted - measured) / measured
+    say(f"  dryrun {what}: predicted peak {predicted / 1e9:.4f} GB, card "
+        f"{measured / 1e9:.4f} GB (max_memory_allocated above the memory "
+        f"allocated before), {rel:.4f} apart (limit {DRY_PEAK_TOL}) [{smi}]")
+    check(rel <= DRY_PEAK_TOL,
+          f"dry run {what}: predicted peak {predicted} bytes, the card's "
+          f"{measured}: {rel:.4f} apart (limit {DRY_PEAK_TOL})")
+    return rel
+
+
+def dryrun_phase(torch, lm, tr, opt, counts, cfg, full_info, seed, smi,
+                 out_dir):
+    """Phase 11: the dry run (``repro_torch.launch.dryrun``) against the
+    card.  (a) One full-width bf16 prefill of ``DRY_ARCH`` at
+    ``DRY_PREFILL`` on the card under ``FlopCounterMode`` and the kernels'
+    work recorder, after ``reset_peak_memory_stats``, and its dry run on
+    ``meta`` tensors: the same routes (``ROUTE_CALLS`` against
+    ``DRY_CALLS``), the same FLOPs exactly (ATen's plus the kernels'
+    reports), the predicted peak within ``DRY_PEAK_TOL`` of
+    ``max_memory_allocated``.  (b) The dry run of phase 9 (b)'s train step
+    (the same cell: fp32 state, AdamW, 8 x 2,048 tokens in two
+    microbatches, remat) against that phase's first step's routes and
+    launches and its peak, under the same two gates; the predicted FLOPs
+    beside the measured step wall.  (c) The dry run of the production
+    cell ``DRY_CELL`` on this host, its summary line printed."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import _card
+    from repro_torch.launch import dryrun
+    from repro_torch.models.frontends import train_batch_specs
+    t0 = time.perf_counter()
+    B, S = DRY_PREFILL
+    bf16 = torch.bfloat16
+
+    # (a) the prefill on the card
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    params = lm.init_params(seed, cfg, bf16)
+    dev = params["embed"].device
+    cache = lm.init_cache(cfg, B, S, bf16)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1101)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flop_mode = FlopCounterMode(display=False)
+    with flop_mode, _card.record_work() as work, torch.inference_mode():
+        ((logits, _), ms), launches, plain = counts(
+            lambda: wall(torch, lambda: lm.prefill(params, cfg, tokens,
+                                                   cache)))
+    card_peak = torch.cuda.max_memory_allocated() - base
+    routes = {k: r for k, v in counts.routes.items() if (r := _nonzero(v))}
+    card_flops = float(flop_mode.get_total_flops()) + work.flops
+    check(logits.shape == (B, cfg.vocab_size)
+          and bool(torch.isfinite(logits.float()).all())
+          and not any(plain.values()),
+          f"dry run (a): the card's prefill logits {tuple(logits.shape)} "
+          f"finite, plain calls {plain}")
+    del params, cache, tokens, logits
+    torch.cuda.empty_cache()
+
+    # (a) its dry run
+    def build_prefill():
+        meta = dict(device="meta")
+        return (lm.init_params(seed, cfg, bf16, **meta),
+                lm.init_cache(cfg, B, S, bf16, **meta),
+                torch.empty((B, S), dtype=torch.int64, **meta))
+
+    def call_prefill(a):
+        with torch.inference_mode():
+            return lm.prefill(a[0], cfg, a[2], a[1])
+    t_pred = time.perf_counter()
+    pre = dryrun.predict(build_prefill, call_prefill)
+    pre_s = time.perf_counter() - t_pred
+    want = {k: v for k, v in pre["dry_calls"].items() if v}
+    check(routes == want,
+          f"dry run (a): the card's routes {routes} against the dry run's "
+          f"{want}")
+    check(card_flops == pre["costs"]["flops"],
+          f"dry run (a): the card's FLOPs {card_flops!r} (ATen "
+          f"{flop_mode.get_total_flops()}, kernels {work.flops!r}) against "
+          f"the dry run's {pre['costs']['flops']!r}")
+    pre_rel = _peak_gate("(a) prefill", pre["memory"]["peak_bytes"],
+                         card_peak, smi)
+    say(f"  dryrun (a) {cfg.name} bf16 prefill {B} x {S}: routes {want} on "
+        f"the card and in the dry run; FLOPs {card_flops:.6e} both (ATen "
+        f"{flop_mode.get_total_flops():.6e}, kernels {work.flops:.6e}); "
+        f"prefill wall {ms:.3f} ms; dry run {pre_s:.1f} s of host [{smi}]")
+
+    # (b) phase 9 (b)'s train step, dry
+    tc = tr.TrainConfig(n_microbatches=2, remat=True,
+                        opt=opt.OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                decay_steps=100))
+    rows, seq = full_info["global_batch"]
+
+    def build_train():
+        state = tr.init_train_state(seed, cfg, tc, device="meta")
+        batch = train_batch_specs(cfg, ShapeConfig("phase9", seq, rows,
+                                                   "train"), torch.float32)
+        # the pipeline's tokens are int32
+        for k in ("tokens", "targets"):
+            batch[k] = batch[k].to(torch.int32)
+        return state, batch
+    step = tr.make_train_step(cfg, tc)
+    t_pred = time.perf_counter()
+    trn = dryrun.predict(build_train, lambda a: step(*a))
+    trn_s = time.perf_counter() - t_pred
+    dry = {k: v for k, v in trn["dry_calls"].items() if v}
+    card_fwd = _nonzero(full_info["routes_first_step"])
+    card_bwd = full_info["launches_first_step"]["flash_attention_backward"]
+    check(dry.get("flash_attention") == card_fwd
+          and sum(dry.get("flash_attention_backward", {}).values())
+          == card_bwd and set(dry) <= {"flash_attention",
+                                       "flash_attention_backward"},
+          f"dry run (b): the dry run's calls {dry} against phase 9 (b)'s "
+          f"first step: flash {card_fwd}, flash backward {card_bwd}")
+    train_peak = (full_info["peak_memory_gb"]
+                  - full_info["base_memory_gb"]) * 1e9
+    trn_rel = _peak_gate("(b) train step", trn["memory"]["peak_bytes"],
+                         train_peak, smi)
+    flops = trn["costs"]["flops"]
+    wall_ms = full_info["step_ms_median"]
+    say(f"  dryrun (b) {cfg.name} fp32 train step (phase 9 (b)): calls "
+        f"{dry} as the card's first step; predicted {flops:.6e} FLOPs a "
+        f"step beside the measured {wall_ms:.1f} ms ({flops / wall_ms / 1e9:.2f}"
+        f" TFLOP/s); dry run {trn_s:.1f} s of host [{smi}]")
+
+    # (c) the production cell, on this host
+    t_cell = time.perf_counter()
+    cell = dryrun.run_cell(*DRY_CELL, force=True,
+                           results_dir=str(pathlib.Path(out_dir)
+                                           / "dryrun_torch"))
+    line = dryrun.summary_line(cell, time.perf_counter() - t_cell)
+    say(f"  dryrun (c) {line}")
+    check(cell.get("ok"), f"dry run (c): {DRY_CELL} failed: "
+          f"{cell.get('error')}")
+    phase_s = time.perf_counter() - t0
+    return {"prefill": {"arch": cfg.name, "slots": B, "prompt": S,
+                        "routes": want, "flops": card_flops,
+                        "aten_flops": float(flop_mode.get_total_flops()),
+                        "kernel_flops": work.flops,
+                        "kernel_work": work.by_kernel,
+                        "card_peak_bytes": card_peak,
+                        "predicted": pre["memory"], "peak_rel_err": pre_rel,
+                        "prefill_ms": ms, "dry_run_s": pre_s},
+            "train": {"dry_calls": dry, "card_routes": card_fwd,
+                      "card_backward_launches": card_bwd,
+                      "card_peak_bytes": train_peak,
+                      "predicted": trn["memory"], "peak_rel_err": trn_rel,
+                      "predicted_flops": flops,
+                      "predicted_costs": trn["costs"],
+                      "step_ms": wall_ms, "dry_run_s": trn_s},
+            "cell": {k: cell.get(k) for k in (
+                "arch", "shape", "mesh", "ok", "memory", "memory_plan",
+                "per_device", "roofline", "dry_calls", "rank")},
+            "cell_line": line, "phase_s": phase_s}
+
+
+# ---------------------------------------------------------------------------
 # Phase 10: tensor parallelism (four archs at full width on four ranks)
 # ---------------------------------------------------------------------------
 
@@ -4221,11 +4428,11 @@ Z3E_FLOOR = 1e-3
 # head (G = 4).  (layers of 27: None all of them, dtype, slots, prompt
 # tokens, new tokens): (f1) the fp32 check, cut to the dense first layer
 # and one MoE layer, under the sorted dispatch and under dense_moe; (f2)
-# timed, (b)'s shape, cut to 9 layers (the dense first and 8 MoE layers)
+# timed, (b)'s shape, cut to 3 layers (the dense first and 2 MoE layers)
 # for the script's time (tools/tp_depth_probe.py runs all 27)
 MOE_ARCH = "deepseek-v2-lite-16b"
 MOE_CHECK = (2, "float32", 2, 256, 8)
-MOE_TIMED = (9, "bfloat16", 4, 1024, 32)
+MOE_TIMED = (3, "bfloat16", 4, 1024, 32)
 # (g) RWKV6-3B and (h) Whisper-large-v3 at full width on (data 1, model
 # 4): 10 of RWKV6's 40 WKV heads a rank and 2,240 of its 8,960 channel-mix
 # columns; 5 of Whisper's 20 heads a rank in its encoder and both
@@ -4243,7 +4450,7 @@ MOE_TIMED = (9, "bfloat16", 4, 1024, 32)
 FAMILY_ARCHS = {"g": "rwkv6-3b", "h": "whisper-large-v3",
                 "i": "hymba-1.5b"}
 FAMILY_CHECK = (2, "float32", 2, 256, 8)
-FAMILY_TIMED = (4, "bfloat16", 4, 1024, 32)
+FAMILY_TIMED = (2, "bfloat16", 4, 1024, 32)
 FAMILY_CHECK_OF = {"hymba-1.5b": (2, "float32", 2, 2560, 8)}
 
 
@@ -5760,9 +5967,7 @@ def main(argv=None) -> int:
                          check=True).stdout.strip()
     say(smi)
     smi_name = smi.split(",")[0].strip()
-    check(smi_name in PEAKS, f"no published peaks for the card {smi_name!r}; "
-          f"known: {sorted(PEAKS)}")
-    peaks = PEAKS[smi_name]
+    peaks = card_peaks(smi_name)
     name = torch.cuda.get_device_name(0)
     # one nvcc per kernel source, all started together
     t0 = time.perf_counter()
@@ -5958,6 +6163,15 @@ def main(argv=None) -> int:
     say(f"phase train (e): coded_r2 on {TRAIN_PODS} ranks equals the "
         f"full-batch step under every single rack failure; phase train "
         f"{train_s:.1f} s [{smi}]")
+
+    # ---- 11. the dry run against the card (after phase 9: (b) reads its
+    # Qwen2-1.5B step) --------------------------------------------------
+    dry_info = dryrun_phase(torch, lm, tr, opt, counts, ARCHS[DRY_ARCH],
+                            full_info, args.seed, smi,
+                            pathlib.Path(args.out).parent)
+    say(f"phase dryrun: the dry run's routes, FLOPs and peaks hold against "
+        f"the card's prefill and phase 9 (b)'s train step; "
+        f"{dry_info['phase_s']:.1f} s [{smi}]")
 
     # ---- 4d. Section IV: placement, the simulator, a placed job ---------
     # (after every other profile, and the Table I row before Table II: on
@@ -6382,7 +6596,7 @@ def main(argv=None) -> int:
                   "rwkv6_full_width": rwkv_info,
                   "card_vs_cpu": train_cmp_rows, "restart": restart_info,
                   "coded_r2": train_ranks_info, "phase_s": train_s},
-        "tp": tp_info,
+        "tp": tp_info, "dryrun": dry_info,
         "seconds": time.perf_counter() - t_start}, indent=1))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

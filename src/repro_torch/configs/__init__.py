@@ -9,7 +9,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .base import ArchConfig, MLAConfig, MoEConfig, SSMConfig  # noqa: F401
+from .base import (ArchConfig, MLAConfig, MoEConfig, SHAPES,  # noqa: F401
+                   ShapeConfig, SSMConfig, cell_is_runnable,
+                   shape_by_name)
 from .deepseek_v2_lite_16b import CONFIG as _dsv2
 from .granite_3_2b import CONFIG as _granite
 from .grok_1_314b import CONFIG as _grok

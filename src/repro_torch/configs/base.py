@@ -7,7 +7,7 @@ derives, so both packages build the same reduced models.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,3 +125,38 @@ class ArchConfig:
                 kw[k] = None
         return ArchConfig(**kw)
 
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode | long_decode
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "long_decode"),
+)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
+
+
+def cell_is_runnable(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether an (arch x shape) cell runs, and why not if skipped.
+
+    ``long_500k`` needs a sub-quadratic sequence mixer; pure full-attention
+    architectures skip it (documented in DESIGN.md Sec. 5)."""
+    if shape.kind == "long_decode" and not cfg.sub_quadratic:
+        return False, ("long_500k skipped: pure full-attention architecture "
+                       "(O(S^2)); see DESIGN.md §Arch-applicability")
+    return True, ""

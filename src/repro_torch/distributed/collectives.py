@@ -23,10 +23,20 @@ runs on two ``torch.distributed`` calls only, ``all_to_all_single`` and
 sources in rank order, so its result does not depend on how the backend
 orders a reduction, and integer-valued float inputs compare bit for bit
 with any other order.
+
+:func:`record_collectives` records each of those two calls in a block,
+the counterpart of the collectives in a compiled program's HLO text that
+the dry run prices (:mod:`repro_torch.launch.hlo_analysis`): the kind
+issued (``all-to-all``, ``all-gather``), the function of this module that
+issued it, its in and out bytes and the group's global ranks.  What is
+issued is what is recorded: a :func:`psum` is an ``all-gather`` of n
+times its input, not an all-reduce.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import contextlib
+import dataclasses
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -34,6 +44,44 @@ import torch.distributed as dist
 from .meshes import ProcessMesh
 
 Axis = Union[str, Sequence[str]]
+
+
+@dataclasses.dataclass(frozen=True)
+class CollectiveRecord:
+    """One ``torch.distributed`` call: its kind, the function of this module
+    that issued it, the bytes it takes and returns, and the group's global
+    ranks in group order."""
+    kind: str               # all-to-all | all-gather
+    fn: str                 # psum | psum_scatter | all_gather | all_to_all
+    in_bytes: int
+    out_bytes: int
+    ranks: Tuple[int, ...]
+
+
+_RECORDERS: List[List[CollectiveRecord]] = []
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[CollectiveRecord]]:
+    """Collect every collective the block issues, in order."""
+    records: List[CollectiveRecord] = []
+    _RECORDERS.append(records)
+    try:
+        yield records
+    finally:
+        _RECORDERS.remove(records)
+
+
+def _record(kind: str, fn: str, x: torch.Tensor, out_bytes: int,
+            group: Optional[dist.ProcessGroup]) -> None:
+    if not _RECORDERS:
+        return
+    ranks = (tuple(range(dist.get_world_size())) if group is None
+             else tuple(dist.get_process_group_ranks(group)))
+    rec = CollectiveRecord(kind, fn, x.numel() * x.element_size(),
+                           out_bytes, ranks)
+    for records in _RECORDERS:
+        records.append(rec)
 
 
 def _group(mesh: ProcessMesh, axis: Axis) -> Optional[dist.ProcessGroup]:
@@ -58,40 +106,55 @@ def _ordered_sum(parts: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _all_to_all(x: torch.Tensor, mesh: ProcessMesh, axis: Axis, dim: int,
+                fn: str) -> torch.Tensor:
+    group = _group(mesh, axis)
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty_like(xm)
+    _record("all-to-all", fn, xm, out.numel() * out.element_size(), group)
+    dist.all_to_all_single(out, xm, group=group)
+    return out.movedim(0, dim)
+
+
+def _all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: Axis, dim: int,
+                fn: str) -> torch.Tensor:
+    group = _group(mesh, axis)
+    x = x.contiguous()
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    _record("all-gather", fn, x, n * x.numel() * x.element_size(), group)
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
 def all_to_all(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
                dim: int = 0) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axis, dim, dim, tiled=True)``: split ``dim``
     into one block per member of the axis, send block k to member k, and
     return the received blocks ordered by source member."""
-    xm = x.movedim(dim, 0).contiguous()
-    out = torch.empty_like(xm)
-    dist.all_to_all_single(out, xm, group=_group(mesh, axis))
-    return out.movedim(0, dim)
+    return _all_to_all(x, mesh, axis, dim, "all_to_all")
 
 
 def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
                dim: int = 0) -> torch.Tensor:
     """``jax.lax.all_gather(x, axis, axis=dim, tiled=True)``: every
     member's ``x`` concatenated along ``dim`` in member order."""
-    group = _group(mesh, axis)
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x, group=group)
-    return torch.cat(parts, dim)
+    return _all_gather(x, mesh, axis, dim, "all_gather")
 
 
 def psum_scatter(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
                  dim: int = 0) -> torch.Tensor:
     """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
     member k gets the sum over members of their k-th block of ``dim``."""
-    recvd = all_to_all(x, mesh, axis, dim).movedim(dim, 0)
+    recvd = _all_to_all(x, mesh, axis, dim, "psum_scatter").movedim(dim, 0)
     n = dist.get_world_size(_group(mesh, axis))
     return _ordered_sum(recvd.unflatten(0, (n, -1))).movedim(0, dim)
 
 
 def psum(x: torch.Tensor, mesh: ProcessMesh, axis: Axis) -> torch.Tensor:
-    """``jax.lax.psum(x, axis)``: the sum of every member's ``x``."""
-    return _ordered_sum(all_gather(x[None], mesh, axis))
+    """``jax.lax.psum(x, axis)``: the sum of every member's ``x`` (issued as
+    an all-gather of every member's ``x``, then an ordered sum)."""
+    return _ordered_sum(_all_gather(x[None], mesh, axis, 0, "psum"))
 
 
 def hierarchical_psum(x: torch.Tensor, mesh: ProcessMesh, fast_axis: str,

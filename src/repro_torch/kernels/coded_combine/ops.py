@@ -14,25 +14,33 @@ tiling; the kernels here are elementwise over the flattened streams and
 need no padding.  ``block_t`` is accepted so call sites keep the JAX
 signatures, and is ignored.
 
-``LAUNCHES`` counts kernel launches per op (CPU calls do not count);
-:func:`reset_launch_counts` zeroes it.
+Inside a dry run (:func:`repro_torch.kernels._card.dry_run`) a ``meta``
+tensor takes the card's branch: the op allocates its output and launches
+nothing.  A card call and a dry-run call report their work to an active
+recorder (:func:`combine_work`: the bytes of their bound in ``PERF.md``).
+
+``LAUNCHES`` counts kernel launches per op (CPU calls do not count),
+``DRY_CALLS`` a dry run's shape-only calls per op;
+:func:`reset_launch_counts` zeroes both.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import time
-from typing import Dict, Sequence, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 
 from . import ref
 from .. import _build
+from .._card import account, on_card
 
 Streams = Union[torch.Tensor, Sequence[torch.Tensor]]
 
 LAUNCHES: Dict[str, int] = {"coded_encode": 0, "coded_decode": 0,
                             "xor_encode": 0, "xor_decode": 0}
+DRY_CALLS: Dict[str, int] = {}
 
 _LINEAR_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc dtype codes
 _XOR_DTYPES = (torch.int32, torch.uint32)
@@ -41,6 +49,21 @@ _XOR_DTYPES = (torch.int32, torch.uint32)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    DRY_CALLS.clear()
+
+
+def combine_work(n_streams: int, out: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, HBM bytes) of one call that reads ``n_streams`` streams of
+    ``out``'s shape and writes ``out``: the bytes of its bound in
+    ``PERF.md``, (r + 1) streams moved once; no FLOPs (r - 1 adds or XORs
+    an element, a bound by bytes alone)."""
+    return 0.0, float((n_streams + 1) * out.numel() * out.element_size())
+
+
+def _account(op: str, n_streams: int, out: torch.Tensor) -> bool:
+    """:func:`repro_torch.kernels._card.account` of one call."""
+    return account(op, DRY_CALLS, op, out,
+                   lambda: combine_work(n_streams, out))
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,11 +111,11 @@ def _known_like(f: torch.Tensor, known: Streams, op: str) -> torch.Tensor:
 
 
 def _on_card(x: torch.Tensor, dtypes, op: str) -> bool:
-    """True for a CUDA tensor the kernel takes, False for a CPU tensor;
-    raises for anything else."""
+    """True for a CUDA tensor the kernel takes (or a dry run's ``meta``
+    tensor), False for a CPU tensor; raises for anything else."""
     if x.device.type == "cpu":
         return False
-    if x.device.type != "cuda":
+    if not on_card(x):
         raise ValueError(f"{op}: tensors must be on a CUDA device or the "
                          f"CPU, got {x.device}")
     if x.dtype not in dtypes:
@@ -121,7 +144,7 @@ def coded_encode(streams: Streams, coeffs, *,
     c = _coeffs_on(coeffs, xs, r, "coded_encode")
     out = torch.empty(xs.shape[1:], dtype=xs.dtype, device=xs.device)
     n = out.numel()
-    if n:
+    if n and not _account("coded_encode", r, out):
         rc = _library().cc_encode(_LINEAR_DTYPES[xs.dtype], xs.data_ptr(),
                                   n, r, c.data_ptr(), out.data_ptr(), n,
                                   _build.stream_handle())
@@ -142,7 +165,7 @@ def coded_decode(f: torch.Tensor, known: Streams, coeffs, *,
     c = _coeffs_on(coeffs, f, rm1 + 1, "coded_decode")
     out = torch.empty_like(f)
     n = out.numel()
-    if n:
+    if n and not _account("coded_decode", rm1 + 1, out):
         rc = _library().cc_decode(_LINEAR_DTYPES[f.dtype], f.data_ptr(),
                                   ks.data_ptr(), n, rm1, c.data_ptr(),
                                   out.data_ptr(), n, _build.stream_handle())
@@ -156,7 +179,7 @@ def _xor(first: torch.Tensor, rest: torch.Tensor, op: str) -> torch.Tensor:
     first, rest = first.contiguous(), rest.contiguous()
     out = torch.empty_like(first)
     n = out.numel()
-    if n:
+    if n and not _account(op, rest.shape[0] + 1, out):
         rest_ptr = rest.data_ptr() if rest.shape[0] else first.data_ptr()
         rc = _library().cc_xor(first.data_ptr(), rest_ptr, n, rest.shape[0],
                                out.data_ptr(), n, _build.stream_handle())

@@ -11,9 +11,14 @@ port's own, and :mod:`.ops` pairs it with the forward kernels in a
 ``torch.autograd.Function``.
 
 Every key below Sk is valid: the autograd path refuses ``kv_valid``.
+Inside a dry run a ``meta`` tensor takes the card's branch and launches
+nothing: it allocates what the launch allocates (:func:`_outputs`: dQ,
+dK, dV and the fp32 lse and D rows) and reports the work
+(:func:`.ops.attention_work`, 10 hd FLOPs a visible pair), as a card
+call does to an active recorder.
 ``LAUNCHES`` counts wrapper calls that launched (two device kernels each),
-``PLAIN_CALLS`` calls that took the plain version; :func:`reset_launch_counts`
-zeroes both.
+``PLAIN_CALLS`` calls that took the plain version, ``DRY_CALLS`` a dry
+run's calls by route; :func:`reset_launch_counts` zeroes all three.
 """
 from __future__ import annotations
 
@@ -26,9 +31,11 @@ import torch
 
 from . import ref
 from .. import _build
+from .._card import account, on_card
 
 LAUNCHES: Dict[str, int] = {"flash_attention_backward": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention_backward": 0}
+DRY_CALLS: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 
@@ -59,6 +66,7 @@ def route(dtype: torch.dtype) -> str:
 def reset_launch_counts() -> None:
     LAUNCHES["flash_attention_backward"] = 0
     PLAIN_CALLS["flash_attention_backward"] = 0
+    DRY_CALLS.clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,6 +105,19 @@ def rows_aligned(x: torch.Tensor) -> bool:
         for n, st in zip(x.shape[:-1], x.stride()[:-1]))
 
 
+def _outputs(q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """What a launch allocates: dQ, dK, dV in q's dtype and the fp32 rows
+    ``[2, B, H, Sq]`` its first kernel writes (lse, then D) for the
+    second."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    dev = q.device
+    return (torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev),
+            torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=dev),
+            torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=dev),
+            torch.empty((2, B, H, Sq), dtype=torch.float32, device=dev))
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              dout: torch.Tensor, *, causal: bool = True,
@@ -117,14 +138,17 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                          f"{tuple(out.shape)}, dout {tuple(dout.shape)} do "
                          f"not fit [B, Sq, KV*G, hd] / [B, Sk, KV, hd]")
     dev = q.device
-    if dev.type == "cpu":
+    if not on_card(q):
+        if dev.type != "cpu":
+            raise ValueError(f"flash_attention_backward: q must be on a "
+                             f"CUDA device or the CPU, got {dev}")
         PLAIN_CALLS["flash_attention_backward"] += 1
         pos = (q_positions if q_positions is not None
                else torch.arange(q_offset, q_offset + Sq))
         return ref.attention_backward_ref(q, k, v, dout, pos, causal=causal,
                                           window=window)
     tensors = (q, k, v, out, dout)
-    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+    if any(x.device != dev for x in tensors):
         raise ValueError("flash_attention_backward: q, k, v, out, dout must "
                          "share one CUDA device (or the CPU)")
     if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in tensors):
@@ -139,17 +163,21 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_backward: {Sq} queries x "
                          f"{H // KV} heads a kv head >= 2^24 rows")
     q, k, v, out, dout = (_last_dim_unit(x) for x in tensors)
-    dq = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
-    dk = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=dev)
-    dv = torch.empty((B, Sk, KV, hd), dtype=q.dtype, device=dev)
+    dq, dk, dv, scratch = _outputs(q, k)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    scratch = torch.empty((2, B, H, Sq), dtype=torch.float32, device=dev)
+    from .ops import attention_work
+    work = lambda: attention_work(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, q_positions=q_positions,
+                                  backward=True)
     pos_ptr = 0
     if q_positions is not None:
         q_positions = torch.broadcast_to(
             q_positions.to(device=dev, dtype=torch.int32), (Sq,)).contiguous()
         pos_ptr = q_positions.data_ptr()
+    if account("flash_attention_backward", DRY_CALLS, route(q.dtype), q,
+               work):
+        return dq, dk, dv
     strides = [s for x in (q, k, v, out, dout) for s in x.stride()[:3]]
     vec = sum(1 << n for n, x in enumerate((q, k, v, dout))
               if rows_aligned(x))

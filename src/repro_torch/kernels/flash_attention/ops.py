@@ -50,10 +50,20 @@ launch is called directly, so the serving path pays nothing for the
 raises.  On a CPU tensor the plain version is differentiable through
 ordinary autograd.
 
+Inside a dry run (:func:`repro_torch.kernels._card.dry_run`) a ``meta``
+tensor takes the card's branch: :func:`_launch` picks the route the card
+would take, allocates what the launch allocates (:func:`_outputs`: the
+output and split-kv's partials) and launches nothing, under the same
+``Function`` (the backward is :mod:`.backward`'s shape-only route).  A
+card call and a dry-run call report their work to an active recorder
+(:func:`repro_torch.kernels._card.account`): :func:`attention_work`, the
+formula of the kernel's bound in ``PERF.md``.
+
 ``LAUNCHES`` counts wrapper calls that launched (one per call, whichever
 route; ``split_kv`` runs two device kernels), ``ROUTE_CALLS`` the same calls
-by route, and ``PLAIN_CALLS`` calls that took the plain version (CPU
-tensors); :func:`reset_launch_counts` zeroes all three.
+by route, ``PLAIN_CALLS`` calls that took the plain version (CPU tensors)
+and ``DRY_CALLS`` a dry run's shape-only calls by route;
+:func:`reset_launch_counts` zeroes all four.
 """
 from __future__ import annotations
 
@@ -61,17 +71,20 @@ import ctypes
 import functools
 import struct
 import time
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import backward, ref
 from .. import _build
+from .._card import account, on_card
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 PLAIN_CALLS: Dict[str, int] = {"flash_attention": 0}
 ROUTES = ("tensor_core", "tensor_core_wide", "split_kv", "mma_tf32")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+DRY_CALLS: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 MAX_HEAD_DIM = 576
@@ -107,6 +120,7 @@ def reset_launch_counts() -> None:
     PLAIN_CALLS["flash_attention"] = 0
     for r in ROUTES:
         ROUTE_CALLS[r] = 0
+    DRY_CALLS.clear()
 
 
 def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
@@ -121,6 +135,58 @@ def route(dtype: torch.dtype, Sq: int, H: int, KV: int, hd: int,
         if hd == WIDE_HEAD_DIM and window is None:
             return "tensor_core_wide"
     return "mma_tf32"
+
+
+def visible_pairs(Sq: int, q_offset: int, valid: int, causal: bool,
+                  window: Optional[int]) -> Tuple[int, int]:
+    """(query, key) pairs the masks keep for one (batch, head), queries at
+    positions ``q_offset + i`` over ``valid`` keys, and the number of
+    distinct keys any query sees: the work the data needs."""
+    p = np.arange(q_offset, q_offset + Sq, dtype=np.int64)
+    hi = np.minimum(valid, p + 1) if causal else np.full_like(p, valid)
+    lo = (np.maximum(0, p - window + 1) if window is not None
+          else np.zeros_like(p))
+    seen = hi > lo
+    if not seen.any():
+        return 0, 0
+    return int((hi - lo)[seen].sum()), int(hi[seen].max() - lo[seen].min())
+
+
+def same_data(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether ``a`` and ``b`` view the same elements (MLA passes its
+    latent as k and as v): one storage, offset and strides."""
+    return (a.untyped_storage()._cdata == b.untyped_storage()._cdata
+            and a.storage_offset() == b.storage_offset()
+            and a.stride() == b.stride() and a.shape == b.shape)
+
+
+def attention_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, window: Optional[int], q_offset: int = 0,
+                   kv_valid: Union[None, int, torch.Tensor] = None,
+                   q_positions: Optional[torch.Tensor] = None,
+                   backward: bool = False) -> Tuple[float, float]:
+    """(FLOPs, HBM bytes) of one call, the formula of its bound in
+    ``PERF.md``: forward, 4 hd FLOPs a visible (query, key) pair and head,
+    q read and the output written once, each key (and value, unless v is
+    k) the queries see read once; backward (``backward``), 10 hd FLOPs a
+    pair and head (S, dP, dV, dK, dQ) and q, k, v, dO, dQ, dK, dV and the
+    output moved once.  Positions given as a tensor are read as the last
+    Sq of the valid keys (a prefill from 0, a decode step at the cache's
+    end: every model call), and a valid count given as a tensor as every
+    key, since reading either would wait on the card."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    valid = (Sk if kv_valid is None or isinstance(kv_valid, torch.Tensor)
+             else min(int(kv_valid), Sk))
+    off = valid - Sq if q_positions is not None else int(q_offset)
+    pairs, keys = visible_pairs(Sq, off, valid, causal, window)
+    size = q.element_size()
+    if backward:
+        return (10.0 * hd * H * B * pairs,
+                float(size * 4 * (q.numel() + k.numel())))
+    n_kv = 1 if same_data(k, v) else 2
+    return (4.0 * hd * H * B * pairs,
+            float(size * (2 * q.numel() + n_kv * B * keys * KV * hd)))
 
 
 # the entry point of each route that takes (dtype, args, stream)
@@ -190,7 +256,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
                          f"[B, Sq, KV*G, hd] / [B, Sk, KV, hd]")
     dev = q.device
-    if dev.type == "cpu":
+    if not on_card(q):
+        if dev.type != "cpu":
+            raise ValueError(f"flash_attention: q must be on a CUDA device "
+                             f"or the CPU, got {dev}")
         PLAIN_CALLS["flash_attention"] += 1
         pos = (q_positions if q_positions is not None
                else torch.arange(q_offset, q_offset + Sq))
@@ -246,15 +315,31 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
+def _outputs(q: torch.Tensor, Sk: int, way: str
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """What a forward launch on route ``way`` allocates: the output, and on
+    ``split_kv`` the fp32 partials of its chunks (``[rows, hd]`` then
+    ``(m, l)`` a row) and their count."""
+    B, Sq, H, hd = q.shape
+    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
+    if way != "split_kv" or out.numel() == 0:
+        return out, None, 0
+    n_chunks = max(-(-Sk // split_chunk(q.dtype, hd)), 1)
+    rows = n_chunks * B * Sq * H
+    part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
+    return out, part, n_chunks
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool, window: Optional[int], q_offset: int,
             kv_valid: Union[None, int, torch.Tensor],
             q_positions: Optional[torch.Tensor]) -> torch.Tensor:
-    """One forward launch on the card (see :func:`flash_attention`)."""
+    """One forward launch on the card (see :func:`flash_attention`); on a
+    dry run's ``meta`` tensors its shape-only form."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
+    if not on_card(q) or k.device != dev or v.device != dev:
         raise ValueError(f"flash_attention: q, k, v must share one CUDA "
                          f"device (or the CPU), got {dev}, {k.device}, "
                          f"{v.device}")
@@ -281,16 +366,23 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         valid_ptr = kv_valid.data_ptr()
     elif kv_valid is not None:
         valid_n = int(kv_valid)
-    out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    # 16-byte loads when every row of q, k, v starts 16-byte aligned
+    # 16-byte loads when every row of q, k, v starts 16-byte aligned (a
+    # meta tensor's rows count as aligned)
     per16 = 16 // q.element_size()
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     strides = q.stride()[:3] + k.stride()[:3] + v.stride()[:3]
-    vec = (hd % per16 == 0 and all(p % 16 == 0 for p in ptrs[:3])
+    vec = (hd % per16 == 0
+           and all(x.data_ptr() % 16 == 0 for x in (q, k, v))
            and all(st % per16 == 0 for st in strides))
     way = route(q.dtype, Sq, H, KV, hd, vec, window)
+    out, part, n_chunks = _outputs(q, Sk, way)
+    if out.numel() == 0:
+        return out
+    if account("flash_attention", DRY_CALLS, way, q,
+               lambda: attention_work(q, k, v, causal=causal, window=window,
+                                      q_offset=q_offset, kv_valid=kv_valid,
+                                      q_positions=q_positions)):
+        return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     lib = _library()
     stream = _build.stream_handle()
     scalars = (B, Sq, Sk, H, KV, hd, *strides, pos_ptr or 0, int(q_offset),
@@ -298,13 +390,10 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                int(window is not None), int(window or 0), hd ** -0.5,
                int(vec))
     ml_ptr = acc_ptr = 0
-    if way == "split_kv":
-        n_chunks = max(-(-Sk // split_chunk(q.dtype, hd)), 1)
-        rows = n_chunks * B * Sq * H
-        # each chunk's partial per output row: acc [rows, hd], (m, l)
-        part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=dev)
+    if part is not None:
+        # each chunk's partial per output row: acc [rows, hd], then (m, l)
         acc_ptr = part.data_ptr()
-        ml_ptr = acc_ptr + 4 * rows * hd
+        ml_ptr = acc_ptr + 4 * (part.numel() // (hd + 2)) * hd
     block = ctypes.create_string_buffer(_ARGS.size)
     _ARGS.pack_into(block, 0, *ptrs, *scalars, ml_ptr, acc_ptr)
     args = ctypes.addressof(block)

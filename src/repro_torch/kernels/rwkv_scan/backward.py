@@ -23,10 +23,16 @@ no fallback from one route to the other:
 * ``step`` — everything else: the sequential kernels of
   ``csrc/wkv_backward.cu``, one block per (batch, head) walking time.
 
+Inside a dry run a ``meta`` tensor takes the card's branch and launches
+nothing: it allocates what the launch allocates (the gradients and the
+route's scratch: :func:`_step_scratch`, :func:`chunk_args`) and reports
+its work (:func:`backward_work`), as a card call does to an active
+recorder.
+
 ``LAUNCHES`` counts wrapper calls that launched (four device kernels a
 ``chunk`` call, three a ``step`` call), ``ROUTE_CALLS`` the same calls by
-route, ``PLAIN_CALLS`` calls that took the plain version;
-:func:`reset_launch_counts` zeroes all three.
+route, ``PLAIN_CALLS`` calls that took the plain version, ``DRY_CALLS`` a
+dry run's calls by route; :func:`reset_launch_counts` zeroes all four.
 """
 from __future__ import annotations
 
@@ -39,17 +45,21 @@ import torch
 
 from . import ref
 from .. import _build
+from .._card import account, on_card
 
 LAUNCHES: Dict[str, int] = {"wkv_scan_backward": 0}
 PLAIN_CALLS: Dict[str, int] = {"wkv_scan_backward": 0}
 ROUTES = ("chunk", "step")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+DRY_CALLS: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 CHUNK = 64                  # steps a chunk of the chunk route (kC of
                             # csrc/wkv_backward_chunk.cuh)
 BLOCK = 16                  # steps a block (kL)
 CHUNK_MAX_N = 64            # widest Nk and Nv it takes
+STEP_CHUNK = 32             # steps a checkpoint of the step route (kC of
+                            # csrc/wkv_backward.cu)
 
 
 class _Args(ctypes.Structure):
@@ -76,6 +86,7 @@ def reset_launch_counts() -> None:
     PLAIN_CALLS["wkv_scan_backward"] = 0
     for r in ROUTES:
         ROUTE_CALLS[r] = 0
+    DRY_CALLS.clear()
 
 
 def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
@@ -100,13 +111,14 @@ def _library() -> ctypes.CDLL:
                lib.wkv_backward_chunked_block):
         fn.restype = ctypes.c_int
     sizes = ((lib.wkv_backward_args_size(), ctypes.sizeof(_Args)),
+             (lib.wkv_backward_chunk(), STEP_CHUNK),
              (lib.wkv_backward_chunked_args_size(),
               ctypes.sizeof(_ChunkArgs)),
              (lib.wkv_backward_chunked_len(), CHUNK),
              (lib.wkv_backward_chunked_block(), BLOCK))
     if any(a != b for a, b in sizes):
         raise RuntimeError(f"wkv_scan_backward: the library's (Args bytes, "
-                           f"chunk Args bytes, chunk, block) "
+                           f"step chunk, chunk Args bytes, chunk, block) "
                            f"{[a for a, _ in sizes]} differ from the "
                            f"wrapper's {[b for _, b in sizes]}")
     return lib
@@ -117,6 +129,29 @@ def build() -> float:
     t0 = time.perf_counter()
     _library()
     return time.perf_counter() - t0
+
+
+def backward_work(r: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+                  u: torch.Tensor) -> Tuple[float, float]:
+    """(FLOPs, HBM bytes) of one call.  The bytes are its bound's in
+    ``PERF.md``: r, k, v and dout read and dr, dk, dv written in their
+    dtype, log_w read and dlog_w written in fp32, u read and du written in
+    fp32.  The FLOPs, which that bound leaves out, are counted as twice
+    the forward's 7 a (step, i, j): each forward product has a gradient
+    product."""
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
+    size = r.element_size()
+    nbytes = (size * (4 * r.numel() + 3 * v.numel())
+              + 4 * 2 * log_w.numel() + 4 * 2 * u.numel())
+    return 14.0 * B * S * h * Nk * Nv, float(nbytes)
+
+
+def _account(r, v, log_w, u, way: str) -> bool:
+    """:func:`repro_torch.kernels._card.account` of a call on route
+    ``way``."""
+    return account("wkv_scan_backward", DRY_CALLS, way, r,
+                   lambda: backward_work(r, v, log_w, u))
 
 
 def wkv_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -137,11 +172,14 @@ def wkv_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, log_w "
                          f"{tuple(log_w.shape)}, u {tuple(u.shape)}, dout "
                          f"{tuple(dout.shape)} do not fit [B, S, h, N]")
-    if r.device.type == "cpu":
+    if not on_card(r):
+        if r.device.type != "cpu":
+            raise ValueError(f"wkv_scan_backward: tensors must be on a CUDA "
+                             f"device or the CPU, got {r.device}")
         PLAIN_CALLS["wkv_scan_backward"] += 1
         return ref.wkv_backward_ref(r, k, v, log_w, u, dout, chunk=chunk)
     tensors = (r, k, v, log_w, u, dout)
-    if r.device.type != "cuda" or any(x.device != r.device for x in tensors):
+    if any(x.device != r.device for x in tensors):
         raise ValueError("wkv_scan_backward: all tensors must share one CUDA "
                          "device (or the CPU)")
     if (r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype
@@ -157,6 +195,16 @@ def wkv_scan_backward(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route(r.dtype, S, Nk, Nv) == "chunk":
         return _launch_chunk(r, k, v, log_w, u, dout)
     return _launch_step(r, k, v, log_w, u, dout)
+
+
+def _step_scratch(B: int, S: int, h: int, Nk: int, Nv: int, dev
+                  ) -> Tuple[torch.Tensor, ...]:
+    """The step route's fp32 scratch: du's partial sums a (batch, head),
+    the state at each checkpoint of ``STEP_CHUNK`` steps, and r's reverse
+    rows."""
+    chunks = -(-S // STEP_CHUNK)
+    mk = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    return mk(B, h, Nk), mk(B, h, chunks, Nk, Nv), mk(B, h, S, Nk)
 
 
 def _launch_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -177,12 +225,10 @@ def _launch_step(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * h * S == 0:
         return (dr.zero_(), dk.zero_(), dv.zero_(),
                 dlw.zero_().to(log_w.dtype), du.zero_().to(u.dtype))
+    du_part, ckpt, rdr = _step_scratch(B, S, h, Nk, Nv, dev)
+    if _account(r, v, log_w, u, "step"):
+        return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)
     lib = _library()
-    chunks = -(-S // lib.wkv_backward_chunk())
-    du_part = torch.empty((B, h, Nk), dtype=torch.float32, device=dev)
-    ckpt = torch.empty((B, h, chunks, Nk, Nv), dtype=torch.float32,
-                       device=dev)
-    rdr = torch.empty((B, h, S, Nk), dtype=torch.float32, device=dev)
     ptrs = [x.data_ptr() for x in (r, k, v, lw32, u32, dout, dr, dk, dv, dlw,
                                    du, du_part, ckpt, rdr)]
     args = _Args(*ptrs, B, S, h, Nk, Nv)
@@ -245,6 +291,9 @@ def _launch_chunk(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * h == 0:
         return tuple(x.zero_() for x in grads)
     args, _scratch = chunk_args(r, k, v, lw32, u32, dout, grads)
+    if _account(r, v, log_w, u, "chunk"):
+        dr, dk, dv, dlw, du = grads
+        return dr, dk, dv, dlw.to(log_w.dtype), du.to(u.dtype)
     rc = _library().wkv_backward_chunked(_DTYPES[r.dtype],
                                          ctypes.addressof(args),
                                          _build.stream_handle())

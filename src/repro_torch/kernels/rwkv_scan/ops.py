@@ -42,11 +42,19 @@ final state is not implemented: the first raises when the call is made,
 the second when the backward reaches it.  On a CPU tensor the plain version
 is differentiable through ordinary autograd.
 
+Inside a dry run (:func:`repro_torch.kernels._card.dry_run`) a ``meta``
+tensor takes the card's branch: the route the card would take, the
+allocations the launch makes (its output, final state and, on
+``chunk_f32``, its scratch) and no launch, under the same ``Function``
+(the backward is :mod:`.backward`'s shape-only route).  A card call and
+a dry-run call report their work to an active recorder
+(:func:`scan_work`, the formula of the kernel's bound in ``PERF.md``).
+
 ``LAUNCHES`` counts kernel launches (one per call, whichever route;
 ``chunk_f32``'s three kernels are one call),
-``ROUTE_CALLS`` the same calls by route, and ``PLAIN_CALLS`` calls that
-took the plain version (CPU tensors); :func:`reset_launch_counts` zeroes
-all three.
+``ROUTE_CALLS`` the same calls by route, ``PLAIN_CALLS`` calls that
+took the plain version (CPU tensors) and ``DRY_CALLS`` a dry run's
+shape-only calls by route; :func:`reset_launch_counts` zeroes all four.
 """
 from __future__ import annotations
 
@@ -59,12 +67,14 @@ import torch
 
 from . import backward
 from .. import _build
+from .._card import account, on_card
 from ...models.linrec import chunked_linear_recurrence
 
 LAUNCHES: Dict[str, int] = {"wkv_scan": 0}
 PLAIN_CALLS: Dict[str, int] = {"wkv_scan": 0}
 ROUTES = ("tensor_core", "chunk_f32", "step")
 ROUTE_CALLS: Dict[str, int] = dict.fromkeys(ROUTES, 0)
+DRY_CALLS: Dict[str, int] = {}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}          # csrc dtype codes
 MAX_NK, MAX_NV = 128, 256
@@ -85,6 +95,7 @@ def reset_launch_counts() -> None:
     PLAIN_CALLS["wkv_scan"] = 0
     for r in ROUTES:
         ROUTE_CALLS[r] = 0
+    DRY_CALLS.clear()
 
 
 def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
@@ -97,6 +108,23 @@ def route(dtype: torch.dtype, S: int, Nk: int, Nv: int) -> str:
             and Nk <= CHUNK_ROUTE_MAX_NK and Nv <= CHUNK_MAX_N):
         return "chunk_f32"
     return "step"
+
+
+def scan_work(r: torch.Tensor, v: torch.Tensor, log_w: torch.Tensor,
+              inclusive: bool = False) -> Tuple[float, float]:
+    """(FLOPs, HBM bytes) of one forward call, the formula of its bound in
+    ``PERF.md``: 7 FLOPs a (step, i, j) (the k v product, the bonus and
+    read FMAs, the decay FMA); r (q), k and v read and the output written
+    once in their dtype, log_w read once in its own, the fp32 state read
+    and written once, and in the rwkv mode the fp32 bonus u read."""
+    B, S, h, Nk = r.shape
+    Nv = v.shape[-1]
+    n_in = B * S * h
+    nbytes = (r.element_size() * n_in * (2 * Nk + 2 * Nv)
+              + log_w.element_size() * n_in * Nk + 8 * B * h * Nk * Nv)
+    if not inclusive:
+        nbytes += 4 * h * Nk
+    return 7.0 * n_in * Nk * Nv, float(nbytes)
 
 
 class _ChunkArgs(ctypes.Structure):
@@ -181,7 +209,8 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"wkv_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}, log_w {tuple(log_w.shape)}, "
                          f"u {tuple(u.shape)} do not fit [B, S, h, N]")
-    if r.device.type == "cpu":
+    if not on_card(r):
+        _plain_only(r, "wkv_scan")
         PLAIN_CALLS["wkv_scan"] += 1
         out, sT = chunked_linear_recurrence(
             r, k, v, log_w, u=u, initial_state=initial_state, mode="rwkv",
@@ -210,7 +239,8 @@ def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"inclusive_scan: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}, log_w "
                          f"{tuple(log_w.shape)} do not fit [B, S, h, N]")
-    if q.device.type == "cpu":
+    if not on_card(q):
+        _plain_only(q, "inclusive_scan")
         PLAIN_CALLS["wkv_scan"] += 1
         out, sT = chunked_linear_recurrence(
             q, k, v, log_w, initial_state=initial_state, mode="inclusive",
@@ -222,6 +252,13 @@ def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "inclusive_scan: no gradient on the card; take wkv_scan's "
             "identity (models/ssm.py) under autograd")
     return _launch_chunk(q, k, v, log_w, None, initial_state, True)
+
+
+def _plain_only(x: torch.Tensor, op: str) -> None:
+    """A call off the card runs the plain version on the CPU only."""
+    if x.device.type != "cpu":
+        raise ValueError(f"{op}: tensors must be on a CUDA device or the "
+                         f"CPU, got {x.device}")
 
 
 def takes_function(*tensors: torch.Tensor) -> bool:
@@ -273,12 +310,13 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             log_w: torch.Tensor, u: torch.Tensor,
             initial_state: Optional[torch.Tensor],
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch on the card (see :func:`wkv_scan`)."""
+    """One forward launch on the card (see :func:`wkv_scan`); on a dry
+    run's ``meta`` tensors its shape-only form."""
     B, S, h, Nk = r.shape
     Nv = v.shape[-1]
     tensors = (r, k, v, log_w, u) + (() if initial_state is None
                                      else (initial_state,))
-    if r.device.type != "cuda" or any(x.device != r.device for x in tensors):
+    if not on_card(r) or any(x.device != r.device for x in tensors):
         raise ValueError("wkv_scan: all tensors must share one CUDA device "
                          "(or the CPU)")
     if r.dtype not in _DTYPES or k.dtype != r.dtype or v.dtype != r.dtype \
@@ -302,6 +340,9 @@ def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, h, Nv), dtype=r.dtype, device=r.device)
     sT = torch.empty((B, h, Nk, Nv), dtype=torch.float32, device=r.device)
     if B * h == 0:
+        return out, sT
+    if account("wkv_scan", DRY_CALLS, way, r,
+               lambda: scan_work(r, v, log_w)):
         return out, sT
     ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), log_w.data_ptr(),
             u32.data_ptr(), None if s0 is None else s0.data_ptr(),
@@ -330,7 +371,7 @@ def _launch_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Nv = v.shape[-1]
     tensors = (q, k, v, log_w) + tuple(x for x in (u, initial_state)
                                        if x is not None)
-    if q.device.type != "cuda" or any(x.device != q.device for x in tensors):
+    if not on_card(q) or any(x.device != q.device for x in tensors):
         raise ValueError("wkv_scan: all tensors must share one CUDA device "
                          "(or the CPU)")
     if any(x.dtype != torch.float32 for x in (q, k, v, log_w)):
@@ -353,6 +394,9 @@ def _launch_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, sT
     sT = torch.empty((B, h, Nk, Nv), dtype=torch.float32, device=dev)
     args, _scratch = chunk_f32_args(q, k, v, log_w, u32, s0, out, sT)
+    if account("wkv_scan", DRY_CALLS, "chunk_f32", q,
+               lambda: scan_work(q, v, log_w, inclusive)):
+        return out, sT
     rc = _library().wkv_forward_chunk_f32(int(inclusive),
                                           ctypes.addressof(args),
                                           _build.stream_handle())

@@ -2,7 +2,8 @@
 
   * :func:`blockwise_attention` — causal / bidirectional attention with
     GQA, an optional sliding window and a valid key length (the KV cache).
-    On a CUDA tensor it launches the hand-written flash kernel
+    On the card (:func:`repro_torch.kernels._card.on_card`: a CUDA tensor,
+    or a dry run's ``meta`` one) it calls the hand-written flash kernel
     (:mod:`repro_torch.kernels.flash_attention`); on a CPU tensor it runs
     the blockwise online-softmax formulation of the JAX package, block for
     block, so the CPU path is held against JAX in the tests.
@@ -19,6 +20,7 @@ from typing import Optional, Union
 
 import torch
 
+from ..kernels._card import on_card
 from ..kernels.flash_attention import ops as fa_ops
 from ..kernels.flash_attention.ref import NEG_INF, attention_ref
 
@@ -37,7 +39,7 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kv_valid_len: [] or [B] — keys at index >= valid_len are masked (cache).
     ``unroll`` is accepted for the JAX signature and has no effect.
     """
-    if q.device.type == "cuda":
+    if on_card(q):
         return fa_ops.flash_attention(q, k, v, causal=causal, window=window,
                                       kv_valid=kv_valid_len,
                                       q_positions=q_positions)

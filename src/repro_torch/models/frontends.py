@@ -1,11 +1,9 @@
 """Modality frontend stubs (the port's ``repro/models/frontends.py``): the
 audio and vision entries specify the transformer backbone only, so the
 frontends hand it precomputed frame or patch embeddings drawn from a
-:class:`torch.Generator` on the generator's device.
-
-The JAX package's ``train_batch_specs`` (ShapeDtypeStruct stand-ins for
-its dry run) has no counterpart yet: it comes with the port's dry-run
-tooling.
+:class:`torch.Generator` on the generator's device, and
+:func:`train_batch_specs` gives the dry run's shape-only batch
+(:mod:`repro_torch.launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -13,7 +11,7 @@ from typing import Dict
 
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeConfig
 
 
 def _normal(gen: torch.Generator, shape, dtype) -> torch.Tensor:
@@ -46,6 +44,25 @@ def frontend_inputs(gen: torch.Generator, cfg: ArchConfig, batch: int,
     if cfg.family == "encdec":
         out["enc_frames"] = audio_frames(gen, cfg, batch, dtype)
     return out
+
+
+def train_batch_specs(cfg: ArchConfig, shape: ShapeConfig,
+                      dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors standing in for one training batch of ``shape``
+    (the JAX package's ``ShapeDtypeStruct`` specs): its keys and shapes,
+    with the dtypes :func:`make_train_batch` gives (int64 tokens)."""
+    B, S = shape.global_batch, shape.seq_len
+    n_front = cfg.n_frontend_tokens if cfg.frontend == "vision" else 0
+    s_text = S - n_front
+    meta = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    specs = {"tokens": meta((B, s_text), torch.int64),
+             "targets": meta((B, s_text), torch.int64),
+             "loss_mask": meta((B, s_text), torch.float32)}
+    if cfg.frontend == "vision":
+        specs["prefix_embeds"] = meta((B, n_front, cfg.d_model), dtype)
+    if cfg.family == "encdec":
+        specs["enc_frames"] = meta((B, cfg.encoder_seq, cfg.d_model), dtype)
+    return specs
 
 
 def make_train_batch(gen: torch.Generator, cfg: ArchConfig, batch: int,

@@ -84,6 +84,7 @@ from ..distributed import fsdp
 from ..distributed import tensor_parallel as tpl
 from ..distributed.meshes import DeviceLike, resolve_device
 from ..distributed.sharding import map_with_path
+from ..kernels._card import on_card
 from .attention import (blockwise_attention, ring_cache_attention,
                         ring_decode_attention)
 from .layers import (apply_rope, dense_init, embed_init, gelu_mlp,
@@ -220,7 +221,7 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
         if S > 1:
             out = blockwise_attention(q, k, v, positions, causal=causal,
                                       window=window)
-        elif x.device.type == "cuda":
+        elif on_card(x):
             out = ring_decode_attention(q, cache["k"], cache["v"],
                                         cache_index)
         else:
@@ -536,6 +537,12 @@ def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
         n_moe_layers = cfg.n_layers - m.first_dense_layers
         total -= n_moe_layers * (m.n_routed - m.top_k) * per_expert
     return total
+
+
+def count_embedding_params(cfg: ArchConfig) -> int:
+    """The embedding's parameters, and the head's where it is not tied."""
+    n = cfg.vocab_size * cfg.d_model
+    return n if cfg.tie_embeddings else 2 * n
 
 
 # ---------------------------------------------------------------------------

@@ -52,6 +52,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..distributed import tensor_parallel as tpl
+from ..kernels._card import on_card
 from ..kernels.rwkv_scan import ops as rw_ops
 from .layers import dense_init, normal
 from .linrec import chunked_linear_recurrence, recurrent_step
@@ -170,8 +171,9 @@ def inclusive_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    chunk: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """out_t = q_t^T S_t with S_t = diag(exp log_w_t) S_{t-1} + k_t v_t^T.
     Returns (out, final state).  CPU: the plain chunked recurrence
-    (``chunk`` its chunk length); CUDA: :func:`_card`."""
-    if q.device.type == "cpu":
+    (``chunk`` its chunk length); on the card (``on_card``: a CUDA tensor
+    or a dry run's ``meta`` one): :func:`_card`."""
+    if not on_card(q):
         return rw_ops.inclusive_scan(q, k, v, log_w, initial_state,
                                      chunk=chunk)
     return _card(q, k, v, log_w, initial_state, chunk=chunk)

@@ -63,6 +63,7 @@ from ..distributed.meshes import DeviceLike, ProcessMesh
 from ..distributed.sharding import (P, ShardingPolicy, active_policy,
                                     batch_pspecs, local_shape, param_pspecs,
                                     spec_leaves)
+from ..kernels._card import on_card
 from ..models import lm
 from .optimizer import (OptimizerConfig, init_opt_state, optimizer_update,
                         tree_leaves, tree_unflatten)
@@ -203,7 +204,7 @@ def coded_grads_r2(params, cfg: ArchConfig, tc: TrainConfig,
     and its plain version on the CPU."""
     P_ = mesh.axis_size(pod_axis)
     me = mesh.axis_index(pod_axis)
-    combine_impl = "kernel" if mesh.device.type == "cuda" else "torch"
+    combine_impl = "kernel" if on_card(mesh.device) else "torch"
     n_chunks = P_ * (P_ - 1) // 2
     G = sum(p.numel() for p in tree_leaves(params))
     pad = (-G) % P_

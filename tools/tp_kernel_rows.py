@@ -73,7 +73,7 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, timeout=60,
                          check=True).stdout.strip()
     print(smi, flush=True)
-    peaks = cs.PEAKS[smi.split(",")[0].strip()]
+    peaks = cs.card_peaks(smi.split(",")[0].strip())
     fa.build()
     rw.build()
     flash_rows, _ = cs.flash_phase(
