@@ -167,7 +167,10 @@ Phases, one printed line each (plus detail lines):
               2 x 256 checks; Hymba-1.5B's 7 query heads at G = 1 with the
               2,048 window: the 4 x 1,024 prefill, its last decode step
               over the 1,056-slot ring, the 2 x 2,560 check past the
-              window and a decode step over the full ring; each dtype on
+              window and a decode step over the full ring; Qwen2-1.5B's 2
+              query heads a rank at model 8, split inside, on one kv head
+              of 128 (G = 2): the 4 x 1,024 prefill, its last decode step
+              over 1,056 slots and the fp32 2 x 256 check; each dtype on
               the route ``TP_ROUTE`` names).
               WKV at phase 10's local heads (RWKV6-3B's 10: the 4 x 1,024
               prefill, a decode step and the 2 x 256 check, each dtype on
@@ -361,7 +364,15 @@ Phases, one printed line each (plus detail lines):
               (flash ``mma_tf32`` prefill and ``split_kv`` decode, WKV
               ``chunk_f32`` prefill and ``step`` decode).  (i2) bf16 at 2
               of 32 layers, (b)'s shape: (g2)'s numbers and gates (flash
-              ``tensor_core`` prefill).
+              ``tensor_core`` prefill).  (j) Qwen2-1.5B at full width on
+              (data 1, model 8), a second spawn of eight gloo ranks of
+              the card: its heads split inside (192 of the 1,536 query
+              columns and 32 of the 256 kv columns a rank; the 2 query
+              heads a rank touches read one kv head, which its cache
+              holds whole; one GQA flash call a layer).  (j1) fp32 and
+              (j2) bf16 at 2 of 28 layers at (g)'s shapes: (g1)'s and
+              (g2)'s gates and numbers, and each rank's layout.  Every
+              row's ``psum`` is a reduce-scatter then an all-gather.
 11. dryrun  — after phase 9, before 4d: the dry run
               (``repro_torch.launch.dryrun``: the step on ``meta`` tensors,
               each kernel op's shape-only route) against the card.  (a) A
@@ -2470,7 +2481,14 @@ FLASH_CASES = [
     ("tp_hymba_decode", 4, 1, 1056, 7, 7, 64, False, 0, 1055, None),
     ("tp_hymba_check", 2, 2560, 2560, 7, 7, 64, True, 0, None, 2048),
     ("tp_hymba_check_decode", 2, 1, 2048, 7, 7, 64, False, 0, 2048,
-     None)]
+     None),
+    # phase 10 (j)'s local heads (Qwen2-1.5B at model 8: the 2 query heads
+    # a rank's 192 columns touch, both on one kv head of 128, G = 2): the
+    # timed 4 x 1,024 prefill into its 1,056-long cache and its last decode
+    # step, the fp32 check's 2 x 256 prefill into a 264-long cache
+    ("tp_inside_prefill", 4, 1024, 1056, 2, 1, 128, True, 0, 1024, None),
+    ("tp_inside_decode", 4, 1, 1056, 2, 1, 128, True, 1054, 1055, None),
+    ("tp_inside_check", 2, 256, 264, 2, 1, 128, True, 0, 256, None)]
 FAMILY_TAGS = ("hymba_prefill", "hymba_ring_decode", "whisper_encoder",
                "whisper_cross_prefill", "whisper_cross_decode",
                "llava_prefill")
@@ -2496,18 +2514,20 @@ TP_TAGS = ("tp_prefill", "tp_decode", "tp_check", "tp_mla_prefill",
            "tp_whisper_encoder", "tp_whisper_prefill", "tp_whisper_decode",
            "tp_whisper_cross_prefill", "tp_whisper_cross_decode",
            "tp_whisper_check", "tp_whisper_cross_check", "tp_hymba_prefill",
-           "tp_hymba_decode", "tp_hymba_check", "tp_hymba_check_decode")
+           "tp_hymba_decode", "tp_hymba_check", "tp_hymba_check_decode",
+           "tp_inside_prefill", "tp_inside_decode", "tp_inside_check")
 TP_ROUTE = {**{(tag, dt): ("tensor_core" if dt == "bfloat16"
                            else "mma_tf32")
                for tag in ("tp_prefill", "tp_check", "tp_whisper_encoder",
                            "tp_whisper_prefill", "tp_whisper_cross_prefill",
                            "tp_whisper_check", "tp_whisper_cross_check",
-                           "tp_hymba_prefill", "tp_hymba_check")
+                           "tp_hymba_prefill", "tp_hymba_check",
+                           "tp_inside_prefill", "tp_inside_check")
                for dt in ("bfloat16", "float32")},
             **{(tag, dt): "split_kv"
                for tag in ("tp_decode", "tp_whisper_decode",
                            "tp_whisper_cross_decode", "tp_hymba_decode",
-                           "tp_hymba_check_decode")
+                           "tp_hymba_check_decode", "tp_inside_decode")
                for dt in ("bfloat16", "float32")},
             **{(tag, dt): ("tensor_core_wide" if dt == "bfloat16"
                            else "mma_tf32")
@@ -4452,6 +4472,14 @@ FAMILY_ARCHS = {"g": "rwkv6-3b", "h": "whisper-large-v3",
 FAMILY_CHECK = (2, "float32", 2, 256, 8)
 FAMILY_TIMED = (2, "bfloat16", 4, 1024, 32)
 FAMILY_CHECK_OF = {"hymba-1.5b": (2, "float32", 2, 2560, 8)}
+# (j): Qwen2-1.5B at full width on (data 1, model 8), one spawn of eight
+# ranks of its own: 192 of the 1,536 query columns a rank (1.5 heads, the
+# 2 query heads they touch both on one kv head) and 32 of the 256 kv
+# columns (a quarter of a kv head), so its heads split inside; its
+# vocabulary of 151,936 split 8 ways.  FAMILY_CHECK's fp32 check and
+# FAMILY_TIMED's bf16 serving, both at 2 of its 28 layers
+INSIDE_ARCH = "qwen2-1.5b"
+INSIDE_RANKS = 8
 
 
 def family_check(arch: str):
@@ -5187,6 +5215,73 @@ def tp_rank(dev, seed: int, t_spawn: float):
     return out
 
 
+def inside_rank(dev, seed: int, t_spawn: float):
+    """(j) in each of phase 10's second spawn of INSIDE_RANKS ranks on
+    (data 1, model 8): :func:`family_rank` of INSIDE_ARCH, whose heads
+    split inside.  Returns CPU tensors and numbers."""
+    t_enter = time.time()
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed import tensor_parallel as tpl
+    from repro_torch.distributed.meshes import make_process_mesh
+    from repro_torch.kernels.flash_attention import backward as fab
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv_scan import backward as rwb
+    from repro_torch.kernels.rwkv_scan import ops as rw
+    from repro_torch.models import lm
+    from repro_torch.serve import engine as serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counts = Counts(torch, (fa, fab, rw, rwb))
+    mesh = make_process_mesh((1, INSIDE_RANKS), ("data", "model"),
+                             device=dev)
+    pol = sh.ShardingPolicy(mesh, sh.default_rules(False, fsdp=False))
+    tp = tpl.layout(family_config(get_arch, INSIDE_ARCH, 2), pol)
+    blk = tp.head_block()
+    t0 = time.perf_counter()
+    res = family_rank(torch, np, lm, serve, sh, tpl, col, get_arch, counts,
+                      pol, mesh, seed, dev, INSIDE_ARCH)
+    res["part_s"] = time.perf_counter() - t0
+    res["layout"] = {"inside": tp.inside, "expand": tp.expand,
+                     "block": (blk.c0, blk.c1, blk.h0, blk.h1, blk.kv0,
+                               blk.kv1),
+                     "kv_segments": blk.kv_segments()}
+    launches = {f"j {key}": res.pop(f"launches {key}")
+                for key in ("check", "timed")}
+    return {"rank": mesh.rank, "device": str(dev),
+            "spawn_to_rendezvous_s": t_enter - t_spawn,
+            "families": {"j": res}, "launches": launches}
+
+
+def family_refs(torch, np, lm, serve, get_arch, arch: str, seed: int):
+    """``arch``'s unsharded references on the card: the fp32 check's
+    logits and tokens (:func:`tp_greedy` at :func:`family_check`'s shape)
+    and the bf16 run's tokens at FAMILY_TIMED's."""
+    layers, _, slots, plen, new = family_check(arch)
+    fcfg = family_config(get_arch, arch, layers)
+    params = lm.init_params(seed, fcfg, torch.float32, device="cuda")
+    check_ref = tp_greedy(
+        torch, lm, params, fcfg, tp_prompts(np, fcfg, slots, plen, seed),
+        new, torch.float32, "cuda", enc_frames=family_frames(
+            torch, np, fcfg, slots, seed, "cuda"))
+    del params
+    torch.cuda.empty_cache()
+    layers, _, slots, plen, new = FAMILY_TIMED
+    fcfg = family_config(get_arch, arch, layers)
+    params = lm.init_params(seed, fcfg, torch.bfloat16, device="cuda")
+    timed = serve.ServeEngine(
+        fcfg, params, slots, plen + new, torch.bfloat16,
+        device="cuda").generate(
+        tp_prompts(np, fcfg, slots, plen, seed), new,
+        enc_frames=family_frames(torch, np, fcfg, slots, seed, "cuda"))
+    del params
+    torch.cuda.empty_cache()
+    return check_ref, timed
+
+
 def zero3_refs(torch, tr, opt, pipeline, get_arch, ARCHS, seed,
                device="cuda"):
     """(e)'s references: each (arch, optimizer) of :func:`z3e_cases`
@@ -5407,16 +5502,17 @@ def moe_gates(torch, np, lm, get_arch, results, moe_ref, peaks, smi):
 
 
 def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
-                 smi):
-    """(g)'s, (h)'s or (i)'s gates on every rank's results against the
-    unsharded runs of this process, and its timed numbers (the slowest
-    rank's walls)."""
-    arch = FAMILY_ARCHS[part]
+                 smi, arch: Optional[str] = None, ranks: int = TP_RANKS):
+    """(g)'s, (h)'s, (i)'s or (j)'s gates on every rank's results against
+    the unsharded runs of this process, and its timed numbers (the slowest
+    rank's walls); ``arch`` defaults to FAMILY_ARCHS[part], on ``ranks``
+    ranks of (data 1, model ``ranks``)."""
+    arch = arch or FAMILY_ARCHS[part]
     (ref_steps, ref_toks), ref_timed = ref
     L1, _, slots1, plen1, new1 = family_check(arch)
     L2, _, slots, plen, new = FAMILY_TIMED
     cfg = family_config(get_arch, arch, L2)
-    hl, hd = cfg.n_heads // TP_RANKS, cfg.head_dim
+    hl, hd = cfg.n_heads // ranks, cfg.head_dim
     none = {"flash_attention": dict.fromkeys(
                 ("tensor_core", "tensor_core_wide", "split_kv", "mma_tf32"),
                 0),
@@ -5432,6 +5528,29 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
         state = {"tmix": {"shift": (slots1, cfg.d_model),
                           "wkv": (slots1, hl, hd, hd)},
                  "cmix_shift": (slots1, cfg.d_model)}
+    elif cfg.family == "dense":
+        # heads split inside (j): a flash call a layer at prefill (the
+        # fp32 check's on mma_tf32, the timed bf16 one's on tensor_core)
+        # and at each decode step (split_kv), the rank's query heads on
+        # the one kv head they read; the cache holds that kv head
+        fa = none["flash_attention"]
+        want_check = {**none, "flash_attention": {
+            **fa, "mma_tf32": L1, "split_kv": L1 * new1}}
+        want_timed = {**none, "flash_attention": {
+            **fa, "tensor_core": L2, "split_kv": L2 * (new - 1)}}
+        cols = cfg.n_heads * hd // ranks
+        group = cfg.n_heads // cfg.n_kv_heads
+
+        def state_of(r):
+            h0, h1 = r * cols // hd, -(-(r + 1) * cols // hd)
+            kv = (slots1, plen1 + new1,
+                  (h1 - 1) // group - h0 // group + 1, hd)
+            return {"k": kv, "v": kv}
+        split = (f"{cols} of the {cfg.n_heads * hd} query columns and "
+                 f"{cfg.n_kv_heads * hd // ranks} of the "
+                 f"{cfg.n_kv_heads * hd} kv columns a rank (the query "
+                 f"heads they touch on {state_of(0)['k'][2]} kv head, "
+                 f"cached whole)")
     elif cfg.family == "hybrid":
         # a flash and an SSM scan a layer at prefill (the fp32 check's on
         # mma_tf32 and chunk_f32, the timed bf16 one's on tensor_core and
@@ -5449,7 +5568,7 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
         # the ring of k and v at the 7 query heads a rank's 400 columns
         # touch, the conv carry of its columns, the SSM state of its 25
         # sub-heads of 16
-        cols = cfg.n_heads * hd // TP_RANKS
+        cols = cfg.n_heads * hd // ranks
         g, N = math.gcd(hd, cols), cfg.ssm.state_dim
         Wc = min(plen1 + new1, cfg.sliding_window)
 
@@ -5472,7 +5591,7 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
             **fa, "tensor_core": 3 * L2, "split_kv": 2 * L2 * (new - 1)}}
         kv = lambda n: {"k": (slots1, n, hl, hd), "v": (slots1, n, hl, hd)}
         state = {"self": kv(plen1 + new1), "cross": kv(cfg.encoder_seq)}
-    if cfg.family != "hybrid":
+    if cfg.family not in ("hybrid", "dense"):
         state_of = lambda r: state
         split = f"{hl} heads a rank"
     scale, worst = float(ref_steps.abs().max()), 0.0
@@ -5509,11 +5628,12 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
     ttft = max(f["ttft_ms"] for f in fs)
     gen_ms = max(f["generate_ms"] for f in fs)
     step_ms = (gen_ms - ttft) / (new - 1)
-    (pre_bound, pre_by), (step_bound, step_by) = family_bounds(
+    (pre_bound, pre_by), (step_bound, step_by) = (
+        tp_bounds if cfg.family == "dense" else family_bounds)(
         torch, lm, cfg, slots, plen, new, peaks)
     agree = float(np.mean(first["timed_tokens"] == ref_timed))
     routes = {k: first["timed_routes"][k] for k in want_timed}
-    info = {"arch": arch, "ranks": TP_RANKS, "backend": "gloo",
+    info = {"arch": arch, "ranks": ranks, "backend": "gloo",
             "card": smi, "check": {
                 "layers": L1, "dtype": "float32", "slots": slots1,
                 "prompt": plen1, "new": new1, "worst_logit_rel_err": worst,
@@ -5542,6 +5662,10 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
     layers, layout = ((f"{L1} encoder and {L1} decoder layers",
                        "the self and cross caches of this rank's heads")
                       if cfg.family == "encdec" else
+                      (f"{L1} layers", "k and v of the kv head its query "
+                       "heads read, where the JAX cache_pspecs split the "
+                       "head dim")
+                      if cfg.family == "dense" else
                       (f"{L1} layers, {plen1}-token prompts past the "
                        f"{cfg.sliding_window} window", "the ring of k and v "
                        "at the query heads this rank's columns touch, the "
@@ -5553,7 +5677,7 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
                        "the JAX cache_pspecs split its head dim; the shifts "
                        "whole"))
     say(f"  tp ({part}1): {arch} at full width, {layers}, fp32, (data 1, "
-        f"model {TP_RANKS}): {split}; prefill and {new1} decode "
+        f"model {ranks}): {split}; prefill and {new1} decode "
         f"logits within {worst!r} of max |logit| of the unsharded run "
         f"(limit {TP_LOGIT_TOL}); greedy tokens identical on every rank "
         f"and to the unsharded run; weight bytes a rank "
@@ -5563,8 +5687,9 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
     t = info["timed"]
     side = " each side" if cfg.family == "encdec" else ""
     say(f"  tp ({part}2): {arch} at full width, {L2} of "
-        f"{get_arch(arch).n_layers} layers{side}, bf16, {slots} slots x {plen}-token prompts + {new} new, (data 1,"
-        f" model {TP_RANKS}), 4 ranks over gloo on one card: TTFT {ttft!r}"
+        f"{get_arch(arch).n_layers} layers{side}, bf16, {slots} slots x "
+        f"{plen}-token prompts + {new} new, (data 1, model {ranks}), "
+        f"{ranks} ranks over gloo on one card: TTFT {ttft!r}"
         f" ms (the prefill's device bound {pre_bound!r} ms, {pre_by}), "
         f"decode {step_ms!r} ms a step (bound {step_bound!r} ms, "
         f"{step_by}), {t['tokens_per_s']!r} tokens/s; weights "
@@ -5577,6 +5702,35 @@ def family_gates(torch, np, lm, get_arch, results, part: str, ref, peaks,
         f"{agree!r} (not gated); part {max(info['part_s_by_rank']):.1f} s "
         f"[{smi}]")
     return info
+
+
+def inside_phase(torch, np, lm, serve, run_ranks, get_arch, peaks, seed,
+                 smi):
+    """(j): INSIDE_ARCH's unsharded references in this process, then one
+    spawn of :func:`inside_rank` on INSIDE_RANKS ranks over gloo on the
+    card; its layout gate and :func:`family_gates`.  Returns (info, the
+    ranks' results)."""
+    t0 = time.perf_counter()
+    ref = family_refs(torch, np, lm, serve, get_arch, INSIDE_ARCH, seed)
+    t_spawn = time.time()
+    results = run_ranks(inside_rank, INSIDE_RANKS, backend="gloo",
+                        device="cuda", args=(seed, t_spawn),
+                        timeout_s=600.0)
+    for res in results:
+        lay = res["families"]["j"]["layout"]
+        check(res["device"].startswith("cuda") and lay["inside"]
+              and not lay["expand"] and len(lay["kv_segments"]) == 1,
+              f"tp (j) rank {res['rank']}: layout {lay} on "
+              f"{res['device']} (want heads split inside, k and v at the "
+              f"kv head the rank's query heads read, one GQA call)")
+    info = family_gates(torch, np, lm, get_arch, results, "j", ref, peaks,
+                        smi, arch=INSIDE_ARCH, ranks=INSIDE_RANKS)
+    info.update(layout_by_rank=[res["families"]["j"]["layout"]
+                                for res in results],
+                spawn_to_rendezvous_s=[res["spawn_to_rendezvous_s"]
+                                       for res in results],
+                row_s=time.perf_counter() - t0)
+    return info, results
 
 
 def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
@@ -5649,30 +5803,9 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
         torch.cuda.empty_cache()
         # (g), (h), (i) references: the unsharded fp32 check, and the
         # unsharded bf16 run's tokens at the timed shape
-        fam_ref = {}
-        for part, arch in FAMILY_ARCHS.items():
-            layers, _, slots, plen, new = family_check(arch)
-            fcfg = family_config(get_arch, arch, layers)
-            params = lm.init_params(seed, fcfg, torch.float32, device="cuda")
-            check_ref = tp_greedy(
-                torch, lm, params, fcfg, tp_prompts(np, fcfg, slots, plen,
-                                                    seed), new,
-                torch.float32, "cuda", enc_frames=family_frames(
-                    torch, np, fcfg, slots, seed, "cuda"))
-            del params
-            torch.cuda.empty_cache()
-            layers, _, slots, plen, new = FAMILY_TIMED
-            fcfg = family_config(get_arch, arch, layers)
-            params = lm.init_params(seed, fcfg, torch.bfloat16,
-                                    device="cuda")
-            fam_ref[part] = (check_ref, serve.ServeEngine(
-                fcfg, params, slots, plen + new, torch.bfloat16,
-                device="cuda").generate(
-                tp_prompts(np, fcfg, slots, plen, seed), new,
-                enc_frames=family_frames(torch, np, fcfg, slots, seed,
-                                         "cuda")))
-            del params
-            torch.cuda.empty_cache()
+        fam_ref = {part: family_refs(torch, np, lm, serve, get_arch, arch,
+                                     seed)
+                   for part, arch in FAMILY_ARCHS.items()}
         # (e) references
         from repro_torch.configs import ARCHS
         z3_refs = zero3_refs(torch, tr, opt, pipeline, get_arch, ARCHS,
@@ -5899,6 +6032,11 @@ def tp_phase(torch, np, lm, serve, tr, opt, pipeline, run_ranks, get_arch,
             part: family_gates(torch, np, lm, get_arch, results, part,
                                fam_ref[part], peaks, smi)
             for part in FAMILY_ARCHS}
+
+        # (j) Qwen2-1.5B with its heads split inside, on eight ranks
+        info["families"]["j"], inside = inside_phase(
+            torch, np, lm, serve, run_ranks, get_arch, peaks, seed, smi)
+        results = results + inside
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     launches = dict.fromkeys(("flash_attention", "flash_attention_backward",
@@ -6212,11 +6350,11 @@ def main(argv=None) -> int:
     tp_info, tp_launches = tp_phase(torch, np, lm, serve, tr, opt, pipeline,
                                     run_ranks, get_arch, peaks, args.seed,
                                     smi, full_info)
-    *rest, last = FAMILY_ARCHS.values()
-    say(f"phase tp: {', '.join((TP_ARCH, MOE_ARCH, *rest))} and {last} "
-        f"at full width on {TP_RANKS} "
-        f"ranks (gloo, one card): the fp32 checks and the training gates "
-        f"hold; launches "
+    archs = ", ".join((TP_ARCH, MOE_ARCH, *FAMILY_ARCHS.values()))
+    say(f"phase tp: {archs} at full width on {TP_RANKS} ranks and "
+        f"{INSIDE_ARCH} on "
+        f"{INSIDE_RANKS}, its heads split inside (gloo, one card): the fp32 "
+        f"checks and the training gates hold; launches "
         f"{tp_launches}; {tp_info['phase_s']:.1f} s [{smi}]")
 
     # ---- 8. kernels line -------------------------------------------------
@@ -6576,6 +6714,8 @@ def main(argv=None) -> int:
                     "note": "flash_attention's mma_tf32 route; its launches "
                             "are also in flash_attention's"})
     say(f"phase kernels line: launches by path {by_path}")
+    say(f"script wall {time.perf_counter() - t_start:.1f} s, the kernels' "
+        f"build included [{smi}]")
     out = pathlib.Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({

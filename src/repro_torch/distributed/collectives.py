@@ -29,8 +29,9 @@ the counterpart of the collectives in a compiled program's HLO text that
 the dry run prices (:mod:`repro_torch.launch.hlo_analysis`): the kind
 issued (``all-to-all``, ``all-gather``), the function of this module that
 issued it, its in and out bytes and the group's global ranks.  What is
-issued is what is recorded: a :func:`psum` is an ``all-gather`` of n
-times its input, not an all-reduce.
+issued is what is recorded: a :func:`psum` is an ``all-to-all`` of its
+(padded) input and an ``all-gather`` of its 1/n block, both recorded
+with ``fn`` "psum", 2 (n-1)/n of its input on a ring's wire.
 """
 from __future__ import annotations
 
@@ -121,8 +122,13 @@ def _all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: Axis, dim: int,
     group = _group(mesh, axis)
     x = x.contiguous()
     n = dist.get_world_size(group)
-    parts = [torch.empty_like(x) for _ in range(n)]
     _record("all-gather", fn, x, n * x.numel() * x.element_size(), group)
+    if x.dim() and dim % x.dim() == 0 and x.shape[0]:
+        # received straight into the blocks of one buffer: no second copy
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather(list(out.chunk(n)), x, group=group)
+        return out
+    parts = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(parts, x, group=group)
     return torch.cat(parts, dim)
 
@@ -142,19 +148,40 @@ def all_gather(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
     return _all_gather(x, mesh, axis, dim, "all_gather")
 
 
-def psum_scatter(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
-                 dim: int = 0) -> torch.Tensor:
-    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
-    member k gets the sum over members of their k-th block of ``dim``."""
-    recvd = _all_to_all(x, mesh, axis, dim, "psum_scatter").movedim(dim, 0)
+def _reduce_scatter(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
+                    dim: int, fn: str) -> torch.Tensor:
+    """Member k gets the sum, in rank order, of every member's k-th block
+    of ``dim`` (an all-to-all, then the received blocks summed)."""
+    recvd = _all_to_all(x, mesh, axis, dim, fn).movedim(dim, 0)
     n = dist.get_world_size(_group(mesh, axis))
     return _ordered_sum(recvd.unflatten(0, (n, -1))).movedim(0, dim)
 
 
+def psum_scatter(x: torch.Tensor, mesh: ProcessMesh, axis: Axis,
+                 dim: int = 0) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis, scatter_dimension=dim, tiled=True)``:
+    member k gets the sum over members of their k-th block of ``dim``."""
+    return _reduce_scatter(x, mesh, axis, dim, "psum_scatter")
+
+
 def psum(x: torch.Tensor, mesh: ProcessMesh, axis: Axis) -> torch.Tensor:
-    """``jax.lax.psum(x, axis)``: the sum of every member's ``x`` (issued as
-    an all-gather of every member's ``x``, then an ordered sum)."""
-    return _ordered_sum(_all_gather(x[None], mesh, axis, 0, "psum"))
+    """``jax.lax.psum(x, axis)``: the sum of every member's ``x``, issued as
+    a reduce-scatter then an all-gather, as an all-reduce runs.  ``x`` is
+    flattened and padded with zeros to n equal blocks; member k receives
+    every member's block k (an all-to-all), sums them in rank order and
+    the summed blocks are all-gathered.  Each element is the sum of the
+    old all-gather form, in the same order, so the bits are the same; a
+    member holds about three copies of ``x`` at most, not n + 1."""
+    n = dist.get_world_size(_group(mesh, axis))
+    flat = x.reshape(-1)
+    size = flat.numel()
+    m = -(-size // n)
+    if m * n != size:
+        flat = torch.cat([flat, flat.new_zeros(m * n - size)])
+    part = _reduce_scatter(flat, mesh, axis, 0, "psum")
+    del flat
+    out = _all_gather(part, mesh, axis, 0, "psum")
+    return out[:size].view(x.shape)
 
 
 def hierarchical_psum(x: torch.Tensor, mesh: ProcessMesh, fast_axis: str,

@@ -28,19 +28,48 @@ axis holds the same bits):
 * greedy decoding reads logits all-gathered over ``model``, so every rank
   samples the same token.
 
-Layout (:func:`shard_params`) is head-aligned.  Each rank holds a
-contiguous block of H/tp query heads, and KV/tp kv heads where tp divides
-KV: there the layout is the spec's exactly.  Where it does not (the
+Layout (:func:`shard_params`) is head-aligned where the heads split
+whole.  Each rank holds a contiguous block of H/tp query heads, and KV/tp
+kv heads where tp divides KV: there the layout is the spec's exactly.
+Where tp is a multiple of KV (qwen2-72b's 8 kv heads at model 16, the
 reduced configs' KV 2 at model 4), each rank holds the whole kv head its
 query heads read, duplicated over the tp/KV ranks that share it, and the
 gradients of the duplicated shards are summed over those ranks (inside
 autograd, so every sharing rank holds the kv head's full gradient).  The
-JAX spec splits such a head inside (qwen2-1.5b's 256 ``wk`` columns into
-64 at model 4; ``cache_pspecs`` shards the head dim): the port keeps whole
-heads, tp/KV times the spec's bytes for those leaves, a deliberate
-difference of layout.  Norms stay replicated; under sequence TP their
-weights enter through :func:`copy_to_model`, whose backward sums the
-per-shard gradients.
+JAX spec splits such a head inside (``cache_pspecs`` shards the head
+dim): the port keeps whole heads, tp/KV times the spec's bytes for those
+leaves, a deliberate difference of layout.  Norms stay replicated; under
+sequence TP their weights enter through :func:`copy_to_model`, whose
+backward sums the per-shard gradients.
+
+Heads that do not split whole split inside, as GSPMD partitions the JAX
+specs (every family but MLA's latent, where the specs cut both column
+widths: qwen2-1.5b's 12 query heads on 2 kv heads of 128, llava-next-34b's
+56 on 8, whisper-large-v3's 20, rwkv6-3b's 40 WKV heads of 64, all at
+model 16; Hymba always).  A rank holds columns [c0, c1) of the query and
+kv widths, as the specs cut them (:class:`HeadBlock`), so its weight bytes
+are the spec's.  It all-gathers q, k and v along the feature dim
+(:meth:`TensorParallel.gather_heads`), runs attention over the query heads
+its columns touch (qwen2-1.5b: 1-2 a rank at model 16) and the kv heads
+those read (one, at G = 1-2; :meth:`HeadBlock.kv_segments` splits a block
+whose query heads straddle kv heads unevenly into one GQA call a kv head),
+keeps its columns of the output and multiplies them by its rows of
+``wo``; a boundary head is computed on both ranks that share it, and the
+gather's backward (a reduce-scatter) sums its gradient.  What the port
+keeps whole where the specs cut inside a head, a deliberate difference of
+layout (``ROADMAP.md``, queue 3, item 4): the decode caches hold the kv
+heads a rank's query heads read, whole (qwen2-1.5b's decode cache 8 x
+the spec's bytes at model 16, llava-next-34b's 2 x, whisper-large-v3's
+self and cross caches 1.6 x), and RWKV's WKV state the heads a rank's
+columns touch (3 of 64 x 64 at model 16, 1.2 x the spec's).  Whisper's
+cross attention gathers its query the same way and its cache holds the
+encoder's k and v at those kv heads.  RWKV's time mix gathers r, k, v and
+the decay (:meth:`TensorParallel.touched_heads`), scans the touched heads
+whole with ``u`` (whole on every rank, its gradient summed over
+``model``) at those heads and GroupNorms them whole, keeps its columns,
+and multiplies them by silu(g) at its columns and its rows of ``wo``.
+Hymba keeps its own form: k and v expanded to the query heads (G = 1)
+and its ring cache so.
 
 The MoE family (DeepSeek-V2-Lite, Grok-1) runs as GSPMD partitions the
 JAX program.  The tokens entering a MoE block are whole on every rank of
@@ -60,8 +89,8 @@ shared_weight`, whose backward sums its partial gradients over
 reads the block input through :meth:`TensorParallel.replicated`, so its
 gradient is counted once.
 
-Hymba (the ``hybrid`` family) splits inside its heads, as GSPMD
-partitions the JAX specs: 25 query heads on 5 kv heads of 64 do not split
+Hymba (the ``hybrid`` family) splits inside its heads at any model axis:
+25 query heads on 5 kv heads of 64 do not split
 whole over 4 ranks, but the specs cut ``wq``, ``wk``, ``wv`` and the SSM's
 ``w_in``, ``w_gate`` and ``conv`` by columns and ``wo``, ``w_B``, ``w_C``,
 ``w_dt`` and ``w_out`` by rows all the same.  A rank holds columns
@@ -77,8 +106,9 @@ come from the row-split ``w_B``, ``w_C`` and ``w_dt`` summed over
 ``model`` forward and backward (:meth:`TensorParallel.sum_partials`).
 
 RWKV (:mod:`repro_torch.models.rwkv`) splits its time-mix by whole WKV
-heads (the state a rank holds is its heads; the JAX ``cache_pspecs``
-splits the head dim instead) and its channel-mix FFN by columns and rows;
+heads where they split whole (the state a rank holds is its heads; the
+JAX ``cache_pspecs`` splits the head dim instead), else inside them as
+above, and its channel-mix FFN by columns and rows;
 its DDLerp, decay LoRA and GroupNorm stay whole and enter through
 :meth:`TensorParallel.shared_weight` or, read at this rank's columns,
 :func:`split_to_model` (its backward all-gathers the blocks' gradients).
@@ -97,9 +127,13 @@ every family at model 1 and for the families of ``TP_FAMILIES`` (all of
 them) above it.  :meth:`TensorParallel.sum_squares` and
 :meth:`TensorParallel.full_mean` give the optimizers sums and means of
 the unsharded leaves.  2D serving weights (``serve_tp2d_rules``),
-sequence sharding over ``data`` and a Hymba geometry whose inner or kv
-width the model axis does not divide raise ``NotImplementedError``
+sequence sharding over ``data``, a geometry whose query or kv width the
+model axis does not divide (heads that split neither whole nor inside)
+and MLA heads that do not split whole raise ``NotImplementedError``
 (``ROADMAP.md`` queues them).
+
+Every ``psum`` under these collectives (:func:`.collectives.psum`) is a
+reduce-scatter then an all-gather, as an all-reduce runs.
 """
 from __future__ import annotations
 
@@ -130,6 +164,9 @@ _SPLIT_LEAVES = ("wq", "wo", "bq", "w1", "w2", "w3", "w_uk", "w_uv",
                  "shared_w1", "shared_w2", "shared_w3", "wr", "wg", "u",
                  "b1", "w_in", "w_gate", "conv", "conv_b", "w_B", "w_C",
                  "w_dt", "w_out") + _KV_LEAVES
+# per-head leaves that a layout inside heads reads whole where their spec
+# leaves them whole (RWKV's bonus ``u`` at 40 heads over 16)
+_HEAD_LEAVES = ("u",)
 
 
 def _todo(what: str, where: str = " under a model axis > 1"
@@ -343,6 +380,22 @@ class HeadBlock:
         return tuple((self.c0 + j * self.g) // self.hd
                      for j in range(self.n_sub))
 
+    def kv_segments(self) -> Tuple[Tuple[int, int, int, int], ...]:
+        """The block's query heads as GQA calls over its kv heads: (q0,
+        q1, k0, k1), block-local, query heads q0:q1 reading kv heads k0:k1
+        at G = (q1 - q0) / (k1 - k0).  One call where every kv head of the
+        block is read by as many of its query heads (all of them at model
+        16: one kv head a rank), else one a kv head."""
+        kvs = self.kv_of_heads()
+        counts = [kvs.count(j) for j in range(self.kv0, self.kv1)]
+        if len(set(counts)) == 1:
+            return ((0, self.n_heads, 0, self.kv1 - self.kv0),)
+        out, q = [], 0
+        for i, c in enumerate(counts):
+            out.append((q, q + c, i, i + 1))
+            q += c
+        return tuple(out)
+
 
 def _template(cfg: ArchConfig) -> Dict:
     from ..models import lm
@@ -377,14 +430,21 @@ class TensorParallel:
         H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
         if cfg.mla:         # one latent head, whole on every rank
             KV = H
-        # Hymba splits inside its heads, as its specs cut the columns
-        self.inside = cfg.family == "hybrid" and self.size > 1
+        whole = not (H % self.size or (KV % self.size and self.size % KV))
+        # Hymba splits inside its heads, as its specs cut the columns;
+        # the other families (MLA's latent aside) where their heads do not
+        # split whole
+        self.inside = self.size > 1 and (
+            cfg.family == "hybrid" or (not whole and not cfg.mla))
+        # a layout inside heads expands k and v to the query heads (Hymba's
+        # ring, G = 1) or keeps the kv heads its query heads read (GQA)
+        self.expand = self.inside and cfg.family == "hybrid"
         if self.inside:
             if (H * hd) % self.size or (KV * hd) % self.size:
                 raise _todo(f"{H * hd} query / {KV * hd} kv columns at "
                             f"model {self.size} (columns the specs do not "
                             f"split)")
-        elif H % self.size or (KV % self.size and self.size % KV):
+        elif not whole:
             raise _todo(f"{H} query / {KV} kv heads at model {self.size} "
                         f"(heads that do not split whole)")
         self.kv_rep = (self.size // KV if self.size > KV and not self.inside
@@ -440,7 +500,8 @@ class TensorParallel:
         if MODEL in spec:
             self.plan[path] = ("model", spec.index(MODEL))
             return
-        if name in _SPLIT_LEAVES:
+        if name in _SPLIT_LEAVES and not (self.inside
+                                          and name in _HEAD_LEAVES):
             raise _todo(f"{path} {tuple(leaf.shape)} unsplit at model "
                         f"{self.size}")
         self.plan[path] = ("rep", None)
@@ -586,25 +647,62 @@ class TensorParallel:
                     getattr(self.head_block(), which)(), device=device)
         return self._index[key]
 
+    def gather_to_heads(self, *xs: torch.Tensor) -> Tuple[torch.Tensor,
+                                                          ...]:
+        """This rank's columns ``[B, S, n]`` of each of ``xs`` (widths that
+        heads of hd cut, one dtype) -> each whole, as heads ``[B, S, width
+        / hd, hd]``.  One all-gather of them all along the feature dim; its
+        backward reduce-scatters, so a head two ranks compute gets the sum
+        of both ranks' gradients."""
+        B, S = xs[0].shape[:2]
+        widths = [x.shape[-1] for x in xs]
+        full = sp_gather(torch.cat(xs, -1) if len(xs) > 1 else xs[0],
+                         self.mesh, -1)
+        full = full.reshape(B, S, self.size, sum(widths))
+        out, lo = [], 0
+        for n in widths:
+            out.append(full[..., lo:lo + n].reshape(
+                B, S, self.size * n // self.hd, self.hd))
+            lo += n
+        return tuple(out)
+
     def gather_heads(self, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """This rank's columns of q, k and v ``[B, S, n]`` -> the query
         heads its columns touch ``[B, S, h1 - h0, hd]``, and k and v at the
-        kv head each of them reads (G = 1).  One all-gather of the three
-        along the feature dim; its backward reduce-scatters, so a head two
-        ranks compute gets the sum of both ranks' gradients."""
-        blk, hd = self.head_block(), self.hd
-        B, S, nq = q.shape
-        nk = k.shape[-1]
-        full = sp_gather(torch.cat([q, k, v], -1), self.mesh, -1)
-        full = full.reshape(B, S, self.size, nq + 2 * nk)
-        heads = lambda lo, hi, n: full[..., lo:hi].reshape(B, S, n, hd)
-        H, KV = self.cfg.n_heads, self.cfg.n_kv_heads
+        kv heads they read: expanded to one a query head (G = 1, Hymba's
+        ring) or the block's kv heads [kv0, kv1) (read as
+        :meth:`HeadBlock.kv_segments` says).  One all-gather of the three
+        (:meth:`gather_to_heads`)."""
+        blk = self.head_block()
+        q, k, v = self.gather_to_heads(q, k, v)
+        q = q[:, :, blk.h0:blk.h1]
+        if not self.expand:
+            return q, k[:, :, blk.kv0:blk.kv1], v[:, :, blk.kv0:blk.kv1]
         idx = self.block_index("kv_of_heads", q.device)
-        return (heads(0, nq, H)[:, :, blk.h0:blk.h1],
-                heads(nq, nq + nk, KV).index_select(2, idx),
-                heads(nq + nk, nq + 2 * nk, KV).index_select(2, idx))
+        return q, k.index_select(2, idx), v.index_select(2, idx)
+
+    def gather_kv(self, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """This rank's columns of a cross attention's k and v -> the kv
+        heads [kv0, kv1) its query heads read ``[B, Sk, kv1 - kv0, hd]``."""
+        blk = self.head_block()
+        k, v = self.gather_to_heads(k, v)
+        return k[:, :, blk.kv0:blk.kv1], v[:, :, blk.kv0:blk.kv1]
+
+    def touched_heads(self, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """This rank's columns of streams of the query width ``[B, S, n]``
+        (a cross attention's q; RWKV's r, k, v and decay) -> the heads its
+        columns touch ``[B, S, h1 - h0, hd]``: one all-gather a dtype (RWKV:
+        r, k and v in the model's, the decay in fp32)."""
+        blk, out = self.head_block(), {}
+        for dt in dict.fromkeys(x.dtype for x in xs):
+            idx = [i for i, x in enumerate(xs) if x.dtype == dt]
+            for i, h in zip(idx, self.gather_to_heads(*(xs[i]
+                                                         for i in idx))):
+                out[i] = h[:, :, blk.h0:blk.h1]
+        return tuple(out[i] for i in range(len(xs)))
 
     def keep_columns(self, out: torch.Tensor) -> torch.Tensor:
         """Attention's output over the block's heads ``[B, S, (h1 - h0)

@@ -741,6 +741,24 @@ def _run_serve_fit(plan: CellPlan, pol, mem: MemoryTracker) -> None:
     mem.finish(_serve_call(plan, plan.cfg, sh.seq_len, pol, *args, decode))
 
 
+def _cache_bytes(plan: CellPlan, pol, mesh) -> Dict[str, int]:
+    """A serving cell's decode cache a rank: the bytes this rank holds and
+    the bytes ``cache_pspecs`` gives it (where heads split inside, the
+    port keeps whole the heads a rank's columns touch, the specs cut the
+    head dim)."""
+    sh = plan.shape_cfg
+    B = _rows(pol, sh.global_batch)
+    with shlib.use_policy(pol):
+        local = lm.init_cache(plan.cfg, B, sh.seq_len, plan.dtype,
+                              device="meta")
+    full = lm.init_cache(plan.cfg, sh.global_batch, sh.seq_len, plan.dtype,
+                         device="meta")
+    coords = dict(zip(mesh.axis_names, mesh.coords))
+    return {"bytes": tpl.local_bytes(local),
+            "spec_bytes": shlib.tree_local_bytes(
+                full, shlib.cache_pspecs(pol, full), mesh, coords)}
+
+
 def _serve_cost_point(plan: CellPlan, pol, cfg_d: ArchConfig, S: int,
                       pod_sz: int) -> Dict:
     decode = plan.shape_cfg.kind != "prefill"
@@ -809,6 +827,8 @@ def run_cell(arch: str, shape: str, mesh_kind: str, *, force: bool = False,
                 (_run_train_fit if sh.kind == "train"
                  else _run_serve_fit)(plan, pol, mem)
             fit = {"memory": mem.summary(), "dry_calls": dry_calls()}
+            if sh.kind != "train":
+                result["cache"] = _cache_bytes(plan, pol, mesh)
             if sh.kind == "train":
                 pts_mi: Dict[str, List] = {k: [] for k in COST_KEYS}
                 pts_ap: Dict[str, List] = {k: [] for k in COST_KEYS}

@@ -22,11 +22,12 @@ device (:func:`_wire_bytes`):
     collective-permute  in_bytes
 
 The port issues only all-to-all and all-gather: its ``psum`` is an
-all-gather of n times its input and an ordered sum, (n-1) in_bytes on the
-wire, n/2 times an all-reduce's.  Each group is INTRA-POD (its ranks all in
-one pod, ``rank // pod_size``) or CROSS-POD; a cross-pod group's ring
-crosses pods at (p-1) of its n-1 hops.  The keys keep the JAX package's
-names: ``ici`` is the pod's tier, ``dcn`` the tier between pods.
+all-to-all of its input and an all-gather of the summed 1/n block, 2
+(n-1)/n in_bytes on the wire, an all-reduce's.  Each group is INTRA-POD
+(its ranks all in one pod, ``rank // pod_size``) or CROSS-POD; a
+cross-pod group's ring crosses pods at (p-1) of its n-1 hops.  The keys
+keep the JAX package's names: ``ici`` is the pod's tier, ``dcn`` the tier
+between pods.
 
 Hardware model (:data:`HW`): NVIDIA H100 80GB HBM3 (SXM) at its 700 W
 limit, from NVIDIA's data sheet (dense rates): HBM 3.35e12 B/s; tensor

@@ -24,7 +24,12 @@ when a policy with a model axis larger than 1 is active
 (:func:`repro_torch.distributed.sharding.use_policy`): the parameters are
 then this rank's shards (``tensor_parallel.shard_params``), head counts
 come from the weights' widths, a cache holds the local kv heads, and the
-batch is this rank's rows.  :func:`forward`, :func:`prefill` and
+batch is this rank's rows.  Where the heads do not split whole they split
+inside, as the specs cut the columns (``TensorParallel.inside``): q, k and
+v are gathered to the heads a rank's columns touch, attention runs over
+the kv heads those read (:func:`_attend`), the cache holds those kv heads,
+and the rank's columns of the output meet its rows of ``wo``.
+:func:`forward`, :func:`prefill` and
 :func:`decode_step` return logits gathered over the model axis (the same
 on every rank); :func:`lm_loss` runs a vocab-parallel cross-entropy.  The
 dense family, the VLM's dense trunk, the MoE family (expert parallelism,
@@ -186,6 +191,22 @@ def _qkv(p: Dict, cfg: ArchConfig, xq: torch.Tensor, xkv: torch.Tensor,
             v.reshape(B, Sk, KV, hd))
 
 
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            positions: torch.Tensor, tp: Optional[tpl.TensorParallel],
+            **kw) -> torch.Tensor:
+    """``blockwise_attention`` of q over k and v; where heads split inside
+    without the kv expansion, one call a GQA segment of the block
+    (:meth:`~repro_torch.distributed.tensor_parallel.HeadBlock.
+    kv_segments`), the outputs in head order."""
+    if tp is None or not tp.inside or tp.expand:
+        return blockwise_attention(q, k, v, positions, **kw)
+    segs = tp.head_block().kv_segments()
+    outs = [blockwise_attention(q[:, :, q0:q1], k[:, :, k0:k1],
+                                v[:, :, k0:k1], positions, **kw)
+            for q0, q1, k0, k1 in segs]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 2)
+
+
 def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool = True,
                  rope: bool = True, window: Optional[int] = None,
@@ -235,33 +256,42 @@ def attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
         cache["v"][:, i:i + S] = v.to(cache["v"].dtype)
         k, v = cache["k"], cache["v"]
         valid = i + S
-    out = blockwise_attention(q, k, v, positions, kv_valid_len=valid,
-                              causal=causal, window=window,
-                              kv_block=min(512, max(k.shape[1], 1)))
+    out = _attend(q, k, v, positions, tp, kv_valid_len=valid,
+                  causal=causal, window=window,
+                  kv_block=min(512, max(k.shape[1], 1)))
     return wo(out), cache
 
 
 def cross_attn_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
-                       kv_cache: Dict) -> torch.Tensor:
+                       kv_cache: Dict,
+                       tp: Optional[tpl.TensorParallel] = None
+                       ) -> torch.Tensor:
     """Cross-attention reading precomputed (k, v) of the encoder output:
     bidirectional, every query at position 0.  The heads are the weights'
-    (under a model axis this rank's, the output its partial sum)."""
+    (under a model axis this rank's, the output its partial sum; where
+    heads split inside, q gathered to the heads this rank's columns touch,
+    the cache at the kv heads they read, and the output's columns this
+    rank holds times its rows of ``wo``)."""
     B, S, D = x.shape
     hd = cfg.head_dim
     H = p["wq"].shape[1] // hd
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]
+    inside = tp is not None and tp.inside
+    q = tp.touched_heads(q)[0] if inside else q.reshape(B, S, H, hd)
     zeros = torch.zeros((S,), dtype=torch.int64, device=x.device)
-    out = blockwise_attention(q.reshape(B, S, H, hd), kv_cache["k"],
-                              kv_cache["v"], zeros, causal=False)
-    return out.reshape(B, S, -1) @ p["wo"]
+    out = _attend(q, kv_cache["k"], kv_cache["v"], zeros, tp,
+                  causal=False).reshape(B, S, -1)
+    return (tp.keep_columns(out) if inside else out) @ p["wo"]
 
 
-def encode_cross_kv(p: Dict, cfg: ArchConfig, enc_out: torch.Tensor) -> Dict:
+def encode_cross_kv(p: Dict, cfg: ArchConfig, enc_out: torch.Tensor,
+                    tp: Optional[tpl.TensorParallel] = None) -> Dict:
     """The cross keys and values of the encoder output, of the weights'
     kv heads (under a model axis this rank's: ``enc_out`` is whole on
-    every rank)."""
+    every rank; where heads split inside, the kv heads this rank's query
+    heads read, gathered from every rank's columns)."""
     B, Sk = enc_out.shape[:2]
     hd = cfg.head_dim
     KV = p["wk"].shape[1] // hd
@@ -269,6 +299,9 @@ def encode_cross_kv(p: Dict, cfg: ArchConfig, enc_out: torch.Tensor) -> Dict:
     v = enc_out @ p["wv"]
     if "bk" in p:
         k, v = k + p["bk"], v + p["bv"]
+    if tp is not None and tp.inside:
+        k, v = tp.gather_kv(k, v)
+        return {"k": k, "v": v}
     return {"k": k.reshape(B, Sk, KV, hd), "v": v.reshape(B, Sk, KV, hd)}
 
 
@@ -463,9 +496,9 @@ def apply_layer(kind: str, p: Dict, cfg: ArchConfig, x: torch.Tensor,
         h = _block_input(x, p["ln2"], eps, tp)
         # enc_out is whole on every rank (encode's last step)
         xkv = (cache["cross"] if cache is not None
-               else encode_cross_kv(p["xattn"], cfg, enc_out))
-        x = x + _block_output(cross_attn_forward(p["xattn"], cfg, h, xkv),
-                              tp)
+               else encode_cross_kv(p["xattn"], cfg, enc_out, tp))
+        x = x + _block_output(cross_attn_forward(p["xattn"], cfg, h, xkv,
+                                                 tp), tp)
         h = _block_input(x, p["ln3"], eps, tp)
         return x + gelu_mlp(h, **p["mlp"], tp=tp), cache, None
     raise ValueError(f"unknown layer kind {kind!r}")
@@ -804,11 +837,12 @@ def _init_layer_cache(kind: str, cfg: ArchConfig, batch: int, max_seq: int,
                       dtype, device,
                       tp: Optional[tpl.TensorParallel] = None) -> Dict:
     KV = cfg.n_kv_heads if tp is None else tp.local_kv_heads
-    if kind == "hymba" and tp is not None and tp.inside:
-        # Hymba's ring holds k and v expanded to the query heads this
-        # rank's columns touch (G = 1, as its attention reads them), not
-        # the kv heads those read: one flash launch a decode step
-        KV = tp.head_block().n_heads
+    if tp is not None and tp.inside:
+        # the kv heads the query heads of this rank's columns read; Hymba's
+        # ring holds k and v expanded to those query heads (G = 1, as its
+        # attention reads them): one flash launch a decode step
+        blk = tp.head_block()
+        KV = blk.n_heads if tp.expand else blk.kv1 - blk.kv0
     hd = cfg.head_dim
     kv = lambda n: {"k": torch.zeros((batch, n, KV, hd), dtype=dtype,
                                      device=device),
@@ -864,7 +898,8 @@ def prefill(params: Dict, cfg: ArchConfig, tokens: torch.Tensor,
         for li, layer_c in enumerate(cache["group0"]):
             p = dec[li] if z is None else z.layer("group0", li, dec[li],
                                                   blocks)
-            layer_c["cross"] = encode_cross_kv(p["xattn"], cfg, enc_out)
+            layer_c["cross"] = encode_cross_kv(p["xattn"], cfg, enc_out,
+                                               tpl.for_call(cfg))
     n_front = prefix_embeds.shape[1] if prefix_embeds is not None else 0
     S = tokens.shape[1] + n_front
     positions = torch.arange(S, device=tokens.device)

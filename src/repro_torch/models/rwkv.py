@@ -26,6 +26,16 @@ partial sum that multiplies the receptance: it is reduce-scattered to this
 rank's columns, multiplied by this rank's receptance columns and the
 product all-gathered (``scatter_columns``, ``gather_columns``), so its
 output is whole.
+
+Where the heads do not split whole (rwkv6-3b's 40 at model 16: 160
+columns, 2.5 heads a rank) they split inside: the projections are the
+rank's columns as before, r, k, v and the decay are all-gathered to the
+heads its columns touch (``touched_heads``), the scan and GroupNorm run
+over those heads whole with ``u`` (whole on every rank, as its spec) at
+them, and the rank keeps its columns of the normed output
+(``keep_columns``); a boundary head is computed on both ranks that share
+it and the gather's backward sums its gradient.  The state holds the
+touched heads ``[B, h1 - h0, hd, hd]``.
 """
 from __future__ import annotations
 
@@ -92,7 +102,9 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
 
 def _tmix_weights(p: Dict, tp) -> Dict:
     """``p`` as a rank's time-mix reads it: under ``tp`` the replicated
-    leaves wrapped so that their gradients sum over the model axis."""
+    leaves wrapped so that their gradients sum over the model axis (where
+    heads split inside, ``u`` whole at the heads this rank's columns
+    touch)."""
     if tp is None:
         return p
     q = dict(p)
@@ -100,7 +112,19 @@ def _tmix_weights(p: Dict, tp) -> Dict:
         q[name] = tp.shared_weight(p[name])
     for name in ("w0", "w_lora_b", "gn_w", "gn_b"):
         q[name] = split_to_model(p[name], tp.mesh, p[name].dim() - 1)
+    if tp.inside:
+        blk = tp.head_block()
+        q["u"] = tp.shared_weight(p["u"])[blk.h0:blk.h1]
     return q
+
+
+def _heads(tp, B: int, h: int, hd: int, *streams: torch.Tensor):
+    """The WKV streams ``[B, S, n]`` (r, k, v, log w) at their heads
+    ``[B, S, h, hd]``: this rank's whole heads, or where heads split
+    inside the heads its columns touch (gathered from every rank's)."""
+    if tp is not None and tp.inside:
+        return tp.touched_heads(*streams)
+    return tuple(x.reshape(B, x.shape[1], h, hd) for x in streams)
 
 
 def _ddlerp(p: Dict, x: torch.Tensor,
@@ -125,14 +149,19 @@ def _decay_log_w(p: Dict, xw: torch.Tensor) -> torch.Tensor:
 
 
 def _group_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, h: int,
-                eps: float = 64e-5) -> torch.Tensor:
-    """Per-head GroupNorm over [..., D] with D = h * hd."""
+                eps: float = 64e-5, tp=None) -> torch.Tensor:
+    """Per-head GroupNorm over [..., D] with D = h * hd.  Where heads split
+    inside (``tp``), ``x`` holds the heads this rank's columns touch and
+    ``w``, ``b`` its columns: the heads are normed whole, then this rank's
+    columns kept."""
     shp = x.shape
     xg = x.reshape(*shp[:-1], h, shp[-1] // h).float()
     mu = xg.mean(-1, keepdim=True)
     var = ((xg - mu) ** 2).mean(-1, keepdim=True)
-    xg = (xg - mu) * torch.rsqrt(var + eps)
-    return (xg.reshape(shp) * w + b).to(x.dtype)
+    xg = ((xg - mu) * torch.rsqrt(var + eps)).reshape(shp)
+    if tp is not None and tp.inside:
+        xg = tp.keep_columns(xg)
+    return (xg * w + b).to(x.dtype)
 
 
 def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
@@ -150,22 +179,23 @@ def tmix_forward(p: Dict, cfg: ArchConfig, x: torch.Tensor,
     """
     B, S, D = x.shape
     hd = cfg.head_dim
-    h = p["wr"].shape[1] // hd                    # this rank's heads
+    h = _local_heads(p, cfg, tp)
     p = _tmix_weights(p, tp)
     keep_state = state is not None
     prev = state["shift"] if keep_state else None
     s0 = state["wkv"] if keep_state else None
 
     xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, prev))
-    r = (xr @ p["wr"]).reshape(B, S, h, hd)
-    k = (xk @ p["wk"]).reshape(B, S, h, hd)
-    v = (xv @ p["wv"]).reshape(B, S, h, hd)
+    r, k, v, log_w = _heads(tp, B, h, hd, xr @ p["wr"], xk @ p["wk"],
+                            xv @ p["wv"], _decay_log_w(p, xw))
     g = xg @ p["wg"]
-    log_w = _decay_log_w(p, xw).reshape(B, S, h, hd)
     out, s_new = rw_ops.wkv_scan(r, k, v, log_w, p["u"], s0, chunk=chunk)
-    out = _group_norm(out.reshape(B, S, h * hd), p["gn_w"], p["gn_b"], h)
+    out = _group_norm(out.reshape(B, S, h * hd), p["gn_w"], p["gn_b"], h,
+                      tp=tp)
     out = (out * F.silu(g)) @ p["wo"]
-    new_state = {"shift": x[:, -1], "wkv": s_new} if keep_state else None
+    # the shift a copy: a view would keep the whole [B, S, D] input alive
+    new_state = ({"shift": x[:, -1].clone(), "wkv": s_new} if keep_state
+                 else None)
     return out, new_state
 
 
@@ -176,18 +206,18 @@ def tmix_step(p: Dict, cfg: ArchConfig, x: torch.Tensor, state: Dict,
     heads, and ``out`` its partial sum)."""
     B, D = x.shape
     hd = cfg.head_dim
-    h = p["wr"].shape[1] // hd
+    h = _local_heads(p, cfg, tp)
     p = _tmix_weights(p, tp)
     xr, xk, xv, xw, xg = _ddlerp(p, x[:, None, :],
                                  state["shift"][:, None, :])
-    r = (xr @ p["wr"]).reshape(B, h, hd)
-    k = (xk @ p["wk"]).reshape(B, h, hd)
-    v = (xv @ p["wv"]).reshape(B, h, hd)
+    r, k, v, log_w = (t[:, 0] for t in _heads(
+        tp, B, h, hd, xr @ p["wr"], xk @ p["wk"], xv @ p["wv"],
+        _decay_log_w(p, xw)))
     g = (xg @ p["wg"])[:, 0]
-    log_w = _decay_log_w(p, xw).reshape(B, h, hd)
     out, wkv = recurrent_step(r, k, v, log_w, state["wkv"], u=p["u"],
                               mode="rwkv")
-    out = _group_norm(out.reshape(B, h * hd), p["gn_w"], p["gn_b"], h)
+    out = _group_norm(out.reshape(B, h * hd), p["gn_w"], p["gn_b"], h,
+                      tp=tp)
     out = (out * F.silu(g)) @ p["wo"]
     return out, {"shift": x, "wkv": wkv}
 
@@ -205,17 +235,29 @@ def cmix_forward(p: Dict, x: torch.Tensor,
     xr = x + dx * mu_r
     k = torch.square(F.relu(xk @ p["wk"]))
     if tp is None:
-        return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1]
+        return torch.sigmoid(xr @ p["wr"]) * (k @ p["wv"]), x[:, -1].clone()
     # a product of sums is not a sum of products: reduce k @ wv first
     kv = tp.scatter_columns(k @ p["wv"])
-    return tp.gather_columns(torch.sigmoid(xr @ p["wr"]) * kv), x[:, -1]
+    return (tp.gather_columns(torch.sigmoid(xr @ p["wr"]) * kv),
+            x[:, -1].clone())
+
+
+def _local_heads(p: Dict, cfg: ArchConfig, tp) -> int:
+    """The WKV heads a rank runs: its whole heads, or where heads split
+    inside, the heads its columns touch."""
+    if tp is not None and tp.inside:
+        return tp.head_block().n_heads
+    return p["wr"].shape[1] // cfg.head_dim
 
 
 def init_tmix_state(cfg: ArchConfig, batch: int, dtype, device,
                     tp=None) -> Dict:
-    """A zero time-mix state (under ``tp``, of this rank's heads; the
-    shift is whole)."""
-    h, hd = cfg.n_heads // (1 if tp is None else tp.size), cfg.head_dim
+    """A zero time-mix state (under ``tp``, of this rank's heads, or where
+    heads split inside of the heads its columns touch; the shift is
+    whole)."""
+    hd = cfg.head_dim
+    h = (cfg.n_heads if tp is None else tp.head_block().n_heads
+         if tp.inside else cfg.n_heads // tp.size)
     return {"shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
                                  device=device),
             "wkv": torch.zeros((batch, h, hd, hd), dtype=torch.float32,

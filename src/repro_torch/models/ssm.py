@@ -96,7 +96,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
            if prev is None else prev.to(x.dtype))
     xp = torch.cat([pad, x], dim=1)                           # [B, S+W-1, C]
     y = sum(xp[:, i:i + S] * w[i] for i in range(W)) + b
-    return F.silu(y), (xp[:, -(W - 1):] if W > 1 else pad)
+    # the carry a copy: a view would keep the whole padded input alive
+    return F.silu(y), (xp[:, -(W - 1):].clone() if W > 1 else pad)
 
 
 def _at_sub_heads(w: torch.Tensor, cfg: ArchConfig,

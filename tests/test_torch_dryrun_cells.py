@@ -10,9 +10,11 @@ the CPU with no JAX (the gloo ranks import this module).
   run of the same step on the CPU (``run_ranks``): kind, issuing
   function, bytes and groups, in order.
 * Production cells: ``qwen2-72b x decode_32k x single`` runs (its routes,
-  memory, costs and roofline terms); ``qwen2-1.5b``'s cells report ``ok:
-  false`` through ``tensor_parallel``'s ``_todo``; no default process
-  group is left after any call, and the dry run refuses to start over one.
+  memory, costs and roofline terms); the cells of the archs whose heads
+  split inside at model 16 run (``qwen2-1.5b``'s serving cells and its
+  train cell's layout, the cheapest cell of the other three); no default
+  process group is left after any call, and the dry run refuses to start
+  over one.
 * The CLI writes its JSON into a temporary directory.
 """
 import dataclasses
@@ -33,7 +35,7 @@ from repro_torch.distributed.launch import run_ranks
 from repro_torch.distributed.meshes import make_process_mesh
 from repro_torch.kernels import _card
 from repro_torch.launch import dryrun
-from repro_torch.models import frontends
+from repro_torch.models import frontends, lm
 from repro_torch.configs import ShapeConfig
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.train import optimizer as opt
@@ -173,14 +175,61 @@ def test_production_decode_cell_runs(tmp_path):
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
 @pytest.mark.parametrize("mesh", ["single", "multi"])
 def test_qwen2_1_5b_cells_report_the_todo(shape, mesh, tmp_path):
+    """qwen2-1.5b's cells, which reported the ``_todo`` of heads that do not
+    split whole at model 16, lower now that its heads split inside: the
+    serving cells run (``OK``, a peak, a cache of the one kv head a rank's
+    1-2 query heads read, 8 x the spec's 16 columns), and the train cell's
+    layout under its plan's policy (its step takes minutes on the CPU)
+    splits inside heads with every leaf the block its spec gives."""
+    if shape == "train_4k":
+        plan = dryrun.make_plan("qwen2-1.5b", shape, mesh)
+        shape_mesh = dryrun.mesh_shape_by_kind(mesh)
+        pol = dryrun._policy(plan, shape_mesh)
+        tp = tpl.layout(plan.cfg, pol)
+        assert tp.inside and not tp.expand
+        meta = lm.init_params(0, plan.cfg, device="meta")
+        local = tpl.shard_params(meta, plan.cfg, pol, model_rank=0,
+                                 data_rank=0)
+        assert tpl.local_bytes(local) == sh.tree_local_bytes(
+            meta, sh.param_pspecs(meta, pol, fsdp=plan.fsdp), shape_mesh)
+        return
     r = dryrun.run_cell("qwen2-1.5b", shape, mesh,
                         results_dir=str(tmp_path))
     assert not dist.is_initialized()
-    assert r["runnable"] and not r["ok"]
-    assert r["error"].startswith("NotImplementedError")
-    assert "heads that do not split whole" in r["error"]
-    assert "is not ported yet" in r["error"] and dryrun._is_todo(r)
-    assert "TODO" in dryrun.summary_line(r, 0.0)
+    assert r["runnable"] and r["ok"], r.get("traceback")
+    assert not dryrun._is_todo(r)
+    assert r["memory"]["peak_bytes"] > r["memory"]["argument_bytes"] > 0
+    assert r["cache"]["bytes"] == 8 * r["cache"]["spec_bytes"]
+    assert "OK" in dryrun.summary_line(r, 0.0)
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("llava-next-34b", "decode_32k"), ("whisper-large-v3", "decode_32k"),
+    ("rwkv6-3b", "decode_32k"), ("rwkv6-3b", "long_500k")])
+def test_cells_of_heads_that_split_inside_run(arch, shape, tmp_path):
+    """The cheapest cell of each other arch whose heads split inside at
+    model 16 runs on the single mesh: ``OK``, its routes, and its cache a
+    rank against the spec's (LLaVA: the one kv head its 4 query heads
+    read, 2 x the spec's 64 columns; Whisper: the 2 heads its 80 columns
+    touch, 1.6 x; RWKV6: the 3 WKV heads its 160 columns touch, its
+    shifts whole).  rwkv6-3b's ``long_500k`` has one row, which 'data' 16
+    does not split: every data rank runs it whole."""
+    r = dryrun.run_cell(arch, shape, "single", results_dir=str(tmp_path))
+    assert not dist.is_initialized()
+    assert r["runnable"] and r["ok"], r.get("traceback")
+    assert r["roofline"]["dominant"] == "memory"
+    ratio = r["cache"]["bytes"] / r["cache"]["spec_bytes"]
+    calls = r["dry_calls"]
+    if arch == "rwkv6-3b":
+        cfg = ARCHS[arch]
+        rows = 8 if shape == "decode_32k" else 1
+        state = rows * (3 * 64 * 64 * 4 + 2 * cfg.d_model * 2)
+        assert r["cache"]["bytes"] == cfg.n_layers * state
+        assert calls["wkv_scan"] == {"step": cfg.n_layers}
+    else:
+        assert ratio == {"llava-next-34b": 2.0, "whisper-large-v3": 1.6}[arch]
+        assert calls["flash_attention"] == {"split_kv": (
+            2 if arch == "whisper-large-v3" else 1) * ARCHS[arch].n_layers}
 
 
 def test_long_500k_cells_of_full_attention_archs_skip(tmp_path):
@@ -214,7 +263,8 @@ def test_the_cli_writes_its_json(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     lines = out.stdout.strip().splitlines()
     assert len(lines) == 4
-    assert "OK" in lines[0] and "SKIP" in lines[1] and "TODO" in lines[2]
+    assert "OK" in lines[0] and "SKIP" in lines[1] and "OK" in lines[2]
+    assert not any("TODO" in line for line in lines)
     files = sorted(p.name for p in (tmp_path / "single").iterdir())
     assert files == ["qwen2-1.5b__decode_32k.json",
                      "qwen2-1.5b__long_500k.json",

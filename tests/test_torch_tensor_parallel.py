@@ -379,16 +379,18 @@ def test_sequence_tp_loss_unchanged(ranks, port_side, jax_side):
                  "columns the specs do not split",
                  id="hymba-1.5b-3x6-columns the specs do not split"),
     ("rwkv6-3b", None, None),
-    ("whisper-large-v3", None, "heads that do not split whole"),
+    pytest.param("whisper-large-v3", None, None,
+                 id="whisper-large-v3-None-heads that do not split whole"),
     pytest.param("whisper-large-v3", {"n_heads": 8, "n_kv_heads": 8}, None,
                  id="whisper-large-v3-8-None")])
 def test_families_without_tp_raise(arch, geometry, error):
     """No family raises under a model axis any more: reduced hymba-1.5b (4
     heads on 1 kv head of 16, split inside the kv head), reduced rwkv6-3b
-    (4 heads) and reduced Whisper widened to 8 heads split at model 4;
-    reduced Whisper's own 5 heads raise the head-split error, and a Hymba
-    geometry whose inner width (3 x 6) model 4 does not divide raises,
-    since its specs leave those columns whole."""
+    (4 heads), reduced Whisper widened to 8 heads split at model 4, and
+    reduced Whisper's own 5 heads, which raised the head-split error and
+    now split inside (its 80 columns, 20 a rank); a Hymba geometry whose
+    inner width (3 x 6) model 4 does not divide raises, since its specs
+    leave those columns whole."""
     cfg = get_arch(arch).reduced()
     if geometry is not None:
         cfg = dataclasses.replace(cfg, **geometry)

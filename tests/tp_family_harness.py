@@ -21,7 +21,9 @@ computes the JAX references:
   gradient.
 
 The rank function imports no JAX."""
+import contextlib
 import dataclasses
+from unittest import mock
 
 import numpy as np
 import torch
@@ -29,7 +31,7 @@ import torch
 from repro_torch.distributed import sharding as sh
 from repro_torch.distributed import tensor_parallel as tpl
 from repro_torch.distributed.meshes import make_process_mesh
-from repro_torch.models import lm
+from repro_torch.models import linrec, lm
 from repro_torch.models.convert import params_from_jax
 from repro_torch.serve import engine as serve
 from repro_torch.train import optimizer as opt
@@ -73,7 +75,20 @@ def np_batch(cfg, seed: int):
     if cfg.family == "encdec":
         out["enc_frames"] = rng.normal(
             size=(B, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["prefix_embeds"] = rng.normal(
+            size=(B, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32)
     return out
+
+
+def _front(batch):
+    """The frontend inputs of a batch (an enc-dec model's frames, a VLM's
+    patch prefix), and the prefix's positions."""
+    front = {k: batch[k] for k in ("enc_frames", "prefix_embeds")
+             if k in batch}
+    n_front = (front["prefix_embeds"].shape[1] if "prefix_embeds" in front
+               else 0)
+    return front, n_front
 
 
 def torch_batch(nb):
@@ -94,19 +109,21 @@ def run_model(params, cfg, nb, dev):
     the cache's shapes, ``generate``'s tokens, the loss and its gradients
     (as a tree), under whatever policy is active."""
     batch = torch_batch(nb)
-    front = ({"enc_frames": batch["enc_frames"]}
-             if "enc_frames" in batch else {})
+    front, n_front = _front(batch)
     logits = lm.forward(params, cfg, batch["tokens"], **front)[0]
-    cache = lm.init_cache(cfg, B, S + N_DEC, torch.float32, device=dev)
+    cache = lm.init_cache(cfg, B, n_front + S + N_DEC, torch.float32,
+                          device=dev)
     lg, cache = lm.prefill(params, cfg, batch["tokens"], cache, **front)
     steps, tokens = [lg], [lg.argmax(-1)]
     for i in range(N_DEC):
-        lg, cache = lm.decode_step(params, cfg, tokens[-1], cache, S + i)
+        lg, cache = lm.decode_step(params, cfg, tokens[-1], cache,
+                                   n_front + S + i)
         steps.append(lg)
         tokens.append(lg.argmax(-1))
-    gen = serve.ServeEngine(cfg, params, B, S + N_DEC, torch.float32,
-                            device=dev).generate(
-        nb["tokens"], N_DEC + 1, enc_frames=nb.get("enc_frames"))
+    gen = serve.ServeEngine(cfg, params, B, n_front + S + N_DEC,
+                            torch.float32, device=dev).generate(
+        nb["tokens"], N_DEC + 1, enc_frames=nb.get("enc_frames"),
+        prefix_embeds=nb.get("prefix_embeds"))
     loss, grads = tr.value_and_grad(params, cfg, dataclasses.replace(
         TC, remat=False), batch)
     return {"logits": logits.detach(), "steps": torch.stack(steps),
@@ -214,6 +231,36 @@ def jax_draw(jcfg, z_jcfg, cfg, z_cfg, seed: int):
                 as_np(zg))
 
 
+def jax_model_refs(jp, jcfg, cfg, nb):
+    """The JAX package's forward logits, prefill and greedy decode logits
+    and tokens, the loss and its gradients (as the port's leaves)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import lm as j_lm
+    jb = {k: jnp.asarray(v) for k, v in nb.items()}
+    front, n_front = _front(jb)
+    logits = j_lm.forward(jp, jcfg, jb["tokens"], **front)[0]
+    cache = j_lm.init_cache(jcfg, B, n_front + S + N_DEC, jnp.float32)
+    lg, cache = j_lm.prefill(jp, jcfg, jb["tokens"], cache, **front)
+    steps = [lg]
+    for j in range(N_DEC):
+        nxt = jnp.argmax(steps[-1], -1).astype(jnp.int32)
+        lg, cache = j_lm.decode_step(jp, jcfg, nxt, cache,
+                                     jnp.asarray(n_front + S + j,
+                                                 jnp.int32))
+        steps.append(lg)
+    (loss, _), grads = jax.value_and_grad(
+        lambda p: j_lm.lm_loss(p, jcfg, jb), has_aux=True)(jp)
+    return {"logits": np.asarray(logits),
+            "steps": np.stack([np.asarray(s) for s in steps]),
+            "tokens": np.stack([np.argmax(np.asarray(s), -1)
+                                for s in steps]),
+            "loss": float(loss),
+            "grads": [x.numpy() for x in opt.tree_leaves(params_from_jax(
+                jax.tree.map(np.asarray, grads), cfg, "cpu"))]}
+
+
 def jax_refs(jp, jcfg, z_jcfg, cfg, z_cfg, data):
     """The JAX package's outputs: forward logits, prefill and greedy decode
     logits and tokens, the loss and gradients; on the widened config the
@@ -224,27 +271,9 @@ def jax_refs(jp, jcfg, z_jcfg, cfg, z_cfg, data):
     from repro.models import lm as j_lm
     from repro.train import optimizer as j_opt
     np_params, nb, z_params, z_batch, z_grads = data
-    jb = {k: jnp.asarray(v) for k, v in nb.items()}
-    front = ({"enc_frames": jb["enc_frames"]} if "enc_frames" in jb
-             else {})
-    logits = j_lm.forward(jp, jcfg, jb["tokens"], **front)[0]
-    cache = j_lm.init_cache(jcfg, B, S + N_DEC, jnp.float32)
-    lg, cache = j_lm.prefill(jp, jcfg, jb["tokens"], cache, **front)
-    steps = [lg]
-    for j in range(N_DEC):
-        nxt = jnp.argmax(steps[-1], -1).astype(jnp.int32)
-        lg, cache = j_lm.decode_step(jp, jcfg, nxt, cache,
-                                     jnp.asarray(S + j, jnp.int32))
-        steps.append(lg)
-    (loss, _), grads = jax.value_and_grad(
-        lambda p: j_lm.lm_loss(p, jcfg, jb), has_aux=True)(jp)
+    ref = jax_model_refs(jp, jcfg, cfg, nb)
     to_port = lambda t, c: [x.numpy() for x in opt.tree_leaves(
         params_from_jax(jax.tree.map(np.asarray, t), c, "cpu"))]
-    ref = {"logits": np.asarray(logits),
-           "steps": np.stack([np.asarray(s) for s in steps]),
-           "tokens": np.stack([np.argmax(np.asarray(s), -1)
-                               for s in steps]),
-           "loss": float(loss), "grads": to_port(grads, cfg)}
     zp = jax.tree.map(jnp.asarray, z_params)
     zg = jax.tree.map(jnp.asarray, z_grads)
     zb = {k: jnp.asarray(v) for k, v in z_batch.items()}
@@ -258,6 +287,41 @@ def jax_refs(jp, jcfg, z_jcfg, cfg, z_cfg, data):
     ref["step"] = {"loss": float(z_loss), "grads": to_port(zg, z_cfg),
                    "adafactor": to_port(p, z_cfg)}
     return ref
+
+
+class _Float64Torch:
+    """``torch`` as :mod:`repro_torch.models.linrec` sees it inside
+    :func:`float64_throughout`: its ``float32`` is ``float64``."""
+    float32 = torch.float64
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+@contextlib.contextmanager
+def float64_throughout():
+    """Every cast the model makes to fp32 kept at float64 for float64
+    tensors: ``Tensor.float()`` (norms, attention, the DDLerp and decay,
+    the logits) and the linear recurrence's fp32 state and chunks."""
+    to_f32 = torch.Tensor.float
+    keep = lambda t, *a, **k: (t if t.dtype == torch.float64
+                               else to_f32(t, *a, **k))
+    with mock.patch.object(torch.Tensor, "float", keep), \
+            mock.patch.object(linrec, "torch", _Float64Torch()):
+        yield
+
+
+def grads64(params, cfg, nb):
+    """The gradient of ``params`` on ``nb``'s batch, both widened to
+    float64 and run :func:`float64_throughout` (no remat), as a tree like
+    ``params``, under whatever policy is active."""
+    wide = lambda t: t.double() if t.is_floating_point() else t
+    params = opt.tree_map(wide, params)
+    with float64_throughout():
+        _, grads = tr.value_and_grad(
+            params, cfg, dataclasses.replace(TC, remat=False),
+            {k: wide(v) for k, v in torch_batch(nb).items()})
+    return opt.tree_unflatten(params, grads)
 
 
 def leaf_errs(got, want, floor: float = 0.0):

@@ -25,9 +25,14 @@ each in bf16 and fp32, with the plain chunked recurrence (no library call
 computes it); and (i)'s Hymba SSM scan on a rank's 25 sub-heads of 16
 (``ssm_scan_phase``: the inclusive prefills ``[4, 1024]`` and ``[2,
 2560]`` on ``chunk_f32`` and a decode step on ``step``, fp32, against the
-plain inclusive recurrence).  Needs the card:
+plain inclusive recurrence).  Flash at (j)'s Qwen2-1.5B at model 8 (2
+query heads on one kv head of 128, split inside): the prefill ``[4, 1024,
+2, 128]`` into 1,056 keys (fp32 too, on ``mma_tf32``), its last decode
+step and the fp32 check ``[2, 256, 2, 128]``.  Needs the card:
 
-    python tools/tp_kernel_rows.py [--seed 0]
+    python tools/tp_kernel_rows.py [--seed 0] [--tags CASE ...]
+
+``--tags`` runs only the named cases.
 
 prints each row as phase 5 does and one ``RESULT`` line of JSON.
 """
@@ -54,12 +59,18 @@ HYMBA = ("tp_hymba_prefill", "tp_hymba_decode", "tp_hymba_check",
          "tp_hymba_check_decode")
 SSM = ("tp_hymba_inclusive_prefill", "tp_hymba_inclusive_decode",
        "tp_hymba_inclusive_check")
+INSIDE = ("tp_inside_prefill", "tp_inside_decode", "tp_inside_check")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tags", nargs="*", default=None,
+                    help="run only these of the cases (default: all)")
     args = ap.parse_args(argv)
+    keep = lambda tags: tuple(t for t in tags
+                              if args.tags is None or t in args.tags)
+    flash = keep(MLA + WHISPER + HYMBA + INSIDE)
 
     import torch
     from repro_torch.kernels.flash_attention import ops as fa
@@ -78,15 +89,16 @@ def main(argv=None) -> int:
     rw.build()
     flash_rows, _ = cs.flash_phase(
         torch, fa, fa_ref, peaks, args.seed,
-        cases=[c for c in cs.FLASH_CASES if c[0] in MLA + WHISPER + HYMBA],
-        timed=MLA + WHISPER + HYMBA,
-        mma_timed=("tp_mla_check", "tp_hymba_check"))
+        cases=[c for c in cs.FLASH_CASES if c[0] in flash], timed=flash,
+        mma_timed=keep(("tp_mla_check", "tp_hymba_check",
+                        "tp_inside_prefill", "tp_inside_check")))
     wkv_rows, _ = cs.wkv_phase(
         torch, rw, rw_ref, peaks, args.seed,
-        cases=[c for c in cs.WKV_CASES if c[0] in WKV], timed=WKV)
+        cases=[c for c in cs.WKV_CASES if c[0] in keep(WKV)],
+        timed=keep(WKV))
     ssm_rows, _ = cs.ssm_scan_phase(
         torch, rw, rw_ref, ssm, linrec, peaks, args.seed,
-        cases=[c for c in cs.SSM_CASES if c[0] in SSM])
+        cases=[c for c in cs.SSM_CASES if c[0] in keep(SSM)])
     print("RESULT " + json.dumps({"card": smi, "flash": flash_rows,
                                   "wkv": wkv_rows, "ssm": ssm_rows}),
           flush=True)
